@@ -1,0 +1,21 @@
+"""Kitsune on PyTorch and CUDA: dataflow execution for operator graphs on
+an NVIDIA H100, with hand-written Hopper kernels.  The JAX package `repro`
+beside it is the reference this port is held against; nothing here imports
+it.
+
+Front door:
+
+    import repro_torch
+    app = repro_torch.compile(graph, repro_torch.CompilerOptions(mode="kitsune"))
+    report = app.run(feeds, params)
+"""
+from .api import (CompiledApp, CompilerOptions, Graph, Node, PassManager,
+                  TensorSpec, compile, graph_fingerprint, init_params,
+                  lowering_count, params_from_numpy, structural_fingerprint)
+
+__all__ = [
+    "compile", "CompilerOptions", "CompiledApp", "PassManager",
+    "init_params", "params_from_numpy", "lowering_count",
+    "Graph", "Node", "TensorSpec", "graph_fingerprint",
+    "structural_fingerprint",
+]

@@ -1,0 +1,32 @@
+"""Public API of the Kitsune port to PyTorch: one compiler front-door.
+
+    import repro_torch
+    from repro_torch import CompilerOptions
+
+    app = repro_torch.compile(graph, CompilerOptions(mode="kitsune"))
+    params = app.init_params(seed=0, dtype=torch.bfloat16)   # on CUDA
+    report = app.run(feeds, params)
+
+`compile()` runs the staged pass pipeline (select -> split_reduction ->
+create_queues -> epilogue_fuse -> lower_kernels -> dedupe -> balance) and
+returns a CompiledApp whose programs are cached process-wide -- repeated
+runs with same-shaped feeds perform zero new builds.  Entry points default
+to `device="cuda"`; pass `device="cpu"` to run the plain versions of the
+kernels on the CPU.
+"""
+from .core.compiler import (CompiledApp, CompilerOptions, CompileState,
+                            PassManager, PassRecord, compile)
+from .core.executor import (ExecutionReport, GraphExecutor,
+                            clear_executable_cache, executable_cache,
+                            init_params, lowering_count, params_from_numpy)
+from .core.graph import (Graph, Node, TensorSpec, graph_fingerprint,
+                         structural_fingerprint)
+
+__all__ = [
+    "compile", "CompilerOptions", "CompiledApp", "CompileState",
+    "PassManager", "PassRecord",
+    "ExecutionReport", "GraphExecutor", "init_params", "params_from_numpy",
+    "executable_cache", "clear_executable_cache", "lowering_count",
+    "Graph", "Node", "TensorSpec", "graph_fingerprint",
+    "structural_fingerprint",
+]

@@ -1,0 +1,57 @@
+"""Kitsune core on PyTorch: operator-graph IR, staged compiler, executor.
+
+The paper's SS5 flow is exposed as ONE front door (compiler.py):
+
+    app = repro_torch.compile(graph, CompilerOptions(mode=...))  # passes
+    app.run(feeds, params)                                       # cached
+
+with the stages runnable as named passes through PassManager:
+
+    select -> split_reduction -> create_queues -> epilogue_fuse ->
+    lower_kernels -> dedupe -> balance
+
+The free functions (select_subgraphs, design_pipeline, balance,
+GraphExecutor) stay exported for direct pass-level use and tests.
+"""
+from .graph import (Graph, Node, TensorSpec, MXU, VPU, graph_fingerprint,
+                    node_struct_payload, program_struct_key,
+                    structural_fingerprint, structural_hashes,
+                    subgraph_interface)
+from .patterns import select_subgraphs, Selection, SfNode, PATTERN_LIBRARY
+from .pipeline import (design_pipeline, split_reductions, plan_queues,
+                       fuse_epilogues, materialize_queues, OpQueue,
+                       DedupeInfo, dedupe_programs,
+                       PipelinedGraph, Pipeline, Stage, QueueSpec)
+from .balance import solve_allocation, balance, BalanceResult
+from .costmodel import (A100, H100, HwSpec, evaluate, cost_bsp, cost_vertical,
+                        cost_kitsune, cost_kernel_site)
+from .executor import (GraphExecutor, ExecutorBackend, BSPBackend,
+                       VerticalBackend, KitsuneBackend, make_backend,
+                       ExecutionReport, ExecutionPlan, init_params,
+                       params_from_numpy, executable_cache,
+                       clear_executable_cache, lowering_count)
+from .lower import (KernelMatch, LoweringPlan, PipelineLowering, Verdict,
+                    lower_pipeline, lower_pipelines)
+from .compiler import (CompilerOptions, CompiledApp, CompileState,
+                       PassManager, PassRecord, compile)
+
+__all__ = [
+    "Graph", "Node", "TensorSpec", "MXU", "VPU", "graph_fingerprint",
+    "node_struct_payload", "program_struct_key", "structural_fingerprint",
+    "structural_hashes", "subgraph_interface",
+    "select_subgraphs", "Selection", "SfNode", "PATTERN_LIBRARY",
+    "design_pipeline", "split_reductions", "plan_queues", "fuse_epilogues",
+    "materialize_queues", "OpQueue", "DedupeInfo", "dedupe_programs",
+    "PipelinedGraph", "Pipeline", "Stage", "QueueSpec",
+    "solve_allocation", "balance", "BalanceResult",
+    "A100", "H100", "HwSpec", "evaluate", "cost_bsp", "cost_vertical",
+    "cost_kitsune", "cost_kernel_site",
+    "GraphExecutor", "ExecutorBackend", "BSPBackend", "VerticalBackend",
+    "KitsuneBackend", "make_backend", "ExecutionReport", "ExecutionPlan",
+    "init_params", "params_from_numpy", "executable_cache",
+    "clear_executable_cache", "lowering_count",
+    "KernelMatch", "LoweringPlan", "PipelineLowering", "Verdict",
+    "lower_pipeline", "lower_pipelines",
+    "CompilerOptions", "CompiledApp", "CompileState", "PassManager",
+    "PassRecord", "compile",
+]

@@ -1,0 +1,253 @@
+"""Zero-latency analytic performance model (paper SS5.3) + roofline terms.
+
+The paper's ILP is driven by exactly this kind of model: per-op bulk-sync
+throughput from a roofline over the op's FLOPs and bytes, a ResourceScale
+term for allocation, and Speedup(a_i)=1/u for operands arriving from on-chip
+queues instead of DRAM.  One implementation serves
+
+  * BSP / vertical-fusion / Kitsune execution-time estimates (paper Figs 10-14),
+  * the "cost" lowering policy's per-site verdicts (lower.py),
+  * the balance pass's allocations (balance.py).
+
+Two hardware specs ship: A100-class constants, which the model was
+validated against (the paper's evaluation card), and H100 SXM constants,
+the card this package runs on and its default.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from .graph import MXU, VPU, Graph, Node
+from .pipeline import Pipeline, PipelinedGraph
+
+
+@dataclass(frozen=True)
+class HwSpec:
+    name: str
+    n_units: int              # spatial allocation units (SMs)
+    matrix_flops: float       # peak MXU/TensorCore FLOP/s (whole spec domain)
+    vector_flops: float       # peak VPU/SIMT FLOP/s
+    dram_bw: float            # off-chip bandwidth (B/s)
+    onchip_bw: float          # queue-level bandwidth (L2) (B/s)
+    onchip_capacity: float    # bytes of on-chip storage for queues/tiles
+    # fraction of peak a single op realistically achieves under BSP
+    eff: float = 0.85
+    # per-kernel dispatch + barrier latency (launch + sync).  This term
+    # produces the paper's 'Both Low' quadrant (Fig 3): tiny ops (DLRM's MLPs) are latency-bound under BSP.
+    # Calibrated so subgraph speedups land in the paper's Fig-10 band.
+    launch_s: float = 1.2e-6
+
+
+# A100-class (paper's evaluation vehicle): 108 SMs, 312 TF/s bf16 TC,
+# ~19.5 TF/s fp32 SIMT, 1.56 TB/s HBM, L2 BW ~= 3x DRAM (paper SS2), 40 MB L2.
+A100 = HwSpec("A100", 108, 312e12, 19.5e12, 1.555e12, 4.7e12, 40e6)
+
+# H100 SXM (NVIDIA data sheet, dense rates): 132 SMs, 989 TF/s bf16 tensor
+# cores, 67 TF/s fp32 SIMT, 3.35 TB/s HBM3, 50 MB L2.  NVIDIA publishes no
+# L2 bandwidth; like A100 it is modelled at ~3x DRAM (paper SS2).
+H100 = HwSpec("H100", 132, 989e12, 67e12, 3.35e12, 3 * 3.35e12, 50e6)
+
+
+# ---------------------------------------------------------------------------
+# Per-op BSP times
+# ---------------------------------------------------------------------------
+
+def _peak(node_resource: str, hw: HwSpec) -> float:
+    return hw.matrix_flops if node_resource == MXU else hw.vector_flops
+
+
+def op_bytes_bsp(g: Graph, n: Node) -> float:
+    """HBM bytes an op moves under bulk-synchronous execution."""
+    in_bytes = sum(g.nodes[i].out.nbytes for i in n.inputs)
+    return in_bytes + n.out.nbytes + n.weight_bytes
+
+
+def op_time_bsp(g: Graph, n: Node, hw: HwSpec) -> float:
+    if n.is_free:
+        return 0.0
+    t_compute = n.flops / (_peak(n.resource, hw) * hw.eff)
+    t_mem = op_bytes_bsp(g, n) / hw.dram_bw
+    return max(t_compute, t_mem, hw.launch_s)
+
+
+# ---------------------------------------------------------------------------
+# Subgraph times: BSP / vertical fusion / Kitsune
+# ---------------------------------------------------------------------------
+
+@dataclass
+class SubgraphCost:
+    mode: str
+    time: float
+    dram_bytes: float
+    onchip_bytes: float
+    detail: dict = field(default_factory=dict)
+
+
+def cost_bsp(g: Graph, members: list[str], hw: HwSpec) -> SubgraphCost:
+    """One kernel per op, every intermediate round-trips through DRAM."""
+    t = sum(op_time_bsp(g, g.nodes[m], hw) for m in members)
+    b = sum(op_bytes_bsp(g, g.nodes[m]) for m in members
+            if not g.nodes[m].is_free)
+    return SubgraphCost("bsp", t, b, 0.0)
+
+
+def cost_vertical(g: Graph, members: list[str], hw: HwSpec) -> SubgraphCost:
+    """Vertical-fusion model (TensorRT/AStitch/Welder, paper SS3 + SS6.1).
+
+    Temporal multiplexing: op times still add (no MXU/VPU overlap).  An
+    intermediate avoids its DRAM round trip only if the per-unit tile of it
+    fits in on-chip capacity / n_units (each unit runs a data-parallel
+    replica, so capacity divides -- the paper's footnote 1).  GEMM->GEMM
+    chains with large hidden dims therefore spill, which is vertical fusion's
+    coverage limitation (Fig 2a).
+    """
+    mset = set(members)
+    per_unit_capacity = hw.onchip_capacity / max(hw.n_units, 1)
+    dram = 0.0
+    t = 0.0
+    spilled: list[str] = []
+    for m in members:
+        n = g.nodes[m]
+        if n.is_free:
+            continue
+        bytes_n = n.weight_bytes + n.out.nbytes
+        # inputs from outside the fusion come from DRAM; inside: on-chip if fit
+        for i in n.inputs:
+            src = g.nodes[i]
+            if i in mset and src.out.nbytes / max(hw.n_units, 1) <= per_unit_capacity:
+                continue  # stays in a shared-memory tile
+            if i in mset:
+                spilled.append(i)
+            dram += src.out.nbytes
+            bytes_n += src.out.nbytes
+        # output written to DRAM only if consumed outside or spills
+        t_compute = n.flops / (_peak(n.resource, hw) * hw.eff)
+        t += max(t_compute, bytes_n / hw.dram_bw)
+        dram += n.weight_bytes + n.out.nbytes
+    t += hw.launch_s  # one fused-kernel launch for the whole subgraph
+    return SubgraphCost("vertical", t, dram, 0.0, {"spilled": spilled})
+
+
+def cost_kernel_site(g: Graph, members: list[str], hw: HwSpec) -> SubgraphCost:
+    """Roofline time of ONE fused dataflow kernel over `members` (a
+    lower_kernels match site): intermediates internal to the match never
+    leave the SM, so HBM traffic is external inputs + weights + outputs only;
+    MXU and VPU work co-executes inside the kernel (the heterogeneous-CTA
+    assumption), so compute terms take a max instead of summing.
+
+    This is the kernel half of the lowering verdict (core/lower.py); the
+    closure half is `cost_vertical` over the same members."""
+    mset = set(members)
+    mxu = vpu = 0.0
+    ext = 0.0
+    read: set[str] = set()
+    for m in members:
+        n = g.nodes[m]
+        if n.is_free:
+            continue
+        if n.resource == MXU:
+            mxu += n.flops
+        else:
+            vpu += n.flops
+        ext += n.weight_bytes
+        for i in n.inputs:
+            if i not in mset and i not in read:
+                read.add(i)
+                ext += g.nodes[i].out.nbytes
+        cons = g.consumers(m)
+        if not cons or any(c.name not in mset for c in cons):
+            ext += n.out.nbytes
+    t = max(mxu / (hw.matrix_flops * hw.eff),
+            vpu / (hw.vector_flops * hw.eff),
+            ext / hw.dram_bw) + hw.launch_s
+    return SubgraphCost("kernel", t, ext, 0.0)
+
+
+def cost_kitsune(g: Graph, pipe: Pipeline, hw: HwSpec,
+                 allocation: dict[str, int] | None = None) -> SubgraphCost:
+    """Spatial dataflow: stages co-execute, tiles flow through on-chip queues.
+
+    time = max( max_i t_i / (a_i * s_i),  DRAM bytes / BW,  queue bytes / BW )
+    -- the continuous relaxation of the paper's Algorithm-2 objective; the
+    integer allocation comes from balance.solve_allocation.
+    """
+    from .balance import solve_allocation  # local import avoids cycle
+    if allocation is None:
+        allocation = solve_allocation(pipe, hw)
+    ext_dram = 0.0
+    queue_bytes = sum(q.total_bytes * (1 + len(q.consumers)) for q in pipe.queues)
+    member_ops = {o.name for s in pipe.stages for o in s.ops}
+    stage_of = {o.name: s for s in pipe.stages for o in s.ops}
+    for s in pipe.stages:
+        ext_dram += s.weight_bytes
+        for o in s.ops:
+            for i in o.inputs:
+                src_stage = stage_of.get(i)
+                if i not in member_ops:
+                    if not g.nodes[i].is_free or g.nodes[i].kind == "input":
+                        ext_dram += g.nodes[i].out.nbytes  # first node reads from HBM
+                # internal same-stage values live in registers/shared memory: free
+            cons = g.consumers(o.name)
+            if any(c.name not in member_ops for c in cons) or not cons:
+                ext_dram += o.out.nbytes  # last node writes to HBM
+    t_stage = 0.0
+    for s in pipe.stages:
+        a = max(allocation.get(s.name, 1), 1)
+        per_unit = _peak(s.resource, hw) / max(hw.n_units, 1)
+        t_stage = max(t_stage, s.flops / (per_unit * hw.eff * a))
+    t = max(t_stage, ext_dram / hw.dram_bw, queue_bytes / hw.onchip_bw)
+    t += hw.launch_s  # one cudaPipeline-style launch for the sf-node
+    # The paper's selection rule #1 excludes bulk-sync-friendly subgraphs:
+    # when spatial splitting loses to time-multiplexing (compute-bound
+    # pipelines on few units -- e.g. llama-ctx at >50% of peak, paper
+    # SS6.3), the compiler falls back to temporal (vertical) fusion --
+    # Kitsune "preserves the benefits of vertical fusion" (paper SS3).
+    members = [o.name for s in pipe.stages for o in s.ops]
+    vert = cost_vertical(g, members, hw)
+    if vert.time < t:
+        return SubgraphCost("kitsune(temporal-fallback)", vert.time,
+                            min(vert.dram_bytes, ext_dram), queue_bytes,
+                            {"fallback": True, "pure_time": t})
+    return SubgraphCost("kitsune", t, ext_dram, queue_bytes,
+                        {"allocation": allocation, "pure_time": t})
+
+
+# ---------------------------------------------------------------------------
+# Whole-graph evaluation
+# ---------------------------------------------------------------------------
+
+@dataclass
+class GraphCost:
+    mode: str
+    time: float
+    dram_bytes: float
+    subgraph_times: dict[str, float]
+    bsp_time_outside: float
+
+
+def evaluate(pg: PipelinedGraph, hw: HwSpec, mode: str) -> GraphCost:
+    """End-to-end time: sf-nodes in `mode`, everything else BSP (paper Fig 11)."""
+    g = pg.graph
+    covered = {o.name for p in pg.pipelines for s in p.stages for o in s.ops}
+    t_out, dram = 0.0, 0.0
+    for n in g.topo():
+        if n.name in covered or n.is_free:
+            continue
+        t_out += op_time_bsp(g, n, hw)
+        dram += op_bytes_bsp(g, n)
+    sub_times: dict[str, float] = {}
+    t_sub = 0.0
+    for p in pg.pipelines:
+        members = [o.name for s in p.stages for o in s.ops]
+        if mode == "bsp":
+            c = cost_bsp(g, members, hw)
+        elif mode == "vertical":
+            c = cost_vertical(g, members, hw)
+        elif mode == "kitsune":
+            c = cost_kitsune(g, p, hw)
+        else:
+            raise ValueError(mode)
+        sub_times[p.name] = c.time
+        t_sub += c.time
+        dram += c.dram_bytes
+    return GraphCost(mode, t_out + t_sub, dram, sub_times, t_out)

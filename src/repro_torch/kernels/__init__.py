@@ -1,0 +1,27 @@
+"""Hand-written Hopper kernels (csrc/*.cu) with their PyTorch wrappers,
+plain versions and launch counters.
+
+`launch_counts()` reads, and `reset_launch_counts()` zeroes, the per-kernel
+counters: each wrapper adds one where it launches its CUDA kernel and
+nowhere else, so a run can show which kernels its path went through.
+"""
+from .flash_attention import flash_attention
+from .fused_mlp import fused_mlp_fwd, fused_mlp_swiglu_fwd
+from .ops import attention, mlp, mlp_swiglu, reduce
+from .queue_reduce import queue_reduce
+
+KERNELS = {
+    "fused_mlp": fused_mlp_fwd,
+    "fused_mlp_swiglu": fused_mlp_swiglu_fwd,
+    "flash_attention": flash_attention,
+    "queue_reduce": queue_reduce,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

@@ -1,0 +1,89 @@
+"""Plain-PyTorch oracles for the kernels: the same functions as
+`repro.kernels.ref`, written in torch ops.
+
+Products run in float32 on float32 copies of the operands, the counterpart
+of the reference's `preferred_element_type=float32`: a product of two bf16
+values is exact in float32, so only the summation order differs.  gelu is
+the tanh approximation everywhere (`jax.nn.gelu`'s default; torch's default
+is the exact erf form, which disagrees).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+ACTS = {
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": torch.relu,
+    "silu": F.silu,
+    "identity": lambda x: x,
+}
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a.float() @ b.float()
+
+
+def mlp_ref(x, w1, w2, act: str = "gelu"):
+    h = ACTS[act](_dot(x, w1))
+    return _dot(h.to(x.dtype), w2).to(x.dtype)
+
+
+def mlp_swiglu_ref(x, wg, wu, wd, act: str = "silu"):
+    h = (ACTS[act](_dot(x, wg)) * _dot(x, wu)).to(x.dtype)
+    return _dot(h, wd).to(x.dtype)
+
+
+def _expand_kv(k, v, hq: int):
+    hkv = k.shape[1]
+    if hq != hkv:
+        k = k.repeat_interleave(hq // hkv, dim=1)
+        v = v.repeat_interleave(hq // hkv, dim=1)
+    return k, v
+
+
+def attention_ref(q, k, v, *, causal=True, window=None, scale=None):
+    """q: (B,Hq,Sq,D), k/v: (B,Hkv,Skv,D); GQA by head repetition; the
+    causal mask aligns the ends (decode-friendly)."""
+    sq, d = q.shape[2], q.shape[3]
+    skv = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    k, v = _expand_kv(k, v, q.shape[1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    ki = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qi >= ki
+    if window is not None:
+        mask &= qi - ki < window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def decode_ref(q, k, v, *, valid_len=None, scale=None):
+    """q: (B,Hq,1,D); masks cache positions >= valid_len, a scalar or a
+    per-sequence (B,) vector."""
+    d = q.shape[3]
+    s_len = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    k, v = _expand_kv(k, v, q.shape[1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if valid_len is not None:
+        valid = torch.as_tensor(valid_len, device=q.device)
+        if valid.ndim == 1:
+            valid = valid[:, None, None, None]
+        pos = torch.arange(s_len, device=q.device)[None, None, None, :]
+        s = torch.where(pos < valid, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+REDUCE_OPS = {"sum": lambda x: x.sum(dim=0),
+              "max": lambda x: x.amax(dim=0),
+              "min": lambda x: x.amin(dim=0)}
+
+
+def reduce_ref(x, op: str = "sum"):
+    return REDUCE_OPS[op](x.float()).to(x.dtype)
