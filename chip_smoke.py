@@ -20,10 +20,23 @@ Phases, each failing the run on any error (no phase's exception is caught):
   5. nerf, dlrm, mgn and graphcast at their published sizes, kitsune
      against bsp, with fused_mlp launched once per lowered site;
   6. a split-reduction graph, x (2048, 1024, 256) bf16 -> x*x -> sum over
-     axis 0, kitsune (queue_reduce) against bsp.
+     axis 0, kitsune (queue_reduce) against bsp;
+  7. serving: phi3-medium-14b at full width and depth (40 layers, bf16
+     weights from a seed, 29.3 GB) behind `PagedServingEngine`, 16 requests
+     through 8 slots with chunked prefill, slot refill and prefix hits: the
+     native tick must launch paged_flash_decode and fused_mlp_swiglu exactly
+     40 times per decode step, a "gather" run flash_decode as often with
+     bitwise-equal tokens, one request served alone by an engine whose KV
+     pools are sized by the profiling pass (num_blocks=None, as the
+     launcher builds it) must equal its tokens in the batch, and the
+     reduced config (f32) must serve the same tokens on the card as on the
+     CPU.
 The launch counters are zeroed just before phase 4 and read just after
-phase 6: that span is the main path.  The second-to-last line is the
-per-kernel JSON summary, the last line {"ok": true, "device": ...}.
+phase 6 (the compiler's main path), and zeroed and read around each engine
+run of phase 7 (the serving paths).  The second-to-last line is the
+per-kernel JSON summary: one row per kernel and main-path shape, its
+`launches` taken from the run of the path that row belongs to, with every
+run's own count beside it.  The last line is {"ok": true, "device": ...}.
 """
 import json
 import os
@@ -46,11 +59,18 @@ import repro_torch  # noqa: E402
 from repro_torch import apps  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention_plain,  # noqa: E402
+                                                 flash_decode_plain)
 from repro_torch.kernels.fused_mlp import (MAX_BLOCK_H,  # noqa: E402
                                            fused_mlp_fwd_plain,
                                            fused_mlp_swiglu_fwd_plain)
+from repro_torch.kernels.paged_attention import paged_flash_decode_plain  # noqa: E402
 from repro_torch.kernels.queue_reduce import queue_reduce_plain  # noqa: E402
+from repro_torch.kernels.ref import paged_rows  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
+from repro_torch.serve import (PagedKVExecutor, PagedServingEngine,  # noqa: E402
+                               ServeConfig, paged_tick)
 
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s, H100 SXM
 HBM = 3.35e12                                           # B/s
@@ -79,25 +99,65 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:118"),
     "queue_reduce": ("src/repro_torch/kernels/csrc/queue_reduce.cu",
                      "src/repro/kernels/queue_reduce.py:57"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_attention.py:210"),
+    "paged_flash_decode": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                           "src/repro/kernels/paged_attention.py:61"),
 }
+# summary rows: phase-3 case -> (kernel, the path whose run counts its
+# launches, the shape its times were taken at)
+SUMMARY = {
+    "fused_mlp": ("fused_mlp", "compiler", "x (524288, 256) -> 256 -> 256, relu"),
+    "fused_mlp_swiglu": ("fused_mlp_swiglu", "compiler",
+                         "x (8192, 4096) -> 14336 -> 4096, identity"),
+    "flash_attention": ("flash_attention", "compiler", "q/k/v (4, 32, 2048, 128), causal"),
+    "queue_reduce": ("queue_reduce", "compiler", "(16, 1024, 256) sum over axis 0"),
+    "flash_decode": ("flash_decode", "serve_gather",
+                     "q (8, 40, 1, 128), k/v (8, 10, 512, 128), ragged valid"),
+    "paged_flash_decode": ("paged_flash_decode", "serve_native",
+                           "q (8, 40, 1, 128), pools (8208, 40, 1, 10, 128), "
+                           "tables (8, 32)"),
+    "fused_mlp_swiglu_decode": ("fused_mlp_swiglu", "serve_native",
+                                "x (8, 5120) -> 17920 -> 5120, silu"),
+}
+# phase 7: phi3-medium-14b behind the paged engine
+SERVE_ARCH = "phi3-medium-14b"
+SERVE_CONFIG = dict(max_len=512, batch=8, block_size=16, prefill_chunk=16,
+                    num_blocks=512, max_new_tokens=32)
+SERVE_REQUESTS = 16
+# phase-3 cases timed with a cold L2 (cuda_ms): the decode kernels, whose
+# inputs would otherwise stay cached between timed calls
+COLD_CASES = {"flash_decode", "flash_decode_s4096", "paged_flash_decode",
+              "fused_mlp_swiglu_decode"}
 
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over `reps` calls after one warm-up,
-    timed with CUDA events."""
+def cuda_ms(fn, reps: int, cold: bool = False) -> float:
+    """Mean device milliseconds per call over `reps` calls after one
+    warm-up, each call between its own pair of CUDA events.  A sleep kernel
+    first holds the device while the host queues every call, so host launch
+    time never shows in the events.  With `cold`, a 64 MB write flushes the
+    50 MB L2 cache before each call (for inputs that would otherwise stay
+    cached between calls, which the serving loop never sees), and at least
+    20 calls are timed."""
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda") if cold else None
+    events = []
+    torch.cuda._sleep(100_000_000)
+    for _ in range(max(reps, 20) if cold else reps):
+        if cold:
+            flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    end.record()
+        end.record()
+        events.append((start, end))
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return sum(a.elapsed_time(b) for a, b in events) / len(events)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -184,6 +244,73 @@ def kernel_cases(gen, dtype):
            lambda: queue_reduce_plain(fold, "sum", dtype),
            lambda: torch.sum(fold, dim=0),
            float(fold.numel()), nbytes(fold) + fold[0].numel() * torch.finfo(dtype).bits // 8)
+    del fold
+    yield from decode_cases(gen, dtype)
+
+
+def decode_cases(gen, dtype):
+    """Phase 7's decode kernels at phi3-medium-14b's shapes: 8 slots, 40
+    query heads over 10 kv heads of 128, ragged valid lengths.  Bounds
+    count the rows the valid lengths cover (what these inputs need)."""
+    cfg = get_config(SERVE_ARCH)
+    B, HQ, HKV, HD = SERVE_CONFIG["batch"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    esize = torch.finfo(dtype).bits // 8
+    rng = np.random.default_rng(5)
+    for s_len, name in ((512, "flash_decode"), (4096, "flash_decode_s4096")):
+        q = randn(gen, B, HQ, 1, HD, dtype=dtype)
+        k, v = (randn(gen, B, HKV, s_len, HD, dtype=dtype) for _ in range(2))
+        valid = torch.from_numpy(rng.integers(1, s_len + 1, B).astype(np.int32)).to("cuda")
+        mask = (torch.arange(s_len, device="cuda")[None, :] < valid[:, None])[:, None, None, :]
+        rows = int(valid.clamp(max=s_len).sum())
+        yield (name,
+               lambda: K.flash_decode(q, k, v, valid_len=valid),
+               lambda: flash_decode_plain(q, k, v, valid_len=valid),
+               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                      enable_gqa=True),
+               4.0 * rows * HQ * HD, 2 * nbytes(q) + 2 * rows * HKV * HD * esize)
+        del q, k, v
+    # the engine's pool layout (P, G=40, A=1, Hkv, D) and block tables: each
+    # slot owns distinct pages up to its valid length, the null page after
+    bs, n_blocks = SERVE_CONFIG["block_size"], SERVE_CONFIG["num_blocks"]
+    v_blocks = SERVE_CONFIG["max_len"] // bs
+    pool = ((n_blocks + 1) * bs, cfg.n_layers, 1, HKV, HD)
+    kp, vp = randn(gen, *pool, dtype=dtype), randn(gen, *pool, dtype=dtype)
+    q = randn(gen, B, HQ, 1, HD, dtype=dtype)
+    valid_np = rng.integers(1, v_blocks * bs + 1, B)
+    tables_np = rng.permutation(np.arange(1, n_blocks + 1))[:B * v_blocks].reshape(B, v_blocks)
+    tables_np[np.arange(v_blocks)[None, :] >= -(-valid_np // bs)[:, None]] = 0
+    tables = torch.from_numpy(tables_np.astype(np.int32)).to("cuda")
+    valid = torch.from_numpy(valid_np.astype(np.int32)).to("cuda")
+    layer = (cfg.n_layers - 1, 0)
+    got = K.paged_flash_decode(q, kp, vp, tables, valid_len=valid, block_size=bs, layer=layer)
+    rows_idx = paged_rows(tables, bs)
+    ck = kp[rows_idx, layer[0], layer[1]].transpose(1, 2).contiguous()
+    cv = vp[rows_idx, layer[0], layer[1]].transpose(1, 2).contiguous()
+    if not torch.equal(got, K.flash_decode(q, ck, cv, valid_len=valid, block_s=256)):
+        raise AssertionError(f"paged_flash_decode[{dtype}] differs from gather + "
+                             f"flash_decode at the same chunk size")
+    print(f"paged_flash_decode[{dtype}] bitwise equal to gather + flash_decode", flush=True)
+    del ck, cv
+    rows = int(valid.sum())
+    yield ("paged_flash_decode",
+           lambda: K.paged_flash_decode(q, kp, vp, tables, valid_len=valid,
+                                        block_size=bs, layer=layer),
+           lambda: paged_flash_decode_plain(q, kp, vp, tables, valid_len=valid,
+                                            block_size=bs, layer=layer),
+           None,
+           4.0 * rows * HQ * HD,
+           2 * nbytes(q) + 2 * rows * HKV * HD * esize + nbytes(tables, valid))
+    del kp, vp
+    # the FFN at phase 7's decode shape: M = the slot batch
+    D, H = cfg.d_model, cfg.d_ff
+    x = randn(gen, B, D, dtype=dtype)
+    wg, wu = (randn(gen, D, H, dtype=dtype, scale=D ** -0.5) for _ in range(2))
+    wd = randn(gen, H, D, dtype=dtype, scale=H ** -0.5)
+    yield ("fused_mlp_swiglu_decode",
+           lambda: K.fused_mlp_swiglu_fwd(x, wg, wu, wd, act="silu"),
+           lambda: fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, "silu"),
+           lambda: (F.silu(x @ wg) * (x @ wu)) @ wd,
+           2.0 * B * D * H * 2 + 2.0 * B * H * D, nbytes(x, wg, wu, wd, x))
 
 
 def phase_kernels() -> dict:
@@ -193,20 +320,23 @@ def phase_kernels() -> dict:
         reps = 5 if dtype == torch.bfloat16 else 2
         for name, kern, plain, lib, flops, nb in kernel_cases(gen, dtype):
             err, rel = check(f"{name}[{dtype}]", kern(), plain(), dtype)
+            cold = name in COLD_CASES
             t_op, t_by = flops / PEAK[dtype], nb / HBM
             if name.startswith("queue_reduce"):
                 t_op = flops / PEAK[torch.float32]   # f32 adds, no tensor cores
             row = {"name": name, "dtype": str(dtype).split(".")[-1],
                    "max_abs_err": err, "tol": TOL[dtype], "rel_err": rel,
                    "rel_tol": REL_TOL[dtype],
-                   "ms": cuda_ms(kern, reps), "plain_ms": cuda_ms(plain, reps),
-                   "library_ms": cuda_ms(lib, reps),
+                   "ms": cuda_ms(kern, reps, cold), "plain_ms": cuda_ms(plain, reps, cold),
+                   "library_ms": None if lib is None else cuda_ms(lib, reps, cold),
                    "bound_ms": 1e3 * max(t_op, t_by),
                    "bound_by": "operations" if t_op >= t_by else "bytes"}
             print("kernel " + json.dumps(row), flush=True)
             if dtype == torch.bfloat16:
                 rows[name] = row
             torch.cuda.empty_cache()
+        del gen
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -331,6 +461,201 @@ def phase_split_reduction():
         raise AssertionError("split_reduction: queue_reduce never launched")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serving path
+# ---------------------------------------------------------------------------
+
+def serve_prompts(vocab: int) -> dict[int, list[int]]:
+    """16 prompts of 32-160 tokens from a numpy seed; the even ones share a
+    32-token prefix, so later requests hit the prefix cache."""
+    rng = np.random.default_rng(11)
+    shared = rng.integers(2, vocab, 32).tolist()
+    prompts = {}
+    for rid in range(SERVE_REQUESTS):
+        n = int(rng.integers(32, 161))
+        tail = rng.integers(2, vocab, n).tolist()
+        prompts[rid] = (shared + tail)[:n] if rid % 2 == 0 else tail
+    return prompts
+
+
+def serve_run(cfg, params, prompts, label, **overrides):
+    """Serve `prompts` to completion with the launch counters zeroed just
+    before and read just after; returns (tokens, engine, launches, seconds)."""
+    sc = ServeConfig(**{**SERVE_CONFIG, **overrides})
+    eng = PagedServingEngine(cfg, params, sc, eos_id=-1)
+    for rid, p in prompts.items():
+        eng.submit(p, rid=rid)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    st = eng.stats()
+    steps = st["decode_steps"]
+    print(f"serve {label}: {len(done)} requests, {st['tokens_out']} tokens, "
+          f"{st['ticks']} ticks, {steps} decode steps in {wall:.2f} s: "
+          f"{st['tokens_out'] / wall:.1f} tokens/s, {1e3 * wall / st['ticks']:.1f} ms "
+          f"per tick, {1e3 * wall / steps:.2f} ms per decode step; launches "
+          f"{ {k: n for k, n in launches.items() if n} }; prefix cache "
+          f"{st['prefix_cache']}; preemptions {st['scheduler']['preemptions']}; "
+          f"kv traffic {st['kv_traffic']}", flush=True)
+    if st["pool"]["active"] != 0 or len(done) != len(prompts):
+        raise AssertionError(f"serve {label}: {len(done)} of {len(prompts)} done, "
+                             f"pool {st['pool']}")
+    return done, eng, launches, wall
+
+
+def profile_decode_ticks(cfg, params, eng, mode: str) -> None:
+    """Three one-step ticks with all 8 slots decoding at ragged contexts
+    (64-191 tokens, pages drawn from `eng`'s pools) under torch.profiler:
+    device time per kernel and the device's idle share of the tick, whose
+    wall time is taken again without the profiler."""
+    rng = np.random.default_rng(13)
+    b, bs, v_blocks = SERVE_CONFIG["batch"], SERVE_CONFIG["block_size"], eng.max_blocks
+    tables = 1 + np.arange(b * v_blocks).reshape(b, v_blocks) % eng.pool.num_blocks
+    state = {"tokens": torch.from_numpy(rng.integers(2, cfg.vocab, (b, 1))).to("cuda"),
+             "n_tok": torch.ones(b, dtype=torch.int64, device="cuda"),
+             "pos": torch.from_numpy(rng.integers(64, 192, b)).to("cuda"),
+             "tables": torch.from_numpy(tables.astype(np.int32)).to("cuda"),
+             "kp": eng.kp, "vp": eng.vp}
+
+    def ticks(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            paged_tick(params, state, cfg, block_size=bs, n_steps=1, mode=mode)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    ticks(1)
+    wall = ticks(3)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ticks(3)
+    # kernels only: a CPU op's self device time repeats its kernels' times
+    rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(r[2] for r in rows) / 3e3
+    if not rows:
+        raise AssertionError(f"profile {mode}: the trace holds no kernel")
+    print(f"profile {mode} decode tick (1 step, 8 slots): {1e3 * wall:.2f} ms wall, "
+          f"{busy_ms:.2f} ms of kernels, device idle {100 * (1 - busy_ms / (1e3 * wall)):.1f} %",
+          flush=True)
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:10]:
+        print(f"  {us / 3e3:8.3f} ms/tick {count // 3:5d} calls/tick  {key[:90]}", flush=True)
+
+
+def phase_serving() -> dict[str, dict[str, int]]:
+    """Returns each serving run's launches, per kernel."""
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    params = get_model(cfg).init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    leaves = [t for sub in (params["blocks"]["sub0"]["attn"], params["blocks"]["sub0"]["mlp"])
+              for t in sub.values()] + [params["blocks"]["sub0"]["ln1"],
+                                        params["blocks"]["sub0"]["ln2"],
+                                        params["final_norm"], params["unembed"]]
+    step_bytes = nbytes(*leaves) + SERVE_CONFIG["batch"] * nbytes(params["embed"][0])
+    n_params = sum(t.numel() for t in leaves) + params["embed"].numel()
+    print(f"{SERVE_ARCH}: {n_params / 1e9:.3f} B parameters in bf16 "
+          f"({(step_bytes + nbytes(params['embed'])) / 1e9:.2f} GB), {cfg.n_layers} layers, "
+          f"drawn in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    sc = ServeConfig(**SERVE_CONFIG)
+    print(f"PagedKVExecutor.get_max_allowed_kv_blocks() = "
+          f"{PagedKVExecutor(cfg, params, sc).get_max_allowed_kv_blocks()} blocks of "
+          f"{sc.block_size} tokens", flush=True)
+    torch.cuda.empty_cache()
+    prompts = serve_prompts(cfg.vocab)
+    runs: dict[str, dict[str, int]] = {}
+    native, eng, launches, wall = serve_run(cfg, params, prompts, "native")
+    steps = eng.stats()["decode_steps"]
+    want = {"paged_flash_decode": cfg.n_layers * steps,
+            "fused_mlp_swiglu": cfg.n_layers * steps, "flash_decode": 0}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"native run launched {launches}, want {want}")
+    traffic = eng.stats()["kv_traffic"]
+    if traffic["native_bytes_per_tick"] > traffic["gather_bytes_per_tick"]:
+        raise AssertionError(f"native tick moves more KV bytes than gather: {traffic}")
+    if not eng.stats()["prefix_cache"]["hits"]:
+        raise AssertionError("no prefix-cache hit in the native run")
+    print(f"decode step: {1e3 * wall / steps:.2f} ms measured (host clock, whole ticks "
+          f"over decode steps) against a weight-read bound of "
+          f"{1e3 * step_bytes / HBM:.2f} ms ({step_bytes / 1e9:.2f} GB / 3.35 TB/s)",
+          flush=True)
+    runs["serve_native"] = launches
+    profile_decode_ticks(cfg, params, eng, "native")
+    profile_decode_ticks(cfg, params, eng, "gather")
+    del eng
+    torch.cuda.empty_cache()
+
+    gather, eng, launches, _ = serve_run(cfg, params, prompts, "gather",
+                                         paged_attention="gather")
+    want = {"flash_decode": cfg.n_layers * eng.stats()["decode_steps"],
+            "fused_mlp_swiglu": cfg.n_layers * eng.stats()["decode_steps"],
+            "paged_flash_decode": 0}
+    if eng.stats()["decode_steps"] != steps or any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"gather run launched {launches} over "
+                             f"{eng.stats()['decode_steps']} steps, want {want}")
+    if gather != native:
+        diff = [rid for rid in native if native[rid] != gather.get(rid)]
+        raise AssertionError(f"gather tokens differ from native for requests {diff}")
+    print("serve: gather tokens bitwise equal to native", flush=True)
+    runs["serve_gather"] = launches
+    del eng
+    torch.cuda.empty_cache()
+
+    # request 0 alone, on pools sized by the profiling pass (the launcher's
+    # default): the whole capacity model runs and must leave the card room
+    solo, eng, launches, _ = serve_run(cfg, params, {0: prompts[0]}, "solo",
+                                       num_blocks=None)
+    if solo[0] != native[0]:
+        raise AssertionError(f"request 0 alone {solo[0]} != in the batch {native[0]}")
+    free, total = torch.cuda.mem_get_info()
+    print(f"serve solo: default capacity {eng.pool.num_blocks} blocks "
+          f"({nbytes(eng.kp, eng.vp) / 1e9:.2f} GB of KV pools); card {free / 1e9:.2f} GB "
+          f"free of {total / 1e9:.2f} GB after the run, peak reserved "
+          f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB", flush=True)
+    print("serve: request 0 alone equals its tokens in the full batch", flush=True)
+    runs["serve_solo"] = launches
+    del params, eng
+    torch.cuda.empty_cache()
+
+    # the reduced config in f32, the same weights on the card and the CPU
+    small = cfg.reduced()
+    cpu_params = get_model(small).init(seed=0, device="cpu")
+    card_params = to_device(cpu_params, "cuda")
+    rng = np.random.default_rng(12)
+    small_prompts = {rid: rng.integers(2, small.vocab, int(rng.integers(3, 40))).tolist()
+                     for rid in range(12)}
+    small_sc = dict(max_len=64, batch=4, block_size=8, prefill_chunk=8, num_blocks=48,
+                    max_new_tokens=16)
+    small_runs = {}
+    for dev, p in (("cpu", cpu_params), ("cuda", card_params)):
+        eng = PagedServingEngine(small, p, ServeConfig(**small_sc), eos_id=-1)
+        for rid, pr in small_prompts.items():
+            eng.submit(pr, rid=rid)
+        eng.tick()
+        first = eng.last_logits.float().cpu()
+        small_runs[dev] = (eng.run_until_done(), first)
+    logit_err = (small_runs["cpu"][1] - small_runs["cuda"][1]).abs().max().item()
+    print(f"serve reduced: first-tick logits card vs CPU max |diff| {logit_err:.3g} "
+          f"(limit 2e-4)", flush=True)
+    if logit_err > 2e-4 or small_runs["cpu"][0] != small_runs["cuda"][0]:
+        raise AssertionError(f"reduced {SERVE_ARCH}: card and CPU disagree "
+                             f"(logits {logit_err:.3g})")
+    print(f"serve reduced: {len(small_runs['cuda'][0])} requests, card tokens equal CPU tokens",
+          flush=True)
+    print(f"phase 7 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return runs
+
+
+def to_device(tree: dict, device) -> dict:
+    return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -357,17 +682,29 @@ def main() -> int:
     phase_llama()
     phase_apps()
     phase_split_reduction()
-    launches = K.launch_counts()
-    missing = [k for k, n in launches.items() if n == 0]
+    compiler_path = K.launch_counts()
+    missing = [k for k in ("fused_mlp", "fused_mlp_swiglu", "flash_attention",
+                           "queue_reduce") if compiler_path[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched on the compiler's main path: {missing}")
+    print(f"launches on the compiler's main path (phases 4-6): {compiler_path}", flush=True)
+    torch.cuda.empty_cache()
+
+    paths = {"compiler": compiler_path, **phase_serving()}
+    for path, counts in paths.items():
+        print(f"launches, {path} run: { {k: n for k, n in counts.items() if n} }", flush=True)
+    missing = [case for case, (kern, path, _) in SUMMARY.items() if paths[path][kern] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on their paths: {missing}")
 
     summary = []
-    for name, source_replaces in SOURCES.items():
-        row = rows[name]
-        source, replaces = source_replaces
-        summary.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+    for case, (kern, path, shape) in SUMMARY.items():
+        row = rows[case]
+        source, replaces = SOURCES[kern]
+        summary.append({"name": case, "kernel": kern, "route": "cuda", "source": source,
+                        "replaces": replaces, "path": path, "shape": shape,
+                        "launches": paths[path][kern],
+                        "launches_by_run": {p: c[kern] for p, c in paths.items() if c[kern]},
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -7,7 +7,8 @@ queues instead of DRAM.  One implementation serves
 
   * BSP / vertical-fusion / Kitsune execution-time estimates (paper Figs 10-14),
   * the "cost" lowering policy's per-site verdicts (lower.py),
-  * the balance pass's allocations (balance.py).
+  * the balance pass's allocations (balance.py),
+  * the serving engine's per-tick KV traffic (`paged_decode_traffic`).
 
 Two hardware specs ship: A100-class constants, which the model was
 validated against (the paper's evaluation card), and H100 SXM constants,
@@ -251,3 +252,34 @@ def evaluate(pg: PipelinedGraph, hw: HwSpec, mode: str) -> GraphCost:
         t_sub += c.time
         dram += c.dram_bytes
     return GraphCost(mode, t_out + t_sub, dram, sub_times, t_out)
+
+
+def paged_decode_traffic(*, batch: int, v_blocks: int, block_size: int,
+                         n_steps: int, row_bytes: int, n_sites: int,
+                         alloc_blocks: int | None = None) -> dict:
+    """Per-tick KV bytes moved by the two paged-attention tick data paths
+    (serve/engine.paged_tick).
+
+    `row_bytes`: bytes of ONE pool row at ONE attention site (Hkv * D *
+    itemsize); the returned totals cover both K and V across all `n_sites`
+    (= groups * attn-layers-per-group) sites.
+
+    gather: the pool->view materialization (read B*L rows, write B*L rows)
+    happens once per tick, every decode step re-reads the dense view, and
+    the trailing scatter reads the written columns and writes them back to
+    their pages.
+    native: every decode step reads only the table-resolved pages
+    (`alloc_blocks` across the batch -- null-page references beyond a
+    slot's allocation are not counted), and each step writes B rows straight
+    to the pool.
+    """
+    view_rows = batch * v_blocks * block_size
+    if alloc_blocks is None:
+        alloc_blocks = batch * v_blocks
+    alloc_rows = alloc_blocks * block_size
+    writes = batch * n_steps
+    gather_rows = 2 * view_rows + n_steps * view_rows + 2 * writes
+    native_rows = n_steps * alloc_rows + writes
+    # x2: K and V pools
+    return {"gather_bytes": 2 * n_sites * row_bytes * gather_rows,
+            "native_bytes": 2 * n_sites * row_bytes * native_rows}

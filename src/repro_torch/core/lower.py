@@ -8,6 +8,7 @@ post epilogue-fusion) onto the kernels:
     the (M, H) hidden tile stays in shared memory, never touching HBM
   * gate/up dual-GEMM -> mul -> down GEMM -> kernels.mlp_swiglu
   * attention ops (sq == skv)             -> flash_attention
+  * single-token causal attention (sq == 1) -> flash_decode
   * reduce_partial -> reduce_final pairs  -> queue_reduce: the fan-in
     partials fold through an f32 accumulator, one pass per queue pop
   * dX/dW multicast GEMMs in synthesized backward graphs -> fused_mlp_bwd
@@ -21,11 +22,9 @@ Anything that does not match falls back to the op-by-op path with a recorded
 REASON -- `CompiledApp.describe()` prints which stages lowered and why others
 did not.
 
-Not ported yet (the reference has them): single-token decode (`flash_decode`;
-an sq == 1 attention site records the fallback reason "flash_decode: not yet
-ported"), kernel-hinted atomics from traced graphs (the capture front-end),
-the "auto" lowering policy's compile-time microbenchmark and the block-size
-autotuner.  Policies here: "always" (the default) lowers every match, "cost"
+Not ported yet (the reference has them): kernel-hinted atomics from traced
+graphs (the capture front-end), the "auto" lowering policy's compile-time
+microbenchmark and the block-size autotuner.  Policies here: "always" (the default) lowers every match, "cost"
 lets the roofline model (`cost_kernel_site` vs `cost_vertical` on the
 compile's HwSpec) accept or decline each site.
 """
@@ -36,7 +35,7 @@ from typing import Callable
 
 import numpy as np
 
-from ..kernels import attention, mlp, mlp_swiglu, reduce
+from ..kernels import attention, decode_attention, mlp, mlp_swiglu, reduce
 from .costmodel import H100, HwSpec, cost_kernel_site, cost_vertical
 from .executor import _eval_node
 from .graph import Graph, Node
@@ -191,13 +190,15 @@ def _swiglu_call(x_name: str, lg: str, lu: str, ld: str,
     return call
 
 
-def _attention_call(node: Node) -> Callable:
+def _attention_call(node: Node, decode: bool) -> Callable:
     causal = bool(node.attrs.get("causal", True))
     q_name, k_name, v_name = node.inputs
 
     def call(vals, params):
-        return attention(vals[q_name], vals[k_name], vals[v_name],
-                         causal=causal, window=None)
+        q, k, v = vals[q_name], vals[k_name], vals[v_name]
+        if decode:
+            return decode_attention(q, k, v)
+        return attention(q, k, v, causal=causal, window=None)
     return call
 
 
@@ -302,8 +303,13 @@ def _try_attention(g: Graph, n: Node, mset: set[str], taken: set[str],
     sq, skv = shapes[0][2], shapes[1][2]
     causal = bool(n.attrs.get("causal", True))
     if sq == 1 and causal:
-        note(n.name, "flash_decode: not yet ported")
-        return None
+        if skv % min(256, skv):
+            # the Hopper kernel masks a ragged last chunk; the rule is kept
+            # so plans agree with the reference package
+            note(n.name, "flash_decode: kv length not tileable")
+            return None
+        return KernelMatch("flash_decode", (n.name,), n.name, {"skv": skv},
+                           _call=_attention_call(n, True))
     if causal and sq != skv:
         note(n.name, "flash_attention: causal offset needs sq == skv")
         return None
@@ -314,7 +320,7 @@ def _try_attention(g: Graph, n: Node, mset: set[str], taken: set[str],
         return None
     return KernelMatch("flash_attention", (n.name,), n.name,
                        {"causal": causal, "sq": sq},
-                       _call=_attention_call(n))
+                       _call=_attention_call(n, False))
 
 
 def _try_queue_reduce(g: Graph, n: Node, mset: set[str], taken: set[str],

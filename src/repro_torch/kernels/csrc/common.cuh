@@ -288,6 +288,236 @@ __device__ __forceinline__ void load_tile(T* dst, int lds, const T* src, size_t 
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Split-K single-token decode: one chunk of keys against one query group.
+//
+// Shared by flash_decode.cu (a dense (S, D) view per batch and kv head) and
+// paged_attention.cu (rows resolved through a block table); the two differ
+// only in the row-address functors they pass, so for the same chunk size the
+// paged kernel is bitwise equal to gathering the view and running the dense
+// one.  The math is the TPU kernels' `_decode_kernel_dyn`: f32 scores times
+// `scale`, positions >= the slot's valid length scored NEG_INF, a one-shot
+// max / exp / sum over the chunk (m, l), probabilities rounded to V's dtype
+// before P @ V, partials (o, m, l) written in f32 for `decode_combine_kernel`.
+//
+// Key and value rows stream through a ring of DEC_STAGES shared-memory
+// sub-tiles of DEC_R rows (16-byte cp.async pieces): first the chunk's K
+// sub-tiles, whose scores go to shared memory, then its V sub-tiles.  Rows at
+// or past the valid length are zero-filled instead of read: their scores are
+// NEG_INF and their probabilities exactly 0, so skipping them changes no bit
+// and the kernel reads only the rows the slot holds.  A chunk that lies
+// wholly past a valid length >= 1 writes (o, m, l) = (0, NEG_INF, 0): the
+// combine weights it by exp(NEG_INF - m_global) == 0 either way.
+// ---------------------------------------------------------------------------
+
+constexpr int DEC_NT = 128;      // threads per decode block
+constexpr int DEC_R = 32;        // key/value rows per staged sub-tile
+constexpr int DEC_STAGES = 4;    // sub-tiles in flight
+constexpr int DEC_GMAX = 8;      // query heads per kv head
+constexpr int DEC_BSMAX = 256;   // rows per split-K chunk
+constexpr float DEC_NEG_INF = -1e30f;
+
+// Dynamic shared memory of a decode block for head dims up to DP:
+// q in f32 (GMAX x DP), scores / probabilities (GMAX x BSMAX), the chunk's
+// block-table entries (paged kernel), and the sub-tile ring.
+template <typename T, int DP>
+struct DecodeSmem {
+  static constexpr int LD = DP + Pad<T>::v;  // sub-tile row stride, elements
+  static constexpr size_t q_off = 0;
+  static constexpr size_t p_off = align128(q_off + size_t(DEC_GMAX) * DP * sizeof(float));
+  static constexpr size_t tbl_off = align128(p_off + size_t(DEC_GMAX) * DEC_BSMAX * sizeof(float));
+  static constexpr size_t tile_off = align128(tbl_off + DEC_BSMAX * sizeof(int));
+  static constexpr size_t tile_elems = align128(size_t(DEC_R) * LD * sizeof(T)) / sizeof(T);
+  static constexpr size_t total = tile_off + DEC_STAGES * tile_elems * sizeof(T);
+};
+
+// 16 bytes of shared memory as floats (4 f32 or 8 bf16 values).
+__device__ __forceinline__ void unpack16(const float* p, float* f) {
+  float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+__device__ __forceinline__ void unpack16(const __nv_bfloat16* p, float* f) {
+  uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+// One block of DEC_NT threads computes the partials of one chunk.
+//   q: this kv head's G query rows (G x D, contiguous)
+//   krow(r) / vrow(r): global address of the chunk's key / value row r, or
+//     nullptr where the row does not exist (zero-filled)
+//   block_s: rows in the chunk; lim: rows of the chunk before the slot's
+//     valid length (may be <= 0 or > block_s); valid: the valid length
+//   o (G x D), m (G), l (G): this chunk's partials
+template <typename T, int DP, typename KRow, typename VRow>
+__device__ void decode_chunk(unsigned char* smem, const T* __restrict__ q, int G, int D,
+                             KRow krow, VRow vrow, int block_s, int lim, int valid, float scale,
+                             float* __restrict__ o, float* __restrict__ m, float* __restrict__ l) {
+  using L = DecodeSmem<T, DP>;
+  constexpr int V = 16 / sizeof(T);
+  constexpr int J = DEC_GMAX * DP / DEC_NT;  // P @ V outputs per thread
+  float* qs = reinterpret_cast<float*>(smem + L::q_off);
+  float* ps = reinterpret_cast<float*>(smem + L::p_off);
+  T* tiles = reinterpret_cast<T*>(smem + L::tile_off);
+
+  // rows to read: those before the valid length; all of them when the slot
+  // has no valid position (then every score is NEG_INF and every p is 1)
+  const int rows = lim >= 1 ? min(lim, block_s) : (valid <= 0 ? block_s : 0);
+  if (rows == 0) {
+    for (int i = threadIdx.x; i < G * D; i += DEC_NT) o[i] = 0.f;
+    for (int g = threadIdx.x; g < G; g += DEC_NT) {
+      m[g] = DEC_NEG_INF;
+      l[g] = 0.f;
+    }
+    return;
+  }
+  const int nsub = (rows + DEC_R - 1) / DEC_R;  // sub-tiles per operand
+  const int ntiles = 2 * nsub;                   // K sub-tiles, then V
+  const int pieces = D / V;                      // 16-byte pieces per row
+
+  auto issue = [&](int t) {
+    T* dst = tiles + (t % DEC_STAGES) * L::tile_elems;
+    const bool is_v = t >= nsub;
+    const int r0 = (is_v ? t - nsub : t) * DEC_R;
+    for (int idx = threadIdx.x; idx < DEC_R * pieces; idx += DEC_NT) {
+      const int rr = idx / pieces, c = (idx % pieces) * V, r = r0 + rr;
+      const T* src = r < rows ? (is_v ? vrow(r) : krow(r)) : nullptr;
+      cp_async16(dst + rr * L::LD + c, src ? src + c : q, src ? 16 : 0);
+    }
+  };
+
+  for (int i = threadIdx.x; i < G * D; i += DEC_NT) qs[(i / D) * DP + i % D] = to_f(q[i]);
+  for (int i = threadIdx.x; i < G * block_s; i += DEC_NT)
+    if (i % block_s >= nsub * DEC_R) ps[(i / block_s) * DEC_BSMAX + i % block_s] = DEC_NEG_INF;
+#pragma unroll
+  for (int t = 0; t < DEC_STAGES - 1; ++t) {
+    if (t < ntiles) issue(t);
+    cp_async_commit();
+  }
+  float acc[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) acc[j] = 0.f;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<DEC_STAGES - 2>();
+    __syncthreads();  // sub-tile t (and q) visible; every thread done with t - 1
+    if (t + DEC_STAGES - 1 < ntiles) issue(t + DEC_STAGES - 1);
+    cp_async_commit();
+    const T* tile = tiles + (t % DEC_STAGES) * L::tile_elems;
+    if (t < nsub) {
+      // scores of key rows [t * R, t * R + R): one (query row, key row) per thread
+      for (int idx = threadIdx.x; idx < G * DEC_R; idx += DEC_NT) {
+        const int g = idx / DEC_R, rr = idx % DEC_R, r = t * DEC_R + rr;
+        if (r >= block_s) continue;
+        float s = DEC_NEG_INF;
+        if (r < lim) {
+          const T* kr = tile + rr * L::LD;
+          const float* qg = qs + g * DP;
+          float dot = 0.f;
+          for (int d = 0; d < D; d += V) {
+            float kf[V];
+            unpack16(kr + d, kf);
+#pragma unroll
+            for (int e = 0; e < V; ++e) dot = fmaf(qg[d + e], kf[e], dot);
+          }
+          s = dot * scale;
+        }
+        ps[g * DEC_BSMAX + r] = s;
+      }
+      continue;
+    }
+    if (t == nsub) {
+      // one warp per query row: m = max, p = exp(s - m), l = sum p; p is
+      // stored rounded to V's dtype for P @ V, l sums the unrounded p
+      for (int g = warp; g < G; g += DEC_NT / 32) {
+        float* pg = ps + g * DEC_BSMAX;
+        float mx = -INFINITY;
+        for (int r = lane; r < block_s; r += 32) mx = fmaxf(mx, pg[r]);
+#pragma unroll
+        for (int off = 16; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        float sum = 0.f;
+        for (int r = lane; r < block_s; r += 32) {
+          const float p = expf(pg[r] - mx);
+          sum += p;
+          pg[r] = to_f(from_f<T>(p));
+        }
+#pragma unroll
+        for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (lane == 0) {
+          m[g] = mx;
+          l[g] = sum;
+        }
+      }
+      __syncthreads();
+    }
+    // P @ V over value rows [r0, r0 + R) before `rows` (later rows have p == 0)
+    const int r0 = (t - nsub) * DEC_R, r1 = min(r0 + DEC_R, rows);
+    for (int r = r0; r < r1; ++r) {
+      const T* vr = tile + (r - r0) * L::LD;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int idx = threadIdx.x + j * DEC_NT, g = idx / DP, d = idx % DP;
+        if (g < G && d < D) acc[j] = fmaf(ps[g * DEC_BSMAX + r], to_f(vr[d]), acc[j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int idx = threadIdx.x + j * DEC_NT, g = idx / DP, d = idx % DP;
+    if (g < G && d < D) o[g * D + d] = acc[j];
+  }
+}
+
+// Merge split-K partials, the queue_reduce-style final stage of decode
+// (the TPU package's `combine_partials`): one block per (batch * kv head,
+// query row); a max-rescaled sum over the chunks, a zero normaliser read as
+// 1, the result in q's dtype.  o (BH, n_s, G, D), m / l (BH, n_s, G),
+// out (BH, G, D).
+template <typename T>
+__global__ void __launch_bounds__(DEC_NT)
+decode_combine_kernel(const float* __restrict__ o, const float* __restrict__ m,
+                      const float* __restrict__ l, T* __restrict__ out, int n_s, int G, int D) {
+  const int row = blockIdx.x, bh = row / G, g = row % G;
+  const size_t base = size_t(bh) * n_s * G + g;  // (bh, chunk 0, g)
+  float mg = -INFINITY;
+  for (int c = 0; c < n_s; ++c) mg = fmaxf(mg, m[base + size_t(c) * G]);
+  float lg = 0.f;
+  for (int c = 0; c < n_s; ++c) lg += l[base + size_t(c) * G] * expf(m[base + size_t(c) * G] - mg);
+  if (lg == 0.f) lg = 1.f;
+  for (int d = threadIdx.x; d < D; d += DEC_NT) {
+    float acc = 0.f;
+    for (int c = 0; c < n_s; ++c)
+      acc += o[(base + size_t(c) * G) * D + d] * expf(m[base + size_t(c) * G] - mg);
+    out[size_t(row) * D + d] = from_f<T>(acc / lg);
+  }
+}
+
+// Call f(std::integral_constant<int, DP>) for the smallest head-dim bucket
+// DP in {32, 64, 128, 256} that holds D (the decode kernels' template).
+template <typename F>
+cudaError_t dispatch_head_dim(int D, F f) {
+  if (D <= 32) return f(std::integral_constant<int, 32>{});
+  if (D <= 64) return f(std::integral_constant<int, 64>{});
+  if (D <= 128) return f(std::integral_constant<int, 128>{});
+  return f(std::integral_constant<int, 256>{});
+}
+
+// Merge the partials of a decode launch (see decode_combine_kernel).
+template <typename T>
+cudaError_t launch_decode_combine(const float* o, const float* m, const float* l, void* out,
+                                  int rows, int n_s, int G, int D, cudaStream_t st) {
+  decode_combine_kernel<T><<<rows, DEC_NT, 0, st>>>(o, m, l, static_cast<T*>(out), n_s, G, D);
+  return cudaGetLastError();
+}
+
 }  // namespace kt
 
 // Every library built from one .cu file that includes this header exports

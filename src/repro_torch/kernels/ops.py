@@ -12,8 +12,9 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_decode
 from .fused_mlp import fused_mlp_fwd, fused_mlp_swiglu_fwd
+from .paged_attention import paged_flash_decode
 from .queue_reduce import queue_reduce
 
 
@@ -35,6 +36,20 @@ def mlp_swiglu(x: torch.Tensor, wg, wu, wd, *,
 def attention(q, k, v, *, causal: bool = True,
               window: int | None = None) -> torch.Tensor:
     return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k, v, *, valid_len=None) -> torch.Tensor:
+    """Single-token attention, q (B, Hq, 1, D) against k/v (B, Hkv, S, D)."""
+    return flash_decode(q, k, v, valid_len=valid_len)
+
+
+def paged_decode_attention(q, kp, vp, tables, *, valid_len, block_size: int,
+                           layer=None) -> torch.Tensor:
+    """Decode attention straight out of the flat page pools (no dense-view
+    gather): kp/vp (P, Hkv, D) or (P, G, A, Hkv, D) + layer=(g, a), tables
+    (B, V), valid_len (B,)."""
+    return paged_flash_decode(q, kp, vp, tables, valid_len=valid_len,
+                              block_size=block_size, layer=layer)
 
 
 def reduce(x: torch.Tensor, *, op: str = "sum") -> torch.Tensor:

@@ -80,6 +80,33 @@ def decode_ref(q, k, v, *, valid_len=None, scale=None):
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def paged_rows(tables, block_size: int):
+    """(B, V) block table -> (B, V*block_size) flat pool-row ids: the logical
+    dense-view address map.  Row 0 is the engine's reserved null page, so
+    table entries beyond a slot's allocation alias it."""
+    b, vb = tables.shape
+    offs = torch.arange(block_size, dtype=torch.int64, device=tables.device)
+    return (tables.long()[:, :, None] * block_size
+            + offs[None, None, :]).reshape(b, vb * block_size)
+
+
+def paged_decode_ref(q, kp, vp, tables, *, valid_len, block_size: int,
+                     layer=None, scale=None):
+    """Oracle for paged_flash_decode: gather the dense view through the
+    block table, then run `decode_ref`'s math.
+
+    kp/vp: (P, Hkv, D) single-site pools, or (P, G, A, Hkv, D) full pools
+    with `layer=(g, a)`."""
+    rows = paged_rows(tables, block_size)
+    if kp.ndim == 5:
+        g_i, a_i = layer
+        k, v = kp[rows, g_i, a_i], vp[rows, g_i, a_i]
+    else:
+        k, v = kp[rows], vp[rows]
+    return decode_ref(q, k.transpose(1, 2), v.transpose(1, 2),
+                      valid_len=valid_len, scale=scale)
+
+
 REDUCE_OPS = {"sum": lambda x: x.sum(dim=0),
               "max": lambda x: x.amax(dim=0),
               "min": lambda x: x.amin(dim=0)}

@@ -1,0 +1,1038 @@
+"""Serving engines over the port's decode path, the counterparts of
+`repro/serve/engine.py`.
+
+  * `ServingEngine` -- the legacy CONTIGUOUS engine: one (B, max_len) cache,
+    one shared position clock, teacher-forcing one prompt token per tick.
+    Kept as the solo oracle.
+
+  * `PagedServingEngine` -- the production engine: the KV cache is a pool of
+    fixed-size pages (block_pool.py) indexed through per-slot block tables,
+    positions are a per-slot (B,) clock threaded down to the decode-attention
+    kernels (each slot attends exactly its own [0, valid) range), prompts
+    prefill in chunks mixed into decode ticks (scheduler.py), and finished
+    prompts publish their blocks to a prefix cache (prefix_cache.py).
+    Capacity comes from a profiling pass (`PagedKVExecutor`).
+
+  * `AsyncServingEngine` wraps the paged engine in a background tick loop:
+    `submit()` returns a streaming `RequestHandle` immediately; `drain()`
+    stops the loop after in-flight work completes.
+
+Every tick runs eagerly over the full slot batch on the parameters' device
+(CUDA graphs are later work).  The batch shape never changes, so every op
+of a step sees the same shapes each tick, and each slot's outputs depend
+only on its own tokens: a refilled slot is bitwise equal to serving its
+request alone, and the two KV data paths ("native" and "gather") are
+bitwise equal to each other.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig
+from ..core.costmodel import paged_decode_traffic
+from ..kernels.ref import paged_rows
+from ..models import get_model
+from ..models import lm
+from .block_pool import BlockPool, OutOfBlocks
+from .faults import DeadlineExceeded, EngineError, FaultInjector, QueueFull
+from .prefix_cache import PrefixCache
+from .scheduler import Request, Scheduler, blocks_for
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_len: int
+    batch: int
+    # Only None is ported: a tick traced through the compiler's executors
+    # needs the capture front-end (ROADMAP A4).
+    compile_mode: str | None = None
+    # -- paged engine knobs -------------------------------------------------
+    block_size: int = 8            # token positions per KV page
+    prefill_chunk: int = 8         # max prompt tokens one slot feeds per tick
+    token_budget: int | None = None  # tokens per tick across the batch
+    num_blocks: int | None = None    # pool size; None -> profiling pass
+    mem_budget_bytes: int | None = None  # profiling budget override
+    prefix_caching: bool = True
+    # False (default) pins the per-tick KV view at max_blocks: every tick
+    # reduces over the same attention length, which keeps outputs BITWISE
+    # independent of what the other slots are doing.  True sizes the view at
+    # the active-slot max: less attention work per tick, and value-level
+    # (not bitwise) batch invariance.
+    view_buckets: bool = False
+    # Tick KV data path.  "native" (default): attention reads/writes the flat
+    # page pools through the block tables (paged_flash_decode) -- no
+    # pool->view gather, no trailing scatter.  "gather": gather the dense
+    # view, flash_decode it, scatter written columns back; the differential
+    # oracle, bitwise equal to "native".
+    paged_attention: str = "native"
+    max_new_tokens: int | None = None    # default per-request cap
+    # -- fault tolerance ----------------------------------------------------
+    fault_plan: tuple = ()               # faults.FaultSpec schedule
+    fault_seed: int = 0
+    nan_guard: bool = False              # fail slots with non-finite logits
+    max_tick_retries: int = 3            # consecutive failed ticks -> degraded
+    max_chunk_retries: int = 3           # transient prefill-chunk failures
+    max_queue: int | None = None         # waiting-queue bound (QueueFull)
+    default_deadline_s: float | None = None
+
+
+def _device_of(params: dict) -> torch.device:
+    return params["embed"].device
+
+
+def _check_compile_mode(sc: ServeConfig) -> None:
+    if sc.compile_mode is not None:
+        raise NotImplementedError(
+            "ServeConfig.compile_mode needs the capture front-end, which is "
+            "not ported yet (ROADMAP A4)")
+
+
+def serve_step(params, state, cfg: ArchConfig):
+    """One decode tick for the whole batch (legacy contiguous engine).
+
+    state = {"tokens": (B,), "pos": int, "cache": {...}}; the cache is
+    updated in place.  Returns the sampled next tokens and the logits."""
+    logits, cache = get_model(cfg).decode_step(params, state["tokens"],
+                                               state["pos"], state["cache"])
+    return {"tokens": logits.argmax(dim=-1), "pos": state["pos"] + 1,
+            "cache": cache, "logits": logits}
+
+
+class ServingEngine:
+    """Legacy host-side request manager: continuous batching over fixed
+    slots with ONE contiguous (B, max_len) cache and a shared position clock
+    (so a slot refilled mid-stream attends its predecessor's stale entries;
+    the paged engine's per-slot clock fixes that).  With batch=1 it is the
+    per-request ground truth."""
+
+    def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
+                 eos_id: int = 1):
+        _check_compile_mode(sc)
+        self.cfg = cfg
+        self.params = params
+        self.sc = sc
+        self.device = _device_of(params)
+        self.eos = eos_id
+        self.queue: deque[tuple[int, list[int]]] = deque()
+        self.slots: list[dict | None] = [None] * sc.batch
+        self.done: dict[int, list[int]] = {}
+        self.cache = get_model(cfg).init_cache(sc.batch, sc.max_len, device=self.device)
+        self.tokens = np.zeros(sc.batch, np.int64)
+        self.pos = 0
+
+    def submit(self, request_id: int, prompt: list[int]):
+        self.queue.append((request_id, prompt))
+
+    def _admit(self):
+        for i, slot in enumerate(self.slots):
+            if slot is None and self.queue:
+                rid, prompt = self.queue.popleft()
+                self.slots[i] = {"id": rid, "prompt": prompt, "out": [], "fed": 0}
+
+    def tick(self) -> int:
+        """One engine tick: feed prompt tokens or decode; returns #active."""
+        self._admit()
+        feed = self.tokens.copy()
+        for i, slot in enumerate(self.slots):
+            if slot is not None and slot["fed"] < len(slot["prompt"]):
+                feed[i] = slot["prompt"][slot["fed"]]   # teacher-force prompt
+                slot["fed"] += 1
+        out = serve_step(self.params, {"tokens": torch.from_numpy(feed).to(self.device),
+                                       "pos": self.pos, "cache": self.cache}, self.cfg)
+        self.pos = out["pos"]
+        nxt = out["tokens"].cpu().numpy()
+        active = 0
+        for i, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            if slot["fed"] >= len(slot["prompt"]):
+                slot["out"].append(int(nxt[i]))
+            limit = self.sc.max_len - len(slot["prompt"]) - 1
+            if (slot["out"] and slot["out"][-1] == self.eos) or len(slot["out"]) >= limit:
+                self.done[slot["id"]] = slot["out"]
+                self.slots[i] = None
+            else:
+                active += 1
+        self.tokens = nxt
+        return active + len(self.queue)
+
+    def run_until_done(self, max_ticks: int = 10_000) -> dict[int, list[int]]:
+        for _ in range(max_ticks):
+            if self.tick() == 0:
+                break
+        return self.done
+
+
+# ---------------------------------------------------------------------------
+# paged engine
+# ---------------------------------------------------------------------------
+
+class RequestHandle:
+    """Future/stream for one submitted request.
+
+    `tokens()` snapshots what has been generated so far (streaming);
+    `result()` blocks until completion and returns the full output, raising
+    if the request was rejected or failed."""
+
+    def __init__(self, rid: int, prompt: list[int]):
+        self.rid = rid
+        self.prompt = prompt
+        self._lock = threading.Lock()
+        self._event = threading.Event()
+        self._tokens: list[int] = []
+        self._error: BaseException | None = None
+
+    def _append(self, tok: int) -> None:
+        with self._lock:
+            self._tokens.append(tok)
+
+    def _finish(self) -> None:
+        self._event.set()
+
+    def _fail(self, exc: BaseException) -> None:
+        self._error = exc
+        self._event.set()
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def error(self) -> BaseException | None:
+        return self._error
+
+    def tokens(self) -> list[int]:
+        with self._lock:
+            return list(self._tokens)
+
+    def result(self, timeout: float | None = None) -> list[int]:
+        if not self._event.wait(timeout):
+            # a handle failed while we were waiting still reports ITS error
+            if self._error is not None:
+                raise self._error
+            raise TimeoutError(
+                f"request {self.rid} still running after {timeout}s "
+                f"({len(self.tokens())} tokens so far)")
+        if self._error is not None:
+            raise self._error
+        return self.tokens()
+
+
+def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
+               n_steps: int, mode: str = "gather"):
+    """One serving tick over paged KV: `n_steps` decode steps with per-slot
+    activity masks (chunked prefill and decode mixed in one tick).
+
+    mode="gather" (the oracle): gather a dense per-slot view from the page
+    pools, decode against the view (flash_decode), scatter the newly written
+    positions back to their pages.
+    mode="native": attention indexes the pools through the block tables
+    (paged_flash_decode); new K/V land on their page rows as they are
+    produced, so neither the view nor the scatter exists.  Bitwise equal to
+    "gather": both kernels run one chunk function over the same rows.
+
+    state (tensors on one device):
+      tokens (B, n_steps)        input token per slot per step (padded)
+      n_tok  (B,)                active steps per slot; 0 = idle slot
+      pos    (B,)                per-slot write position at tick start
+      tables (B, V) int32        physical page id per logical block
+      kp/vp  (P, G, A, Hkv, D)   flat page pools (P = (num_blocks+1) * bs;
+                                 page 0 is the reserved null page), updated
+                                 in place
+
+    A slot's outputs depend only on its own fed tokens: masked-out steps
+    write at a stationary position that a later active step overwrites, or
+    that is redirected to the null page (native) / skipped by the scatter
+    (gather); positions past a slot's valid length get probability 0.
+    """
+    model = get_model(cfg)
+    tokens, n_tok, pos = state["tokens"], state["n_tok"], state["pos"]
+    kp, vp, tables = state["kp"], state["vp"], state["tables"]
+    b, bs, v_blocks = tokens.shape[0], block_size, tables.shape[1]
+    native = mode == "native"
+    if native:
+        cache = {"kp": kp, "vp": vp}
+    else:
+        view_len = v_blocks * bs
+        rows = paged_rows(tables, bs)
+        # (B, L, G, A, H, D) -> (G, A, B, H, L, D): the dense cache layout
+        cache = {"k": kp[rows].permute(2, 3, 0, 4, 1, 5).contiguous(),
+                 "v": vp[rows].permute(2, 3, 0, 4, 1, 5).contiguous()}
+    tables_l = tables.long()
+    pos0 = pos
+    logits = None
+    for j in range(n_steps):
+        active = n_tok > j
+        if native:
+            # flat pool row of each slot's new K/V; inactive slots write the
+            # null page's row 0
+            blk = (pos // bs).clamp(max=v_blocks - 1)
+            phys = tables_l.gather(1, blk[:, None])[:, 0]
+            write_rows = torch.where(active, phys * bs + pos % bs, torch.zeros_like(pos))
+            lg, _ = model.decode_step(params, tokens[:, j], pos, cache,
+                                      block_tables=tables, block_size=bs,
+                                      kv_write_rows=write_rows)
+        else:
+            lg, _ = model.decode_step(params, tokens[:, j], pos, cache)
+        logits = lg if logits is None else torch.where(active[:, None], lg, logits)
+        pos = torch.where(active, pos + 1, pos)
+
+    if not native:
+        # scatter the freshly written view columns back to their pages;
+        # columns of masked steps go to the null page's row 0
+        steps = torch.arange(n_steps, device=pos0.device)
+        wpos = pos0[:, None] + steps[None, :]                        # (B, C)
+        phys = tables_l.gather(1, (wpos // bs).clamp(max=v_blocks - 1))
+        flat = torch.where(steps[None, :] < n_tok[:, None], phys * bs + wpos % bs,
+                           torch.zeros_like(wpos)).reshape(-1)
+        cols = wpos.clamp(max=view_len - 1)
+        slots = torch.arange(b, device=pos0.device)[:, None]
+        for pool, view in ((kp, cache["k"]), (vp, cache["v"])):
+            written = view[:, :, slots, :, cols]                     # (B, C, G, A, H, D)
+            pool[flat] = written.reshape(b * n_steps, *pool.shape[1:])
+    return {"tokens_next": logits.argmax(dim=-1), "logits": logits, "pos": pos,
+            "kp": kp, "vp": vp}
+
+
+class PagedKVExecutor:
+    """Capacity owner for the paged engine, in the vLLM ExecutorBase shape:
+    `get_max_allowed_kv_blocks()` runs a profiling pass (parameter bytes +
+    one tick's working set against MEMORY_FRACTION of the memory the
+    allocator can reach on the card), the engine decides
+    the final count, `initialize_cache(n)` allocates the page pools."""
+
+    DEFAULT_BUDGET = 256 * 1024 * 1024   # no device memory to read (CPU)
+    # share of the card's reachable memory the capacity model plans for; the
+    # rest is headroom for allocator fragmentation, library workspaces and
+    # ticks longer than the profiled one
+    MEMORY_FRACTION = 0.9
+
+    def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
+                 fault: FaultInjector | None = None):
+        self.cfg = cfg
+        self.params = params
+        self.sc = sc
+        self.fault = fault
+        self.device = _device_of(params)
+        self.profile_error: str | None = None
+        template = lm.init_cache(cfg, 1, sc.block_size, device="meta")["k"]
+        g, a, _, h, _, d = template.shape
+        self.page_shape = (g, a, h, d)
+        self.kv_dtype = template.dtype
+        self.max_blocks = blocks_for(sc.max_len, sc.block_size)
+        # bytes of ONE logical block: its K page + its V page
+        self.block_bytes = 2 * sc.block_size * g * a * h * d * template.element_size()
+
+    def _device_budget(self) -> int:
+        if self.sc.mem_budget_bytes is not None:
+            return self.sc.mem_budget_bytes
+        if self.device.type == "cuda":
+            # what the allocator can still get from the driver plus what it
+            # already holds (the parameters among it); the CUDA context and
+            # other processes' memory lie outside both
+            free, _ = torch.cuda.mem_get_info(self.device)
+            reachable = free + torch.cuda.memory_reserved(self.device)
+            return int(self.MEMORY_FRACTION * reachable)
+        return self.DEFAULT_BUDGET
+
+    def profile_run(self) -> int:
+        """Peak bytes one 1-step tick allocates beyond what is already held
+        (1-block view, 1-block pool): the activation term of the capacity
+        model, read from `torch.cuda.max_memory_allocated`; 0 off the card.
+        Raises MemoryError at the `executor.profile` fault site."""
+        if self.fault is not None and self.fault.check("executor.profile"):
+            raise MemoryError("injected OOM at executor.profile")
+        if self.device.type != "cuda":
+            return 0
+        b, dev = self.sc.batch, self.device
+        kp, vp = self.initialize_cache(1)
+        zeros = dict(dtype=torch.int64, device=dev)
+        state = {"tokens": torch.zeros((b, 1), **zeros), "n_tok": torch.zeros(b, **zeros),
+                 "pos": torch.zeros(b, **zeros),
+                 "tables": torch.zeros((b, 1), dtype=torch.int32, device=dev),
+                 "kp": kp, "vp": vp}
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        paged_tick(self.params, state, self.cfg, block_size=self.sc.block_size,
+                   n_steps=1, mode=self.sc.paged_attention)
+        torch.cuda.synchronize(dev)
+        return torch.cuda.max_memory_allocated(dev) - held
+
+    def get_max_allowed_kv_blocks(self) -> tuple[int, int]:
+        """(device_blocks, swap_blocks).  device_blocks = what fits in the
+        budget after parameters and the tick working set; floored at
+        max_blocks + batch so a full-length request plus one block per slot
+        always fits.  No host swap tier, so swap_blocks is 0."""
+        budget = self._device_budget()
+        param_bytes = sum(t.numel() * t.element_size() for t in _leaves(self.params))
+        floor = self.max_blocks + self.sc.batch
+        try:
+            act_bytes = self.profile_run()
+        except MemoryError as exc:
+            # profiling OOMed: fall back to the guaranteed-viable floor
+            self.profile_error = str(exc)
+            return floor, 0
+        n = (budget - param_bytes - act_bytes) // self.block_bytes
+        return max(int(n), floor), 0
+
+    def initialize_cache(self, num_blocks: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Allocate the K and V page pools: page 0 is the reserved null
+        page, usable pages are rows [bs, (num_blocks+1)*bs)."""
+        rows = (num_blocks + 1) * self.sc.block_size
+        kp = torch.zeros((rows, *self.page_shape), dtype=self.kv_dtype, device=self.device)
+        return kp, torch.zeros_like(kp)
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+class PagedServingEngine:
+    """Block-paged continuous batching with per-slot position tracking.
+
+    Each slot carries its own (pos, block-table row); the decode kernels see
+    a per-slot (B,) valid-length vector, so a slot refilled mid-stream is
+    bitwise identical to serving its request alone.  Prompts prefill in
+    budget-bounded chunks mixed into decode ticks; finished prompts publish
+    their KV pages to the prefix cache for later requests to reuse."""
+
+    def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
+                 eos_id: int = 1, clock=time.monotonic):
+        _check_compile_mode(sc)
+        if sc.paged_attention not in ("gather", "native"):
+            raise ValueError("paged_attention must be 'gather' or 'native', "
+                             f"got {sc.paged_attention!r}")
+        get_model(cfg)                   # refuses families not ported
+        self.cfg = cfg
+        self.params = params
+        self.sc = sc
+        self.device = _device_of(params)
+        self.eos = eos_id
+        self.clock = clock               # injectable for deadline tests
+        self.injector = (FaultInjector(tuple(sc.fault_plan), sc.fault_seed)
+                         if sc.fault_plan else None)
+
+        b = sc.batch
+        self.max_blocks = blocks_for(sc.max_len, sc.block_size)
+        self.executor = PagedKVExecutor(cfg, params, sc, fault=self.injector)
+        if sc.num_blocks is not None:
+            num = sc.num_blocks
+        else:
+            num, _ = self.executor.get_max_allowed_kv_blocks()
+        self.kp, self.vp = self.executor.initialize_cache(num)
+        self.pool = BlockPool(num, sc.block_size,
+                              on_evict=lambda key, bid: self.prefix.on_evict(key, bid),
+                              fault=self.injector)
+        self.prefix = PrefixCache(self.pool)
+        self.tables = np.zeros((b, self.max_blocks), np.int32)
+        self.prefix_enabled = sc.prefix_caching
+
+        self.scheduler = Scheduler(block_size=sc.block_size,
+                                   prefill_chunk=sc.prefill_chunk,
+                                   token_budget=sc.token_budget,
+                                   n_slots=b, max_queue=sc.max_queue)
+        self.slots: list[dict | None] = [None] * b
+        self.pos = np.zeros(b, np.int64)
+        self.done: dict[int, list[int]] = {}
+        self.failed: dict[int, EngineError] = {}
+        self.handles: dict[int, RequestHandle] = {}
+        self._rid = 0
+        self._view_buckets = (list(range(1, self.max_blocks + 1)) if sc.view_buckets
+                              else [self.max_blocks])
+        self.ticks = 0
+        self.decode_steps = 0            # decode steps run, over all ticks
+        self.tokens_out = 0
+        self.peak_active = 0
+        self.last_logits: torch.Tensor | None = None   # the last tick's (B, vocab)
+        # analytic per-tick KV bytes for BOTH tick data paths, accumulated
+        # from each tick's actual geometry (costmodel.paged_decode_traffic)
+        self.kv_traffic = {"ticks": 0, "gather_bytes": 0, "native_bytes": 0}
+        # -- health/degraded-mode state (health()) -------------------------
+        self.state = "healthy"           # healthy | degraded | stopped
+        self.last_error: EngineError | None = None
+        self.consecutive_failures = 0
+        self.ticks_since_progress = 0
+        self._culprit_rid: int | None = None   # tick-scoped blame context
+        self._tick_admitted: list[int] = []
+        self._tick_no = 0
+        self._progressed = False
+
+    def _view_for(self, need_blocks: int) -> int:
+        for v in self._view_buckets:
+            if v >= need_blocks:
+                return v
+        return self._view_buckets[-1]
+
+    # -- request lifecycle -------------------------------------------------
+    def submit(self, prompt: list[int], rid: int | None = None,
+               max_new_tokens: int | None = None,
+               deadline_s: float | None = None) -> RequestHandle:
+        """Enqueue a request.  Raises QueueFull when the bounded admission
+        queue (`ServeConfig.max_queue`) is at capacity.  `deadline_s` (or
+        the config default) fails the request with DeadlineExceeded once
+        that many seconds pass -- queued requests before any prefill budget
+        is spent, in-flight requests by slot eviction at the next tick."""
+        if rid is None:
+            self._rid += 1
+            rid = self._rid
+        handle = RequestHandle(rid, list(prompt))
+        if self.state != "healthy":
+            self.handles[rid] = handle
+            handle._fail(EngineError(
+                f"engine is {self.state}: request {rid} rejected",
+                site="engine." + self.state, tick=self.ticks, rid=rid))
+            return handle
+        if deadline_s is None:
+            deadline_s = self.sc.default_deadline_s
+        req = Request(rid=rid, prompt=list(prompt), handle=handle,
+                      max_new=max_new_tokens or self.sc.max_new_tokens,
+                      deadline=None if deadline_s is None else self.clock() + deadline_s)
+        if len(prompt) >= self.sc.max_len:
+            self.handles[rid] = handle
+            self.scheduler.rejected += 1
+            handle._fail(ValueError(
+                f"prompt of {len(prompt)} tokens >= max_len {self.sc.max_len}"))
+            return handle
+        if self.scheduler.admission_cost(req) > self.pool.num_blocks:
+            self.handles[rid] = handle
+            self.scheduler.rejected += 1
+            handle._fail(ValueError(
+                f"request needs {self.scheduler.admission_cost(req)} blocks; "
+                f"pool holds {self.pool.num_blocks}"))
+            return handle
+        if not self.scheduler.submit(req):
+            # a full bounded queue is an EXCEPTION, not a failed handle: the
+            # caller must retry or shed, and no handle leaks into self.handles
+            raise QueueFull(
+                f"admission queue full ({self.sc.max_queue} waiting); "
+                f"request {rid} not enqueued",
+                site="engine.queue", tick=self.ticks, rid=rid)
+        self.handles[rid] = handle
+        return handle
+
+    def _admit(self) -> None:
+        for i in [i for i, s in enumerate(self.slots) if s is None]:
+            req = self.scheduler.next_admission(self.pool)
+            if req is None:
+                break
+            reused_bids: list[int] = []
+            reused = 0
+            if self.prefix_enabled and not req.resume_out:
+                reused_bids, reused = self.prefix.match(req.prompt)
+            self.tables[i, :] = 0
+            self.tables[i, :len(reused_bids)] = reused_bids
+            self.slots[i] = {
+                "rid": req.rid, "req": req, "prompt": req.prompt,
+                "seq": req.feed, "out": list(req.resume_out),
+                "fed": reused, "nblocks": len(reused_bids), "last": None,
+                "handle": req.handle, "max_new": req.max_new,
+                "admit_seq": self.scheduler.admit_seq, "chunk_fails": 0,
+            }
+            self.pos[i] = reused
+            self._tick_admitted.append(req.rid)
+
+    def _release(self, i: int, *, cache_prefix: bool) -> None:
+        slot = self.slots[i]
+        bids = [int(b) for b in self.tables[i, :slot["nblocks"]]]
+        if cache_prefix and self.prefix_enabled:
+            self.prefix.insert(slot["prompt"], bids)
+        for bid in bids:
+            self.pool.decref(bid)
+        self.tables[i, :] = 0
+        self.pos[i] = 0
+        self.slots[i] = None
+
+    def _preempt(self, i: int) -> None:
+        """Preemption-by-recompute: tear the slot down, requeue its request
+        (prompt + generated-so-far) at the queue head.  Greedy decoding
+        makes the recompute exact, so the handle keeps streaming."""
+        req = self.slots[i]["req"]
+        req.resume_out = list(self.slots[i]["out"])
+        self._release(i, cache_prefix=False)
+        if self.scheduler.admission_cost(req) > self.pool.num_blocks:
+            self.scheduler.rejected += 1
+            req.handle._fail(OutOfBlocks(f"request {req.rid} grew past pool capacity"))
+            return
+        self.scheduler.requeue(req)
+
+    def _ensure_blocks(self, n_tok: list[int]) -> None:
+        """Allocate pages so every slot's table covers pos + n_tok this
+        tick; on exhaustion, preempt the newest slot and retry (the slot
+        being grown preempts ITSELF when it is the newest)."""
+        order = sorted((s["admit_seq"], i) for i, s in enumerate(self.slots) if s is not None)
+        for _, i in order:
+            slot = self.slots[i]
+            if slot is None or n_tok[i] == 0:
+                continue
+            # blame context: if allocation fails terminally, the request
+            # whose growth triggered it is the culprit
+            self._culprit_rid = slot["rid"]
+            need = blocks_for(int(self.pos[i]) + n_tok[i], self.sc.block_size)
+            while slot["nblocks"] < need:
+                try:
+                    bid = self.pool.alloc()
+                except OutOfBlocks:
+                    victim = self.scheduler.pick_victim(self.slots)
+                    if victim is None:
+                        raise
+                    self._preempt(victim)
+                    n_tok[victim] = 0
+                    if victim == i:
+                        break
+                    continue
+                self.tables[i, slot["nblocks"]] = bid
+                slot["nblocks"] += 1
+        self._culprit_rid = None
+
+    # -- fault isolation ---------------------------------------------------
+    def _slot_of(self, rid: int) -> int | None:
+        for i, s in enumerate(self.slots):
+            if s is not None and s["rid"] == rid:
+                return i
+        return None
+
+    def _fail_request(self, rid: int, err: EngineError) -> None:
+        """Terminal failure of ONE request: release its slot/blocks (or pull
+        it from the waiting queue) and fail its handle -- co-tenants keep
+        their state untouched, so survivors stay bitwise identical."""
+        self.failed[rid] = err
+        i = self._slot_of(rid)
+        if i is not None:
+            self.slots[i]["handle"]._fail(err)
+            self._release(i, cache_prefix=False)
+            return
+        for req in list(self.scheduler.waiting):
+            if req.rid == rid:
+                self.scheduler.waiting.remove(req)
+                req.handle._fail(err)
+                return
+        h = self.handles.get(rid)
+        if h is not None and not h.done():
+            h._fail(err)
+
+    def _pick_culprit(self) -> int | None:
+        """Blame for a whole-tick failure: the explicit culprit context if
+        set, else the request admitted THIS tick, else the newest admission
+        among live slots."""
+        if self._culprit_rid is not None:
+            return self._culprit_rid
+        for rid in reversed(self._tick_admitted):
+            if self._slot_of(rid) is not None:
+                return rid
+        live = [s for s in self.slots if s is not None]
+        return max(live, key=lambda s: s["admit_seq"])["rid"] if live else None
+
+    def _fail_all(self, message: str, site: str, tick: int) -> None:
+        """Fail every live slot and queued request with an EngineError."""
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                tomb = EngineError(message, site=site, tick=tick, rid=s["rid"])
+                self.failed[s["rid"]] = tomb
+                s["handle"]._fail(tomb)
+                self._release(i, cache_prefix=False)
+        while self.scheduler.waiting:
+            req = self.scheduler.waiting.popleft()
+            tomb = EngineError(message, site=site, tick=tick, rid=req.rid)
+            self.failed[req.rid] = tomb
+            if req.handle is not None:
+                req.handle._fail(tomb)
+
+    def _enter_degraded(self, err: EngineError) -> None:
+        """Terminal engine state: stop isolating, fail everything in flight
+        and queued so every handle reaches a terminal state, report via
+        health()."""
+        self.state = "degraded"
+        self.last_error = err
+        self._fail_all(f"engine degraded at tick {self._tick_no}: {err}",
+                       "engine.degraded", self._tick_no)
+
+    def _fail_stragglers(self) -> None:
+        """Late racers: a submit() that passed the health check on the caller
+        thread may land in the queue after _enter_degraded() drained it.
+        Every non-healthy tick() fails such leftovers so pending() reaches 0
+        and drain()/result() raise instead of hanging."""
+        suffix = "" if self.last_error is None else f": {self.last_error}"
+        self._fail_all(f"engine is {self.state}{suffix}", "engine." + self.state,
+                       self.ticks)
+
+    def _expire_deadlines(self) -> None:
+        now = self.clock()
+        for req in self.scheduler.expire(now):
+            err = DeadlineExceeded(
+                f"request {req.rid} expired in queue "
+                f"(deadline passed before admission)",
+                site="engine.deadline", tick=self._tick_no, rid=req.rid)
+            self.failed[req.rid] = err
+            if req.handle is not None:
+                req.handle._fail(err)
+        for s in self.slots:
+            if s is None:
+                continue
+            dl = s["req"].deadline
+            if dl is not None and now > dl:
+                self.scheduler.expired += 1
+                self._fail_request(s["rid"], DeadlineExceeded(
+                    f"request {s['rid']} expired in flight after "
+                    f"{len(s['out'])} tokens", site="engine.deadline",
+                    tick=self._tick_no, rid=s["rid"]))
+
+    def health(self) -> dict:
+        """Liveness snapshot: `state` is "healthy" until max_tick_retries
+        CONSECUTIVE tick failures force the terminal "degraded" state
+        ("stopped" once the owner closes the engine)."""
+        return {"state": self.state,
+                "last_error": self.last_error,
+                "consecutive_failures": self.consecutive_failures,
+                "ticks_since_progress": self.ticks_since_progress,
+                "ticks": self.ticks,
+                "failed": len(self.failed)}
+
+    # -- the tick ----------------------------------------------------------
+    def tick(self) -> int:
+        """One engine tick; returns #requests still in flight afterwards.
+
+        Any exception inside the tick is caught, blamed on the culpable
+        request, and ONLY that handle fails with a structured EngineError;
+        after `max_tick_retries` consecutive failing ticks the engine enters
+        the terminal degraded state with every remaining handle failed."""
+        if self.state != "healthy":
+            self._fail_stragglers()
+            return 0
+        t = self.ticks
+        self.ticks = t + 1               # failed ticks advance the clock too
+        self._tick_no = t
+        self._tick_admitted = []
+        self._culprit_rid = None
+        self._progressed = False
+        if self.injector is not None:
+            self.injector.advance(t)
+        self._expire_deadlines()
+        try:
+            left = self._tick_inner()
+        except Exception as exc:  # noqa: BLE001 -- isolate, blame, keep serving
+            self.consecutive_failures += 1
+            self.ticks_since_progress += 1
+            rid = self._pick_culprit()
+            if isinstance(exc, EngineError):
+                err = exc
+            else:
+                err = EngineError(f"tick {t} failed at {type(exc).__name__}: {exc}",
+                                  site="tick.step", tick=t, rid=rid)
+                err.__cause__ = exc
+            err.tick, err.rid = t, rid
+            self.last_error = err
+            if rid is not None:
+                self._fail_request(rid, err)
+            if self.consecutive_failures >= self.sc.max_tick_retries or rid is None:
+                self._enter_degraded(err)
+            return self.pending()
+        if self._progressed:
+            self.consecutive_failures = 0
+            self.ticks_since_progress = 0
+        else:
+            self.ticks_since_progress += 1
+        return left
+
+    def _prefill_faults(self, n_tok: list[int]) -> None:
+        """`prefill.chunk` fault site: a firing spec makes one prefilling
+        slot's chunk fail TRANSIENTLY (skipped this tick, retried next);
+        after `max_chunk_retries` consecutive failures the request fails."""
+        if self.injector is None:
+            return
+        prefilling = [i for i, s in enumerate(self.slots)
+                      if s is not None and n_tok[i] > 0 and s["fed"] < len(s["seq"])]
+        if not prefilling:
+            return
+        spec = self.injector.check("prefill.chunk")
+        if spec is None:
+            for i in prefilling:
+                self.slots[i]["chunk_fails"] = 0
+            return
+        victims = [i for i in prefilling if spec.rid is None or self.slots[i]["rid"] == spec.rid]
+        if not victims:
+            return
+        slot = self.slots[victims[-1]]          # newest-admitted qualifying slot
+        n_tok[victims[-1]] = 0
+        slot["chunk_fails"] += 1
+        if slot["chunk_fails"] > self.sc.max_chunk_retries:
+            self._fail_request(slot["rid"], EngineError(
+                f"request {slot['rid']}: prefill chunk failed "
+                f"{slot['chunk_fails']} consecutive times",
+                site="prefill.chunk", tick=self._tick_no, rid=slot["rid"]))
+
+    def _tick_inner(self) -> int:
+        self._admit()
+        n_tok = self.scheduler.plan(self.slots)
+        self._prefill_faults(n_tok)
+        self._ensure_blocks(n_tok)
+        active = [i for i, t in enumerate(n_tok) if t > 0]
+        if not active:
+            return self.pending()
+        self.peak_active = max(self.peak_active, sum(s is not None for s in self.slots))
+        if self.injector is not None:
+            spec = self.injector.check("tick.step")
+            if spec is not None:
+                # fires BEFORE the tick runs, so no pool row has been touched
+                if spec.rid is not None:
+                    self._culprit_rid = spec.rid
+                raise EngineError(f"injected fault at tick.step (tick {self._tick_no})",
+                                  site="tick.step", tick=self._tick_no, rid=spec.rid)
+
+        c = 1 if max(n_tok) <= 1 else self.scheduler.chunk
+        tokens = np.zeros((self.sc.batch, c), np.int64)
+        for i in active:
+            slot, t = self.slots[i], n_tok[i]
+            if slot["fed"] < len(slot["seq"]):
+                tokens[i, :t] = slot["seq"][slot["fed"]:slot["fed"] + t]
+            else:
+                tokens[i, 0] = slot["last"]
+        need = max(blocks_for(int(self.pos[i]) + n_tok[i], self.sc.block_size) for i in active)
+        v_blocks = self._view_for(need)
+        dev = self.device
+        state = {"tokens": torch.from_numpy(tokens).to(dev),
+                 "n_tok": torch.tensor(n_tok, dtype=torch.int64, device=dev),
+                 "pos": torch.from_numpy(self.pos).to(dev),
+                 "tables": torch.from_numpy(self.tables[:, :v_blocks].copy()).to(dev),
+                 "kp": self.kp, "vp": self.vp}
+        out = paged_tick(self.params, state, self.cfg, block_size=self.sc.block_size,
+                         n_steps=c, mode=self.sc.paged_attention)
+        nxt = out["tokens_next"].cpu().numpy()
+        self.pos = out["pos"].cpu().numpy()
+        self.last_logits = out["logits"]
+        self.decode_steps += c
+        self._progressed = True
+
+        # analytic KV bytes for this tick's geometry, BOTH data paths
+        g_, a_, h_, d_ = self.executor.page_shape
+        tr = paged_decode_traffic(
+            batch=self.sc.batch, v_blocks=v_blocks, block_size=self.sc.block_size,
+            n_steps=c, row_bytes=h_ * d_ * self.kp.element_size(), n_sites=g_ * a_,
+            alloc_blocks=int(np.count_nonzero(self.tables[:, :v_blocks])))
+        self.kv_traffic["ticks"] += 1
+        self.kv_traffic["gather_bytes"] += tr["gather_bytes"]
+        self.kv_traffic["native_bytes"] += tr["native_bytes"]
+
+        # slots that finish prefill this tick sample their first/next token
+        sampling = [i for i in active
+                    if self.slots[i]["fed"] + n_tok[i] >= len(self.slots[i]["seq"])]
+        logits_np = None
+        if self.injector is not None and sampling:
+            spec = self.injector.check("tick.logits")
+            if spec is not None:
+                # `tick.logits` fault site: corrupt ONE sampling slot's logits
+                # at the host boundary and derail its sampled token the way a
+                # real NaN argmax would; co-tenant state stays untouched
+                victims = [i for i in sampling
+                           if spec.rid is None or self.slots[i]["rid"] == spec.rid]
+                if victims:
+                    logits_np = out["logits"].float().cpu().numpy()
+                    logits_np[victims[-1], :] = np.nan if spec.mode == "nan" else np.inf
+                    nxt[victims[-1]] = 0
+        if self.sc.nan_guard and sampling and logits_np is None:
+            logits_np = out["logits"].float().cpu().numpy()
+        poisoned: set[int] = set()
+        if self.sc.nan_guard and logits_np is not None:
+            poisoned = {i for i in sampling if not np.isfinite(logits_np[i]).all()}
+
+        for i in active:
+            slot = self.slots[i]
+            slot["fed"] += n_tok[i]
+            if slot["fed"] < len(slot["seq"]):
+                continue                        # still prefilling
+            if i in poisoned:
+                self._fail_request(slot["rid"], EngineError(
+                    f"request {slot['rid']}: non-finite decode logits "
+                    f"at tick {self._tick_no}", site="tick.logits",
+                    tick=self._tick_no, rid=slot["rid"]))
+                continue
+            tok = int(nxt[i])
+            slot["out"].append(tok)
+            slot["last"] = tok
+            slot["handle"]._append(tok)
+            self.tokens_out += 1
+            limit = self.sc.max_len - len(slot["prompt"]) - 1
+            if slot["max_new"] is not None:
+                limit = min(limit, slot["max_new"])
+            if tok == self.eos or len(slot["out"]) >= limit:
+                self.done[slot["rid"]] = slot["out"]
+                slot["handle"]._finish()
+                self._release(i, cache_prefix=True)
+        return self.pending()
+
+    def pending(self) -> int:
+        return sum(s is not None for s in self.slots) + len(self.scheduler.waiting)
+
+    def run_until_done(self, max_ticks: int = 10_000) -> dict[int, list[int]]:
+        for _ in range(max_ticks):
+            if self.tick() == 0:
+                break
+        return self.done
+
+    def stats(self) -> dict:
+        s = {"ticks": self.ticks, "decode_steps": self.decode_steps,
+             "tokens_out": self.tokens_out, "peak_active": self.peak_active,
+             "scheduler": self.scheduler.stats(), "health": self.health(),
+             "pool": self.pool.check()}
+        n = self.kv_traffic["ticks"]
+        if n:
+            s["kv_traffic"] = {
+                "mode": self.sc.paged_attention, "ticks": n,
+                "gather_bytes_per_tick": self.kv_traffic["gather_bytes"] / n,
+                "native_bytes_per_tick": self.kv_traffic["native_bytes"] / n,
+                "reduction": (self.kv_traffic["gather_bytes"]
+                              / max(self.kv_traffic["native_bytes"], 1)),
+            }
+        if self.prefix_enabled:
+            s["prefix_cache"] = self.prefix.stats()
+        if self.injector is not None:
+            s["faults_fired"] = self.injector.fired()
+        if self.executor.profile_error:
+            s["profile_error"] = self.executor.profile_error
+        return s
+
+
+class AsyncServingEngine:
+    """Background tick loop around a PagedServingEngine.
+
+    `submit()` enqueues from any thread and returns the streaming handle
+    immediately; a daemon thread ticks whenever work is pending and parks on
+    a condition variable when idle.  `drain()` waits for in-flight requests
+    to finish and stops the loop; the engine is also a context manager.  If
+    a tick raises past the engine's own isolation, the loop records it as
+    the TERMINAL error, degrades the engine (failing every handle) and
+    exits; `drain()` then raises that error."""
+
+    def __init__(self, cfg: ArchConfig | None = None, params=None,
+                 sc: ServeConfig | None = None, *,
+                 engine: PagedServingEngine | None = None, **kw):
+        if engine is None:
+            engine = PagedServingEngine(cfg, params, sc, **kw)
+        self.engine = engine
+        self._cond = threading.Condition()
+        self._running = False
+        self._error: BaseException | None = None   # terminal loop error
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> "AsyncServingEngine":
+        with self._cond:
+            if self._running:
+                return self
+            self._running = True
+            self._thread = threading.Thread(target=self._loop, name="serve-tick",
+                                            daemon=True)
+            self._thread.start()
+        return self
+
+    def _loop(self) -> None:
+        if self.engine.device.type == "cuda":
+            torch.cuda.set_device(self.engine.device)   # per-thread current device
+        while True:
+            with self._cond:
+                while self._running and self.engine.pending() == 0:
+                    self._cond.notify_all()          # wake drain() waiters
+                    self._cond.wait(timeout=0.05)
+                if not self._running:
+                    self._cond.notify_all()
+                    return
+            # tick OUTSIDE the lock: submissions only append to the
+            # scheduler's deque, which tick consumes on its next admission
+            try:
+                self.engine.tick()
+            except BaseException as exc:  # noqa: BLE001 -- loop must not die silently
+                with self._cond:
+                    self._error = exc
+                    try:
+                        self.engine._enter_degraded(
+                            exc if isinstance(exc, EngineError)
+                            else EngineError(f"tick loop died: {exc}", site="engine.loop"))
+                    finally:
+                        self._running = False
+                        self._cond.notify_all()
+                return
+            with self._cond:
+                self._cond.notify_all()
+
+    def health(self) -> dict:
+        h = self.engine.health()
+        if self._error is not None:
+            h["loop_error"] = self._error
+        if self._thread is not None and not self._thread.is_alive():
+            h["loop_alive"] = False
+        return h
+
+    def submit(self, prompt: list[int], rid: int | None = None,
+               max_new_tokens: int | None = None, deadline_s: float | None = None,
+               queue_timeout: float | None = None) -> RequestHandle:
+        """Thread-safe submit.  On a full bounded queue (QueueFull):
+        `queue_timeout=None` re-raises immediately; a number blocks up to
+        that many seconds for the queue to shrink, then raises."""
+        if self._thread is None:
+            self.start()
+        deadline = None if queue_timeout is None else time.monotonic() + queue_timeout
+        with self._cond:
+            while True:
+                if self._error is not None:
+                    raise self._error
+                try:
+                    handle = self.engine.submit(prompt, rid=rid,
+                                                max_new_tokens=max_new_tokens,
+                                                deadline_s=deadline_s)
+                except QueueFull:
+                    if deadline is None:
+                        raise
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0 or not self._cond.wait(remaining):
+                        raise
+                    continue
+                self._cond.notify_all()
+                return handle
+
+    def drain(self, timeout: float | None = None) -> dict[int, list[int]]:
+        """Graceful stop: wait for all in-flight work, then halt the loop.
+        Raises the loop's TERMINAL error when the tick thread died with work
+        still pending."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cond:
+            while self.engine.pending() > 0:
+                if self._error is not None:
+                    raise self._error
+                if self._running and (self._thread is None or not self._thread.is_alive()):
+                    raise RuntimeError("serve-tick thread died with work pending")
+                remaining = None if deadline is None else deadline - time.monotonic()
+                if remaining is not None and remaining <= 0:
+                    h = self.engine.health()
+                    raise TimeoutError(
+                        f"drain timed out with {self.engine.pending()} "
+                        f"requests pending (engine {h['state']}, "
+                        f"{h['ticks_since_progress']} ticks since progress)")
+                self._cond.wait(remaining if remaining is not None else 0.1)
+        self.close()
+        return self.engine.done
+
+    def close(self) -> None:
+        with self._cond:
+            self._running = False
+            self._cond.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        if self.engine.state == "healthy":
+            self.engine.state = "stopped"
+
+    def __enter__(self) -> "AsyncServingEngine":
+        return self.start()
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is None:
+            self.drain()
+        else:
+            self.close()

@@ -5,9 +5,8 @@ graphs (compiled only, never executed).
 Pure-Python compiler state must agree EXACTLY: graph and structural
 fingerprints, the sf-node selection, the pipelines, the balance allocations
 (both under the A100 spec), the analytic estimates, the kernel lowering
-plans and the dedupe keys.  The one intended difference: single-token
-attention (`llama_tok`) matches `flash_decode` in the reference and records
-the port's fallback reason, because that kernel is not ported yet.
+plans and the dedupe keys -- the single-token attention cases
+(`llama_tok`) included, which both packages lower to `flash_decode`.
 """
 import json
 import os
@@ -52,7 +51,6 @@ def graphs(case: str):
 
 
 CASES = sorted(TINY) + [f"paper:{n}" for n in sorted(tapps.APPS)]
-DECODE = {"llama_tok_tiny", "paper:llama_tok"}
 
 
 def compile_both(case: str, mode: str = "kitsune", **kw):
@@ -64,7 +62,7 @@ def compile_both(case: str, mode: str = "kitsune", **kw):
     return japp, tapp
 
 
-def plan_rows(app, drop_decode=False):
+def plan_rows(app):
     out = {}
     for name, pl in sorted(app.lowering.pipelines.items()):
         matches = [(m.kernel, m.ops, m.out, tuple(sorted(m.meta.items())),
@@ -72,8 +70,7 @@ def plan_rows(app, drop_decode=False):
                     None if m.verdict is None else
                     (m.verdict.decision, m.verdict.source,
                      m.verdict.est_kernel_us, m.verdict.est_closure_us))
-                   for m in pl.matches
-                   if not (drop_decode and m.kernel == "flash_decode")]
+                   for m in pl.matches]
         out[name] = (matches, dict(pl.fallbacks))
     return out
 
@@ -125,17 +122,8 @@ def test_balance_and_estimates_agree_under_a100(case):
 @pytest.mark.parametrize("case", CASES)
 def test_lowering_plans_agree(case):
     japp, tapp = compile_both(case)
-    want, got = plan_rows(japp, drop_decode=True), plan_rows(tapp)
-    if case in DECODE:
-        decode_ops = {m.ops[0] for pl in japp.lowering.pipelines.values()
-                      for m in pl.matches if m.kernel == "flash_decode"}
-        assert decode_ops, "the reference lowers single-token attention"
-        for name, (_, fallbacks) in got.items():
-            for op in decode_ops & set(fallbacks):
-                assert fallbacks.pop(op) == "flash_decode: not yet ported"
-    assert got == want
-    if case not in DECODE:
-        assert japp.dedupe.struct_keys == tapp.dedupe.struct_keys
+    assert plan_rows(tapp) == plan_rows(japp)
+    assert japp.dedupe.struct_keys == tapp.dedupe.struct_keys
 
 
 @pytest.mark.parametrize("case", ["nerf", "llama", "paper:dlrm",
@@ -172,7 +160,8 @@ def test_port_defaults():
 def test_describe_names_the_execution_and_unported_parts():
     g = tapps.llama3_8b(**TINY["llama_tok_tiny"]["kw"])
     text = repro_torch.compile(g, mode="kitsune").describe()
-    assert "fallback attn_0: flash_decode: not yet ported" in text
+    assert "lowered flash_decode[skv=4]: attn_0 -> attn_0" in text
+    assert "fallback attn_0" not in text
     assert "'auto' microbenchmark policy" in text
     text = repro_torch.compile(g, mode="vertical").describe()
     assert "torch.compile'd on CUDA" in text
@@ -201,6 +190,8 @@ def test_port_imports_no_jax_and_no_reference():
         "import sys, runpy, json\n"
         "import repro_torch, repro_torch.apps, repro_torch.kernels\n"
         "import repro_torch.kernels._build, repro_torch.core.lower\n"
+        "import repro_torch.serve, repro_torch.models, repro_torch.configs\n"
+        "import repro_torch.launch.serve\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "

@@ -17,10 +17,17 @@ import torch
 import repro_torch
 from repro_torch import apps
 from repro_torch import kernels as K
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import (flash_attention_plain,
+                                                 flash_decode_plain,
+                                                 page_block_s)
 from repro_torch.kernels.fused_mlp import (fused_mlp_fwd_plain,
                                            fused_mlp_swiglu_fwd_plain)
+from repro_torch.kernels.paged_attention import paged_flash_decode_plain
 from repro_torch.kernels.queue_reduce import queue_reduce_plain
+from repro_torch.kernels.ref import paged_rows
+from repro_torch.models import get_model
+from repro_torch.serve import PagedServingEngine, ServeConfig
 
 pytestmark = pytest.mark.gpu
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -45,6 +52,11 @@ def tensors(cuda, seed, dtype, *shapes, fan_in=False):
             a /= np.sqrt(shape[0])
         out.append(torch.from_numpy(a).to(cuda, DTYPES[dtype]))
     return out
+
+
+def to_device(tree: dict, device) -> dict:
+    return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
 
 
 def close(got, want, tol):
@@ -107,3 +119,101 @@ def test_kitsune_on_card_launches_kernels(cuda, name):
     for m in (m for pl in app.lowering.pipelines.values() for m in pl.matches
               if m.executable):
         assert after[m.kernel] > before[m.kernel], m.kernel
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(8, 40, 10, 512, 128, "slots"),
+                                   (2, 4, 1, 300, 256, "int"),
+                                   (2, 4, 2, 24, 16, "slots"),
+                                   (1, 8, 8, 70, 64, None)])
+def test_flash_decode_kernel(cuda, shape, dtype):
+    """Ragged per-slot, scalar and absent valid lengths; S not a multiple of
+    the 256-row chunk; head dims 16..256; 1..4 query heads per kv head."""
+    b, hq, hkv, s_len, d, valid = shape
+    q, k, v = tensors(cuda, 4, dtype, (b, hq, 1, d), (b, hkv, s_len, d),
+                      (b, hkv, s_len, d))
+    if valid == "slots":
+        valid = torch.from_numpy(np.random.default_rng(5).integers(
+            1, s_len + 1, b).astype(np.int32)).to(cuda)
+    elif valid == "int":
+        valid = s_len - 37
+    before = K.launch_counts()["flash_decode"]
+    close(K.flash_decode(q, k, v, valid_len=valid),
+          flash_decode_plain(q, k, v, valid_len=valid), TOL[dtype])
+    assert K.launch_counts()["flash_decode"] == before + 1
+
+
+def _paged_case(cuda, dtype, *, b=8, hq=40, hkv=10, d=128, bs=16, v_blocks=32,
+                pages=300, sites=(3, 2)):
+    """A (P, G, A, Hkv, D) pool, tables over distinct pages with null-page
+    tails past each slot's allocation, ragged valid lengths."""
+    rng = np.random.default_rng(6)
+    q, kp, vp = tensors(cuda, 7, dtype, (b, hq, 1, d),
+                        (pages * bs, *sites, hkv, d), (pages * bs, *sites, hkv, d))
+    valid = rng.integers(1, v_blocks * bs + 1, b)
+    perm = rng.permutation(np.arange(1, pages))[:b * v_blocks].reshape(b, v_blocks)
+    alloc = -(-valid // bs)
+    perm[np.arange(v_blocks)[None, :] >= alloc[:, None]] = 0
+    tables = torch.from_numpy(perm.astype(np.int32)).to(cuda)
+    return q, kp, vp, tables, torch.from_numpy(valid.astype(np.int32)).to(cuda)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_paged_flash_decode_kernel(cuda, dtype):
+    """Against the plain version on 5-D and 3-D pools, and bitwise equal to
+    gathering the view and running the flash_decode kernel on it."""
+    q, kp, vp, tables, valid = _paged_case(cuda, dtype)
+    bs = 16
+    for site in ((0, 0), (2, 1)):
+        got = K.paged_flash_decode(q, kp, vp, tables, valid_len=valid,
+                                   block_size=bs, layer=site)
+        close(got, paged_flash_decode_plain(q, kp, vp, tables, valid_len=valid,
+                                            block_size=bs, layer=site), TOL[dtype])
+        k3 = kp[:, site[0], site[1]].contiguous()
+        v3 = vp[:, site[0], site[1]].contiguous()
+        assert torch.equal(got, K.paged_flash_decode(q, k3, v3, tables,
+                                                     valid_len=valid, block_size=bs))
+        rows = paged_rows(tables, bs)
+        ck = k3[rows].transpose(1, 2).contiguous()
+        cv = v3[rows].transpose(1, 2).contiguous()
+        for block_s in (16, 64, None):
+            paged = K.paged_flash_decode(q, kp, vp, tables, valid_len=valid,
+                                         block_size=bs, layer=site, block_s=block_s)
+            dense = K.flash_decode(q, ck, cv, valid_len=valid,
+                                   block_s=page_block_s(ck.shape[2], bs, block_s))
+            assert torch.equal(paged, dense), (site, block_s)
+
+
+def test_decode_kernels_refuse_unconverted_operands(cuda):
+    """On the card the decode wrappers take int32 device tensors as they
+    are and raise on anything else, instead of converting at every site."""
+    q, kp, vp, tables, valid = _paged_case(cuda, "float32", b=2, v_blocks=4, pages=16)
+    site = dict(block_size=16, layer=(0, 0))
+    with pytest.raises(ValueError, match="valid_len"):
+        K.paged_flash_decode(q, kp, vp, tables, valid_len=valid.long(), **site)
+    with pytest.raises(ValueError, match="tables"):
+        K.paged_flash_decode(q, kp, vp, tables.long(), valid_len=valid, **site)
+    k = torch.zeros((2, 10, 64, 128), device=cuda)
+    with pytest.raises(ValueError, match="valid_len"):
+        K.flash_decode(q, k, k, valid_len=valid.cpu())
+
+
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "gemma3-1b"])
+def test_reduced_engine_on_card_equals_cpu(cuda, arch):
+    """The paged engine on the card (decode kernels) and on the CPU (their
+    plain versions) serve the same tokens from the same f32 weights."""
+    cfg = get_config(arch).reduced()
+    params = get_model(cfg).init(0, "cpu")
+    prompts = {i: [3 + i, 17, 5, 9, 2 + i] for i in range(6)}
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", to_device(params, cuda))):
+        sc = ServeConfig(max_len=32, batch=4, num_blocks=24, prefill_chunk=3)
+        eng = PagedServingEngine(cfg, p, sc, eos_id=-1)
+        for rid, pr in prompts.items():
+            eng.submit(pr, rid=rid)
+        before = K.launch_counts()
+        outs[dev] = eng.run_until_done()
+        launched = K.launch_counts()["paged_flash_decode"] - before["paged_flash_decode"]
+        if dev == "cuda" and arch == "phi3-medium-14b":
+            assert launched == cfg.n_layers * eng.stats()["decode_steps"]
+    assert outs["cpu"] == outs["cuda"]

@@ -251,9 +251,10 @@ class TestOracles:
 
     def test_build_needs_nvcc_and_hashes_sources(self, monkeypatch):
         names = _build.sources()
-        assert names == ["flash_attention", "fused_mlp", "queue_reduce"]
+        assert names == ["flash_attention", "flash_decode", "fused_mlp",
+                         "paged_attention", "queue_reduce"]
         paths = {_build._library_path(n) for n in names}
-        assert len(paths) == 3 and all(p.suffix == ".so" for p in paths)
+        assert len(paths) == 5 and all(p.suffix == ".so" for p in paths)
         monkeypatch.setattr(_build.shutil, "which", lambda _: None)
         monkeypatch.setattr(_build.os, "access", lambda *a: False)
         monkeypatch.setattr(_build, "_library_path",
