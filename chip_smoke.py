@@ -30,18 +30,37 @@ Phases, each failing the run on any error (no phase's exception is caught):
      pools are sized by the profiling pass (num_blocks=None, as the
      launcher builds it) must equal its tokens in the batch, and the
      reduced config (f32) must serve the same tokens on the card as on the
-     CPU.
+     CPU;
+  8. training (phase 3 also holds the backward kernels and each autograd
+     Function's gradients): gemma3-1b at full width and depth (26 layers,
+     1.00 B bf16 parameters from a seed, AdamW, remat, 4 x 2048 tokens) takes
+     3 steps on distinct batches and 5 on one repeated batch, where its loss
+     must fall, each step launching fused_mlp_swiglu_bwd 26 and
+     fused_mlp_swiglu 52 times (forward + remat recompute), with a
+     torch.profiler split of one step; whisper-small (12 + 12 layers, 8 x
+     1500 stub frames, 448 tokens) takes 3 steps, each launching
+     fused_mlp_bwd 24 times (12 at the encoder's rows, 12 at the
+     decoder's) and fused_mlp 36 times; the reduced gemma3/whisper
+     configs (f32) train the same on the card as on the CPU, and twice
+     alike on the card; the training launcher runs gemma3-1b for 4 steps in
+     a subprocess and saves its checkpoint.
 The launch counters are zeroed just before phase 4 and read just after
 phase 6 (the compiler's main path), and zeroed and read around each engine
-run of phase 7 (the serving paths).  The second-to-last line is the
+run of phase 7 (the serving paths) and each full-width run of phase 8
+(the training paths).  The second-to-last line is the
 per-kernel JSON summary: one row per kernel and main-path shape, its
-`launches` taken from the run of the path that row belongs to, with every
-run's own count beside it.  The last line is {"ok": true, "device": ...}.
+`launches` taken from the run of the path that row belongs to (for the two
+fused_mlp_bwd rows, only that run's launches at the row's input rows), with
+every run's own count beside it.  The last line is {"ok": true, "device": ...}.
 """
+import gc
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -60,11 +79,19 @@ from repro_torch import apps  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.train import (TrainConfig, make_train_state,  # noqa: E402
+                               make_train_step)
+from repro_torch.tree import flatten, leaves  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention_plain,  # noqa: E402
                                                  flash_decode_plain)
 from repro_torch.kernels.fused_mlp import (MAX_BLOCK_H,  # noqa: E402
+                                           fused_mlp_bwd_plain,
                                            fused_mlp_fwd_plain,
+                                           fused_mlp_swiglu_bwd_plain,
                                            fused_mlp_swiglu_fwd_plain)
+from repro_torch.kernels.ref import DACTS  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_flash_decode_plain  # noqa: E402
 from repro_torch.kernels.queue_reduce import queue_reduce_plain  # noqa: E402
 from repro_torch.kernels.ref import paged_rows  # noqa: E402
@@ -90,6 +117,11 @@ REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # ||out - ref|| / ||ref|| may be at most twice bsp's own (+1e-3), and at
 # most MODEL_TOL against bsp itself.
 MODEL_TOL = 5e-2
+# The backward kernels' bf16 weight gradients against the plain version's
+# own spread under reordered sums (see `check`): how many times that spread
+# they may differ, and over how many reorderings it is taken.
+FLOOR_FACTOR = 2.0
+N_REORDER = 3
 SOURCES = {
     "fused_mlp": ("src/repro_torch/kernels/csrc/fused_mlp.cu",
                   "src/repro/kernels/fused_mlp.py:100"),
@@ -103,9 +135,14 @@ SOURCES = {
                      "src/repro/kernels/flash_attention.py:210"),
     "paged_flash_decode": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                            "src/repro/kernels/paged_attention.py:61"),
+    "fused_mlp_bwd": ("src/repro_torch/kernels/csrc/fused_mlp_bwd.cu",
+                      "src/repro/kernels/fused_mlp.py:318"),
+    "fused_mlp_swiglu_bwd": ("src/repro_torch/kernels/csrc/fused_mlp_bwd.cu",
+                             "src/repro/kernels/fused_mlp.py:264"),
 }
 # summary rows: phase-3 case -> (kernel, the path whose run counts its
-# launches, the shape its times were taken at)
+# launches, the shape its times were taken at[, the kernel's input rows, where
+# the path runs it at several: only those launches are the row's])
 SUMMARY = {
     "fused_mlp": ("fused_mlp", "compiler", "x (524288, 256) -> 256 -> 256, relu"),
     "fused_mlp_swiglu": ("fused_mlp_swiglu", "compiler",
@@ -119,6 +156,14 @@ SUMMARY = {
                            "tables (8, 32)"),
     "fused_mlp_swiglu_decode": ("fused_mlp_swiglu", "serve_native",
                                 "x (8, 5120) -> 17920 -> 5120, silu"),
+    "fused_mlp_swiglu_train": ("fused_mlp_swiglu", "train_gemma3",
+                               "x (8192, 1152) -> 6912 -> 1152, silu"),
+    "fused_mlp_swiglu_bwd": ("fused_mlp_swiglu_bwd", "train_gemma3",
+                             "x, dy (8192, 1152), 1152 -> 6912 -> 1152, silu"),
+    "fused_mlp_bwd": ("fused_mlp_bwd", "train_whisper",
+                      "x, dy (12000, 768), 768 -> 3072 -> 768, gelu (encoder)", 8 * 1500),
+    "fused_mlp_bwd_dec": ("fused_mlp_bwd", "train_whisper",
+                          "x, dy (3584, 768), 768 -> 3072 -> 768, gelu (decoder)", 8 * 448),
 }
 # phase 7: phi3-medium-14b behind the paged engine
 SERVE_ARCH = "phi3-medium-14b"
@@ -176,15 +221,48 @@ def worst(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, flo
     return d.max().item(), ratio.max().item()
 
 
-def check(name: str, got, want, dtype) -> tuple[float, float]:
+def check(name: str, got, want, dtype, floors=None) -> tuple[float, float]:
     """(max |got - want|, relative error), raising if either bound of
-    `dtype` is broken."""
+    `dtype` is broken; for a tuple of outputs (the backward kernels'
+    gradients) every output is held and the worst of each is returned.
+
+    `floors`, where given (the backward kernels' weight gradients in
+    bfloat16), are the plain version computed again with its contractions
+    summed in other orders (see `reordered`).  Those kernels round t, da,
+    dg, du to bf16 as the plain version does; an f32 difference of one ulp
+    in a hidden value flips its bf16 rounding and moves a whole row of a
+    weight gradient by ulp(t) * |dy|, whatever that gradient element's own
+    size, so the plain version breaks atol = rtol = 2e-2 against a
+    reordering of itself.  There the kernel is held to the plain version's
+    own disagreement: its elementwise ratio may be at most FLOOR_FACTOR
+    times the worst of the reorderings' (or <= 1), its max |err| at most
+    FLOOR_FACTOR times the larger of theirs and one ulp of the largest
+    output (the max |err| of either is that output's own rounding: one ulp
+    of whichever large element flipped), and the relative-norm bound is
+    unchanged."""
+    if isinstance(got, tuple):
+        errs = [check(f"{name}[{i}]", g, w, dtype,
+                      None if floors is None or floors[0][i] is None
+                      else [f[i] for f in floors])
+                for i, (g, w) in enumerate(zip(got, want))]
+        return max(e for e, _ in errs), max(r for _, r in errs)
     tol = TOL[dtype]
     rel = rel_err(got, want)                  # checks shape and finiteness
     err, ratio = worst(got, want, tol)
-    if ratio > 1.0 or rel > REL_TOL[dtype]:
-        raise AssertionError(f"{name}: max |err| {err:.4g} (atol=rtol={tol}, "
-                             f"ratio {ratio:.3f}), relative error {rel:.3g} "
+    err_limit, ratio_limit = math.inf, 1.0
+    if floors is not None:
+        f_err, f_ratio = (max(v) for v in zip(*(worst(f, want, tol) for f in floors)))
+        top = want.float().abs().max().item()
+        ulp = torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(top)) if top else 0.0
+        err_limit = FLOOR_FACTOR * max(f_err, ulp)
+        ratio_limit = max(1.0, FLOOR_FACTOR * f_ratio)
+        print(f"{name}: max |err| {err:.4g}, ratio {ratio:.3f}; the plain version against "
+              f"{len(floors)} reorderings of itself: max |err| {f_err:.4g}, ratio "
+              f"{f_ratio:.3f}; limits {err_limit:.4g}, {ratio_limit:.3f}", flush=True)
+    if err > err_limit or ratio > ratio_limit or rel > REL_TOL[dtype]:
+        raise AssertionError(f"{name}: max |err| {err:.4g} (limit {err_limit:.4g}), "
+                             f"elementwise ratio {ratio:.3f} against atol=rtol={tol} "
+                             f"(limit {ratio_limit:.3f}), relative error {rel:.3g} "
                              f"(limit {REL_TOL[dtype]})")
     return err, rel
 
@@ -246,6 +324,113 @@ def kernel_cases(gen, dtype):
            float(fold.numel()), nbytes(fold) + fold[0].numel() * torch.finfo(dtype).bits // 8)
     del fold
     yield from decode_cases(gen, dtype)
+    yield from train_cases(gen, dtype)
+
+
+def swiglu_bwd_chain(x, wg, wu, wd, dy):
+    """The backward of (silu(x @ wg) * (x @ wu)) @ wd as a chain of cuBLAS
+    GEMMs and elementwise ops with the hidden tensors through HBM: the
+    yardstick (no single PyTorch call computes an MLP backward)."""
+    g, u = x @ wg, x @ wu
+    sg = F.silu(g)
+    dt = dy @ wd.T
+    dg, du = dt * u * DACTS["silu"](g), dt * sg
+    return (dg @ wg.T + du @ wu.T, x.T @ dg, x.T @ du, (sg * u).T @ dy)
+
+
+def mlp_bwd_chain(x, w1, w2, dy):
+    """The backward of gelu(x @ w1) @ w2 as a cuBLAS chain (see above)."""
+    pre = x @ w1
+    da = (dy @ w2.T) * DACTS["gelu"](pre)
+    return (da @ w1.T, x.T @ da, F.gelu(pre, approximate="tanh").T @ dy)
+
+
+def reordered(plain, x, ws, dy, gen):
+    """N_REORDER times, `plain`'s weight gradients with the rows and the
+    input and output features permuted before and the features restored
+    after: the same function, every GEMM's f32 sum taken in another order
+    (the floors `check` holds those gradients to).  dX, a sum over H of
+    small weights times hidden values, keeps the plain elementwise bound:
+    its slot is None."""
+    *w_in, w_out = ws
+    outs = []
+    for _ in range(N_REORDER):
+        pm = torch.randperm(x.shape[0], generator=gen, device=x.device)
+        pi = torch.randperm(x.shape[1], generator=gen, device=x.device)
+        po = torch.randperm(dy.shape[1], generator=gen, device=x.device)
+        ii, io = torch.argsort(pi), torch.argsort(po)
+        _, *dw_in, dw_out = plain(x[pm][:, pi], *(w[pi] for w in w_in), w_out[:, po],
+                                  dy[pm][:, po])
+        outs.append((None, *(d[ii] for d in dw_in), dw_out[:, io]))
+    return outs
+
+
+def train_cases(gen, dtype):
+    """Phase 8's MLP kernels at its shapes: gemma3-1b's FFN over 4 x 2048
+    tokens (B2 forward, B7 backward) and whisper-small's over the encoder's
+    8 x 1500 and the decoder's 8 x 448 rows (B6).  float32 runs at fewer
+    rows.  Operations count the GEMMs the function needs (B7: g, u, dt, two
+    for dX, three for dW = 8; B6: pre, dt, one for dX, two for dW = 5), not
+    the kernels' own: they recompute g, u and dt (B6: pre and dt) in both of
+    their kernels, 11 GEMMs (B6: 7)."""
+    D, H = 1152, 6912
+    M = 8192 if dtype == torch.bfloat16 else 1024
+    x, dy = randn(gen, M, D, dtype=dtype), randn(gen, M, D, dtype=dtype)
+    wg, wu = (randn(gen, D, H, dtype=dtype, scale=D ** -0.5) for _ in range(2))
+    wd = randn(gen, H, D, dtype=dtype, scale=H ** -0.5)
+    gemm = 2.0 * M * D * H
+    yield ("fused_mlp_swiglu_train",
+           lambda: K.fused_mlp_swiglu_fwd(x, wg, wu, wd, act="silu"),
+           lambda: fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, "silu"),
+           lambda: (F.silu(x @ wg) * (x @ wu)) @ wd,
+           3 * gemm, nbytes(x, wg, wu, wd, x))
+    yield ("fused_mlp_swiglu_bwd",
+           lambda: K.fused_mlp_swiglu_bwd(x, wg, wu, wd, dy, act="silu"),
+           lambda: fused_mlp_swiglu_bwd_plain(x, wg, wu, wd, dy, "silu"),
+           lambda: swiglu_bwd_chain(x, wg, wu, wd, dy),
+           8 * gemm, 2 * nbytes(x, wg, wu, wd, dy) - nbytes(dy),
+           lambda: reordered(lambda *a: fused_mlp_swiglu_bwd_plain(*a, "silu"), x,
+                             (wg, wu, wd), dy, gen))
+    del x, dy, wg, wu, wd
+    D, H = 768, 3072
+    for name, rows in (("fused_mlp_bwd", 8 * 1500), ("fused_mlp_bwd_dec", 8 * 448)):
+        M = rows if dtype == torch.bfloat16 else rows // 8
+        x, dy = randn(gen, M, D, dtype=dtype), randn(gen, M, D, dtype=dtype)
+        w1 = randn(gen, D, H, dtype=dtype, scale=D ** -0.5)
+        w2 = randn(gen, H, D, dtype=dtype, scale=H ** -0.5)
+        yield (name,
+               lambda: K.fused_mlp_bwd(x, w1, w2, dy, act="gelu"),
+               lambda: fused_mlp_bwd_plain(x, w1, w2, dy, "gelu"),
+               lambda: mlp_bwd_chain(x, w1, w2, dy),
+               5 * 2.0 * M * D * H, 2 * nbytes(x, w1, w2, dy) - nbytes(dy),
+               lambda: reordered(lambda *a: fused_mlp_bwd_plain(*a, "gelu"), x, (w1, w2),
+                                 dy, gen))
+        del x, dy, w1, w2
+
+
+def function_grads() -> None:
+    """Each autograd Function's gradients on the card (forward kernel,
+    backward kernel) against torch.autograd of the plain forward, float32,
+    at a mid-size shape."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for gated, (M, D, H, act) in ((True, (2048, 1152, 6912, "silu")),
+                                  (False, (1500, 768, 3072, "gelu"))):
+        ws = [randn(gen, D, H, dtype=torch.float32, scale=D ** -0.5) for _ in range(1 + gated)]
+        ws.append(randn(gen, H, D, dtype=torch.float32, scale=H ** -0.5))
+        x = randn(gen, M, D, dtype=torch.float32)
+        dy = randn(gen, M, D, dtype=torch.float32)
+        ins = [t.requires_grad_() for t in (x, *ws)]
+        fn, plain = ((K.mlp_swiglu, fused_mlp_swiglu_fwd_plain) if gated
+                     else (K.mlp, fused_mlp_fwd_plain))
+        before = K.launch_counts()
+        got = torch.autograd.grad(fn(*ins, act=act), ins, dy)
+        kern = "fused_mlp_swiglu_bwd" if gated else "fused_mlp_bwd"
+        if K.launch_counts()[kern] != before[kern] + 1:
+            raise AssertionError(f"{kern} was not launched by the Function's backward")
+        want = torch.autograd.grad(plain(*ins, act), ins, dy)
+        err, rel = check(f"{fn.__name__} grads", tuple(got), tuple(want), torch.float32)
+        print(f"function {fn.__name__} ({M}, {D}->{H}->{D}) {act}: gradients vs autograd "
+              f"of the plain forward, max |err| {err:.3g}, rel {rel:.3g} (f32)", flush=True)
 
 
 def decode_cases(gen, dtype):
@@ -318,8 +503,10 @@ def phase_kernels() -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator(device="cuda").manual_seed(3)
         reps = 5 if dtype == torch.bfloat16 else 2
-        for name, kern, plain, lib, flops, nb in kernel_cases(gen, dtype):
-            err, rel = check(f"{name}[{dtype}]", kern(), plain(), dtype)
+        for name, kern, plain, lib, flops, nb, *reorder in kernel_cases(gen, dtype):
+            floors = reorder[0]() if reorder and dtype == torch.bfloat16 else None
+            err, rel = check(f"{name}[{dtype}]", kern(), plain(), dtype, floors)
+            del floors
             cold = name in COLD_CASES
             t_op, t_by = flops / PEAK[dtype], nb / HBM
             if name.startswith("queue_reduce"):
@@ -337,6 +524,7 @@ def phase_kernels() -> dict:
             torch.cuda.empty_cache()
         del gen
         torch.cuda.empty_cache()
+    function_grads()
     return rows
 
 
@@ -650,6 +838,238 @@ def phase_serving() -> dict[str, dict[str, int]]:
     print(f"phase 7 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
     return runs
 
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+
+TRAIN_LR = 1e-3          # AdamW (f32 moments), constant
+# |first loss - ln(vocab)|: random logits of spread ~0.7 add ~0.25 to the
+# log-sum-exp and the z-loss ~0.02, so the first loss sits near ln(vocab)
+FIRST_LOSS_MARGIN = 1.0
+
+
+def train_batches(cfg, batch: int, seq: int, seed: int = 0):
+    """step -> the step's batch on the card: SyntheticLM tokens, and for the
+    encoder-decoder 1500 stub frames drawn from (seed, step)."""
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed))
+
+    def at(step: int) -> dict:
+        out = {"tokens": torch.from_numpy(data.batch(step)["tokens"]).to("cuda")}
+        if cfg.family == "encdec":
+            rng = np.random.default_rng((seed, step))
+            out["frame_embeds"] = torch.from_numpy(rng.standard_normal(
+                (batch, 1500, cfg.d_model), dtype=np.float32)).to("cuda")
+        return out
+    return at
+
+
+def train_steps(label, state, step_fn, batches, want):
+    """Run `step_fn` over `batches` (counters zeroed by the caller before
+    the run); each step must launch exactly `want` of the kernels named
+    there.  Returns (state, losses, seconds per step)."""
+    losses, secs = [], []
+    for i, b in enumerate(batches):
+        before = K.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        delta = {k: n - before[k] for k, n in K.launch_counts().items()}
+        print(f"train {label} step {i}: loss {loss:.5f}, grad norm {m['grad_norm'].item():.4f}, "
+              f"{1e3 * secs[-1]:.1f} ms, launches { {k: n for k, n in delta.items() if n} }",
+              flush=True)
+        bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
+        if bad or not math.isfinite(loss):
+            raise AssertionError(f"train {label} step {i}: loss {loss}, launches "
+                                 f"(got, want) {bad}")
+        losses.append(loss)
+    return state, losses, secs
+
+
+def profile_train_step(label, step_fn, state, batch, step_s: float) -> None:
+    """One step under torch.profiler: device time by kernel, grouped, and
+    the device's idle share of an unprofiled step (`step_s`)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out, m = step_fn(state, batch)
+        m["loss"].item()
+        torch.cuda.synchronize()
+    del out
+    rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        raise AssertionError(f"profile {label}: the trace holds no kernel")
+    busy_ms = sum(r[2] for r in rows) / 1e3
+    groups = {"B6/B7 backward (mlp_bwd_dx/dw)": ("mlp_bwd",),
+              "B1/B2 forward (fused_mlp_kernel)": ("fused_mlp_kernel",),
+              "B5 folds (queue_reduce)": ("queue_reduce",),
+              "cuBLAS GEMMs": ("gemm", "nvjet", "xmma", "cutlass", "cublas")}
+    split = {g: 0.0 for g in groups}
+    split["other (elementwise, reductions, copies)"] = 0.0
+    for key, _, us in rows:
+        g = next((g for g, keys in groups.items() if any(k in key.lower() for k in keys)),
+                 "other (elementwise, reductions, copies)")
+        split[g] += us / 1e3
+    print(f"profile {label} step: {1e3 * step_s:.1f} ms wall (unprofiled), {busy_ms:.1f} ms of "
+          f"kernels, device idle {100 * (1 - busy_ms / (1e3 * step_s)):.1f} %", flush=True)
+    for g, ms in split.items():
+        print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f} %  {g}", flush=True)
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:12]:
+        print(f"  {us / 1e3:9.3f} ms {count:5d} calls  {key[:90]}", flush=True)
+
+
+def phase_train_gemma() -> dict[str, int]:
+    """8a: gemma3-1b at full width and depth, 4 x 2048 tokens a step."""
+    cfg = get_config("gemma3-1b")
+    opt = adamw(TRAIN_LR)
+    t0 = time.perf_counter()
+    state = make_train_state(cfg, opt, seed=0, device="cuda")
+    n = sum(p.numel() for p in leaves(state["params"]))
+    print(f"train gemma3-1b: {n / 1e9:.3f} B parameters in bf16, {cfg.n_layers} layers, "
+          f"AdamW f32 moments, drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    step = make_train_step(cfg, opt, TrainConfig(remat=True, xent_chunk=512))
+    at = train_batches(cfg, 4, 2048)
+    want = {"fused_mlp_swiglu_bwd": cfg.n_layers, "fused_mlp_swiglu": 2 * cfg.n_layers,
+            "fused_mlp_bwd": 0, "fused_mlp": 0}
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    state, distinct, s1 = train_steps("gemma3-1b", state, step, [at(i) for i in range(3)], want)
+    repeated = at(3)
+    state, rep, s2 = train_steps("gemma3-1b repeated", state, step, [repeated] * 5, want)
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if abs(distinct[0] - math.log(cfg.vocab)) > FIRST_LOSS_MARGIN:
+        raise AssertionError(f"first loss {distinct[0]} is not within {FIRST_LOSS_MARGIN} "
+                             f"of ln({cfg.vocab}) = {math.log(cfg.vocab):.3f}")
+    if not rep[-1] < rep[0]:
+        raise AssertionError(f"loss did not fall on the repeated batch: {rep}")
+    steady = s1[1:] + s2
+    step_s = sum(steady) / len(steady)
+    print(f"train gemma3-1b: first loss {distinct[0]:.4f} (ln V = {math.log(cfg.vocab):.4f}), "
+          f"repeated batch {rep[0]:.4f} -> {rep[-1]:.4f}; {1e3 * step_s:.1f} ms per step "
+          f"(mean of steps 2-8; first {1e3 * s1[0]:.1f}), {4 * 2048 / step_s:.0f} tokens/s, "
+          f"peak allocated {peak / 1e9:.2f} GB", flush=True)
+    profile_train_step("gemma3-1b", step, state, repeated, step_s)
+    return launches
+
+
+def phase_train_whisper() -> tuple[dict[str, int], dict[int, int]]:
+    """8b: whisper-small at full width, 8 x (1500 frames, 448 tokens).
+    Returns the run's launches and fused_mlp_bwd's by input rows."""
+    cfg = get_config("whisper-small")
+    opt = adamw(TRAIN_LR)
+    state = make_train_state(cfg, opt, seed=0, device="cuda")
+    n = sum(p.numel() for p in leaves(state["params"]))
+    print(f"train whisper-small: {n / 1e9:.3f} B parameters in bf16, {cfg.n_layers} + "
+          f"{cfg.n_layers} layers", flush=True)
+    step = make_train_step(cfg, opt, TrainConfig(remat=True, xent_chunk=512))
+    at = train_batches(cfg, 8, 448)
+    # encoder (no remat) and decoder forward, decoder recompute; one
+    # backward per block
+    want = {"fused_mlp_bwd": 2 * cfg.n_layers, "fused_mlp": 3 * cfg.n_layers,
+            "fused_mlp_swiglu_bwd": 0, "fused_mlp_swiglu": 0}
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    state, losses, secs = train_steps("whisper-small", state, step, [at(i) for i in range(3)], want)
+    launches, by_rows = K.launch_counts(), K.launches_by_rows("fused_mlp_bwd")
+    # one backward per encoder block at 8 x 1500 rows, per decoder block at 8 x 448
+    want_rows = {8 * 1500: 3 * cfg.n_layers, 8 * 448: 3 * cfg.n_layers}
+    print(f"train whisper-small: fused_mlp_bwd launches by rows {by_rows}", flush=True)
+    if by_rows != want_rows:
+        raise AssertionError(f"fused_mlp_bwd by rows {by_rows}, want {want_rows}")
+    step_s = sum(secs[1:]) / len(secs[1:])
+    print(f"train whisper-small: losses {losses}; {1e3 * step_s:.1f} ms per step (steps 2-3), "
+          f"{8 * 448 / step_s:.0f} decoder tokens/s ({8 * 1500 / step_s:.0f} frames/s), "
+          f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    return launches, by_rows
+
+
+def phase_train_card_vs_cpu() -> None:
+    """8c: the reduced configs (f32) train 3 steps from the same weights on
+    the card (kernels) and on the CPU (plain versions): losses and every
+    parameter within 2e-4; two card runs give bitwise-equal losses."""
+    for name in ("gemma3-1b", "whisper-small"):
+        cfg = get_config(name).reduced()
+        opt = adamw(1e-3)
+        base = get_model(cfg).init(seed=0, device="cpu")
+        rng = np.random.default_rng(5)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (4, 40)))}
+        if cfg.family == "encdec":
+            batch["frame_embeds"] = torch.from_numpy(
+                rng.standard_normal((4, 40, cfg.d_model), dtype=np.float32))
+
+        def run(device):
+            params = to_device(base, device)
+            state = {"params": params, "opt": opt.init(params)}
+            step = make_train_step(cfg, opt, TrainConfig(xent_chunk=16))
+            b = {k: v.to(device) for k, v in batch.items()}
+            losses = []
+            for _ in range(3):
+                state, m = step(state, b)
+                losses.append(m["loss"].item())
+            return losses, state["params"]
+
+        cpu_l, cpu_p = run("cpu")
+        card_l, card_p = run("cuda")
+        again_l, _ = run("cuda")
+        loss_err = max(abs(a - b) for a, b in zip(cpu_l, card_l))
+        p_err = max((a.float() - b.float().cpu()).abs().max().item()
+                    for (_, a), (_, b) in zip(flatten(cpu_p), flatten(card_p)))
+        print(f"train {name} reduced: card vs CPU losses {card_l} / {cpu_l}, max |diff| "
+              f"{loss_err:.3g}, parameters max |diff| {p_err:.3g} (limit 2e-4); second card "
+              f"run bitwise equal: {again_l == card_l}", flush=True)
+        for (path, a), (_, b) in zip(flatten(cpu_p), flatten(card_p)):
+            torch.testing.assert_close(b.cpu(), a, rtol=2e-4, atol=2e-4, msg=path)
+        if loss_err > 2e-4 * (1 + max(cpu_l)) or again_l != card_l:
+            raise AssertionError(f"{name} reduced: card {card_l}, CPU {cpu_l}, again {again_l}")
+
+
+def phase_train_launcher() -> None:
+    """8d: the training launcher in a subprocess on the card, gemma3-1b at
+    full width, into a fresh checkpoint directory (a stale one would
+    resume), deleted after."""
+    ckpt = Path(tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build"))
+    try:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "gemma3-1b",
+               "--steps", "4", "--batch", "8", "--seq", "128", "--ckpt", str(ckpt)]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                             env=env)
+        wall = time.perf_counter() - t0
+        for line in out.stdout.splitlines():
+            print(f"  launcher: {line}", flush=True)
+        if out.returncode != 0:
+            raise AssertionError(f"launcher exited {out.returncode}:\n{out.stderr[-3000:]}")
+        size = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+        print(f"launcher: exit 0 in {wall:.1f} s (interpreter start, init, 4 steps, save); "
+              f"checkpoint directory {size / 1e9:.2f} GB", flush=True)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def phase_training() -> tuple[dict[str, dict[str, int]], dict[str, dict[int, int]]]:
+    """Returns each full-width training run's launches, per kernel, and the
+    whisper run's fused_mlp_bwd launches by input rows."""
+    t_phase = time.perf_counter()
+    # phase 7's engines hold reference cycles: collect them, or their pools
+    # and the phi3 weights (76 GB) stay allocated
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 8 starts with {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+          flush=True)
+    runs = {"train_gemma3": phase_train_gemma()}
+    torch.cuda.empty_cache()
+    runs["train_whisper"], whisper_rows = phase_train_whisper()
+    torch.cuda.empty_cache()
+    phase_train_card_vs_cpu()
+    torch.cuda.empty_cache()
+    phase_train_launcher()
+    print(f"phase 8 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return runs, {"train_whisper": whisper_rows}
+
 
 def to_device(tree: dict, device) -> dict:
     return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
@@ -691,19 +1111,27 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     paths = {"compiler": compiler_path, **phase_serving()}
+    torch.cuda.empty_cache()
+    train_paths, rows_by_path = phase_training()
+    paths.update(train_paths)
     for path, counts in paths.items():
         print(f"launches, {path} run: { {k: n for k, n in counts.items() if n} }", flush=True)
-    missing = [case for case, (kern, path, _) in SUMMARY.items() if paths[path][kern] == 0]
+
+    def launches(path, kern, n_rows=None):
+        return paths[path][kern] if n_rows is None else rows_by_path[path].get(n_rows, 0)
+
+    missing = [case for case, (kern, path, _, *n_rows) in SUMMARY.items()
+               if launches(path, kern, *n_rows) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: {missing}")
 
     summary = []
-    for case, (kern, path, shape) in SUMMARY.items():
+    for case, (kern, path, shape, *n_rows) in SUMMARY.items():
         row = rows[case]
         source, replaces = SOURCES[kern]
         summary.append({"name": case, "kernel": kern, "route": "cuda", "source": source,
                         "replaces": replaces, "path": path, "shape": shape,
-                        "launches": paths[path][kern],
+                        "launches": launches(path, kern, *n_rows),
                         "launches_by_run": {p: c[kern] for p, c in paths.items() if c[kern]},
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

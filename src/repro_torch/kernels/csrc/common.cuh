@@ -41,6 +41,26 @@ __device__ __forceinline__ float act_apply(int act, float x) {
   }
 }
 
+// d/dx act_apply(act, x): the plain versions' DACTS (kernels/ref.py), the
+// tanh-gelu derivative in its closed form.
+__device__ __forceinline__ float dact_apply(int act, float x) {
+  switch (act) {
+    case ACT_RELU:
+      return x > 0.f ? 1.f : 0.f;
+    case ACT_GELU: {
+      float t = tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x));
+      float du = 0.7978845608028654f * (1.f + 3.f * 0.044715f * x * x);
+      return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * du;
+    }
+    case ACT_SILU: {
+      float s = 1.f / (1.f + expf(-x));
+      return s * (1.f + x * (1.f - s));
+    }
+    default:
+      return 1.f;
+  }
+}
+
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
@@ -63,25 +83,35 @@ __host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) & ~si
 
 // A BM x BN float32 accumulator spread over the NW warps of a block.
 //   mma<K>(A, lda, B, ldb):  acc += A[BM x K] @ B[K x BN]
-// A is row-major in shared memory; B is row-major (B[k * ldb + n]) or, with
+// A is row-major in shared memory (A[m * lda + k]) or, with A_T, stored
+// transposed (A[k * lda + m]); B is row-major (B[k * ldb + n]) or, with
 // B_T, stored transposed (B[n * ldb + k]).  K is a compile-time multiple of
 // 16, so the fragment double-buffer indexes registers statically.
 // load/store(C, ldc) move the tile from/to float32 shared memory
 // (ldc % 4 == 0).  On the tensor-core path the warps form a WR x (NW / WR)
 // grid, each owning (BM / 16 / WR) x (BN / 16 / (NW / WR)) fragments: a
 // squarer warp tile reuses each fragment it loads across more products.
-template <typename T, int BM, int BN, int NW, bool B_T, int WR> struct BlockAcc;
+// el(k), k < NE, is this thread's k-th accumulator element: accumulators of
+// one (BM, BN, NW, WR) share one element mapping whatever their operand
+// layouts, so el(k) of two of them is the same output element.
+template <typename T, int BM, int BN, int NW, bool B_T, int WR, bool A_T = false> struct BlockAcc;
 
-template <int BM, int BN, int NW, bool B_T, int WR>
-struct BlockAcc<__nv_bfloat16, BM, BN, NW, B_T, WR> {
+template <int BM, int BN, int NW, bool B_T, int WR, bool A_T>
+struct BlockAcc<__nv_bfloat16, BM, BN, NW, B_T, WR, A_T> {
   static constexpr int WC = NW / WR;
   static constexpr int FR = BM / 16 / WR, FC = BN / 16 / WC;  // fragments per warp
   static_assert(WR * WC == NW && FR * WR * 16 == BM && FC * WC * 16 == BN,
                 "warps must tile the block");
+  using ALayout = typename std::conditional<A_T, nvcuda::wmma::col_major,
+                                            nvcuda::wmma::row_major>::type;
   using BLayout = typename std::conditional<B_T, nvcuda::wmma::col_major,
                                             nvcuda::wmma::row_major>::type;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> c[FR][FC];
+  using Frag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
+  static constexpr int E = Frag::num_elements, NE = FR * FC * E;
+  Frag c[FR][FC];
   int rb0, cb0;
+
+  __device__ float& el(int k) { return c[k / (FC * E)][(k / E) % FC].x[k % E]; }
 
   __device__ BlockAcc() {
     int w = threadIdx.x >> 5;
@@ -99,12 +129,13 @@ struct BlockAcc<__nv_bfloat16, BM, BN, NW, B_T, WR> {
   template <int K>
   __device__ void mma(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int ldb) {
     using namespace nvcuda;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2][FR];
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> a[2][FR];
     wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> b[2][FC];
     auto fetch = [&](int buf, int k) {
 #pragma unroll
       for (int i = 0; i < FR; ++i)
-        wmma::load_matrix_sync(a[buf][i], A + (rb0 + i) * 16 * lda + k, lda);
+        wmma::load_matrix_sync(
+            a[buf][i], A_T ? A + k * lda + (rb0 + i) * 16 : A + (rb0 + i) * 16 * lda + k, lda);
 #pragma unroll
       for (int f = 0; f < FC; ++f)
         wmma::load_matrix_sync(
@@ -158,13 +189,15 @@ struct BlockAcc<__nv_bfloat16, BM, BN, NW, B_T, WR> {
 
 // The SIMT path ignores WR: 16 threads across the columns, the rest down
 // the rows.
-template <int BM, int BN, int NW, bool B_T, int WR>
-struct BlockAcc<float, BM, BN, NW, B_T, WR> {
+template <int BM, int BN, int NW, bool B_T, int WR, bool A_T>
+struct BlockAcc<float, BM, BN, NW, B_T, WR, A_T> {
   static constexpr int NT = NW * 32, TR = NT / 16;  // 16 threads across columns
-  static constexpr int RI = BM / TR, CJ = BN / 16;
+  static constexpr int RI = BM / TR, CJ = BN / 16, NE = RI * CJ;
   static_assert(RI * TR == BM && CJ * 16 == BN, "threads must tile the block");
   float c[RI][CJ];
   int tr, tc;
+
+  __device__ float& el(int k) { return c[k / CJ][k % CJ]; }
 
   __device__ BlockAcc() {
     tr = threadIdx.x / 16;
@@ -181,7 +214,7 @@ struct BlockAcc<float, BM, BN, NW, B_T, WR> {
     for (int k = 0; k < K; ++k) {
       float a[RI], b[CJ];
 #pragma unroll
-      for (int i = 0; i < RI; ++i) a[i] = A[(tr + i * TR) * lda + k];
+      for (int i = 0; i < RI; ++i) a[i] = A_T ? A[k * lda + tr + i * TR] : A[(tr + i * TR) * lda + k];
 #pragma unroll
       for (int j = 0; j < CJ; ++j) b[j] = B_T ? B[(tc + j * 16) * ldb + k] : B[k * ldb + tc + j * 16];
 #pragma unroll

@@ -34,6 +34,61 @@ def mlp_swiglu_ref(x, wg, wu, wd, act: str = "silu"):
     return _dot(h, wd).to(x.dtype)
 
 
+_SQRT_2_OVER_PI = 0.7978845608028654
+_GELU_C = 0.044715
+
+
+def _dgelu(x):
+    """Closed-form derivative of the tanh-approximated gelu:
+    0.5(1 + tanh u) + 0.5 x sech^2(u) u', u = sqrt(2/pi)(x + 0.044715 x^3)."""
+    u = _SQRT_2_OVER_PI * (x + _GELU_C * x * x * x)
+    t = torch.tanh(u)
+    du = _SQRT_2_OVER_PI * (1.0 + 3.0 * _GELU_C * x * x)
+    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * du
+
+
+# d/dx act(x): the one derivative table of the backward oracles (the CUDA
+# kernels' `dact_apply` in csrc/common.cuh holds the same formulas).
+DACTS = {
+    "relu": lambda x: (x > 0).to(x.dtype),
+    "identity": torch.ones_like,
+    "gelu": _dgelu,
+    "silu": lambda x: torch.sigmoid(x) * (1 + x * (1 - torch.sigmoid(x))),
+}
+
+
+def mlp_bwd_ref(x, w1, w2, dy, act: str = "gelu"):
+    """(dx, dw1, dw2) of mlp_ref: the pre-activation is recomputed and feeds
+    the dX GEMM and both dW GEMMs (Fig 2c).  `t` and `da` are rounded to x's
+    dtype before the GEMMs that consume them; products run in f32 and dW is
+    cast to the weight dtype at the end."""
+    pre = _dot(x, w1)
+    t = ACTS[act](pre)
+    dyf = dy.float()
+    da = (dyf @ w2.float().T) * DACTS[act](pre)
+    da_x = da.to(x.dtype)
+    dx = _dot(da_x, w1.T).to(x.dtype)
+    dw1 = _dot(x.T, da_x).to(w1.dtype)
+    dw2 = (t.to(x.dtype).float().T @ dyf).to(w2.dtype)
+    return dx, dw1, dw2
+
+
+def mlp_swiglu_bwd_ref(x, wg, wu, wd, dy, act: str = "silu"):
+    """(dx, dwg, dwu, dwd) of mlp_swiglu_ref, the gated Fig 2c multicast."""
+    g, u = _dot(x, wg), _dot(x, wu)
+    sg = ACTS[act](g)
+    t = (sg * u).to(x.dtype)
+    dyf = dy.float()
+    dt = dyf @ wd.float().T
+    dg = (dt * u * DACTS[act](g)).to(x.dtype)
+    du = (dt * sg).to(x.dtype)
+    dx = (_dot(dg, wg.T) + _dot(du, wu.T)).to(x.dtype)
+    dwg = _dot(x.T, dg).to(wg.dtype)
+    dwu = _dot(x.T, du).to(wu.dtype)
+    dwd = (t.float().T @ dyf).to(wd.dtype)
+    return dx, dwg, dwu, dwd
+
+
 def _expand_kv(k, v, hq: int):
     hkv = k.shape[1]
     if hq != hkv:

@@ -1,5 +1,6 @@
 """Shared model layers (functional, explicit param dicts), the dense subset
-of `repro/models/layers.py` that single-token decode needs.
+of `repro/models/layers.py` that single-token decode and the full-sequence
+forward need (`_project_qkv` projects and ropes any number of positions).
 
 Parameters keep the reference's layout (wq (d_model, Hq*D), ...), so
 `core.executor.params_from_numpy` carries the reference's weights across
@@ -209,7 +210,8 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, *, groups: int,
 
 
 def mlp_block(p: dict, x: torch.Tensor, *, act: str = "swiglu") -> torch.Tensor:
-    """The paper's Fig 2(a) pattern -> the fused MLP kernels."""
+    """The paper's Fig 2(a) pattern -> the fused MLP kernels; under autograd
+    their backward is the Fig 2(c) kernels (kernels/ops.py)."""
     if act == "swiglu":
         return k_mlp_swiglu(x, p["wg"], p["wu"], p["wd"])
     return k_mlp(x, p["w1"], p["w2"], act=act)

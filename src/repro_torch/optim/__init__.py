@@ -1,0 +1,6 @@
+from .optimizers import (Optimizer, OptState, adafactor, adamw,
+                         clip_by_global_norm, cosine_schedule)
+from .quantized_state import QTensor, dequantize_blockwise, quantize_blockwise
+
+__all__ = ["adamw", "adafactor", "Optimizer", "OptState", "clip_by_global_norm",
+           "cosine_schedule", "QTensor", "quantize_blockwise", "dequantize_blockwise"]

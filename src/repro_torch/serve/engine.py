@@ -37,7 +37,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.costmodel import paged_decode_traffic
 from ..kernels.ref import paged_rows
-from ..models import get_model
+from ..models import check_decode, get_model
 from ..models import lm
 from .block_pool import BlockPool, OutOfBlocks
 from .faults import DeadlineExceeded, EngineError, FaultInjector, QueueFull
@@ -411,7 +411,7 @@ class PagedServingEngine:
         if sc.paged_attention not in ("gather", "native"):
             raise ValueError("paged_attention must be 'gather' or 'native', "
                              f"got {sc.paged_attention!r}")
-        get_model(cfg)                   # refuses families not ported
+        check_decode(cfg)                # refuses families not ported
         self.cfg = cfg
         self.params = params
         self.sc = sc

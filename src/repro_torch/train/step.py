@@ -1,0 +1,143 @@
+"""Train step: remat forward, chunked cross entropy, gradients, global-norm
+clipping, optimizer update and optional microbatch accumulation -- the
+counterpart of `repro/train/step.py`'s `make_train_step`.
+
+Gradients come from `torch.autograd.grad` over the parameter tree's leaves
+(the functional form of `jax.value_and_grad`); the step returns new
+parameter and optimizer trees and leaves its inputs untouched.  The MLP
+blocks run the fused kernels in both directions (kernels/ops.py); the
+cross entropy's matmul stays `torch.matmul`, as the reference computes it
+outside any Pallas kernel.  `compile_train_step` waits for the capture
+front-end (ROADMAP A4).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from ..configs.base import ArchConfig
+from ..models import get_model
+from ..optim import Optimizer, clip_by_global_norm
+from ..tree import flatten, tree_map, unflatten_like
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    microbatches: int = 1          # gradient-accumulation steps
+    max_grad_norm: float = 1.0
+    remat: bool = True
+    z_loss: float = 1e-4           # logit regularizer (stabilizes bf16 LMs)
+    # sequence-chunk width of the chunked cross entropy (peak logits memory
+    # is O(chunk * vocab))
+    xent_chunk: int = 512
+
+
+def _lse(logits: torch.Tensor) -> torch.Tensor:
+    """log-sum-exp over the last axis of f32 logits, the max held constant."""
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    return torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+
+
+def loss_fn(logits: torch.Tensor, tokens: torch.Tensor, z_loss: float = 0.0) -> torch.Tensor:
+    """Next-token cross entropy over the last len(tokens) - 1 positions (a
+    non-token prefix, e.g. vlm patches, occupies the first ones)."""
+    targets = tokens[:, 1:]
+    n = targets.shape[1]
+    pf = logits[:, -n - 1:-1].float()          # position t-1 predicts target t
+    lse = _lse(pf)
+    ll = pf.gather(-1, targets[..., None].long())[..., 0]
+    loss = (lse - ll).mean()
+    if z_loss:
+        loss = loss + z_loss * lse.square().mean()
+    return loss
+
+
+def _xent_chunk(xi, table, ti):
+    """(sum of -log p, sum of lse^2, count) over one chunk's valid targets
+    (ti >= 0)."""
+    logits = (xi @ table.T).float()
+    lse = _lse(logits)
+    valid = (ti >= 0).float()
+    ll = logits.gather(-1, ti.clamp(min=0)[..., None].long())[..., 0]
+    return ((lse - ll) * valid).sum(), (lse.square() * valid).sum(), valid.sum()
+
+
+def chunked_softmax_xent(x: torch.Tensor, table: torch.Tensor, tokens: torch.Tensor,
+                         z_loss: float = 0.0, chunk: int = 512) -> torch.Tensor:
+    """Cross entropy without materializing (B, S, V) logits.
+
+    x: (B, S, D) final hidden states; table: (V, D).  Each sequence chunk's
+    logits (B, chunk, V) exist only inside a `torch.utils.checkpoint`ed
+    call, so peak memory is O(chunk * V) rather than O(S * V); a ragged last
+    chunk is padded with targets -1, which count nothing."""
+    targets = tokens[:, 1:]
+    n = targets.shape[1]
+    xs = x[:, -n - 1:-1]
+    pad = (-n) % chunk
+    if pad:
+        xs = F.pad(xs, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+    tot = totz = cnt = 0.0
+    for c in range(0, n + pad, chunk):
+        t, tz, k = checkpoint(_xent_chunk, xs[:, c:c + chunk], table,
+                              targets[:, c:c + chunk], use_reentrant=False)
+        tot, totz, cnt = tot + t, totz + tz, cnt + k
+    loss = tot / cnt
+    if z_loss:
+        loss = loss + z_loss * totz / cnt
+    return loss
+
+
+def make_train_state(cfg: ArchConfig, opt: Optimizer, seed: int = 0,
+                     device="cuda") -> dict:
+    params = get_model(cfg).init(seed, device)
+    return {"params": params, "opt": opt.init(params)}
+
+
+def value_and_grad(fn: Callable, params, *args):
+    """(fn(params, *args) detached, d fn / d params as a tree like params)."""
+    flat = flatten(params)
+    live = {path: t.detach().requires_grad_() for path, t in flat}
+    value = fn(unflatten_like(params, live), *args)
+    grads = torch.autograd.grad(value, list(live.values()))
+    return value.detach(), unflatten_like(params, dict(zip(live, grads)))
+
+
+def make_train_step(cfg: ArchConfig, opt: Optimizer,
+                    tc: TrainConfig = TrainConfig()) -> Callable:
+    """Returns step(state, batch) -> (state, metrics)."""
+    model = get_model(cfg)
+
+    def fwd_loss(params, batch):
+        hidden = model.forward(params, batch, remat=tc.remat, return_hidden=True)
+        table = params.get("unembed", params["embed"])
+        return chunked_softmax_xent(hidden, table, batch["tokens"], tc.z_loss,
+                                    chunk=tc.xent_chunk)
+
+    def step(state, batch):
+        params = state["params"]
+        if tc.microbatches > 1:
+            # one microbatch of activations live at a time
+            k = tc.microbatches
+            loss = torch.zeros((), device=batch["tokens"].device)
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            for i in range(k):
+                mb = {n: t.reshape(k, t.shape[0] // k, *t.shape[1:])[i]
+                      for n, t in batch.items()}
+                lv, g = value_and_grad(fwd_loss, params, mb)
+                loss = loss + lv
+                grads = tree_map(torch.add, grads, g)
+            loss = loss / k
+            grads = tree_map(lambda g: g / k, grads)
+        else:
+            loss, grads = value_and_grad(fwd_loss, params, batch)
+        grads, gnorm = clip_by_global_norm(grads, tc.max_grad_norm)
+        new_params, new_opt = opt.update(grads, state["opt"], params)
+        return {"params": new_params, "opt": new_opt}, {"loss": loss, "grad_norm": gnorm}
+
+    return step

@@ -184,14 +184,18 @@ def test_pass_manager_order_and_disable():
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """repro_torch, and everything chip_smoke.py imports, loads without jax
-    and without the reference package (checked in a fresh interpreter)."""
+    """repro_torch (serving and training modules included), and everything
+    chip_smoke.py imports, loads without jax and without the reference
+    package (checked in a fresh interpreter)."""
     code = (
         "import sys, runpy, json\n"
         "import repro_torch, repro_torch.apps, repro_torch.kernels\n"
         "import repro_torch.kernels._build, repro_torch.core.lower\n"
         "import repro_torch.serve, repro_torch.models, repro_torch.configs\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.train, repro_torch.optim, repro_torch.data\n"
+        "import repro_torch.checkpoint, repro_torch.runtime, repro_torch.tree\n"
+        "import repro_torch.launch.train, repro_torch.models.encdec\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "

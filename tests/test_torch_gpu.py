@@ -21,13 +21,17 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (flash_attention_plain,
                                                  flash_decode_plain,
                                                  page_block_s)
-from repro_torch.kernels.fused_mlp import (fused_mlp_fwd_plain,
+from repro_torch.kernels.fused_mlp import (fused_mlp_bwd_plain, fused_mlp_fwd_plain,
+                                           fused_mlp_swiglu_bwd_plain,
                                            fused_mlp_swiglu_fwd_plain)
 from repro_torch.kernels.paged_attention import paged_flash_decode_plain
 from repro_torch.kernels.queue_reduce import queue_reduce_plain
 from repro_torch.kernels.ref import paged_rows
 from repro_torch.models import get_model
+from repro_torch.optim import adamw
 from repro_torch.serve import PagedServingEngine, ServeConfig
+from repro_torch.train import TrainConfig, make_train_state, make_train_step
+from repro_torch.tree import flatten
 
 pytestmark = pytest.mark.gpu
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -217,3 +221,108 @@ def test_reduced_engine_on_card_equals_cpu(cuda, arch):
         if dev == "cuda" and arch == "phi3-medium-14b":
             assert launched == cfg.n_layers * eng.stats()["decode_steps"]
     assert outs["cpu"] == outs["cuda"]
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels, the autograd Functions, a train step
+# ---------------------------------------------------------------------------
+
+BWD_SHAPES = [(100, 60, 300, 50, "relu"),       # no 16-byte rows, one chunk
+              (130, 64, 700, 96, "gelu"),       # ragged H over 512 / 128 chunks
+              (300, 128, 1100, 128, "silu"),    # ragged M over 256 / 128 slices
+              (64, 32, 128, 40, "identity")]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("m,d,h,o,act", BWD_SHAPES)
+def test_fused_mlp_bwd_kernels(cuda, m, d, h, o, act, dtype):
+    """B6 and B7 against their plain versions (kernels/ref.py), ragged M
+    and H included; one launch each."""
+    x, w1, wu, w2, dy = tensors(cuda, 8, dtype, (m, d), (d, h), (d, h), (h, o), (m, o),
+                                fan_in=True)
+    dy = dy * m ** 0.5                   # undo fan_in's 1/sqrt(m): dy is O(1) too
+    before = K.launch_counts()
+    rows_before = K.launches_by_rows("fused_mlp_bwd").get(m, 0)
+    for got, want in zip(K.fused_mlp_bwd(x, w1, w2, dy, act=act),
+                         fused_mlp_bwd_plain(x, w1, w2, dy, act)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        close(got, want, TOL[dtype])
+    for got, want in zip(K.fused_mlp_swiglu_bwd(x, w1, wu, w2, dy, act=act),
+                         fused_mlp_swiglu_bwd_plain(x, w1, wu, w2, dy, act)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        close(got, want, TOL[dtype])
+    after = K.launch_counts()
+    assert after["fused_mlp_bwd"] == before["fused_mlp_bwd"] + 1
+    assert after["fused_mlp_swiglu_bwd"] == before["fused_mlp_swiglu_bwd"] + 1
+    assert K.launches_by_rows("fused_mlp_bwd")[m] == rows_before + 1
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_mlp_functions_grad_on_card(cuda, gated):
+    """K.mlp / K.mlp_swiglu under autograd (forward kernel, backward kernel)
+    against autograd of the plain forward, float32."""
+    x, w1, wu, w2, dy = tensors(cuda, 9, "float32", (3, 70, 96), (96, 600), (96, 600),
+                                (600, 80), (3, 70, 80), fan_in=True)
+    ins = [x, w1, wu, w2] if gated else [x, w1, w2]
+    ins = [t.clone().requires_grad_() for t in ins]
+    if gated:
+        y = K.mlp_swiglu(*ins, act="silu")
+        y_ref = fused_mlp_swiglu_fwd_plain(ins[0].reshape(-1, 96), *ins[1:], "silu")
+    else:
+        y = K.mlp(*ins, act="gelu")
+        y_ref = fused_mlp_fwd_plain(ins[0].reshape(-1, 96), *ins[1:], "gelu")
+    got = torch.autograd.grad(y, ins, dy)
+    want = torch.autograd.grad(y_ref, ins, dy.reshape(-1, 80))
+    for g, w in zip(got, want):
+        close(g, w, TOL["float32"])
+
+
+def _train(cfg, device, steps=3, seed=0):
+    opt = adamw(1e-3)
+    state = make_train_state(cfg, opt, seed=seed, device="cpu")
+    state = {"params": to_device(state["params"], device),
+             "opt": opt.init(to_device(state["params"], device))}
+    step = make_train_step(cfg, opt, TrainConfig(xent_chunk=8))
+    rng = np.random.default_rng(seed + 1)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12))).to(device)}
+    if cfg.family == "encdec":
+        batch["frame_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, 12, cfg.d_model), dtype=np.float32)).to(device)
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+    return losses, state
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "whisper-small"])
+def test_reduced_train_on_card_equals_cpu(cuda, arch):
+    """Three remat'd train steps of the reduced (f32) config on the card
+    (kernels) and on the CPU (plain versions): losses and every parameter
+    within 2e-4; two card runs give bitwise-equal losses."""
+    cfg = get_config(arch).reduced()
+    cpu_l, cpu_s = _train(cfg, "cpu")
+    card_l, card_s = _train(cfg, cuda)
+    np.testing.assert_allclose(card_l, cpu_l, rtol=2e-4, atol=2e-4)
+    for (path, c), (_, g) in zip(flatten(cpu_s["params"]), flatten(card_s["params"])):
+        close(g.cpu(), c, 2e-4)
+    assert _train(cfg, cuda)[0] == card_l
+
+
+def test_card_training_never_calls_plain(cuda, monkeypatch):
+    """On the card the training path launches kernels only: every *_plain
+    function of the kernel modules is patched to raise."""
+    def boom(*_, **__):
+        raise AssertionError("a plain version ran on the card path")
+
+    for mod in {fn.__module__ for fn in K.KERNELS.values()}:
+        module = __import__(mod, fromlist=["_"])
+        for name in [n for n in vars(module) if n.endswith("_plain")]:
+            monkeypatch.setattr(module, name, boom)
+    before = K.launch_counts()
+    losses, _ = _train(get_config("gemma3-1b").reduced(), cuda, steps=1)
+    after = K.launch_counts()
+    n = get_config("gemma3-1b").reduced().n_layers
+    assert after["fused_mlp_swiglu_bwd"] - before["fused_mlp_swiglu_bwd"] == n
+    assert after["fused_mlp_swiglu"] - before["fused_mlp_swiglu"] == 2 * n   # + remat
+    assert np.isfinite(losses).all()

@@ -243,18 +243,32 @@ class TestOracles:
         calls = [lambda: K.fused_mlp_fwd(x, w1, w2),
                  lambda: K.fused_mlp_swiglu_fwd(x, w1, w1, w2),
                  lambda: K.flash_attention(q, q, q),
-                 lambda: K.queue_reduce(q[0])]
+                 lambda: K.queue_reduce(q[0]),
+                 lambda: K.fused_mlp_bwd(x, w1, w2, x),
+                 lambda: K.fused_mlp_swiglu_bwd(x, w1, w1, w2, x)]
         for call in calls:
             with pytest.raises(ValueError, match="CUDA device"):
                 call()
         assert set(K.launch_counts().values()) == {0}
+        assert K.launches_by_rows("fused_mlp_bwd") == {}
+        assert K.launches_by_rows("fused_mlp_swiglu_bwd") == {}
+
+    def test_reset_clears_launches_by_rows(self, monkeypatch):
+        """The backward kernels' counts by input rows are zeroed with the
+        totals."""
+        monkeypatch.setattr(K.fused_mlp_bwd, "launches_by_rows", {12000: 36, 3584: 36})
+        monkeypatch.setattr(K.fused_mlp_bwd, "launches", 72)
+        assert K.launches_by_rows("fused_mlp_bwd") == {12000: 36, 3584: 36}
+        K.reset_launch_counts()
+        assert K.launches_by_rows("fused_mlp_bwd") == {}
+        assert K.launch_counts()["fused_mlp_bwd"] == 0
 
     def test_build_needs_nvcc_and_hashes_sources(self, monkeypatch):
         names = _build.sources()
         assert names == ["flash_attention", "flash_decode", "fused_mlp",
-                         "paged_attention", "queue_reduce"]
+                         "fused_mlp_bwd", "paged_attention", "queue_reduce"]
         paths = {_build._library_path(n) for n in names}
-        assert len(paths) == 5 and all(p.suffix == ".so" for p in paths)
+        assert len(paths) == 6 and all(p.suffix == ".so" for p in paths)
         monkeypatch.setattr(_build.shutil, "which", lambda _: None)
         monkeypatch.setattr(_build.os, "access", lambda *a: False)
         monkeypatch.setattr(_build, "_library_path",
