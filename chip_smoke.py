@@ -5,7 +5,8 @@
 
 Phases, each failing the run on any error (no phase's exception is caught):
   1. the card's name, power limit and count;
-  2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel);
+  2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
+     and print the registers and spills ptxas reports for each kernel;
   3. hold each kernel against its plain PyTorch version at the shapes the
      main path gives it, in bf16 and f32, and time kernel, plain version,
      a one-call PyTorch yardstick (never used by the port) and the bound;
@@ -57,6 +58,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -174,6 +176,31 @@ SERVE_REQUESTS = 16
 # inputs would otherwise stay cached between timed calls
 COLD_CASES = {"flash_decode", "flash_decode_s4096", "paged_flash_decode",
               "fused_mlp_swiglu_decode"}
+
+
+def ptxas_entries(log: str) -> list[str]:
+    """One line per kernel of an nvcc -Xptxas -v log: the kernel's name with
+    its template arguments, its registers and its spills."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mangled, spill = ln.split("'")[1], ""
+            m = re.search(r"([a-z_]+_kernel)I(.*?)EEv", mangled)
+            if m:
+                args = re.sub(r"Li(\d+)E", r"\1,", m.group(2))
+                args = args.replace("13__nv_bfloat16", "bf16,")
+                args = args.replace("Lb1E", "true,").replace("Lb0E", "false,")
+                args = "f32," + args[1:] if args.startswith("f") else args
+                name = f"{m.group(1)}<{args.rstrip(',')}>"
+            else:
+                name = mangled
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "registers" in ln and name:
+            regs = re.search(r"Used (\d+) registers", ln)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers; {spill}")
+            name = None
+    return out
 
 
 def nbytes(*ts) -> int:
@@ -1092,9 +1119,9 @@ def main() -> int:
     built = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(built)} libraries", flush=True)
     for name, info in built.items():
-        regs = [ln.split(":", 1)[-1].strip() for ln in info["log"].splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"  {name}: nvcc {info['seconds']:.1f} s; " + " | ".join(regs), flush=True)
+        print(f"  {name}: nvcc {info['seconds']:.1f} s", flush=True)
+        for entry in ptxas_entries(info["log"]):
+            print(f"    {entry}", flush=True)
 
     rows = phase_kernels()
 

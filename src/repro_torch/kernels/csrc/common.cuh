@@ -330,74 +330,139 @@ __device__ __forceinline__ void load_tile(T* dst, int lds, const T* src, size_t 
 // only in the row-address functors they pass, so for the same chunk size the
 // paged kernel is bitwise equal to gathering the view and running the dense
 // one.  The math is the TPU kernels' `_decode_kernel_dyn`: f32 scores times
-// `scale`, positions >= the slot's valid length scored NEG_INF, a one-shot
-// max / exp / sum over the chunk (m, l), probabilities rounded to V's dtype
-// before P @ V, partials (o, m, l) written in f32 for `decode_combine_kernel`.
+// `scale`, positions >= the slot's valid length scored NEG_INF,
+// probabilities rounded to V's dtype before P @ V, partials (o, m, l) of
+// the chunk in f32 for `decode_combine_kernel`.  Scores are kept in log2
+// units (scaled by scale * log2 e, exponentiated with fast_exp2), so the
+// partials' m is too.
 //
-// Key and value rows stream through a ring of DEC_STAGES shared-memory
-// sub-tiles of DEC_R rows (16-byte cp.async pieces): first the chunk's K
-// sub-tiles, whose scores go to shared memory, then its V sub-tiles.  Rows at
-// or past the valid length are zero-filled instead of read: their scores are
-// NEG_INF and their probabilities exactly 0, so skipping them changes no bit
-// and the kernel reads only the rows the slot holds.  A chunk that lies
-// wholly past a valid length >= 1 writes (o, m, l) = (0, NEG_INF, 0): the
-// combine weights it by exp(NEG_INF - m_global) == 0 either way.
+// Design: warps own rows.  The chunk's rows are split into DEC_NW
+// contiguous runs, one per warp (and over several blocks, see `split`).
+// Within a warp, LPR = DP / 8 lanes share a row, each holding 8 of its D
+// values (16 bytes of bf16), so a warp works on 32 / LPR rows at once.
+// Each lane streams its pieces of its rows' K and V together through its own
+// ring of DEC_STAGES steps in shared memory (DEC_NB rows a step, 16-byte
+// cp.async copies, DEC_STAGES - 1 steps in flight while it computes one);
+// a lane reads back only what it copied, so there is no barrier of any kind
+// per step.  A score is the lane's 8-wide dot reduced over its LPR lanes by
+// shuffles.  Each lane group keeps an online (m, l) per query row and its
+// G x 8 slice of o in registers (rescaled only when the max grows); P never
+// touches shared memory.  At the end the lane groups merge by shuffles and
+// the warps merge once through shared memory into the block's partials:
+// m the max, l the sum of unrounded probabilities, o the sum of rounded
+// probabilities times V, each rescaled to m as an online softmax does.
+//
+// Rows at or past the valid length are neither read nor weighted.  A chunk
+// that lies wholly past a valid length >= 1 writes (o, m, l) =
+// (0, NEG_INF, 0): the combine weights it by 2^(NEG_INF - m_global) == 0
+// either way.  A slot with no valid position (valid <= 0) weights every row
+// of the chunk by p = 1 (every score NEG_INF), as the plain version does.
+//
+// Bound and measurement (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py): at
+// phi3-medium-14b's serving shape (8 slots, 40 query / 10 kv heads of 128,
+// ragged valid lengths) flash_decode takes 0.0185 ms at S = 512 (bound
+// 0.0033 ms: the valid rows' K and V bytes at 3.35 TB/s) and 0.0498 ms at
+// S = 4096 (bound 0.0179 ms).  Open: at 4 to 8 query rows per kv head the
+// SIMT dots, shuffles and exponentials, replicated over a row's LPR lanes,
+// cost as much as the loads; an mma.sync form (the query group as the
+// 8-wide N of m16n8k16) would leave only the loads.
 // ---------------------------------------------------------------------------
 
-constexpr int DEC_NT = 128;      // threads per decode block
-constexpr int DEC_R = 32;        // key/value rows per staged sub-tile
-constexpr int DEC_STAGES = 4;    // sub-tiles in flight
-constexpr int DEC_GMAX = 8;      // query heads per kv head
-constexpr int DEC_BSMAX = 256;   // rows per split-K chunk
+constexpr int DEC_NT = 256;             // threads per decode block
+constexpr int DEC_NW = DEC_NT / 32;     // warps, one contiguous run of rows each
+constexpr int DEC_NB = 2;               // rows per lane group per step
+constexpr int DEC_STAGES = 4;           // steps in each lane's ring
+constexpr int DEC_GMAX = 8;             // query heads per kv head
+constexpr int DEC_BSMAX = 256;          // rows per split-K chunk
+constexpr int DEC_MAX_SPLIT = 8;        // blocks one chunk may be spread over
 constexpr float DEC_NEG_INF = -1e30f;
 
-// Dynamic shared memory of a decode block for head dims up to DP:
-// q in f32 (GMAX x DP), scores / probabilities (GMAX x BSMAX), the chunk's
-// block-table entries (paged kernel), and the sub-tile ring.
-template <typename T, int DP>
+// Dynamic shared memory of a decode block (element type T, query-group
+// bucket GP, head-dim bucket DP): the lanes' rings (DEC_STAGES x DEC_NB rows
+// x K and V x one 8-value piece each), and over them once the rings are
+// drained each warp's o (GP x DP f32), m, l and merge weight (GP) for the
+// final merge; then the chunk's block-table entries (paged kernel).
+template <typename T, int GP, int DP>
 struct DecodeSmem {
-  static constexpr int LD = DP + Pad<T>::v;  // sub-tile row stride, elements
-  static constexpr size_t q_off = 0;
-  static constexpr size_t p_off = align128(q_off + size_t(DEC_GMAX) * DP * sizeof(float));
-  static constexpr size_t tbl_off = align128(p_off + size_t(DEC_GMAX) * DEC_BSMAX * sizeof(float));
-  static constexpr size_t tile_off = align128(tbl_off + DEC_BSMAX * sizeof(int));
-  static constexpr size_t tile_elems = align128(size_t(DEC_R) * LD * sizeof(T)) / sizeof(T);
-  static constexpr size_t total = tile_off + DEC_STAGES * tile_elems * sizeof(T);
+  static constexpr size_t ring_bytes = size_t(DEC_STAGES) * DEC_NB * 2 * DEC_NT * 8 * sizeof(T);
+  static constexpr size_t o_off = 0;
+  static constexpr size_t m_off = o_off + size_t(DEC_NW) * GP * DP * sizeof(float);
+  static constexpr size_t l_off = m_off + size_t(DEC_NW) * GP * sizeof(float);
+  static constexpr size_t w_off = l_off + size_t(DEC_NW) * GP * sizeof(float);
+  static constexpr size_t merge_end = w_off + size_t(DEC_NW) * GP * sizeof(float);
+  static constexpr size_t tbl_off = align128(ring_bytes > merge_end ? ring_bytes : merge_end);
+  static constexpr size_t total = tbl_off + DEC_BSMAX * sizeof(int);
 };
 
-// 16 bytes of shared memory as floats (4 f32 or 8 bf16 values).
-__device__ __forceinline__ void unpack16(const float* p, float* f) {
-  float4 v = *reinterpret_cast<const float4*>(p);
-  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-}
-__device__ __forceinline__ void unpack16(const __nv_bfloat16* p, float* f) {
-  uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+// 8 consecutive values of a row (16 bytes of bf16, 32 of f32) as N 16-byte
+// words.
+template <typename T>
+struct Piece8 {
+  static constexpr int N = 8 * sizeof(T) / 16;
+  uint4 u[N];
+  __device__ __forceinline__ void load(const T* p) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
+    for (int i = 0; i < N; ++i) u[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
   }
+  // word i of this thread's ring slot lies `stride` words after word i - 1
+  __device__ __forceinline__ void load_shared(const uint4* slot, int stride) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) u[i] = slot[i * stride];
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < N; ++i) u[i] = make_uint4(0, 0, 0, 0);
+  }
+  __device__ __forceinline__ void to_float(float* f) const {
+    if constexpr (sizeof(T) == 2) {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u[0]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float2 t = __bfloat1622float2(h[i]);
+        f[2 * i] = t.x;
+        f[2 * i + 1] = t.y;
+      }
+    } else {
+      const float* s = reinterpret_cast<const float*>(&u[0]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) f[i] = s[i];
+    }
+  }
+};
+
+// 2^x on the special-function unit (ex2.approx: about 2 ulp; results below
+// the smallest normal flush to 0, so 2^(NEG_INF - m) is exactly 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// One block of DEC_NT threads computes the partials of one chunk.
-//   q: this kv head's G query rows (G x D, contiguous)
+// Weight of a partial with max m in a merge whose max is mt, both in log2
+// units (0 for a partial that saw no row, whose m is -inf).
+__device__ __forceinline__ float merge_weight(float m, float mt) {
+  return m == -INFINITY ? 0.f : fast_exp2(m - mt);
+}
+
+// One block of DEC_NT threads computes the partials of one chunk, or of its
+// split-th share when a chunk is spread over n_split blocks.
+//   q: this kv head's G query rows (G x D, contiguous), G <= GP
 //   krow(r) / vrow(r): global address of the chunk's key / value row r, or
-//     nullptr where the row does not exist (zero-filled)
+//     nullptr where the row does not exist (read as zeros)
 //   block_s: rows in the chunk; lim: rows of the chunk before the slot's
 //     valid length (may be <= 0 or > block_s); valid: the valid length
-//   o (G x D), m (G), l (G): this chunk's partials
-template <typename T, int DP, typename KRow, typename VRow>
+//   split of n_split: the chunk's rows are spread over the n_split * DEC_NW
+//     warps of n_split blocks; this block takes split's share
+//   o (G x D), m (G), l (G): this block's partials
+template <typename T, int GP, int DP, typename KRow, typename VRow>
 __device__ void decode_chunk(unsigned char* smem, const T* __restrict__ q, int G, int D,
                              KRow krow, VRow vrow, int block_s, int lim, int valid, float scale,
-                             float* __restrict__ o, float* __restrict__ m, float* __restrict__ l) {
-  using L = DecodeSmem<T, DP>;
-  constexpr int V = 16 / sizeof(T);
-  constexpr int J = DEC_GMAX * DP / DEC_NT;  // P @ V outputs per thread
-  float* qs = reinterpret_cast<float*>(smem + L::q_off);
-  float* ps = reinterpret_cast<float*>(smem + L::p_off);
-  T* tiles = reinterpret_cast<T*>(smem + L::tile_off);
+                             int split, int n_split, float* __restrict__ o, float* __restrict__ m,
+                             float* __restrict__ l) {
+  using L = DecodeSmem<T, GP, DP>;
+  constexpr int NW16 = Piece8<T>::N;  // 16-byte words per piece
+  constexpr int LPR = DP / 8, RPW = 32 / LPR;  // lanes per row, rows per warp step
+  static_assert(LPR >= 1 && LPR <= 32, "head-dim bucket");
 
   // rows to read: those before the valid length; all of them when the slot
   // has no valid position (then every score is NEG_INF and every p is 1)
@@ -410,125 +475,199 @@ __device__ void decode_chunk(unsigned char* smem, const T* __restrict__ q, int G
     }
     return;
   }
-  const int nsub = (rows + DEC_R - 1) / DEC_R;  // sub-tiles per operand
-  const int ntiles = 2 * nsub;                   // K sub-tiles, then V
-  const int pieces = D / V;                      // 16-byte pieces per row
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / LPR, d0 = (lane % LPR) * 8;
+  const bool dok = d0 < D;
+  const float scale2 = scale * 1.4426950408889634f;  // scores in log2 units
 
-  auto issue = [&](int t) {
-    T* dst = tiles + (t % DEC_STAGES) * L::tile_elems;
-    const bool is_v = t >= nsub;
-    const int r0 = (is_v ? t - nsub : t) * DEC_R;
-    for (int idx = threadIdx.x; idx < DEC_R * pieces; idx += DEC_NT) {
-      const int rr = idx / pieces, c = (idx % pieces) * V, r = r0 + rr;
-      const T* src = r < rows ? (is_v ? vrow(r) : krow(r)) : nullptr;
-      cp_async16(dst + rr * L::LD + c, src ? src + c : q, src ? 16 : 0);
+  float qf[GP][8];
+#pragma unroll
+  for (int g = 0; g < GP; ++g) {
+    Piece8<T> pq;
+    if (g < G && dok)
+      pq.load(q + g * D + d0);
+    else
+      pq.zero();
+    pq.to_float(qf[g]);
+  }
+  float mo[GP], lo[GP], acc[GP][8];
+#pragma unroll
+  for (int g = 0; g < GP; ++g) {
+    mo[g] = -INFINITY;
+    lo[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+  }
+
+  const int per = (rows + n_split * DEC_NW - 1) / (n_split * DEC_NW);
+  const int w0 = min((split * DEC_NW + warp) * per, rows), w1 = min(w0 + per, rows);
+  const int n_steps = (w1 - w0 + RPW * DEC_NB - 1) / (RPW * DEC_NB);
+  // this thread's ring: word j of (step slot st, row i, K or V) at
+  // ((st * DEC_NB + i) * 2 + kv) * NW16 + j, in units of DEC_NT words, so a
+  // warp's 32 lanes touch 32 consecutive words
+  uint4* ring = reinterpret_cast<uint4*>(smem) + threadIdx.x;
+  auto word = [&](int st, int i, int kv) {
+    return ring + ((st * DEC_NB + i) * 2 + kv) * NW16 * DEC_NT;
+  };
+  auto issue = [&](int step) {
+    const int st = step % DEC_STAGES;
+#pragma unroll
+    for (int i = 0; i < DEC_NB; ++i) {
+      const int r = w0 + (step * DEC_NB + i) * RPW + grp;
+      const T* kp = r < w1 && dok ? krow(r) : nullptr;
+      const T* vp = r < w1 && dok ? vrow(r) : nullptr;
+#pragma unroll
+      for (int j = 0; j < NW16; ++j) {
+        const int c = d0 + j * 16 / int(sizeof(T));
+        cp_async16(word(st, i, 0) + j * DEC_NT, kp ? kp + c : q, kp ? 16 : 0);
+        cp_async16(word(st, i, 1) + j * DEC_NT, vp ? vp + c : q, vp ? 16 : 0);
+      }
     }
   };
-
-  for (int i = threadIdx.x; i < G * D; i += DEC_NT) qs[(i / D) * DP + i % D] = to_f(q[i]);
-  for (int i = threadIdx.x; i < G * block_s; i += DEC_NT)
-    if (i % block_s >= nsub * DEC_R) ps[(i / block_s) * DEC_BSMAX + i % block_s] = DEC_NEG_INF;
 #pragma unroll
-  for (int t = 0; t < DEC_STAGES - 1; ++t) {
-    if (t < ntiles) issue(t);
+  for (int st = 0; st < DEC_STAGES - 1; ++st) {
+    if (st < n_steps) issue(st);
     cp_async_commit();
   }
-  float acc[J];
-#pragma unroll
-  for (int j = 0; j < J; ++j) acc[j] = 0.f;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int t = 0; t < ntiles; ++t) {
-    cp_async_wait<DEC_STAGES - 2>();
-    __syncthreads();  // sub-tile t (and q) visible; every thread done with t - 1
-    if (t + DEC_STAGES - 1 < ntiles) issue(t + DEC_STAGES - 1);
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<DEC_STAGES - 2>();  // this step's copies have landed
+    if (step + DEC_STAGES - 1 < n_steps) issue(step + DEC_STAGES - 1);  // into the slot of step - 1
     cp_async_commit();
-    const T* tile = tiles + (t % DEC_STAGES) * L::tile_elems;
-    if (t < nsub) {
-      // scores of key rows [t * R, t * R + R): one (query row, key row) per thread
-      for (int idx = threadIdx.x; idx < G * DEC_R; idx += DEC_NT) {
-        const int g = idx / DEC_R, rr = idx % DEC_R, r = t * DEC_R + rr;
-        if (r >= block_s) continue;
-        float s = DEC_NEG_INF;
-        if (r < lim) {
-          const T* kr = tile + rr * L::LD;
-          const float* qg = qs + g * DP;
-          float dot = 0.f;
-          for (int d = 0; d < D; d += V) {
-            float kf[V];
-            unpack16(kr + d, kf);
+    const int st = step % DEC_STAGES, r0 = w0 + step * DEC_NB * RPW;
+    float s[DEC_NB][GP];
 #pragma unroll
-            for (int e = 0; e < V; ++e) dot = fmaf(qg[d + e], kf[e], dot);
-          }
-          s = dot * scale;
-        }
-        ps[g * DEC_BSMAX + r] = s;
+    for (int i = 0; i < DEC_NB; ++i) {
+      Piece8<T> kr;
+      kr.load_shared(word(st, i, 0), DEC_NT);
+      float kf[8];
+      kr.to_float(kf);
+      const int r = r0 + i * RPW + grp;
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dot = fmaf(qf[g][e], kf[e], dot);
+#pragma unroll
+        for (int off = LPR / 2; off; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        s[i][g] = r >= w1 ? -INFINITY : r < lim ? dot * scale2 : DEC_NEG_INF;
       }
-      continue;
     }
-    if (t == nsub) {
-      // one warp per query row: m = max, p = exp(s - m), l = sum p; p is
-      // stored rounded to V's dtype for P @ V, l sums the unrounded p
-      for (int g = warp; g < G; g += DEC_NT / 32) {
-        float* pg = ps + g * DEC_BSMAX;
-        float mx = -INFINITY;
-        for (int r = lane; r < block_s; r += 32) mx = fmaxf(mx, pg[r]);
+    float vf[DEC_NB][8];
 #pragma unroll
-        for (int off = 16; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        float sum = 0.f;
-        for (int r = lane; r < block_s; r += 32) {
-          const float p = expf(pg[r] - mx);
-          sum += p;
-          pg[r] = to_f(from_f<T>(p));
-        }
+    for (int i = 0; i < DEC_NB; ++i) {
+      Piece8<T> vr;
+      vr.load_shared(word(st, i, 1), DEC_NT);
+      vr.to_float(vf[i]);
+    }
 #pragma unroll
-        for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        if (lane == 0) {
-          m[g] = mx;
-          l[g] = sum;
-        }
+    for (int g = 0; g < GP; ++g) {
+      float mx = mo[g];
+#pragma unroll
+      for (int i = 0; i < DEC_NB; ++i) mx = fmaxf(mx, s[i][g]);
+      if (mx == -INFINITY) continue;  // this lane group has seen no row yet
+      if (mx > mo[g]) {  // a new max: rescale what was summed so far
+        const float alpha = merge_weight(mo[g], mx);
+        mo[g] = mx;
+        lo[g] *= alpha;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
       }
-      __syncthreads();
-    }
-    // P @ V over value rows [r0, r0 + R) before `rows` (later rows have p == 0)
-    const int r0 = (t - nsub) * DEC_R, r1 = min(r0 + DEC_R, rows);
-    for (int r = r0; r < r1; ++r) {
-      const T* vr = tile + (r - r0) * L::LD;
 #pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int idx = threadIdx.x + j * DEC_NT, g = idx / DP, d = idx % DP;
-        if (g < G && d < D) acc[j] = fmaf(ps[g * DEC_BSMAX + r], to_f(vr[d]), acc[j]);
+      for (int i = 0; i < DEC_NB; ++i) {
+        const float p = fast_exp2(s[i][g] - mx);  // 0 for a row past the run
+        lo[g] += p;
+        const float pr = to_f(from_f<T>(p));
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pr, vf[i][e], acc[g][e]);
       }
     }
   }
   cp_async_wait<0>();
+
+  // merge the lane groups of the warp (same d slice, other rows) ...
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int idx = threadIdx.x + j * DEC_NT, g = idx / DP, d = idx % DP;
-    if (g < G && d < D) o[g * D + d] = acc[j];
+  for (int off = LPR; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, mo[g], off);
+      const float l2 = __shfl_xor_sync(0xffffffffu, lo[g], off);
+      const float mt = fmaxf(mo[g], m2);
+      const float a = merge_weight(mo[g], mt), b = merge_weight(m2, mt);
+      lo[g] = lo[g] * a + l2 * b;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float o2 = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+        acc[g][e] = acc[g][e] * a + o2 * b;
+      }
+      mo[g] = mt;
+    }
+  }
+  // ... then the warps, once, through shared memory (over the drained rings)
+  __syncthreads();
+  float* so = reinterpret_cast<float*>(smem + L::o_off);
+  float* sm = reinterpret_cast<float*>(smem + L::m_off);
+  float* sl = reinterpret_cast<float*>(smem + L::l_off);
+  if (grp == 0) {
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) so[(warp * GP + g) * DP + d0 + e] = acc[g][e];
+      if (lane == 0) {
+        sm[warp * GP + g] = mo[g];
+        sl[warp * GP + g] = lo[g];
+      }
+    }
+  }
+  __syncthreads();
+  float* sw = reinterpret_cast<float*>(smem + L::w_off);  // [DEC_NW][GP] merge weights
+  if (threadIdx.x < G) {
+    const int g = threadIdx.x;
+    float mt = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < DEC_NW; ++w) mt = fmaxf(mt, sm[w * GP + g]);
+    float sum = 0.f;  // stays 0 with m = NEG_INF for a split that read no row
+#pragma unroll
+    for (int w = 0; w < DEC_NW; ++w) {
+      const float wt = merge_weight(sm[w * GP + g], mt);
+      sw[w * GP + g] = wt;
+      sum += sl[w * GP + g] * wt;
+    }
+    m[g] = mt == -INFINITY ? DEC_NEG_INF : mt;
+    l[g] = sum;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * D; i += DEC_NT) {
+    const int g = i / D, d = i % D;
+    float out = 0.f;
+#pragma unroll
+    for (int w = 0; w < DEC_NW; ++w) out += so[(w * GP + g) * DP + d] * sw[w * GP + g];
+    o[i] = out;
   }
 }
 
 // Merge split-K partials, the queue_reduce-style final stage of decode
 // (the TPU package's `combine_partials`): one block per (batch * kv head,
-// query row); a max-rescaled sum over the chunks, a zero normaliser read as
-// 1, the result in q's dtype.  o (BH, n_s, G, D), m / l (BH, n_s, G),
-// out (BH, G, D).
+// query row); a max-rescaled sum over the partials (m in log2 units), a
+// zero normaliser read as 1, the result in q's dtype.  o (BH, n_part, G, D),
+// m / l (BH, n_part, G), out (BH, G, D).  It is launched as a programmatic
+// dependent of the chunk kernel: its blocks are scheduled while the chunk
+// kernel drains and wait for its results at griddepcontrol.wait.
 template <typename T>
 __global__ void __launch_bounds__(DEC_NT)
 decode_combine_kernel(const float* __restrict__ o, const float* __restrict__ m,
                       const float* __restrict__ l, T* __restrict__ out, int n_s, int G, int D) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int row = blockIdx.x, bh = row / G, g = row % G;
-  const size_t base = size_t(bh) * n_s * G + g;  // (bh, chunk 0, g)
+  const size_t base = size_t(bh) * n_s * G + g;  // (bh, partial 0, g)
   float mg = -INFINITY;
   for (int c = 0; c < n_s; ++c) mg = fmaxf(mg, m[base + size_t(c) * G]);
   float lg = 0.f;
-  for (int c = 0; c < n_s; ++c) lg += l[base + size_t(c) * G] * expf(m[base + size_t(c) * G] - mg);
+  for (int c = 0; c < n_s; ++c) lg += l[base + size_t(c) * G] * exp2f(m[base + size_t(c) * G] - mg);
   if (lg == 0.f) lg = 1.f;
   for (int d = threadIdx.x; d < D; d += DEC_NT) {
     float acc = 0.f;
     for (int c = 0; c < n_s; ++c)
-      acc += o[(base + size_t(c) * G) * D + d] * expf(m[base + size_t(c) * G] - mg);
+      acc += o[(base + size_t(c) * G) * D + d] * exp2f(m[base + size_t(c) * G] - mg);
     out[size_t(row) * D + d] = from_f<T>(acc / lg);
   }
 }
@@ -543,12 +682,32 @@ cudaError_t dispatch_head_dim(int D, F f) {
   return f(std::integral_constant<int, 256>{});
 }
 
+// Call f(std::integral_constant<int, GP>) for the smallest query-group
+// bucket GP in {1, 2, 4, 8} that holds G (the decode kernels' registers).
+template <typename F>
+cudaError_t dispatch_group(int G, F f) {
+  if (G <= 1) return f(std::integral_constant<int, 1>{});
+  if (G <= 2) return f(std::integral_constant<int, 2>{});
+  if (G <= 4) return f(std::integral_constant<int, 4>{});
+  return f(std::integral_constant<int, 8>{});
+}
+
 // Merge the partials of a decode launch (see decode_combine_kernel).
 template <typename T>
 cudaError_t launch_decode_combine(const float* o, const float* m, const float* l, void* out,
                                   int rows, int n_s, int G, int D, cudaStream_t st) {
-  decode_combine_kernel<T><<<rows, DEC_NT, 0, st>>>(o, m, l, static_cast<T*>(out), n_s, G, D);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rows);
+  cfg.blockDim = dim3(DEC_NT);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, decode_combine_kernel<T>, o, m, l, static_cast<T*>(out),
+                                     n_s, G, D);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace kt

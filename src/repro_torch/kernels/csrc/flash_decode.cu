@@ -4,76 +4,92 @@
 // `flash_decode` (_decode_kernel for a static valid length,
 // _decode_kernel_dyn for a per-slot one) and its `combine_partials` merge.
 // q (B, Hq, 1, D) against k/v (B, Hkv, S, D): the Hq / Hkv query heads of a
-// kv head share its keys.  Grid (B * Hkv, n_chunks): each block holds its
-// query group (<= 8 rows) and streams one chunk of <= 256 keys and values
+// kv head share its keys.  Grid (B * Hkv, n_chunks * n_split): each chunk
+// of <= 256 keys is spread over n_split blocks (decode_splits in
+// kernels/flash_attention.py: enough blocks for two per SM), each block
+// holding its query group (<= 8 rows) and streaming its share of the chunk
 // (decode_chunk in common.cuh), writing f32 partials (o, m, l); a second
-// kernel merges them (decode_combine_kernel) into q's dtype.  A ragged last
-// chunk is masked rather than refused, so any S works.
+// kernel, launched as a programmatic dependent so its blocks are scheduled
+// while this one drains, merges them (decode_combine_kernel) into q's dtype.
+// A ragged last chunk is masked rather than refused, so any S works.
 //
 // Bound on the H100: memory.  Each key/value element is used by <= 8 query
 // rows (2 * 8 FLOPs per 2 bytes in bf16, ~8 FLOP/byte against the card's
-// ~295), so the least time is the K/V bytes of the valid rows over 3.35 TB/s.
-// The design reads only rows before each slot's valid length, keeps a ring
-// of 4 sub-tiles of 32 rows in flight per block through cp.async, and does
-// its products on the SIMT cores (the tensor cores would idle on an 8-row
-// query group).  TMA and more blocks per chunk are later work.
+// ~295), so the least time is the K/V bytes of the valid rows over 3.35 TB/s
+// (3.35 us at phi3-medium-14b's serving shape, S = 512).  The design
+// (decode_chunk in common.cuh): 8 warps a block, each owning a contiguous run
+// of the chunk's rows, each lane streaming its pieces of those rows' K and V
+// through its own cp.async ring; online softmax and o in registers, one
+// merge through shared memory at the end; only rows before each slot's valid
+// length are read, and the products run on the SIMT cores.  Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, phase 3, cold L2): 0.0185
+// ms at S = 512 and 0.0498 ms at S = 4096 (PERF.md, B4).  Open: the SIMT
+// arithmetic, not the loads, sets the time at 4 to 8 query rows per kv head
+// (see decode_chunk); fusing the combine into the last block of a row
+// (atomic counter) was slower than the dependent launch.
 #include "common.cuh"
 
 using namespace kt;
 
 namespace {
 
-template <typename T, int DP>
+template <typename T, int GP, int DP>
 __global__ void __launch_bounds__(DEC_NT)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const int* __restrict__ valid, int valid_all, float* __restrict__ o,
                     float* __restrict__ m, float* __restrict__ l, int Hkv, int G, int S, int D,
-                    int block_s, float scale) {
+                    int block_s, int n_split, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int bh = blockIdx.x, c = blockIdx.y, n_s = gridDim.y;
+  const int bh = blockIdx.x, c = blockIdx.y / n_split, n_part = gridDim.y;
   const int vl = valid ? valid[bh / Hkv] : valid_all;
   const T* kb = k + size_t(bh) * S * D;
   const T* vb = v + size_t(bh) * S * D;
   const int c0 = c * block_s;
   auto krow = [=](int r) -> const T* { return c0 + r < S ? kb + size_t(c0 + r) * D : nullptr; };
   auto vrow = [=](int r) -> const T* { return c0 + r < S ? vb + size_t(c0 + r) * D : nullptr; };
-  const size_t part = size_t(bh) * n_s + c;
-  decode_chunk<T, DP>(smem, q + size_t(bh) * G * D, G, D, krow, vrow, block_s, min(vl, S) - c0,
-                      vl, scale, o + part * G * D, m + part * G, l + part * G);
+  const size_t part = size_t(bh) * n_part + blockIdx.y;
+  decode_chunk<T, GP, DP>(smem, q + size_t(bh) * G * D, G, D, krow, vrow, block_s,
+                          min(vl, S) - c0, vl, scale, blockIdx.y % n_split, n_split,
+                          o + part * G * D, m + part * G, l + part * G);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* valid, int valid_all,
            float* o, float* m, float* l, void* out, int B, int Hkv, int G, int S, int D,
-           int block_s, float scale, cudaStream_t st) {
-  const int n_s = (S + block_s - 1) / block_s;
-  cudaError_t e = dispatch_head_dim(D, [&](auto dp) {
-    constexpr int DP = decltype(dp)::value;
-    auto kern = flash_decode_kernel<T, DP>;
-    const int bytes = int(DecodeSmem<T, DP>::total);
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    kern<<<dim3(B * Hkv, n_s), DEC_NT, bytes, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), valid,
-        valid_all, o, m, l, Hkv, G, S, D, block_s, scale);
-    return cudaGetLastError();
+           int block_s, int n_split, float scale, cudaStream_t st) {
+  const int n_part = (S + block_s - 1) / block_s * n_split;
+  cudaError_t e = dispatch_group(G, [&](auto gp) {
+    return dispatch_head_dim(D, [&](auto dp) {
+      constexpr int GP = decltype(gp)::value, DP = decltype(dp)::value;
+      auto kern = flash_decode_kernel<T, GP, DP>;
+      const int bytes = int(DecodeSmem<T, GP, DP>::total);
+      cudaError_t err =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return err;
+      kern<<<dim3(B * Hkv, n_part), DEC_NT, bytes, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), valid,
+          valid_all, o, m, l, Hkv, G, S, D, block_s, n_split, scale);
+      return cudaGetLastError();
+    });
   });
   if (e != cudaSuccess) return int(e);
-  return int(launch_decode_combine<T>(o, m, l, out, B * Hkv * G, n_s, G, D, st));
+  return int(launch_decode_combine<T>(o, m, l, out, B * Hkv * G, n_part, G, D, st));
 }
 
 }  // namespace
 
 // q (B, Hkv * G, 1, D), k/v (B, Hkv, S, D), out like q; valid (B,) int32 on
-// the device, or null to use valid_all for every slot.  o_part
-// (B * Hkv, n_s, G, D), m_part / l_part (B * Hkv, n_s, G) are f32 scratch,
+// the device, or null to use valid_all for every slot.  Each chunk of
+// block_s rows is spread over n_split blocks (1..DEC_MAX_SPLIT), each
+// writing its own partials: o_part (B * Hkv, n_s * n_split, G, D),
+// m_part / l_part (B * Hkv, n_s * n_split, G) are f32 scratch,
 // n_s = ceil(S / block_s).  G <= 8, 0 < block_s <= 256, D % 8 == 0, D <= 256.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v, const void* valid,
                                   int valid_all, void* o_part, void* m_part, void* l_part,
                                   void* out, int B, int Hkv, int G, int S, int D, int block_s,
-                                  float scale, int dtype, void* stream) {
+                                  int n_split, float scale, int dtype, void* stream) {
   if (B <= 0 || Hkv <= 0 || G <= 0 || G > DEC_GMAX || S <= 0 || D <= 0 || D > 256 || D % 8 ||
-      block_s <= 0 || block_s > DEC_BSMAX)
+      block_s <= 0 || block_s > DEC_BSMAX || n_split <= 0 || n_split > DEC_MAX_SPLIT)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* vl = static_cast<const int*>(valid);
@@ -82,9 +98,9 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v, c
   float* l = static_cast<float*>(l_part);
   if (dtype == BF16)
     return launch<__nv_bfloat16>(q, k, v, vl, valid_all, o, m, l, out, B, Hkv, G, S, D, block_s,
-                                 scale, st);
+                                 n_split, scale, st);
   if (dtype == F32)
-    return launch<float>(q, k, v, vl, valid_all, o, m, l, out, B, Hkv, G, S, D, block_s, scale,
-                         st);
+    return launch<float>(q, k, v, vl, valid_all, o, m, l, out, B, Hkv, G, S, D, block_s,
+                         n_split, scale, st);
   return int(cudaErrorInvalidValue);
 }

@@ -32,6 +32,10 @@ MAX_HEAD_DIM = 128
 DECODE_MAX_GROUP = 8
 DECODE_MAX_HEAD_DIM = 256
 DECODE_MAX_BLOCK_S = 256
+# blocks one chunk may be spread over (DEC_MAX_SPLIT), and the rows each of
+# their 8 warps keeps at least
+DECODE_MAX_SPLIT = 8
+_DECODE_WARP_ROWS = 16
 
 
 @functools.cache
@@ -88,16 +92,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)} do not fit (need equal batch and "
                          f"head dim <= {MAX_HEAD_DIM}, Hq % Hkv == 0)")
+    scale = scale if scale is not None else d ** -0.5
+    dk = d
+    misaligned = any(t.data_ptr() % 16 for t in (q, k, v))
+    if q.dtype == torch.bfloat16 and (d % 8 or misaligned):
+        # TMA reads rows of a multiple of 16 bytes from 16-byte aligned bases
+        dk = -(-d // 8) * 8
+        q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel():
-        scale = scale if scale is not None else d ** -0.5
         with torch.cuda.device(q.device):
             _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), b, hq, hkv, sq, skv, d, scale,
+                      out.data_ptr(), b, hq, hkv, sq, skv, dk, scale,
                       int(causal), int(window) if window else 0, code,
                       _build.stream_of(q))
         flash_attention.launches += 1
-    return out
+    return out if dk == d else out[..., :d].contiguous()
 
 
 flash_attention.launches = 0
@@ -207,7 +217,7 @@ def _decode_kernel():
     v, i = ctypes.c_void_p, ctypes.c_int
     return _build.kernel_function(
         "flash_decode", "repro_flash_decode",
-        [v, v, v, v, i, v, v, v, v] + [i] * 6 + [ctypes.c_float, i, v])
+        [v, v, v, v, i, v, v, v, v] + [i] * 7 + [ctypes.c_float, i, v])
 
 
 def decode_operands(what: str, q, *tensors) -> int:
@@ -225,14 +235,29 @@ def decode_operands(what: str, q, *tensors) -> int:
     return code
 
 
-def decode_scratch(q, hkv: int, n_s: int):
-    """f32 partials (o, m, l) of a split-K decode launch."""
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def decode_splits(device: torch.device, n_blocks: int, block_s: int) -> int:
+    """Blocks each split-K chunk is spread over: enough that a grid of
+    `n_blocks` chunks gives every SM of the card two blocks, while each
+    block's 8 warps keep at least 16 rows of a full chunk.  A function of
+    the grid alone, so the dense and paged kernels split alike."""
+    want = -(-2 * _sm_count(device) // n_blocks)
+    return max(1, min(want, DECODE_MAX_SPLIT, block_s // (8 * _DECODE_WARP_ROWS)))
+
+
+def decode_scratch(q, hkv: int, n_part: int):
+    """f32 partials (o, m, l) of a split-K decode launch: `n_part` per
+    (batch, kv head), chunks times their splits."""
     b, hq, _, d = q.shape
     g = hq // hkv
     f32 = dict(dtype=torch.float32, device=q.device)
-    return (torch.empty((b * hkv, n_s, g, d), **f32),
-            torch.empty((b * hkv, n_s, g), **f32),
-            torch.empty((b * hkv, n_s, g), **f32))
+    return (torch.empty((b * hkv, n_part, g, d), **f32),
+            torch.empty((b * hkv, n_part, g), **f32),
+            torch.empty((b * hkv, n_part, g), **f32))
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -269,14 +294,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         valid, valid_all = None, s_len if valid_len is None else valid_len
     else:
         valid, valid_all = device_valid("flash_decode", valid_len, b, q.device), 0
-    o, m, l = decode_scratch(q, hkv, -(-s_len // block_s))
+    n_s = -(-s_len // block_s)
+    n_split = decode_splits(q.device, b * hkv * n_s, block_s)
+    o, m, l = decode_scratch(q, hkv, n_s * n_split)
     out = torch.empty_like(q)
     scale = scale if scale is not None else d ** -0.5
     with torch.cuda.device(q.device):
         _decode_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          None if valid is None else valid.data_ptr(), valid_all,
                          o.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(),
-                         b, hkv, hq // hkv, s_len, d, block_s, scale, code,
+                         b, hkv, hq // hkv, s_len, d, block_s, n_split, scale, code,
                          _build.stream_of(q))
     flash_decode.launches += 1
     return out

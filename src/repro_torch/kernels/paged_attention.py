@@ -21,8 +21,8 @@ import torch
 
 from . import _build
 from .flash_attention import (DECODE_MAX_BLOCK_S, DECODE_MAX_GROUP,
-                              decode_operands, decode_scratch, device_valid,
-                              flash_decode_plain, page_block_s)
+                              decode_operands, decode_scratch, decode_splits,
+                              device_valid, flash_decode_plain, page_block_s)
 from .ref import paged_rows
 
 
@@ -50,7 +50,7 @@ def _kernel():
     v, i = ctypes.c_void_p, ctypes.c_int
     return _build.kernel_function(
         "paged_attention", "repro_paged_decode",
-        [v, v, v, v, i, v, v, v, v, v] + [i] * 8
+        [v, v, v, v, i, v, v, v, v, v] + [i] * 9
         + [ctypes.c_longlong, ctypes.c_float, i, v])
 
 
@@ -107,15 +107,17 @@ def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
         raise ValueError(f"paged_flash_decode: pages of {bs} rows exceed a "
                          f"{DECODE_MAX_BLOCK_S}-row chunk")
     valid = device_valid("paged_flash_decode", valid_len, b, q.device)
-    o, m, l = decode_scratch(q, hkv, n_table * bs // block_s)
+    n_s = n_table * bs // block_s
+    n_split = decode_splits(q.device, b * hkv * n_s, block_s)
+    o, m, l = decode_scratch(q, hkv, n_s * n_split)
     out = torch.empty_like(q)
     scale = scale if scale is not None else d ** -0.5
     with torch.cuda.device(q.device):
         _kernel()(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
                   n_table, valid.data_ptr(), o.data_ptr(), m.data_ptr(),
                   l.data_ptr(), out.data_ptr(), b, hkv, hq // hkv, d, bs,
-                  block_s, plane_stride, plane_base, kp.shape[0], scale, code,
-                  _build.stream_of(q))
+                  block_s, n_split, plane_stride, plane_base, kp.shape[0], scale,
+                  code, _build.stream_of(q))
     paged_flash_decode.launches += 1
     return out
 

@@ -87,13 +87,28 @@ def test_fused_mlp_kernels(cuda, m, d, h, o, act, dtype):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("shape", [(2, 8, 2, 200, 200, 64, True),
                                    (2, 4, 4, 256, 256, 128, False),
-                                   (1, 2, 1, 70, 130, 8, False)])
+                                   (1, 2, 1, 70, 130, 8, False),
+                                   (1, 2, 1, 70, 130, 60, True),
+                                   (1, 4, 1, 300, 300, 80, True),
+                                   (1, 8, 1, 333, 333, 128, True),
+                                   (2, 8, 1, 200, 500, 128, False),
+                                   (1, 4, 2, 300, 300, 128, True, 100),
+                                   (1, 4, 2, 300, 300, 64, False, 130),
+                                   (1, 2, 2, 2048, 2048, 128, True)])
 def test_flash_attention_kernel(cuda, shape, dtype):
-    b, hq, hkv, sq, skv, d, causal = shape
+    """Head dims 64, 128 and padded ones (8, 80; 60, which the wrapper pads
+    to a multiple of 8 for TMA); Sq not a multiple of the 128-row query
+    tile; Skv != Sq without the causal mask; query groups of 1, 4 and 8;
+    sliding windows whose edge crosses a 128-key tile; a long causal
+    sequence."""
+    b, hq, hkv, sq, skv, d, causal, *window = shape
+    window = window[0] if window else None
     q, k, v = tensors(cuda, 2, dtype, (b, hq, sq, d), (b, hkv, skv, d),
                       (b, hkv, skv, d))
-    close(K.flash_attention(q, k, v, causal=causal),
-          flash_attention_plain(q, k, v, causal=causal), TOL[dtype])
+    before = K.launch_counts()["flash_attention"]
+    close(K.flash_attention(q, k, v, causal=causal, window=window),
+          flash_attention_plain(q, k, v, causal=causal, window=window), TOL[dtype])
+    assert K.launch_counts()["flash_attention"] == before + 1
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -129,10 +144,17 @@ def test_kitsune_on_card_launches_kernels(cuda, name):
 @pytest.mark.parametrize("shape", [(8, 40, 10, 512, 128, "slots"),
                                    (2, 4, 1, 300, 256, "int"),
                                    (2, 4, 2, 24, 16, "slots"),
-                                   (1, 8, 8, 70, 64, None)])
+                                   (1, 8, 8, 70, 64, None),
+                                   (8, 40, 10, 4096, 128, "slots"),
+                                   (2, 3, 1, 512, 128, 1),
+                                   (2, 5, 1, 512, 64, 256),
+                                   (2, 6, 1, 512, 32, 512),
+                                   (2, 7, 1, 300, 128, "slots"),
+                                   (2, 8, 1, 300, 256, "slots")])
 def test_flash_decode_kernel(cuda, shape, dtype):
-    """Ragged per-slot, scalar and absent valid lengths; S not a multiple of
-    the 256-row chunk; head dims 16..256; 1..4 query heads per kv head."""
+    """Ragged per-slot, scalar and absent valid lengths, and valid lengths 1,
+    the 256-row chunk and S; S not a multiple of the chunk; S = 4096; head
+    dims 16..256; 1..8 query heads per kv head."""
     b, hq, hkv, s_len, d, valid = shape
     q, k, v = tensors(cuda, 4, dtype, (b, hq, 1, d), (b, hkv, s_len, d),
                       (b, hkv, s_len, d))

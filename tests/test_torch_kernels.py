@@ -9,6 +9,8 @@ reference's (tests/test_kernels.py:25): float32 2e-4, bfloat16 2e-2.
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_gpu.py.
 """
+import importlib
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -275,3 +277,17 @@ class TestOracles:
                             lambda n: _build.BUILD_DIR / "missing" / f"{n}.so")
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.build(["queue_reduce"])
+
+
+@pytest.mark.parametrize("n_blocks,block_s,want", [(160, 256, 2), (1280, 256, 1),
+                                                   (10, 256, 2), (10, 16, 1),
+                                                   (1, 128, 1)])
+def test_decode_splits_cover_the_card(monkeypatch, n_blocks, block_s, want):
+    """Blocks per split-K chunk depend on the grid alone (so the dense and
+    paged decode kernels split alike): enough for two blocks per SM of a
+    132-SM card, at most DECODE_MAX_SPLIT, and at most one per 128 rows of
+    the chunk (16 rows for each of a block's 8 warps)."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    monkeypatch.setattr(fa, "_sm_count", lambda device: 132)
+    got = fa.decode_splits(torch.device("cuda"), n_blocks, block_s)
+    assert got == want and 1 <= got <= fa.DECODE_MAX_SPLIT
