@@ -10,6 +10,9 @@ Phases, each failing the run on any error (no phase's exception is caught):
   3. hold each kernel against its plain PyTorch version at the shapes the
      main path gives it, in bf16 and f32, and time kernel, plain version,
      a one-call PyTorch yardstick (never used by the port) and the bound;
+     time the forward's two forms at phi3 widths for M in 1..128 (the
+     small-M form up to its 64 rows) and print their crossover, B5 at the
+     fold B2's decode calls leave, and B7's dX and dW kernels apart;
   4. the Llama3-8B challenge app at full width (d=4096, ff=14336, 32 heads
      of 128, vocab 128256, seq 2048, batch 4, its 2 layers + LM head, bf16
      weights from a seed; hkv=hq because the graph models GQA without
@@ -26,7 +29,8 @@ Phases, each failing the run on any error (no phase's exception is caught):
      weights from a seed, 29.3 GB) behind `PagedServingEngine`, 16 requests
      through 8 slots with chunked prefill, slot refill and prefix hits: the
      native tick must launch paged_flash_decode and fused_mlp_swiglu exactly
-     40 times per decode step, a "gather" run flash_decode as often with
+     40 times per decode step, every fused_mlp_swiglu launch in its small-M
+     form, a "gather" run flash_decode as often with
      bitwise-equal tokens, one request served alone by an engine whose KV
      pools are sized by the profiling pass (num_blocks=None, as the
      launcher builds it) must equal its tokens in the batch, and the
@@ -88,7 +92,8 @@ from repro_torch.train import (TrainConfig, make_train_state,  # noqa: E402
 from repro_torch.tree import flatten, leaves  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention_plain,  # noqa: E402
                                                  flash_decode_plain)
-from repro_torch.kernels.fused_mlp import (MAX_BLOCK_H,  # noqa: E402
+from repro_torch.kernels import fused_mlp as FM  # noqa: E402
+from repro_torch.kernels.fused_mlp import (MAX_BLOCK_H, SMALL_M,  # noqa: E402
                                            fused_mlp_bwd_plain,
                                            fused_mlp_fwd_plain,
                                            fused_mlp_swiglu_bwd_plain,
@@ -157,7 +162,9 @@ SUMMARY = {
                            "q (8, 40, 1, 128), pools (8208, 40, 1, 10, 128), "
                            "tables (8, 32)"),
     "fused_mlp_swiglu_decode": ("fused_mlp_swiglu", "serve_native",
-                                "x (8, 5120) -> 17920 -> 5120, silu"),
+                                "x (8, 5120) -> 17920 -> 5120, silu (small-M form)"),
+    "queue_reduce_decode_fold": ("queue_reduce", "serve_native",
+                                 "B2's decode partials (n, 8, 5120) f32 -> bf16"),
     "fused_mlp_swiglu_train": ("fused_mlp_swiglu", "train_gemma3",
                                "x (8192, 1152) -> 6912 -> 1152, silu"),
     "fused_mlp_swiglu_bwd": ("fused_mlp_swiglu_bwd", "train_gemma3",
@@ -193,7 +200,8 @@ def ptxas_entries(log: str) -> list[str]:
                 args = "f32," + args[1:] if args.startswith("f") else args
                 name = f"{m.group(1)}<{args.rstrip(',')}>"
             else:
-                name = mangled
+                plain = re.search(r"\d+([a-z_]+_(?:kernel|wgmma))E", mangled)
+                name = plain.group(1) if plain else mangled
         elif "spill stores" in ln:
             spill = ln.strip()
         elif "registers" in ln and name:
@@ -411,13 +419,25 @@ def train_cases(gen, dtype):
            lambda: fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, "silu"),
            lambda: (F.silu(x @ wg) * (x @ wu)) @ wd,
            3 * gemm, nbytes(x, wg, wu, wd, x))
+    extra = {}
+    if dtype == torch.bfloat16:
+        # the two kernels of the call apart (their f32 partials unfolded),
+        # and the bytes of the partials they wrote (which the folds read
+        # again): dX's from the dX kernel alone, dW's from the dW kernel's
+        dx_part = FM.swiglu_bwd_bf16(x, wg, wu, wd, dy, "silu", parts=1)[0]
+        dw_parts = FM.swiglu_bwd_bf16(x, wg, wu, wd, dy, "silu", parts=2)[1:]
+        partial_bytes = dx_part.nbytes + sum(t.nbytes for t in dw_parts)
+        del dx_part, dw_parts
+        extra = {"dx_ms": lambda: FM.swiglu_bwd_bf16(x, wg, wu, wd, dy, "silu", parts=1),
+                 "dw_ms": lambda: FM.swiglu_bwd_bf16(x, wg, wu, wd, dy, "silu", parts=2),
+                 "partial_bytes": partial_bytes}
     yield ("fused_mlp_swiglu_bwd",
            lambda: K.fused_mlp_swiglu_bwd(x, wg, wu, wd, dy, act="silu"),
            lambda: fused_mlp_swiglu_bwd_plain(x, wg, wu, wd, dy, "silu"),
            lambda: swiglu_bwd_chain(x, wg, wu, wd, dy),
            8 * gemm, 2 * nbytes(x, wg, wu, wd, dy) - nbytes(dy),
            lambda: reordered(lambda *a: fused_mlp_swiglu_bwd_plain(*a, "silu"), x,
-                             (wg, wu, wd), dy, gen))
+                             (wg, wu, wd), dy, gen), extra)
     del x, dy, wg, wu, wd
     D, H = 768, 3072
     for name, rows in (("fused_mlp_bwd", 8 * 1500), ("fused_mlp_bwd_dec", 8 * 448)):
@@ -518,11 +538,32 @@ def decode_cases(gen, dtype):
     x = randn(gen, B, D, dtype=dtype)
     wg, wu = (randn(gen, D, H, dtype=dtype, scale=D ** -0.5) for _ in range(2))
     wd = randn(gen, H, D, dtype=dtype, scale=H ** -0.5)
+    # what the small-M kernel writes for the fold, as it wrote it
+    fold = FM.forward_in_form("small_m", x, wg, wu, wd, "silu", fold=False)
+    plan, _ = FM.small_m_plan(0, D, H, D, _build.DTYPE_CODES[dtype], True)
+    partial_bytes = fold.nbytes if fold.dtype == torch.float32 else 0
+    print(f"small-M form at ({B}, {D}->{H}->{D}) {dtype}: clusters of {plan.cs} blocks, "
+          f"output {tuple(fold.shape)} {fold.dtype}, {partial_bytes} bytes of f32 partials "
+          f"for queue_reduce", flush=True)
     yield ("fused_mlp_swiglu_decode",
            lambda: K.fused_mlp_swiglu_fwd(x, wg, wu, wd, act="silu"),
            lambda: fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, "silu"),
            lambda: (F.silu(x @ wg) * (x @ wu)) @ wd,
-           2.0 * B * D * H * 2 + 2.0 * B * H * D, nbytes(x, wg, wu, wd, x))
+           2.0 * B * D * H * 2 + 2.0 * B * H * D, nbytes(x, wg, wu, wd, x), None,
+           {"partial_bytes": partial_bytes})
+    del x, wg, wu, wd
+    if not partial_bytes:
+        print("the small-M form writes y itself at this shape: no decode fold", flush=True)
+        return
+    # the fold those partials take in the tick, right after B2 wrote them
+    # (so timed with a warm L2)
+    n_part = fold.shape[0]
+    yield ("queue_reduce_decode_fold",
+           lambda: K.queue_reduce(fold, out_dtype=dtype),
+           lambda: queue_reduce_plain(fold, "sum", dtype),
+           lambda: torch.sum(fold, dim=0),
+           float(fold.numel()), nbytes(fold) + fold[0].numel() * torch.finfo(dtype).bits // 8,
+           None, {"shape": f"({n_part}, {B}, {D}) f32 -> ({B}, {D}) {str(dtype)[6:]}"})
 
 
 def phase_kernels() -> dict:
@@ -530,8 +571,10 @@ def phase_kernels() -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator(device="cuda").manual_seed(3)
         reps = 5 if dtype == torch.bfloat16 else 2
-        for name, kern, plain, lib, flops, nb, *reorder in kernel_cases(gen, dtype):
-            floors = reorder[0]() if reorder and dtype == torch.bfloat16 else None
+        for name, kern, plain, lib, flops, nb, *rest in kernel_cases(gen, dtype):
+            reorder = rest[0] if rest else None
+            extra = rest[1] if len(rest) > 1 else {}
+            floors = reorder() if reorder and dtype == torch.bfloat16 else None
             err, rel = check(f"{name}[{dtype}]", kern(), plain(), dtype, floors)
             del floors
             cold = name in COLD_CASES
@@ -545,6 +588,8 @@ def phase_kernels() -> dict:
                    "library_ms": None if lib is None else cuda_ms(lib, reps, cold),
                    "bound_ms": 1e3 * max(t_op, t_by),
                    "bound_by": "operations" if t_op >= t_by else "bytes"}
+            for key, val in extra.items():
+                row[key] = cuda_ms(val, reps, cold) if callable(val) else val
             print("kernel " + json.dumps(row), flush=True)
             if dtype == torch.bfloat16:
                 rows[name] = row
@@ -552,7 +597,40 @@ def phase_kernels() -> dict:
         del gen
         torch.cuda.empty_cache()
     function_grads()
+    mlp_forms()
     return rows
+
+
+def mlp_forms() -> None:
+    """B2's two forward forms at phi3-medium-14b's widths (5120 -> 17920 ->
+    5120 silu, bf16) for the row counts a decode batch may have, timed with
+    a cold L2 as the serving loop finds the weights: the small-M form (at
+    most SMALL_M rows) and the tiled form, each held to the plain version,
+    and the largest M at which the small-M form is the faster."""
+    cfg = get_config(SERVE_ARCH)
+    D, H = cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    wg, wu = (randn(gen, D, H, dtype=torch.bfloat16, scale=D ** -0.5) for _ in range(2))
+    wd = randn(gen, H, D, dtype=torch.bfloat16, scale=H ** -0.5)
+    times = {}
+    for m in (1, 8, 16, 32, 64, 128):
+        x = randn(gen, m, D, dtype=torch.bfloat16)
+        want = fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, "silu")
+        for form in ("small_m", "tiled"):
+            if form == "small_m" and m > SMALL_M:
+                continue
+            run = lambda: FM.forward_in_form(form, x, wg, wu, wd, "silu")  # noqa: E731
+            check(f"fused_mlp_swiglu {form} M={m}", run(), want, torch.bfloat16)
+            times[form, m] = cuda_ms(run, 20, cold=True)
+        print(f"B2 forms at M={m} ({D}->{H}->{D}, silu, bf16): small-M "
+              f"{times.get(('small_m', m), float('nan')):.4f} ms, tiled "
+              f"{times['tiled', m]:.4f} ms", flush=True)
+    wins = [m for (form, m) in times if form == "small_m" and times[form, m] < times["tiled", m]]
+    print(f"B2 crossover: the small-M form is faster at M in {wins} (it takes at most "
+          f"{SMALL_M} rows; SMALL_M = {SMALL_M})", flush=True)
+    if SMALL_M not in wins:
+        raise AssertionError(f"the small-M form loses to the tiled form at M = {SMALL_M}: "
+                             f"{times}; move SMALL_M to the crossover")
 
 
 # ---------------------------------------------------------------------------
@@ -707,6 +785,7 @@ def serve_run(cfg, params, prompts, label, **overrides):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.launch_counts()
+    launches["fused_mlp_swiglu_small_m"] = K.launches_by_form("fused_mlp_swiglu").get("small_m", 0)
     st = eng.stats()
     steps = st["decode_steps"]
     print(f"serve {label}: {len(done)} requests, {st['tokens_out']} tokens, "
@@ -787,7 +866,8 @@ def phase_serving() -> dict[str, dict[str, int]]:
     native, eng, launches, wall = serve_run(cfg, params, prompts, "native")
     steps = eng.stats()["decode_steps"]
     want = {"paged_flash_decode": cfg.n_layers * steps,
-            "fused_mlp_swiglu": cfg.n_layers * steps, "flash_decode": 0}
+            "fused_mlp_swiglu": cfg.n_layers * steps,
+            "fused_mlp_swiglu_small_m": cfg.n_layers * steps, "flash_decode": 0}
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"native run launched {launches}, want {want}")
     traffic = eng.stats()["kv_traffic"]
@@ -929,8 +1009,9 @@ def profile_train_step(label, step_fn, state, batch, step_s: float) -> None:
     if not rows:
         raise AssertionError(f"profile {label}: the trace holds no kernel")
     busy_ms = sum(r[2] for r in rows) / 1e3
-    groups = {"B6/B7 backward (mlp_bwd_dx/dw)": ("mlp_bwd",),
-              "B1/B2 forward (fused_mlp_kernel)": ("fused_mlp_kernel",),
+    groups = {"B6/B7 backward (mlp_bwd_dx/dw, swiglu_bwd_dx/dw)": ("mlp_bwd", "swiglu_bwd"),
+              "B1/B2 forward (fused_mlp_kernel, small_m_kernel)": ("fused_mlp_kernel",
+                                                                   "small_m_kernel"),
               "B5 folds (queue_reduce)": ("queue_reduce",),
               "cuBLAS GEMMs": ("gemm", "nvjet", "xmma", "cutlass", "cublas")}
     split = {g: 0.0 for g in groups}
@@ -1147,22 +1228,26 @@ def main() -> int:
     def launches(path, kern, n_rows=None):
         return paths[path][kern] if n_rows is None else rows_by_path[path].get(n_rows, 0)
 
-    missing = [case for case, (kern, path, _, *n_rows) in SUMMARY.items()
+    # phase 3 leaves a case out where its shape does not occur (no decode
+    # fold when the small-M form writes y itself)
+    cases = {case: spec for case, spec in SUMMARY.items() if case in rows}
+    missing = [case for case, (kern, path, _, *n_rows) in cases.items()
                if launches(path, kern, *n_rows) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: {missing}")
 
     summary = []
-    for case, (kern, path, shape, *n_rows) in SUMMARY.items():
+    for case, (kern, path, shape, *n_rows) in cases.items():
         row = rows[case]
         source, replaces = SOURCES[kern]
         summary.append({"name": case, "kernel": kern, "route": "cuda", "source": source,
-                        "replaces": replaces, "path": path, "shape": shape,
+                        "replaces": replaces, "path": path, "shape": row.get("shape", shape),
                         "launches": launches(path, kern, *n_rows),
                         "launches_by_run": {p: c[kern] for p, c in paths.items() if c[kern]},
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+                        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                        **{k: row[k] for k in ("dx_ms", "dw_ms", "partial_bytes") if k in row}})
     print(card)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ plain versions and launch counters.
 counters: each wrapper adds one where it launches its CUDA kernel and
 nowhere else, so a run can show which kernels its path went through.
 `launches_by_rows(name)` splits a backward kernel's count by the rows of
-its input.
+its input, `launches_by_form(name)` a forward kernel's by the form that
+served it ("small_m" or "tiled", `fused_mlp.fwd_form`).
 """
 from .flash_attention import combine_partials, flash_attention, flash_decode
 from .fused_mlp import (fused_mlp_bwd, fused_mlp_fwd, fused_mlp_swiglu_bwd,
@@ -35,8 +36,14 @@ def launches_by_rows(name: str) -> dict[int, int]:
     return dict(KERNELS[name].launches_by_rows)
 
 
+def launches_by_form(name: str) -> dict[str, int]:
+    return dict(KERNELS[name].launches_by_form)
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
         if hasattr(fn, "launches_by_rows"):
             fn.launches_by_rows = {}
+        if hasattr(fn, "launches_by_form"):
+            fn.launches_by_form = {}

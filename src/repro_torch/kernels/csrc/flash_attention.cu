@@ -242,7 +242,7 @@ struct Consumer {
                                           const __nv_bfloat16* ks) const {
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss_n128(s, sw128_desc(qs + (kk / 4) * WG_BM * 64 + (kk % 4) * 16, 16, 1024),
+      wgmma_ss_n128t<0, 0>(s, sw128_desc(qs + (kk / 4) * WG_BM * 64 + (kk % 4) * 16, 16, 1024),
                     sw128_desc(ks + (kk / 4) * WG_BN * 64 + (kk % 4) * 16, 16, 1024), kk > 0);
   }
   // O += P V, issued

@@ -9,27 +9,58 @@
 // VMEM across its sequential H loop; at Dout = 4096 that is 1-2 MB, and an
 // SM has 227 KB of shared memory, so that design does not carry over.
 //
-// Design (split H across blocks): block (i, s) owns BM rows of X (128 for
-// bf16, 64 for f32) and the hidden range [BH s, BH s + BH).  It builds its
-// hidden chunk once, 128 columns at a time, in shared memory (act/gate
-// applied in registers, rounded to the input dtype as the TPU kernel does),
-// then multiplies the chunk into every 128-column tile of W2.  Operand
-// tiles stream in through a 3-stage cp.async pipeline (16-byte copies) so
-// the next two k-steps load while the tensor cores work on the current one.
-// With one split the block writes Y directly; with n_split > 1 it writes f32
-// partials (n_split, M, Dout) that the queue_reduce kernel folds -- the
-// paper's split-reduction idea.  Extra traffic against a kernel that never
-// spills: 2 * n_split * M * Dout * 4 bytes of partials (written, then read
-// by the fold); bsp instead moves the hidden tensor, 2 * M * H * dtype
-// bytes, and more for the gated form.
-// No GEMM1 work is recomputed.
+// Two forms, chosen by M alone (kernels/fused_mlp.py `fwd_form`: the
+// small-M form for M <= SMALL_M = 64, its capacity; the tiled form above).
 //
-// Bound on the H100: at Llama widths (M=8192, Din=4096, H=14336, Dout=4096)
-// the work is 6 * M * Din * H FLOPs against ~0.5 GB of operands -- far above
-// the ~295 FLOP/byte ridge, so tensor-core throughput bounds it.  This
-// version issues WMMA (mma.sync) from cp.async-staged tiles; wgmma, TMA and
-// a cluster-shared accumulator are later work.
+// Tiled form, fused_mlp_kernel (split H across blocks): block (i, s) owns
+// BM rows of X (128 for bf16, 64 for f32) and the hidden range
+// [BH s, BH s + BH).  It builds its hidden chunk once, 128 columns at a
+// time, in shared memory (act/gate applied in registers, rounded to the
+// input dtype as the TPU kernel does), then multiplies the chunk into every
+// 128-column tile of W2.  Operand tiles stream in through a 3-stage
+// cp.async pipeline (16-byte copies) so the next two k-steps load while the
+// tensor cores work on the current one.  With one split the block writes Y
+// directly; with n_split > 1 it writes f32 partials (n_split, M, Dout) that
+// the queue_reduce kernel folds -- the paper's split-reduction idea.  Extra
+// traffic against a kernel that never spills: 2 * n_split * M * Dout * 4
+// bytes of partials (written, then read by the fold); bsp instead moves the
+// hidden tensor, 2 * M * H * dtype bytes, and more for the gated form.  No
+// GEMM1 work is recomputed.  Bound on the H100: at Llama widths (M=8192,
+// Din=4096, H=14336, Dout=4096) 6 * M * Din * H FLOPs against ~0.5 GB of
+// operands -- tensor-core bound.  It issues WMMA (mma.sync) from
+// cp.async-staged tiles.
+//
+// Small-M form, small_m_kernel (decode): at M = 8 the weights are all the
+// bytes -- 550 MB at phi3-medium-14b's 5120 -> 17920 -> 5120, 0.164 ms at the
+// H100's 3.35 TB/s -- and a 128-row tile would spend 15/16 of its products on
+// padding rows.  So the product is swapped, Y^T = W^T X^T: every 16 x 16
+// weight tile is mma.sync m16n8k16's A operand (ldmatrix.trans from a k-major
+// shared tile) and the token rows are its 8-wide N (MP = M rounded up to 8,
+// 16, 32 or 64). Blocks of up to 9 16-column hidden tiles, about one per SM,
+// stream W1 (and Wu) with X through a 4-stage cp.async ring of 64-row steps
+// (~120 KB in flight per SM at M = 8), every weight byte read once.  A cluster
+// of CS blocks owns a contiguous hidden range: each builds act(g) * u for its
+// own columns (rounded to the input dtype), the members copy each other's
+// chunks over distributed shared memory in rank order, and member r then
+// multiplies the cluster's whole chunk into its Dout / CS columns of W2 (whose
+// first tiles load during the exchange).  One f32 partial of Y per cluster,
+// (n_clusters, M, Dout), goes to queue_reduce: at phi3's decode shape 4 *
+// n_clusters * M * Dout bytes written and read once more (clusters of 2, 63
+// partials: 10.3 MB), against the 5.7 MB of 35 tiled partials before and the
+// 550 MB of weights.  The launch geometry (blocks, cluster size) is a function
+// of the widths and the card, never of M, and each output element is one chain
+// of products in k order, so a row's result does not depend on M or on the
+// other rows (solo == batched serving). float32 takes the same structure with
+// an FMA loop in place of mma (the reduced engines check against the CPU at
+// 2e-4, which TF32 would miss).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 3;
+// PERF.md): 0.227 ms with its fold at (8, 5120 -> 17920 -> 5120)
+// bf16, against the 0.164 ms byte bound and 0.217 ms for cuBLAS's unfused
+// chain, and below the tiled form's ~1.6 ms at every M it takes (1..64).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+#include "sm90.cuh"
 
 using namespace kt;
 
@@ -187,6 +218,482 @@ int launch(const void* x, const void* w1, const void* wu, const void* w2, void* 
   return int(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Small M (decode): the swapped product, one cluster per hidden range
+// ---------------------------------------------------------------------------
+
+constexpr int SM_NW = 8, SM_NT = SM_NW * 32;
+constexpr int SM_HT = 9;              // at most 9 16-column hidden tiles per block
+constexpr int SM_HS = SM_HT * 16;     // hidden columns a block's staging tile spans
+constexpr int SM_OT = 128;            // output columns per stage-2 pass
+constexpr int SM_MAXM = 64;           // rows the form takes (8 token tiles of 8)
+constexpr int SM_MAX_CLUSTER = 8;     // the portable cluster size
+// k rows per ring stage (both stages) and ring depth: bf16 takes deep
+// stages (fewer barriers per byte), f32's twice-as-wide tiles fit 32 x 3
+template <typename T> constexpr int kSmKS = sizeof(T) == 2 ? 64 : 32;
+template <typename T> constexpr int kSmStages = sizeof(T) == 2 ? 4 : 3;
+
+// Shared memory of a small-M block for MP token rows and a cluster hidden
+// range padded to hr_pad columns: the block's own hidden chunk (read by the
+// whole cluster), then the stage-1 ring (W1 [+ Wu] tile of KS x SM_HS and
+// an X tile of MP x KS per slot, KS = kSmKS<T>) aliased, once it drained,
+// by the cluster's hidden chunk (MP x hr_pad) and the stage-2 ring (W2
+// tiles of KS x SM_OT).  Pitches keep 16-byte rows whose 16-byte index is
+// odd, so ldmatrix's eight row reads hit eight distinct bank groups.
+template <typename T>
+struct SmallSmem {
+  int ldw, ldx, ldh, ldc, ldo;  // elements
+  size_t own, wt, xt, slot1, ring1, hc, slot2, total;  // bytes
+  __host__ __device__ SmallSmem(int mp, int hr_pad, bool gated) {
+    constexpr int P = Pad<T>::v;
+    ldw = SM_HS + P;
+    ldx = kSmKS<T> + P;
+    ldh = SM_HS + P;
+    ldc = hr_pad + P;
+    ldo = SM_OT + P;
+    own = align128(size_t(mp) * ldh * sizeof(T));
+    wt = align128(size_t(kSmKS<T>) * ldw * sizeof(T));
+    xt = align128(size_t(mp) * ldx * sizeof(T));
+    slot1 = (gated ? 2 : 1) * wt + xt;
+    ring1 = kSmStages<T> * slot1;
+    hc = align128(size_t(mp) * ldc * sizeof(T));
+    slot2 = align128(size_t(kSmKS<T>) * ldo * sizeof(T));
+    const size_t s2 = hc + kSmStages<T> * slot2;
+    total = own + (ring1 > s2 ? ring1 : s2);
+  }
+};
+
+// Four 8x8 b16 matrices, transposed on the way into registers: with the
+// lanes' row addresses set as in `frag_a`, mma.sync m16n8k16's A fragment
+// of a 16 x 16 tile stored k-major (its rows are k).
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// A fragment of A[i][j] = S[j][c0 + i] (i < 16 output rows, j < 16 k rows)
+// from a k-major tile S with pitch ld: lane l addresses k row
+// (l / 16) * 8 + l % 8 at column c0 + ((l / 8) % 2) * 8.
+__device__ __forceinline__ void frag_a(uint32_t* a, const __nv_bfloat16* S, int ld, int c0) {
+  const int l = threadIdx.x & 31;
+  ldsm_x4_t(a, S + ((l >> 4) * 8 + (l & 7)) * ld + c0 + ((l >> 3) & 1) * 8);
+}
+
+// B fragment of B[j][n] = R[n][j] (16 k rows, 8 token columns) from a
+// row-major activation R (token rows, k contiguous) with pitch ld.
+__device__ __forceinline__ void frag_b(uint32_t* b, const __nv_bfloat16* R, int ld) {
+  const int l = threadIdx.x & 31;
+  const __nv_bfloat16* p = R + (l >> 2) * ld + 2 * (l & 3);
+  b[0] = *reinterpret_cast<const uint32_t*>(p);
+  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
+}
+
+// d (16 x 8 f32) += A (16 x 16 bf16) B (16 x 8 bf16)
+__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A linear sequence of n ring steps over STG slots: prologue(n, stage)
+// issues the first STG - 1, run(n, stage, use) waits for each in turn,
+// refills the slot freed by the step before and calls use(t, slot).  Every
+// thread issues copies, so each step starts with a block barrier; run ends
+// with every copy landed and every thread past its last use.
+template <int STG, typename Stage>
+__device__ __forceinline__ void ring_prologue(int n, Stage stage) {
+  for (int s = 0; s < STG - 1; ++s) {
+    if (s < n) stage(s, s);
+    cp_async_commit();
+  }
+}
+template <int STG, typename Stage, typename Use>
+__device__ __forceinline__ void ring_run(int n, Stage stage, Use use) {
+  for (int t = 0; t < n; ++t) {
+    cp_async_wait<STG - 2>();
+    __syncthreads();
+    const int nx = t + STG - 1;
+    if (nx < n) stage(nx, nx % STG);
+    cp_async_commit();
+    use(t, t % STG);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Block b of cluster c (rank r) owns hidden columns [b hs, b hs + hs),
+// hs = HT * 16; the cluster owns their union, hr = CS hs columns from
+// hc0 = c hr.
+//   Stage 1: the block's hidden chunk transposed, g^T = W1[:, chunk]^T X^T
+//     (and u^T), streamed over Din through the ring: each 16 x 16 weight
+//     tile is mma.sync's A operand and the token rows are its 8-wide N, so
+//     no product runs on a padding row of a 128-row tile.  act(g) * u is
+//     rounded to T into the block's own chunk.
+//   Exchange: after a cluster barrier every member copies all members'
+//     chunks (distributed shared memory, rank order) into the cluster's
+//     hidden chunk, MP x hr.
+//   Stage 2: member r owns output columns [r DS, r DS + DS): Y^T = W2[hr
+//     rows, its columns]^T t^T over the cluster's hidden range, SM_OT
+//     columns a pass, every pass's tiles in one continuous ring.  Its W2
+//     tiles start loading before the exchange.
+// out: direct, Y in T; else f32 partials (gridDim.x / CS, M, Dout), one
+// per cluster.  Every output element is one chain of products in k order
+// (mma accumulates in place; the f32 form is an FMA loop), fixed by
+// (Din, H, Dout, HT, CS) alone, so a row's result does not depend on M or
+// on the other rows.
+template <typename T, bool GATED, int MP>
+__global__ void __launch_bounds__(SM_NT, 1)
+small_m_kernel(const T* __restrict__ X, const T* __restrict__ W1, const T* __restrict__ WU,
+               const T* __restrict__ W2, void* __restrict__ out, int M, int Din, int H, int Dout,
+               int HT, int DS, int hr_pad, int act, int direct) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CS = int(cluster.num_blocks()), rank = int(cluster.block_rank());
+  const SmallSmem<T> L(MP, hr_pad, GATED);
+  T* own = reinterpret_cast<T*>(smem);
+  unsigned char* ring1 = smem + L.own;
+  T* hcs = reinterpret_cast<T*>(smem + L.own);
+  unsigned char* ring2 = smem + L.own + L.hc;
+  constexpr int STG = kSmStages<T>, KS = kSmKS<T>;
+  constexpr int NT8 = MP / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int hs = HT * 16, h0 = blockIdx.x * hs, hend = min(H, h0 + hs);
+  const int cl = blockIdx.x / CS, hr = CS * hs, hc0 = cl * hr, hc_end = min(H, hc0 + hr);
+  const bool vx = vec_ok(X, Din), vw = vec_ok(W1, H) && (!GATED || vec_ok(WU, H));
+  const bool v2 = vec_ok(W2, Dout);
+
+  // ---- stage 1 ----
+  auto W1s = [&](int s) { return reinterpret_cast<T*>(ring1 + s * L.slot1); };
+  auto WUs = [&](int s) { return reinterpret_cast<T*>(ring1 + s * L.slot1 + L.wt); };
+  auto Xs = [&](int s) {
+    return reinterpret_cast<T*>(ring1 + s * L.slot1 + (GATED ? 2 : 1) * L.wt);
+  };
+  const int nk = (Din + KS - 1) / KS;
+  auto stage1 = [&](int t, int s) {
+    const int k0 = t * KS;
+    load_tile<T, KS, SM_HS, SM_NT>(W1s(s), L.ldw, W1, H, k0, h0, Din, hend, vw);
+    if constexpr (GATED)
+      load_tile<T, KS, SM_HS, SM_NT>(WUs(s), L.ldw, WU, H, k0, h0, Din, hend, vw);
+    load_tile<T, MP, KS, SM_NT>(Xs(s), L.ldx, X, Din, 0, k0, M, Din, vx);
+  };
+  ring_prologue<STG>(nk, stage1);
+  if constexpr (sizeof(T) == 2) {
+    // warp w: hidden tiles w and w + 8 (< HT), every token tile
+    float g[2][NT8][4], u[2][NT8][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < NT8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) g[i][n][e] = u[i][n][e] = 0.f;
+    ring_run<STG>(nk, stage1, [&](int, int s) {
+#pragma unroll
+      for (int kk = 0; kk < KS; kk += 16) {
+        uint32_t b[NT8][2];
+#pragma unroll
+        for (int n = 0; n < NT8; ++n) frag_b(b[n], Xs(s) + n * 8 * L.ldx + kk, L.ldx);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int ht = warp + 8 * i;
+          if (ht < HT) {
+            uint32_t a[4];
+            frag_a(a, W1s(s) + kk * L.ldw, L.ldw, ht * 16);
+#pragma unroll
+            for (int n = 0; n < NT8; ++n) mma16816(g[i][n], a, b[n]);
+            if constexpr (GATED) {
+              frag_a(a, WUs(s) + kk * L.ldw, L.ldw, ht * 16);
+#pragma unroll
+              for (int n = 0; n < NT8; ++n) mma16816(u[i][n], a, b[n]);
+            }
+          }
+        }
+      }
+    });
+    // element e of a 16 x 8 accumulator: hidden row lane / 4 (+8 for e >= 2),
+    // token 2 (lane % 4) + (e & 1)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int ht = warp + 8 * i;
+      if (ht < HT) {
+#pragma unroll
+        for (int n = 0; n < NT8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hrow = ht * 16 + (lane >> 2) + (e >> 1) * 8;
+            const int tok = n * 8 + 2 * (lane & 3) + (e & 1);
+            const float a = act_apply(act, g[i][n][e]);
+            own[tok * L.ldh + hrow] = from_f<T>(GATED ? a * u[i][n][e] : a);
+          }
+      }
+    }
+  } else {
+    // f32: FMA, thread (tc, tm) owns hidden columns tc + 16 i and tokens tm + 16 j
+    constexpr int MJ = MP >= 16 ? MP / 16 : 1;
+    const int tc = threadIdx.x & 15, tm = threadIdx.x >> 4;
+    float g[SM_HT][MJ], u[SM_HT][MJ];
+#pragma unroll
+    for (int i = 0; i < SM_HT; ++i)
+#pragma unroll
+      for (int j = 0; j < MJ; ++j) g[i][j] = u[i][j] = 0.f;
+    ring_run<STG>(nk, stage1, [&](int, int s) {
+      if (tm >= MP) return;
+      const T* w = W1s(s);
+      const T* wu = WUs(s);
+      const T* xs = Xs(s);
+      for (int k = 0; k < KS; ++k) {
+        float xv[MJ];
+#pragma unroll
+        for (int j = 0; j < MJ; ++j) xv[j] = to_f(xs[(tm + 16 * j) * L.ldx + k]);
+#pragma unroll
+        for (int i = 0; i < SM_HT; ++i) {
+          const float wv = to_f(w[k * L.ldw + tc + 16 * i]);
+#pragma unroll
+          for (int j = 0; j < MJ; ++j) g[i][j] = fmaf(wv, xv[j], g[i][j]);
+          if constexpr (GATED) {
+            const float uv = to_f(wu[k * L.ldw + tc + 16 * i]);
+#pragma unroll
+            for (int j = 0; j < MJ; ++j) u[i][j] = fmaf(uv, xv[j], u[i][j]);
+          }
+        }
+      }
+    });
+    if (tm < MP) {
+#pragma unroll
+      for (int i = 0; i < SM_HT; ++i)
+#pragma unroll
+        for (int j = 0; j < MJ; ++j) {
+          const float a = act_apply(act, g[i][j]);
+          own[(tm + 16 * j) * L.ldh + tc + 16 * i] = from_f<T>(GATED ? a * u[i][j] : a);
+        }
+    }
+  }
+  __syncthreads();  // own chunk written; ring 1 drained
+
+  // ---- stage 2: first tiles in flight, then the exchange ----
+  const int n_lo = rank * DS, n_hi = min(Dout, n_lo + DS);
+  const int npass = n_hi > n_lo ? (n_hi - n_lo + SM_OT - 1) / SM_OT : 0;
+  const int nk2 = (hc_end - hc0 + KS - 1) / KS;
+  auto W2s = [&](int s) { return reinterpret_cast<T*>(ring2 + s * L.slot2); };
+  auto stage2 = [&](int t, int s) {
+    const int p = t / nk2, kt = t % nk2;
+    load_tile<T, KS, SM_OT, SM_NT>(W2s(s), L.ldo, W2, Dout, hc0 + kt * KS,
+                                      n_lo + p * SM_OT, hc_end, n_hi, v2);
+  };
+  ring_prologue<STG>(npass * nk2, stage2);
+  cluster.sync();  // every member's own chunk is written
+  {
+    constexpr int V = 16 / sizeof(T);  // elements per 16-byte piece
+    const int pr = hs / V;             // pieces per member row (hs % 16 == 0)
+    for (int r = 0; r < CS; ++r) {
+      const T* src = cluster.map_shared_rank(own, r);
+      for (int idx = threadIdx.x; idx < MP * pr; idx += SM_NT) {
+        const int m = idx / pr, c = (idx % pr) * V;
+        *reinterpret_cast<uint4*>(hcs + m * L.ldc + r * hs + c) =
+            *reinterpret_cast<const uint4*>(src + m * L.ldh + c);
+      }
+    }
+    for (int idx = threadIdx.x; idx < MP * (hr_pad - hr); idx += SM_NT)
+      hcs[(idx / (hr_pad - hr)) * L.ldc + hr + idx % (hr_pad - hr)] = from_f<T>(0.f);
+  }
+  __syncthreads();
+
+  T* outd = reinterpret_cast<T*>(out);
+  float* outp = reinterpret_cast<float*>(out) + size_t(cl) * M * Dout;
+  auto put = [&](int m, int n, float v) {
+    if (m < M && n < n_hi) {
+      if (direct) outd[size_t(m) * Dout + n] = from_f<T>(v);
+      else outp[size_t(m) * Dout + n] = v;
+    }
+  };
+  if constexpr (sizeof(T) == 2) {
+    // warp w: output columns w * 16 .. + 15 of each pass, every token tile
+    float y[NT8][4];
+#pragma unroll
+    for (int n = 0; n < NT8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[n][e] = 0.f;
+    ring_run<STG>(npass * nk2, stage2, [&](int t, int s) {
+      const int p = t / nk2, kt = t % nk2;
+#pragma unroll
+      for (int kk = 0; kk < KS; kk += 16) {
+        uint32_t a[4];
+        frag_a(a, W2s(s) + kk * L.ldo, L.ldo, warp * 16);
+#pragma unroll
+        for (int n = 0; n < NT8; ++n) {
+          uint32_t b[2];
+          frag_b(b, hcs + n * 8 * L.ldc + kt * KS + kk, L.ldc);
+          mma16816(y[n], a, b);
+        }
+      }
+      if (kt == nk2 - 1) {
+        const int n0 = n_lo + p * SM_OT + warp * 16 + (lane >> 2);
+#pragma unroll
+        for (int n = 0; n < NT8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            put(n * 8 + 2 * (lane & 3) + (e & 1), n0 + (e >> 1) * 8, y[n][e]);
+            y[n][e] = 0.f;
+          }
+      }
+    });
+  } else {
+    constexpr int MJ = MP >= 16 ? MP / 16 : 1;
+    constexpr int OI = SM_OT / 16;
+    const int tc = threadIdx.x & 15, tm = threadIdx.x >> 4;
+    float y[OI][MJ];
+#pragma unroll
+    for (int i = 0; i < OI; ++i)
+#pragma unroll
+      for (int j = 0; j < MJ; ++j) y[i][j] = 0.f;
+    ring_run<STG>(npass * nk2, stage2, [&](int t, int s) {
+      if (tm >= MP) return;
+      const int p = t / nk2, kt = t % nk2;
+      const T* w = W2s(s);
+      for (int k = 0; k < KS; ++k) {
+        float hv[MJ];
+#pragma unroll
+        for (int j = 0; j < MJ; ++j) hv[j] = to_f(hcs[(tm + 16 * j) * L.ldc + kt * KS + k]);
+#pragma unroll
+        for (int i = 0; i < OI; ++i) {
+          const float wv = to_f(w[k * L.ldo + tc + 16 * i]);
+#pragma unroll
+          for (int j = 0; j < MJ; ++j) y[i][j] = fmaf(wv, hv[j], y[i][j]);
+        }
+      }
+      if (kt == nk2 - 1) {
+#pragma unroll
+        for (int i = 0; i < OI; ++i)
+#pragma unroll
+          for (int j = 0; j < MJ; ++j) {
+            put(tm + 16 * j, n_lo + p * SM_OT + tc + 16 * i, y[i][j]);
+            y[i][j] = 0.f;
+          }
+      }
+    });
+  }
+  cluster.sync();  // no member leaves while another may still read its chunk
+}
+
+// The launch geometry of the small-M form for one (dtype, gated, Din, H,
+// Dout) on the current device -- never a function of M.  The caller keeps
+// it and hands it back with every launch.
+struct SmallPlan {
+  int ht, cs, nb, ds, hr_pad;
+};
+
+// Lets every row-count instantiation of the form use up to `bytes` of
+// dynamic shared memory on the current device.
+template <typename T, bool GATED>
+cudaError_t small_allow(int bytes) {
+  const void* kerns[] = {reinterpret_cast<const void*>(small_m_kernel<T, GATED, 8>),
+                         reinterpret_cast<const void*>(small_m_kernel<T, GATED, 16>),
+                         reinterpret_cast<const void*>(small_m_kernel<T, GATED, 32>),
+                         reinterpret_cast<const void*>(small_m_kernel<T, GATED, 64>)};
+  for (const void* k : kerns) {
+    cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// Blocks of HT <= SM_HT hidden tiles, about one per SM; the largest cluster
+// (8, 4, 2 or 1 blocks) whose shared memory fits at SM_MAXM rows and whose
+// clusters can all be resident at once (or fill the card's SMs, when the
+// blocks outnumber them).  Also raises the form's shared-memory limit on
+// the device to the most a block may opt into, so that no launch has to.
+template <typename T, bool GATED>
+cudaError_t small_plan(int Din, int H, int Dout, SmallPlan* plan) {
+  int dev = 0, nsm = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = small_allow<T, GATED>(optin);
+  if (e != cudaSuccess) return e;
+  const int nt16 = (H + 15) / 16;
+  const int ht = min(SM_HT, (nt16 + nsm - 1) / nsm);
+  const int nb0 = (nt16 + ht - 1) / ht;
+  for (int cs = SM_MAX_CLUSTER; cs >= 1; cs /= 2) {
+    const int nb = (nb0 + cs - 1) / cs * cs;
+    const int hr = cs * ht * 16, hr_pad = (hr + kSmKS<T> - 1) / kSmKS<T> * kSmKS<T>;
+    const SmallSmem<T> L(SM_MAXM, hr_pad, GATED);
+    if (L.total > size_t(optin)) continue;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(nb);
+    cfg.blockDim = dim3(SM_NT);
+    cfg.dynamicSmemBytes = L.total;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int nclusters = 0;
+    auto kern = small_m_kernel<T, GATED, SM_MAXM>;
+    e = cudaOccupancyMaxActiveClusters(&nclusters, kern, &cfg);
+    if (e != cudaSuccess) return e;
+    const int resident = nclusters * cs;
+    if (cs > 1 && resident < nb && resident < nsm) continue;
+    *plan = SmallPlan{ht, cs, nb, ((Dout + cs - 1) / cs + 15) / 16 * 16, hr_pad};
+    return cudaSuccess;
+  }
+  return cudaErrorInvalidConfiguration;
+}
+
+// Whether p is a geometry small_plan could have given for (Din, H, Dout):
+// whole clusters that cover H and Dout with a padded hidden range of whole
+// k-steps.  A launch checks it, since the kernel trusts its plan.
+template <typename T>
+bool small_plan_covers(const SmallPlan& p, int H, int Dout) {
+  const bool cs_ok = p.cs == 1 || p.cs == 2 || p.cs == 4 || p.cs == SM_MAX_CLUSTER;
+  return cs_ok && p.ht >= 1 && p.ht <= SM_HT && p.nb >= p.cs && p.nb % p.cs == 0 &&
+         size_t(p.nb) * p.ht * 16 >= size_t(H) && p.ds % 16 == 0 && p.ds * p.cs >= Dout &&
+         p.hr_pad >= p.cs * p.ht * 16 && p.hr_pad % kSmKS<T> == 0;
+}
+
+template <typename T, bool GATED, int MP>
+int launch_small_mp(const SmallPlan& p, const void* x, const void* w1, const void* wu,
+                    const void* w2, void* out, int M, int Din, int H, int Dout, int act,
+                    cudaStream_t st) {
+  const SmallSmem<T> L(MP, p.hr_pad, GATED);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.nb);
+  cfg.blockDim = dim3(SM_NT);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int direct = p.nb == p.cs;
+  auto kern = small_m_kernel<T, GATED, MP>;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x),
+                                     static_cast<const T*>(w1), static_cast<const T*>(wu),
+                                     static_cast<const T*>(w2), out, M, Din, H, Dout, p.ht, p.ds,
+                                     p.hr_pad, act, direct);
+  if (e != cudaSuccess) return int(e);
+  return int(cudaGetLastError());
+}
+
+template <typename T, bool GATED>
+int launch_small(const SmallPlan& p, const void* x, const void* w1, const void* wu,
+                 const void* w2, void* out, int M, int Din, int H, int Dout, int act,
+                 cudaStream_t st) {
+  if (!small_plan_covers<T>(p, H, Dout)) return int(cudaErrorInvalidValue);
+  if (M <= 8) return launch_small_mp<T, GATED, 8>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st);
+  if (M <= 16) return launch_small_mp<T, GATED, 16>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st);
+  if (M <= 32) return launch_small_mp<T, GATED, 32>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st);
+  return launch_small_mp<T, GATED, 64>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st);
+}
+
 }  // namespace
 
 // x (M, Din), w1 (Din, H), wu (Din, H) or null, w2 (H, Dout), all of one
@@ -206,3 +713,42 @@ extern "C" int repro_fused_mlp_fwd(const void* x, const void* w1, const void* wu
   return int(cudaErrorInvalidValue);
 }
 
+// Small-M form: its launch geometry for (Din, H, Dout) on the current
+// device, plan = {ht, cs, nb, ds, hr_pad}; it leaves nb / cs f32 partials
+// (1: it writes Y directly).  Call it on a device before the form's first
+// launch there: it also sets the form's shared-memory limit.
+extern "C" int repro_fused_mlp_small_plan(int Din, int H, int Dout, int dtype, int gated,
+                                          int* plan) {
+  SmallPlan p;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (dtype == BF16)
+    e = gated ? small_plan<__nv_bfloat16, true>(Din, H, Dout, &p)
+              : small_plan<__nv_bfloat16, false>(Din, H, Dout, &p);
+  else if (dtype == F32)
+    e = gated ? small_plan<float, true>(Din, H, Dout, &p)
+              : small_plan<float, false>(Din, H, Dout, &p);
+  if (e != cudaSuccess) return int(e);
+  const int fields[] = {p.ht, p.cs, p.nb, p.ds, p.hr_pad};
+  for (int i = 0; i < 5; ++i) plan[i] = fields[i];
+  return 0;
+}
+
+// x (M, Din) with 1 <= M <= 64, weights as repro_fused_mlp_fwd's, plan as
+// repro_fused_mlp_small_plan gave it for these widths; out is Y (M, Dout)
+// in the operands' dtype when the plan leaves one partial, else f32
+// partials (nb / cs, M, Dout).
+extern "C" int repro_fused_mlp_small(const void* x, const void* w1, const void* wu,
+                                     const void* w2, void* out, int M, int Din, int H, int Dout,
+                                     int dtype, int gated, int act, const int* plan,
+                                     void* stream) {
+  if (M < 1 || M > SM_MAXM) return int(cudaErrorInvalidValue);
+  const SmallPlan p{plan[0], plan[1], plan[2], plan[3], plan[4]};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == BF16)
+    return gated ? launch_small<__nv_bfloat16, true>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st)
+                 : launch_small<__nv_bfloat16, false>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st);
+  if (dtype == F32)
+    return gated ? launch_small<float, true>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st)
+                 : launch_small<float, false>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st);
+  return int(cudaErrorInvalidValue);
+}

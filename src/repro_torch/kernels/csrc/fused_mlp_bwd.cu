@@ -30,13 +30,53 @@
 //     dW1 = X^T da (gated: dWg = X^T dg and dWu = X^T du from ONE staged X
 //     tile), dW2 = t^T dY; f32 partials (n_ms, ...) per output.
 //
-// Work: 11 GEMMs for the gated form (dX: 5, dW: 6, the TPU kernels' count)
-// and 7 for the two-matrix one; at gemma3-1b's training shape (M 8192,
-// 1152 -> 6912 -> 1152) that is 1.44 TFLOP, tensor-core bound on the card.
-// The partials add bytes: 2 * 4 * (n_split * M * Din + n_ms * |dW|).  This
-// version issues WMMA (mma.sync) from cp.async-staged tiles; wgmma, TMA and
-// a cluster accumulator that would remove the partials are later work.
+// Work: 11 GEMMs for the gated form (dX: 5, dW: 6, the TPU kernels' count;
+// the function needs 8, but each kernel recomputes g, u and dt for its own
+// tiles) and 7 for the two-matrix one; at gemma3-1b's training shape (M
+// 8192, 1152 -> 6912 -> 1152) that is 1.44 TFLOP, tensor-core bound on the
+// card.  Two implementations:
+//
+// The ungated form (B6) and float32: the kernels above, WMMA (mma.sync)
+// from cp.async-staged tiles, 64-row recompute tiles; partials add
+// 2 * 4 * (n_split * M * Din + n_ms * |dW|) bytes (n_ms = M / 256).
+//
+// The gated bf16 form (B7): swiglu_bwd_dx_wgmma and swiglu_bwd_dw_wgmma.
+// 384 threads a block: a producer warpgroup whose thread 0 keeps TMA loads
+// of 64 x 64 boxes (128-byte swizzle) in flight through a ring of full /
+// empty mbarriers, and two consumer warpgroups of 64 rows each running
+// wgmma out of the boxes (128-row tiles).  Transposed operands need no
+// copy: X, dY and the weight boxes are read K-major or MN-major as each
+// product needs (g = X Wg reads Wg MN-major; dX = dg Wg^T reads the same
+// Wg boxes K-major; dWg^T = dg^T X reads the hidden atoms and X MN-major).
+// dg, du (and t) are rounded to bf16 into swizzled shared atoms that are
+// the next products' operands -- the (M, H) tensors stay on chip.
+//   dX: block (192 hidden columns, 128 rows) recomputes dg, du for its
+//     chunk (dt = dY Wd^T, g, u: 3 GEMMs), then dX = dg Wg^T + du Wu^T
+//     (2), 128 columns a pass.
+//   dW: block (64 hidden columns, 256 rows) recomputes dg, du, t for its
+//     rows (3 GEMMs), then dWg^T = dg^T X, dWu^T = du^T X and dWd = t^T dY
+//     (3), 128 columns a pass.
+// A thread-block cluster (2 dX blocks over consecutive hidden chunks of
+// one row tile; 8 dW blocks over consecutive row spans of one chunk) folds
+// each pass's f32 accumulators over distributed shared memory in rank
+// order (two reduce buffers, one cluster barrier a round) before writing:
+// one partial per cluster goes to queue_reduce.  At gemma3-1b's shape the
+// partials are dX 18 x 8192 x 1152 x 4 B = 0.68 GB and dW 4 x 3 x 6912 x
+// 1152 x 4 B = 0.38 GB written (and read once by the folds), against
+// 0.53 + 3.06 GB before.  The folds' cluster barriers cost about as much
+// as the products (build-and-compare probes; PERF.md), which is why
+// dX's clusters are 2 blocks, not 4.  Every sum runs in a fixed order (no float
+// atomics), so two runs give the same bits.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 3;
+// PERF.md): 7.95 ms a call with its folds (dX 2.94, dW 4.45) at
+// gemma3-1b's shape, against 15.95 ms before, the 1.055 ms bound and 2.48 ms
+// for cuBLAS's unfused chain.
+#include <cooperative_groups.h>
+
+#include <initializer_list>
+
 #include "common.cuh"
+#include "sm90.cuh"
 
 using namespace kt;
 
@@ -322,10 +362,489 @@ int launch_dw(const BwdArgs<T>& a, float* p1, float* pu, float* p2, int ms, cuda
   return int(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The gated bf16 form (B7) on TMA + wgmma, partials folded across clusters
+// ---------------------------------------------------------------------------
+
+constexpr int WG_NT = 256;            // two consumer warpgroups of 64 rows ...
+constexpr int B7_NT = 384;            // ... after one producer warpgroup
+constexpr int ATOM = 64 * 64 * 2;     // one 64 x 64 bf16 TMA box, 128-byte swizzled
+constexpr int SLOT = 4 * ATOM;        // a ring stage: the largest step's boxes
+constexpr int RB_N = 32;              // accumulator floats per thread per reduce round
+constexpr int DX_NJ = 3;              // 64-wide hidden sub-chunks per dX block
+constexpr int DX_ST = 2;              // dX ring stages
+constexpr int DW_MS = 256;            // rows per dW block
+constexpr int DW_ST = 2;              // dW ring stages
+constexpr int DX_CLUSTER = 2;         // dX blocks (hidden chunks of one row tile) per cluster
+constexpr int DW_CLUSTER = 8;         // dW blocks (row spans of one hidden chunk) per cluster
+// dynamic shared memory: the hidden atoms, the ring, the two reduce
+// buffers, the ring's full and empty barriers, and slack to align the base
+// to 1024
+constexpr int RB_FLOATS = 2 * WG_NT * RB_N;
+constexpr int wg_smem(int atoms, int stages) {
+  return atoms * ATOM + stages * SLOT + RB_FLOATS * 4 + 16 * stages + 1024;
+}
+constexpr int DX_SMEM = wg_smem(4 * DX_NJ, DX_ST), DW_SMEM = wg_smem(3 * DW_MS / 64, DW_ST);
+static_assert(DX_SMEM <= 232448 && DW_SMEM <= 232448, "a block may use 227 KB");
+static_assert(DW_MS % 128 == 0 && RB_N % (2 * DX_CLUSTER) == 0 && RB_N % (2 * DW_CLUSTER) == 0,
+              "whole 128-row tiles; every member folds whole pairs");
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Descriptors of a K-major operand (rows 128 bytes apart, K steps of 32
+// bytes) and of an MN-major one (K steps of 16 rows = 2048 bytes; `lbo`
+// between 64-wide column atoms along M or N).
+__device__ __forceinline__ uint64_t kdesc(const unsigned char* p) { return sw128_desc(p, 16, 1024); }
+__device__ __forceinline__ uint64_t mndesc(const unsigned char* p, uint32_t lbo) {
+  return sw128_desc(p, lbo, 1024);
+}
+
+// (row, column) within a warpgroup's 64-row accumulator of element i: rows
+// lane / 4 (+8 for the upper pair) of the warp's 16, columns 8 (i / 4) +
+// 2 (lane % 4) (+1)
+__device__ __forceinline__ int acc_row(int i) {
+  return 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int i) { return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1); }
+
+// Write a bf16 pair (columns c, c + 1, c even) at row r of a swizzled atom.
+__device__ __forceinline__ void atom_put(unsigned char* atom, int r, int c, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(atom + r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2) = v;
+}
+
+// The ring of ST slots, warp-specialised as csrc/flash_attention.cu's:
+// warpgroup 0 produces -- its thread 0 refills slot t % ST with step t's
+// TMA boxes (issue(t, slot) arms the slot's full barrier) once the slot's
+// empty barrier says every consumer warp released step t - ST -- and
+// warpgroups 1 and 2 consume: wait for step t, run consume(t, slot,
+// release), which calls release() once its products have read the slot.
+// The producer takes part in the cluster barriers of the consumers' folds
+// (syncs(t) of them after step t), ST - 1 steps behind its copies so that
+// the next steps' boxes are in flight while the consumers fold.  No block
+// leaves before its whole cluster (whose reduce buffers it may still read).
+template <int ST, typename Issue, typename Syncs, typename Consume>
+__device__ __forceinline__ void run_ring(int T, uint64_t* full, uint64_t* empty, Issue issue,
+                                         Syncs syncs, Consume consume) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    for (int t = 0; t < T + ST - 1; ++t) {
+      if (t < T && threadIdx.x == 0) {
+        const int s = t % ST;
+        if (t >= ST) mbar_wait(&empty[s], ((t / ST) + 1) & 1);
+        issue(t, s);
+      }
+      const int td = t - (ST - 1);
+      if (td >= 0)
+        for (int k = syncs(td); k > 0; --k) cluster.sync();
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x & 31;
+    for (int t = 0; t < T; ++t) {
+      const int s = t % ST;
+      mbar_wait(&full[s], (t / ST) & 1);
+      consume(t, s, [&]() {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      });
+    }
+  }
+  cluster.sync();
+}
+
+// Named barriers of the consumers: both warpgroups, or warpgroup w alone.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ void warpgroup_sync(int w) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + w) : "memory");
+}
+
+// Fold this thread's N accumulator floats over the CS blocks of the cluster
+// in rank order and store the sums as f32 at out[(row0 + row) * ld + col0 +
+// col], masked to rows < nrows, columns < ncols.  RB_N floats a round,
+// rounds alternating between two reduce buffers (`round` counts them):
+// every member parks its own in the round's buffer (element i of consumer
+// thread c at i * WG_NT + c), one cluster barrier, then member `rank`
+// loads element range `rank` of the round from every member at once, sums
+// it in rank order and writes it.  A buffer is written again two rounds
+// later, after the next round's barrier, which every member reaches only
+// once done reading it.  The producer warpgroup joins each of the N / RB_N
+// barriers.
+template <int N, int CS>
+__device__ __forceinline__ void cluster_store(const float* acc, float* rb, int& round, float* out,
+                                              size_t ld, int row0, int col0, int nrows,
+                                              int ncols) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int SHARE = RB_N / CS;
+  const int rank = int(cluster.block_rank()), ct = threadIdx.x - 128;  // consumer thread
+#pragma unroll
+  for (int base = 0; base < N; base += RB_N, ++round) {
+    float* buf = rb + (round & 1) * WG_NT * RB_N;
+#pragma unroll
+    for (int i = 0; i < RB_N; ++i) buf[i * WG_NT + ct] = acc[base + i];
+    cluster.sync();
+    float v[CS][SHARE];
+#pragma unroll
+    for (int q = 0; q < CS; ++q) {
+      const float* r = cluster.map_shared_rank(buf, q) + rank * SHARE * WG_NT + ct;
+#pragma unroll
+      for (int i = 0; i < SHARE; ++i) v[q][i] = r[i * WG_NT];
+    }
+#pragma unroll
+    for (int i = 0; i < SHARE; i += 2) {
+      float v0 = v[0][i], v1 = v[0][i + 1];
+#pragma unroll
+      for (int q = 1; q < CS; ++q) {
+        v0 += v[q][i];
+        v1 += v[q][i + 1];
+      }
+      const int e = base + rank * SHARE + i;
+      const int row = row0 + acc_row(e), col = col0 + acc_col(e);
+      if (row < nrows && col < ncols) {
+        float* o = out + size_t(row) * ld + col;
+        if (col + 1 < ncols) *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        else o[0] = v0;
+      }
+    }
+  }
+}
+
+struct B7Args {
+  int M, Din, H, Dout, act;
+};
+
+struct B7Maps {
+  const CUtensorMap *x, *dy, *wg, *wu, *wd;
+};
+
+// Recompute of a 128-row tile (rows m0..) against the 64 hidden columns
+// from hj, warpgroup w taking rows m0 + 64 w: nkd steps of
+// dt = dY Wd[hj.., :]^T (dY boxes K-major as A, a Wd box K-major as B),
+// then nki steps of g = X Wg[:, hj..] and u = X Wu[:, hj..] (X K-major,
+// Wg / Wu MN-major); step k < nkd + nki.
+__device__ __forceinline__ void issue_recompute(int k, int nkd, unsigned char* sl, uint64_t* bar,
+                                                const B7Maps& mp, int m0, int hj) {
+  if (k < nkd) {
+    mbar_expect_tx(bar, 3 * ATOM);
+    tma_load_3d(sl, mp.dy, bar, k * 64, m0, 0);
+    tma_load_3d(sl + ATOM, mp.dy, bar, k * 64, m0 + 64, 0);
+    tma_load_3d(sl + 2 * ATOM, mp.wd, bar, k * 64, hj, 0);
+  } else {
+    k -= nkd;
+    mbar_expect_tx(bar, 4 * ATOM);
+    tma_load_3d(sl, mp.x, bar, k * 64, m0, 0);
+    tma_load_3d(sl + ATOM, mp.x, bar, k * 64, m0 + 64, 0);
+    tma_load_3d(sl + 2 * ATOM, mp.wg, bar, hj, k * 64, 0);
+    tma_load_3d(sl + 3 * ATOM, mp.wu, bar, hj, k * 64, 0);
+  }
+}
+
+__device__ __forceinline__ void mma_recompute(int w, int k, int nkd, const unsigned char* sl,
+                                              float* dt, float* g, float* u) {
+  wgmma_fence();
+  if (k < nkd) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n64t<0, 0>(dt, kdesc(sl + w * ATOM + kk * 32), kdesc(sl + 2 * ATOM + kk * 32), 1);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t a = kdesc(sl + w * ATOM + kk * 32);
+      wgmma_ss_n64t<0, 1>(g, a, mndesc(sl + 2 * ATOM + kk * 2048, ATOM), 1);
+      wgmma_ss_n64t<0, 1>(u, a, mndesc(sl + 3 * ATOM + kk * 2048, ATOM), 1);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs<32>(dt);
+  fence_regs<32>(g);
+  fence_regs<32>(u);
+}
+
+// dg = dt u act'(g), du = dt act(g), t = act(g) u, each rounded to bf16
+// into this warpgroup's atoms (rows: its 64, columns: the 64 hidden
+// columns), then the recompute accumulators are zeroed.
+__device__ __forceinline__ void put_hidden(int act, float* dt, float* g, float* u,
+                                           unsigned char* dg_atom, unsigned char* du_atom,
+                                           unsigned char* t_atom) {
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    float dg2[2], du2[2], t2[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float pre = g[i + e], d = dt[i + e], uv = u[i + e], sg = act_apply(act, pre);
+      dg2[e] = d * uv * dact_apply(act, pre);
+      du2[e] = d * sg;
+      t2[e] = sg * uv;
+    }
+    const int r = acc_row(i), c = acc_col(i);
+    atom_put(dg_atom, r, c, pack2(dg2[0], dg2[1]));
+    atom_put(du_atom, r, c, pack2(du2[0], du2[1]));
+    if (t_atom) atom_put(t_atom, r, c, pack2(t2[0], t2[1]));
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dt[i] = g[i] = u[i] = 0.f;
+  fence_proxy_async_smem();  // the atoms are wgmma operands next
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// The ring's barriers, after the reduce buffer: full[ST] (one arrival and
+// the step's bytes), then empty[ST] (one arrival per consumer warp).
+template <int ST>
+__device__ __forceinline__ uint64_t* init_ring_barriers(float* rb) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(rb + RB_FLOATS);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&full[ST + s], WG_NT / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return full;
+}
+
+// dX: block (blockIdx.x: hidden chunk of 64 DX_NJ columns, blockIdx.y:
+// 128-row tile); cluster = DX_CLUSTER consecutive chunks of one row tile.
+// Recompute dg, du of the chunk into atoms, then per 128-wide dX column tile p the chunk's K steps of
+// dg Wg^T + du Wu^T (Wg / Wu boxes K-major as B: rows din, columns h),
+// folded over the cluster into partial chunk / cluster of out
+// (n_partials, M, Din).
+__global__ void __launch_bounds__(B7_NT, 1)
+swiglu_bwd_dx_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
+                    const __grid_constant__ CUtensorMap twg, const __grid_constant__ CUtensorMap twu,
+                    const __grid_constant__ CUtensorMap twd, float* __restrict__ out, B7Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* DG = smem;                    // atom (j, w): rows 64 w.., columns 64 j..
+  unsigned char* DU = DG + DX_NJ * 2 * ATOM;
+  unsigned char* ring = DU + DX_NJ * 2 * ATOM;
+  float* rb = reinterpret_cast<float*>(ring + DX_ST * SLOT);
+  uint64_t* full = init_ring_barriers<DX_ST>(rb);
+  const B7Maps mp{&tx, &tdy, &twg, &twu, &twd};
+  const int cs = int(cooperative_groups::this_cluster().num_blocks());
+  const int chunk = blockIdx.x;
+  const int h0 = chunk * DX_NJ * 64, m0 = blockIdx.y * 128;
+  const int w = (threadIdx.x >> 7) - 1;  // consumer warpgroup
+  const int nkd = (a.Dout + 63) / 64, nki = (a.Din + 63) / 64, seg = nkd + nki;
+  const int npass = (a.Din + 127) / 128, T = DX_NJ * seg + npass * DX_NJ;
+  float dt[32], g[32], u[32], acc[64];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dt[i] = g[i] = u[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float* part = out + size_t(chunk / cs) * a.M * a.Din;
+  int round = 0;  // reduce rounds so far
+
+  auto issue = [&](int t, int s) {
+    unsigned char* sl = ring + s * SLOT;
+    if (t < DX_NJ * seg) {
+      issue_recompute(t % seg, nkd, sl, &full[s], mp, m0, h0 + (t / seg) * 64);
+    } else {
+      const int q = t - DX_NJ * seg, p = q / DX_NJ, hj = h0 + (q % DX_NJ) * 64;
+      mbar_expect_tx(&full[s], 4 * ATOM);
+      tma_load_3d(sl, &twg, &full[s], hj, p * 128, 0);
+      tma_load_3d(sl + ATOM, &twg, &full[s], hj, p * 128 + 64, 0);
+      tma_load_3d(sl + 2 * ATOM, &twu, &full[s], hj, p * 128, 0);
+      tma_load_3d(sl + 3 * ATOM, &twu, &full[s], hj, p * 128 + 64, 0);
+    }
+  };
+  auto syncs = [&](int t) {  // the fold after the last step of a dX tile
+    return t >= DX_NJ * seg && (t - DX_NJ * seg) % DX_NJ == DX_NJ - 1 ? 64 / RB_N : 0;
+  };
+  auto consume = [&](int t, int s, auto release) {
+    const unsigned char* sl = ring + s * SLOT;
+    if (t < DX_NJ * seg) {
+      const int j = t / seg, k = t % seg;
+      mma_recompute(w, k, nkd, sl, dt, g, u);
+      release();
+      if (k == seg - 1) {
+        put_hidden(a.act, dt, g, u, DG + (j * 2 + w) * ATOM, DU + (j * 2 + w) * ATOM, nullptr);
+        warpgroup_sync(w);  // its atoms are written before its products read them
+      }
+    } else {
+      const int q = t - DX_NJ * seg, p = q / DX_NJ, j = q % DX_NJ;
+      const unsigned char* dg = DG + (j * 2 + w) * ATOM;
+      const unsigned char* du = DU + (j * 2 + w) * ATOM;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss_n128t<0, 0>(acc, kdesc(dg + kk * 32), kdesc(sl + kk * 32), 1);
+        wgmma_ss_n128t<0, 0>(acc, kdesc(du + kk * 32), kdesc(sl + 2 * ATOM + kk * 32), 1);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs<64>(acc);
+      release();
+      if (j == DX_NJ - 1) {
+        cluster_store<64, DX_CLUSTER>(acc, rb, round, part, a.Din, m0 + 64 * w, p * 128, a.M, a.Din);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      }
+    }
+  };
+  run_ring<DX_ST>(T, full, full + DX_ST, issue, syncs, consume);
+}
+
+// dW: block (blockIdx.x: DW_MS-row span, blockIdx.y: 64-wide hidden chunk);
+// cluster = DW_CLUSTER consecutive spans of one chunk.  Recompute dg, du, t for the span's rows (128-row
+// tiles) into atoms, then
+//   dWg^T, dWu^T [chunk, 128-wide Din tile p] = dg^T X, du^T X: warpgroup 0
+//     takes dWg, 1 dWu; A = the hidden atoms read MN-major (M = the 64
+//     hidden columns), B = X boxes MN-major (rows of the span as K);
+//   dWd [chunk, 128-wide Dout tile p] = t^T dY, warpgroup w taking
+//     columns 64 w.. of the tile;
+// each tile folded over the cluster into partial blockIdx.x / cluster:
+// pg, pu (n, H, Din) -- transposed -- and pd (n, H, Dout).
+__global__ void __launch_bounds__(B7_NT, 1)
+swiglu_bwd_dw_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
+                    const __grid_constant__ CUtensorMap twg, const __grid_constant__ CUtensorMap twu,
+                    const __grid_constant__ CUtensorMap twd, float* __restrict__ pg,
+                    float* __restrict__ pu, float* __restrict__ pd, B7Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  constexpr int NA = DW_MS / 64;               // atoms per hidden buffer, one per 64 rows
+  unsigned char* DG = smem;
+  unsigned char* DU = DG + NA * ATOM;
+  unsigned char* TT = DU + NA * ATOM;
+  unsigned char* ring = TT + NA * ATOM;
+  float* rb = reinterpret_cast<float*>(ring + DW_ST * SLOT);
+  uint64_t* full = init_ring_barriers<DW_ST>(rb);
+  const B7Maps mp{&tx, &tdy, &twg, &twu, &twd};
+  const int cs = int(cooperative_groups::this_cluster().num_blocks());
+  const int mb = blockIdx.x * DW_MS, h0 = blockIdx.y * 64;
+  const int w = (threadIdx.x >> 7) - 1;  // consumer warpgroup
+  const int nkd = (a.Dout + 63) / 64, nki = (a.Din + 63) / 64, seg = nkd + nki;
+  constexpr int NMT = DW_MS / 128, NKS = DW_MS / 128;  // recompute tiles, K steps a pass
+  const int npg = (a.Din + 127) / 128, npd = (a.Dout + 127) / 128;
+  const int t_w = NMT * seg, t_d = t_w + npg * NKS, T = t_d + npd * NKS;
+  float dt[32], g[32], u[32], acc[64];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dt[i] = g[i] = u[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const size_t pn = size_t(blockIdx.x / cs);
+  int round = 0;  // reduce rounds so far
+
+  auto issue = [&](int t, int s) {
+    unsigned char* sl = ring + s * SLOT;
+    if (t < t_w) {
+      issue_recompute(t % seg, nkd, sl, &full[s], mp, mb + (t / seg) * 128, h0);
+    } else {
+      // box (row atom r, column atom c) at sl + (2 r + c) ATOM: rows of the
+      // span as K, 128 columns of X (or dY) as N
+      const bool dw = t >= t_d;
+      const int q = dw ? t - t_d : t - t_w, p = q / NKS, r0 = mb + (q % NKS) * 128;
+      const CUtensorMap* map = dw ? &tdy : &tx;
+      mbar_expect_tx(&full[s], 4 * ATOM);
+      for (int r = 0; r < 2; ++r)
+        for (int c = 0; c < 2; ++c)
+          tma_load_3d(sl + (2 * r + c) * ATOM, map, &full[s], p * 128 + c * 64, r0 + r * 64, 0);
+    }
+  };
+  auto syncs = [&](int t) {  // the folds after the last step of a dW tile
+    if (t < t_w || (t - (t < t_d ? t_w : t_d)) % NKS != NKS - 1) return 0;
+    return t < t_d ? 64 / RB_N : 32 / RB_N;
+  };
+  auto consume = [&](int t, int s, auto release) {
+    const unsigned char* sl = ring + s * SLOT;
+    if (t < t_w) {
+      const int mt = t / seg, k = t % seg;
+      mma_recompute(w, k, nkd, sl, dt, g, u);
+      release();
+      if (k == seg - 1) {
+        const int at = (mt * 2 + w) * ATOM;
+        put_hidden(a.act, dt, g, u, DG + at, DU + at, TT + at);
+      }
+    } else if (t < t_d) {
+      const int q = t - t_w, p = q / NKS, ks = q % NKS;
+      const unsigned char* hid = w == 0 ? DG : DU;
+      if (q == 0) consumers_sync();  // both warpgroups' atoms are written
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int r = kk / 4, ko = (kk % 4) * 2048;
+        wgmma_ss_n128t<1, 1>(acc, mndesc(hid + (ks * 2 + r) * ATOM + ko, ATOM),
+                             mndesc(sl + 2 * r * ATOM + ko, ATOM), 1);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs<64>(acc);
+      release();
+      if (ks == NKS - 1) {
+        float* o = (w == 0 ? pg : pu) + pn * a.H * a.Din;
+        cluster_store<64, DW_CLUSTER>(acc, rb, round, o, a.Din, h0, p * 128, a.H, a.Din);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      }
+    } else {
+      const int q = t - t_d, p = q / NKS, ks = q % NKS;
+      wgmma_fence();  // the first 32 accumulators
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int r = kk / 4, ko = (kk % 4) * 2048;
+        wgmma_ss_n64t<1, 1>(acc, mndesc(TT + (ks * 2 + r) * ATOM + ko, ATOM),
+                            mndesc(sl + (2 * r + w) * ATOM + ko, ATOM), 1);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs<64>(acc);
+      release();
+      if (ks == NKS - 1) {
+        cluster_store<32, DW_CLUSTER>(acc, rb, round, pd + pn * a.H * a.Dout, a.Dout, h0, p * 128 + 64 * w, a.H,
+                          a.Dout);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      }
+    }
+  };
+  run_ring<DW_ST>(T, full, full + DW_ST, issue, syncs, consume);
+}
+
+// A tensor map over a row-major (rows, cols) bf16 matrix in 64 x 64 boxes.
+cudaError_t map64(CUtensorMap* m, const void* p, int rows, int cols) {
+  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows), 1};
+  const cuuint64_t strides[2] = {cuuint64_t(cols) * 2, cuuint64_t(rows) * cols * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  return encode_sw128_bf16_3d(m, p, dims, strides, box);
+}
+
+template <typename Kern, typename... Args>
+cudaError_t launch_cluster(Kern kern, dim3 grid, int smem, int cluster, cudaStream_t st,
+                           Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(B7_NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 }  // namespace
 
 // x (M, Din), w1 (Din, H), wu (Din, H) or null, w2 (H, Dout), dy (M, Dout),
-// one dtype.  out holds dX as f32 partials (ceil(H / block_h), M, Din).
+// one dtype (the gated bf16 form is repro_swiglu_bwd_wgmma's).  out holds
+// dX as f32 partials (ceil(H / block_h), M, Din).
 extern "C" int repro_fused_mlp_bwd_dx(const void* x, const void* w1, const void* wu,
                                       const void* w2, const void* dy, void* out, int M, int Din,
                                       int H, int Dout, int dtype, int gated, int act, int block_h,
@@ -333,11 +852,9 @@ extern "C" int repro_fused_mlp_bwd_dx(const void* x, const void* w1, const void*
   if (block_h <= 0 || block_h % OT) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* f = static_cast<float*>(out);
-  if (dtype == BF16) {
-    auto a = make_args<__nv_bfloat16>(x, w1, wu, w2, dy, M, Din, H, Dout, act, gated);
-    return gated ? launch_dx<__nv_bfloat16, true>(a, f, block_h, st)
-                 : launch_dx<__nv_bfloat16, false>(a, f, block_h, st);
-  }
+  if (dtype == BF16 && !gated)
+    return launch_dx<__nv_bfloat16, false>(
+        make_args<__nv_bfloat16>(x, w1, wu, w2, dy, M, Din, H, Dout, act, false), f, block_h, st);
   if (dtype == F32) {
     auto a = make_args<float>(x, w1, wu, w2, dy, M, Din, H, Dout, act, gated);
     return gated ? launch_dx<float, true>(a, f, block_h, st)
@@ -356,15 +873,63 @@ extern "C" int repro_fused_mlp_bwd_dw(const void* x, const void* w1, const void*
   if (block_m <= 0 || block_m % RM) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float *f1 = static_cast<float*>(p1), *fu = static_cast<float*>(pu), *f2 = static_cast<float*>(p2);
-  if (dtype == BF16) {
-    auto a = make_args<__nv_bfloat16>(x, w1, wu, w2, dy, M, Din, H, Dout, act, gated);
-    return gated ? launch_dw<__nv_bfloat16, true>(a, f1, fu, f2, block_m, st)
-                 : launch_dw<__nv_bfloat16, false>(a, f1, fu, f2, block_m, st);
-  }
+  if (dtype == BF16 && !gated)
+    return launch_dw<__nv_bfloat16, false>(
+        make_args<__nv_bfloat16>(x, w1, wu, w2, dy, M, Din, H, Dout, act, false), f1, fu, f2,
+        block_m, st);
   if (dtype == F32) {
     auto a = make_args<float>(x, w1, wu, w2, dy, M, Din, H, Dout, act, gated);
     return gated ? launch_dw<float, true>(a, f1, fu, f2, block_m, st)
                  : launch_dw<float, false>(a, f1, fu, f2, block_m, st);
   }
   return int(cudaErrorInvalidValue);
+}
+
+// The f32 partials the gated bf16 backward writes at M rows and hidden
+// width H (a multiple of 8): one dX partial per cluster of DX_CLUSTER
+// hidden chunks of DX_NJ * 64 columns, ceil(ceil(H / 192) / 2), and one dW
+// partial per cluster of DW_CLUSTER row spans of DW_MS rows,
+// ceil(ceil(M / 256) / 8).  The caller sizes repro_swiglu_bwd_wgmma's
+// buffers from it.
+extern "C" int repro_swiglu_bwd_partials(int M, int H, int* n_dx, int* n_dw) {
+  if (M < 1 || H < 8 || H % 8) return int(cudaErrorInvalidValue);
+  const int nch = (H + DX_NJ * 64 - 1) / (DX_NJ * 64), nspan = (M + DW_MS - 1) / DW_MS;
+  *n_dx = (nch + DX_CLUSTER - 1) / DX_CLUSTER;
+  *n_dw = (nspan + DW_CLUSTER - 1) / DW_CLUSTER;
+  return 0;
+}
+
+// The gated bf16 backward on TMA + wgmma: x (M, Din), wg / wu (Din, H), wd
+// (H, Dout), dy (M, Dout), every width a multiple of 8 and every pointer
+// 16-byte aligned (TMA's rule).  Writes f32 partials, their counts n_dx and
+// n_dw as repro_swiglu_bwd_partials gives them: dx (n_dx, M, Din), and pg /
+// pu (n_dw, H, Din) holding dWg^T / dWu^T and pd (n_dw, H, Dout) holding dWd.
+// parts: 1 launches the dX kernel, 2 the dW kernel, 3 both.
+extern "C" int repro_swiglu_bwd_wgmma(const void* x, const void* wg, const void* wu,
+                                      const void* wd, const void* dy, void* dx, void* pg,
+                                      void* pu, void* pd, int M, int Din, int H, int Dout,
+                                      int act, int parts, void* stream) {
+  if (M < 1 || Din % 8 || H % 8 || Dout % 8 || Din < 8 || H < 8 || Dout < 8)
+    return int(cudaErrorInvalidValue);
+  for (const void* p : {x, wg, wu, wd, dy})
+    if (reinterpret_cast<uintptr_t>(p) & 15) return int(cudaErrorInvalidValue);
+  CUtensorMap tx, tdy, twg, twu, twd;
+  cudaError_t e = map64(&tx, x, M, Din);
+  if (e == cudaSuccess) e = map64(&tdy, dy, M, Dout);
+  if (e == cudaSuccess) e = map64(&twg, wg, Din, H);
+  if (e == cudaSuccess) e = map64(&twu, wu, Din, H);
+  if (e == cudaSuccess) e = map64(&twd, wd, H, Dout);
+  if (e != cudaSuccess) return int(e);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const B7Args a{M, Din, H, Dout, act};
+  int n_dx = 0, n_dw = 0;
+  repro_swiglu_bwd_partials(M, H, &n_dx, &n_dw);
+  if (parts & 1)
+    e = launch_cluster(swiglu_bwd_dx_wgmma, dim3(n_dx * DX_CLUSTER, (M + 127) / 128), DX_SMEM,
+                       DX_CLUSTER, st, tx, tdy, twg, twu, twd, static_cast<float*>(dx), a);
+  if (e != cudaSuccess || !(parts & 2)) return int(e);
+  e = launch_cluster(swiglu_bwd_dw_wgmma, dim3(n_dw * DW_CLUSTER, (H + 63) / 64), DW_SMEM,
+                     DW_CLUSTER, st, tx, tdy, twg, twu, twd, static_cast<float*>(pg), static_cast<float*>(pu),
+                     static_cast<float*>(pd), a);
+  return int(e);
 }

@@ -8,17 +8,24 @@ Fig 2(c) multicast backward.
 
 Replace `repro/kernels/fused_mlp.py` `fused_mlp_fwd` and
 `fused_mlp_swiglu_fwd` (TPU, Pallas) with csrc/fused_mlp.cu.  The (M, H)
-hidden tensor never reaches HBM: each block builds a (rows, block_h)
-hidden chunk in shared memory and multiplies it straight into W2.  When H spans
-several chunks the blocks write f32 partials of Y, (n_split, M, Dout), and
-`queue_reduce` folds them into the output dtype; the csrc header weighs that
-traffic against bsp's.
+hidden tensor never reaches HBM.  Two forms, chosen by x's rows alone
+(`fwd_form`): up to SMALL_M rows (decode) a cluster of blocks shares a
+hidden range, each block builds its part of the hidden chunk with the
+weights as mma's 16-row operand and the tokens as its 8-wide N, the
+cluster exchanges the parts through distributed shared memory and each
+block multiplies the whole chunk into its columns of W2; above SMALL_M each
+block builds a (128 rows, block_h) hidden chunk in shared memory and
+multiplies it straight into W2.  Either way the f32 partials of Y (one per
+cluster, or per hidden chunk) are folded by `queue_reduce` into the output
+dtype; the csrc header counts their bytes.
 
 The backward kernels (csrc/fused_mlp_bwd.cu) replace `fused_mlp_bwd` and
 `fused_mlp_swiglu_bwd` the same way: the hidden tiles are recomputed from X,
 dY and the weights into shared memory; dX comes out as f32 partials over
 hidden chunks, each dW as f32 partials over row slices, and `queue_reduce`
-folds both in a fixed order.
+folds both in a fixed order.  The gated bfloat16 form runs on TMA and wgmma
+with 128-row tiles, and a cluster of blocks sums its partials over
+distributed shared memory before writing them (`swiglu_bwd_partials`).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -40,6 +48,18 @@ ACT_CODES = {"identity": 0, "relu": 1, "gelu": 2, "silu": 3}
 # (211 KB for bf16 at 512, 191 KB for f32 at 256, of the 227 KB a block may
 # use).
 MAX_BLOCK_H = {torch.bfloat16: 512, torch.float32: 256}
+
+# Rows at or below which the forward runs its small-M form (csrc/fused_mlp.cu
+# `small_m_kernel`: the weights as mma's 16-row operand, the token rows as
+# its 8-wide N, one cluster per hidden range); above it, the 128-row tiled
+# form.  64 is the form's capacity: on the H100 it is faster than the tiled
+# form at every M it takes (PERF.md, the crossover at phi3 widths).
+SMALL_M = 64
+
+
+def fwd_form(m: int) -> str:
+    """Which forward form serves x with m rows: "small_m" or "tiled"."""
+    return "small_m" if m <= SMALL_M else "tiled"
 
 # The kernels' function in plain torch ops (the oracles hold the same math:
 # f32 products, the hidden tile rounded to x's dtype before the second GEMM).
@@ -56,12 +76,66 @@ fused_mlp_swiglu_bwd_plain = ref.mlp_swiglu_bwd_ref
 BWD_BLOCK_H = {torch.bfloat16: 512, torch.float32: 128}
 BWD_BLOCK_M = {torch.bfloat16: 256, torch.float32: 128}
 
-
 @functools.cache
 def _kernel():
     v, i = ctypes.c_void_p, ctypes.c_int
     return _build.kernel_function("fused_mlp", "repro_fused_mlp_fwd",
                                   [v, v, v, v, v] + [i] * 9 + [v])
+
+
+@functools.cache
+def _small_kernels():
+    v, i, p = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    plan = _build.kernel_function("fused_mlp", "repro_fused_mlp_small_plan",
+                                  [i] * 5 + [p])
+    run = _build.kernel_function("fused_mlp", "repro_fused_mlp_small",
+                                 [v] * 5 + [i] * 7 + [p, v])
+    return plan, run
+
+
+class SmallPlan(NamedTuple):
+    """The small-M form's launch geometry for one set of widths on one
+    device (csrc/fused_mlp.cu `small_plan`): hidden tiles per block, blocks
+    per cluster, blocks, output columns per member, padded hidden range."""
+    ht: int
+    cs: int
+    nb: int
+    ds: int
+    hr_pad: int
+
+    @property
+    def partials(self) -> int:
+        """The f32 partials it leaves for queue_reduce, one per cluster
+        (1: it writes y itself)."""
+        return self.nb // self.cs
+
+
+@functools.cache
+def small_m_plan(device: int, d_in: int, hdim: int, d_out: int, code: int,
+                 gated: bool) -> tuple[SmallPlan, ctypes.Array]:
+    """The small-M form's plan on a device, and the same five ints as the
+    array each launch hands back: a function of the widths, never of M.
+    Asking the source also sets the form's shared-memory limit there."""
+    arr = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        _small_kernels()[0](d_in, hdim, d_out, code, int(gated), arr)
+    return SmallPlan(*arr), arr
+
+
+@functools.cache
+def _swiglu_bwd_partials():
+    p = ctypes.POINTER(ctypes.c_int)
+    return _build.kernel_function("fused_mlp_bwd", "repro_swiglu_bwd_partials",
+                                  [ctypes.c_int] * 2 + [p, p])
+
+
+def swiglu_bwd_partials(m: int, hdim: int) -> tuple[int, int]:
+    """(dX partials, dW partials) the gated bf16 backward writes at m rows
+    and hidden width hdim, as its source counts them: one per cluster of
+    hidden chunks, one per cluster of row spans."""
+    n_dx, n_dw = ctypes.c_int(), ctypes.c_int()
+    _swiglu_bwd_partials()(m, -(-hdim // 8) * 8, ctypes.byref(n_dx), ctypes.byref(n_dw))
+    return n_dx.value, n_dw.value
 
 
 @functools.cache
@@ -97,8 +171,45 @@ def _check(what: str, x, w1, wu, w2, act: str, dy=None):
     return code, (m, d_in, hdim, d_out)
 
 
-def _launch(what: str, x, w1, wu, w2, act: str):
-    code, (m, d_in, hdim, d_out) = _check(what, x, w1, wu, w2, act)
+def _launch_small(x, w1, wu, w2, act: str, code: int, dims, fold: bool = True):
+    m, d_in, hdim, d_out = dims
+    plan, arr = small_m_plan(x.device.index, d_in, hdim, d_out, code, wu is not None)
+    if plan.partials == 1:
+        out = torch.empty((m, d_out), dtype=x.dtype, device=x.device)
+    else:
+        out = torch.empty((plan.partials, m, d_out), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _small_kernels()[1](x.data_ptr(), w1.data_ptr(),
+                            None if wu is None else wu.data_ptr(), w2.data_ptr(),
+                            out.data_ptr(), m, d_in, hdim, d_out, code,
+                            int(wu is not None), ACT_CODES[act], arr, _build.stream_of(x))
+    if plan.partials == 1 or not fold:
+        return out
+    return queue_reduce(out, op="sum", out_dtype=x.dtype)
+
+
+def forward_in_form(form: str, x, w1, wu, w2, act: str, fold: bool = True):
+    """The forward kernel in the given form ("small_m", which takes at most
+    SMALL_M rows, or "tiled"), uncounted: phase 3 of chip_smoke.py times
+    the two forms against each other with it.  wu None is the ungated MLP.
+    fold=False returns the small-M form's output as the kernel wrote it:
+    its f32 partials, or y where it leaves one."""
+    what = "fused_mlp" if wu is None else "fused_mlp_swiglu"
+    if not fold and form != "small_m":
+        raise ValueError("fold=False is the small-M form's")
+    return _launch(what, x, w1, wu, w2, act, form, fold)[0]
+
+
+def _launch(what: str, x, w1, wu, w2, act: str, form: str | None = None,
+            fold: bool = True):
+    """(y, the form that computed it)."""
+    code, dims = _check(what, x, w1, wu, w2, act)
+    form = form or fwd_form(dims[0])
+    if form == "small_m":
+        if dims[0] > SMALL_M:
+            raise ValueError(f"{what}: the small-M form takes at most {SMALL_M} rows")
+        return _launch_small(x, w1, wu, w2, act, code, dims, fold), "small_m"
+    m, d_in, hdim, d_out = dims
     bh = min(MAX_BLOCK_H[x.dtype], -(-hdim // 128) * 128)
     n_split = -(-hdim // bh)
     if n_split == 1:
@@ -113,8 +224,15 @@ def _launch(what: str, x, w1, wu, w2, act: str):
                   int(wu is not None), ACT_CODES[act], bh, int(n_split == 1),
                   _build.stream_of(x))
     if n_split == 1:
-        return out
-    return queue_reduce(out, op="sum", out_dtype=x.dtype)
+        return out, "tiled"
+    return queue_reduce(out, op="sum", out_dtype=x.dtype), "tiled"
+
+
+def _count_fwd(fn, form: str) -> None:
+    """One launch of a forward wrapper's kernel, counted in total and by
+    the form `_launch` launched."""
+    fn.launches += 1
+    fn.launches_by_form[form] = fn.launches_by_form.get(form, 0) + 1
 
 
 def fused_mlp_fwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
@@ -123,8 +241,8 @@ def fused_mlp_fwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
     memory in the widest chunks that fit (MAX_BLOCK_H)."""
     if x.device.type == "cpu":
         return fused_mlp_fwd_plain(x, w1, w2, act)
-    y = _launch("fused_mlp", x, w1, None, w2, act)
-    fused_mlp_fwd.launches += 1
+    y, form = _launch("fused_mlp", x, w1, None, w2, act)
+    _count_fwd(fused_mlp_fwd, form)
     return y
 
 
@@ -134,15 +252,65 @@ def fused_mlp_swiglu_fwd(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     graphs' plain gate*up form lowers here with act=identity."""
     if x.device.type == "cpu":
         return fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, act)
-    y = _launch("fused_mlp_swiglu", x, wg, wu, wd, act)
-    fused_mlp_swiglu_fwd.launches += 1
+    y, form = _launch("fused_mlp_swiglu", x, wg, wu, wd, act)
+    _count_fwd(fused_mlp_swiglu_fwd, form)
     return y
+
+
+@functools.cache
+def _wgmma_bwd_kernel():
+    v, i = ctypes.c_void_p, ctypes.c_int
+    return _build.kernel_function("fused_mlp_bwd", "repro_swiglu_bwd_wgmma",
+                                  [v] * 9 + [i] * 6 + [v])
+
+
+def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """t itself where TMA can read it (the shape wanted, 16-byte aligned),
+    else a zero-padded copy: zero rows and columns of the operands add
+    nothing to any gradient."""
+    if t.shape == (rows, cols) and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((rows, cols))
+    out[:t.shape[0], :t.shape[1]] = t
+    return out
+
+
+def swiglu_bwd_bf16(x, wg, wu, wd, dy, act: str = "silu", parts: int = 3):
+    """(dx, dwg, dwu, dwd) of the gated bf16 backward: the TMA + wgmma
+    kernels and four folds, uncounted (fused_mlp_swiglu_bwd counts its
+    calls).  parts 1 or 2 launches only the dX or only the dW kernel and
+    returns the f32 partials (dx, pg, pu, pd) unfolded: chip_smoke.py times
+    the two kernels apart with it."""
+    (m, d_in), hdim, d_out = x.shape, wg.shape[1], wd.shape[1]
+    d8, h8, o8 = (-(-n // 8) * 8 for n in (d_in, hdim, d_out))
+    xp, dyp = _padded(x, m, d8), _padded(dy, m, o8)
+    wgp, wup, wdp = _padded(wg, d8, h8), _padded(wu, d8, h8), _padded(wd, h8, o8)
+    n_dx, n_dw = swiglu_bwd_partials(m, hdim)
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty((n_dx, m, d8), dtype=f32, device=dev)
+    pg = torch.empty((n_dw, h8, d8), dtype=f32, device=dev)
+    pu = torch.empty((n_dw, h8, d8), dtype=f32, device=dev)
+    pd = torch.empty((n_dw, h8, o8), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        _wgmma_bwd_kernel()(xp.data_ptr(), wgp.data_ptr(), wup.data_ptr(), wdp.data_ptr(),
+                            dyp.data_ptr(), dx.data_ptr(), pg.data_ptr(), pu.data_ptr(),
+                            pd.data_ptr(), m, d8, h8, o8, ACT_CODES[act], parts,
+                            _build.stream_of(x))
+    if parts != 3:
+        return dx, pg, pu, pd
+    dx = queue_reduce(dx, op="sum", out_dtype=x.dtype)[:, :d_in]
+    dwg = queue_reduce(pg, op="sum", out_dtype=wg.dtype)[:hdim, :d_in].t()
+    dwu = queue_reduce(pu, op="sum", out_dtype=wu.dtype)[:hdim, :d_in].t()
+    dwd = queue_reduce(pd, op="sum", out_dtype=wd.dtype)[:hdim, :d_out]
+    return tuple(t.contiguous() for t in (dx, dwg, dwu, dwd))
 
 
 def _launch_bwd(what: str, x, w1, wu, w2, dy, act: str):
     """(dx, dw1[, dwu], dw2): both backward kernels, then the folds."""
     code, (m, d_in, hdim, d_out) = _check(what, x, w1, wu, w2, act, dy)
     gated = wu is not None
+    if gated and x.dtype == torch.bfloat16:
+        return swiglu_bwd_bf16(x, w1, wu, w2, dy, act)
     dev, f32 = x.device, torch.float32
     bh = min(BWD_BLOCK_H[x.dtype], -(-hdim // 128) * 128)
     n_split = -(-hdim // bh)
@@ -206,4 +374,6 @@ fused_mlp_swiglu_fwd.launches = 0
 fused_mlp_bwd.launches = 0
 fused_mlp_swiglu_bwd.launches = 0
 fused_mlp_bwd.launches_by_rows = {}
+fused_mlp_fwd.launches_by_form = {}
+fused_mlp_swiglu_fwd.launches_by_form = {}
 fused_mlp_swiglu_bwd.launches_by_rows = {}

@@ -21,9 +21,10 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (flash_attention_plain,
                                                  flash_decode_plain,
                                                  page_block_s)
-from repro_torch.kernels.fused_mlp import (fused_mlp_bwd_plain, fused_mlp_fwd_plain,
-                                           fused_mlp_swiglu_bwd_plain,
-                                           fused_mlp_swiglu_fwd_plain)
+from repro_torch.kernels import fused_mlp as FM
+from repro_torch.kernels.fused_mlp import (SMALL_M, fused_mlp_bwd_plain,
+                                           fused_mlp_fwd_plain, fused_mlp_swiglu_bwd_plain,
+                                           fused_mlp_swiglu_fwd_plain, fwd_form)
 from repro_torch.kernels.paged_attention import paged_flash_decode_plain
 from repro_torch.kernels.queue_reduce import queue_reduce_plain
 from repro_torch.kernels.ref import paged_rows
@@ -82,6 +83,69 @@ def test_fused_mlp_kernels(cuda, m, d, h, o, act, dtype):
     after = K.launch_counts()
     assert after["fused_mlp"] == before["fused_mlp"] + 1
     assert after["fused_mlp_swiglu"] == before["fused_mlp_swiglu"] + 1
+
+
+# (Din, H, Dout, act) for the small-M form: rows of 60 or 100 values (not
+# whole 16-byte pieces in either dtype), H not a multiple of a block's
+# 16-column hidden tiles (300, 1000) nor of 8, and a width wide enough for
+# several clusters (2000)
+SMALL_M_WIDTHS = [(60, 300, 50, "relu"), (100, 1000, 72, "silu"), (64, 2000, 96, "gelu")]
+
+
+def _mlp_case(cuda, seed, dtype, m, d, h, o):
+    return tensors(cuda, seed, dtype, (m, d), (d, h), (d, h), (h, o), fan_in=True)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("m", [1, 3, 8, 16, SMALL_M, SMALL_M + 1])
+def test_fused_mlp_small_m_form(cuda, m, gated, dtype):
+    """Both forward kernels at decode row counts against their plain
+    versions: the small-M form up to SMALL_M rows, the tiled form from
+    SMALL_M + 1, each launch counted under its form."""
+    for i, (d, h, o, act) in enumerate(SMALL_M_WIDTHS):
+        x, w1, wu, w2 = _mlp_case(cuda, 20 + i, dtype, m, d, h, o)
+        before = K.launches_by_form("fused_mlp_swiglu" if gated else "fused_mlp")
+        if gated:
+            got = K.fused_mlp_swiglu_fwd(x, w1, wu, w2, act=act)
+            want = fused_mlp_swiglu_fwd_plain(x, w1, wu, w2, act)
+        else:
+            got, want = K.fused_mlp_fwd(x, w1, w2, act=act), fused_mlp_fwd_plain(x, w1, w2, act)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        close(got, want, TOL[dtype])
+        after = K.launches_by_form("fused_mlp_swiglu" if gated else "fused_mlp")
+        form = fwd_form(m)
+        assert form == ("small_m" if m <= SMALL_M else "tiled")
+        assert after.get(form, 0) == before.get(form, 0) + 1
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fused_mlp_small_m_at_phi3_widths(cuda, dtype):
+    """The decode shape of the serving path, (8, 5120 -> 17920 -> 5120)
+    silu, in the small-M form against the plain version."""
+    x, wg, wu, wd = _mlp_case(cuda, 30, dtype, 8, 5120, 17920, 5120)
+    close(K.fused_mlp_swiglu_fwd(x, wg, wu, wd, act="silu"),
+          fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, "silu"), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("gated", [False, True])
+def test_fused_mlp_small_m_rows_independent(cuda, gated, dtype):
+    """A row's output does not depend on the other rows nor on how many
+    there are (what solo == batched serving rests on): row 0 is bitwise the
+    same when rows 1.. are replaced by other rows, and when x is row 0
+    alone; two runs are bitwise equal."""
+    d, h, o, act = SMALL_M_WIDTHS[1]
+    x, w1, wu, w2 = _mlp_case(cuda, 31, dtype, 8, d, h, o)
+    (other,) = tensors(cuda, 32, dtype, (7, d))
+
+    def run(xs):
+        return (K.fused_mlp_swiglu_fwd(xs, w1, wu, w2, act=act) if gated
+                else K.fused_mlp_fwd(xs, w1, w2, act=act))
+    y = run(x)
+    assert torch.equal(y, run(x))
+    assert torch.equal(y[0], run(torch.cat([x[:1], other]))[0])
+    assert torch.equal(y[:1], run(x[:1].contiguous()))
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -252,14 +316,16 @@ def test_reduced_engine_on_card_equals_cpu(cuda, arch):
 BWD_SHAPES = [(100, 60, 300, 50, "relu"),       # no 16-byte rows, one chunk
               (130, 64, 700, 96, "gelu"),       # ragged H over 512 / 128 chunks
               (300, 128, 1100, 128, "silu"),    # ragged M over 256 / 128 slices
-              (64, 32, 128, 40, "identity")]
+              (64, 32, 128, 40, "identity"),
+              (260, 64, 200, 72, "silu"),       # ragged M over 128-row tiles and 256-row spans
+              (130, 96, 1000, 64, "relu")]      # ragged H over 192-wide chunks
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("m,d,h,o,act", BWD_SHAPES)
 def test_fused_mlp_bwd_kernels(cuda, m, d, h, o, act, dtype):
     """B6 and B7 against their plain versions (kernels/ref.py), ragged M
-    and H included; one launch each."""
+    and H included; one launch each; a second B7 call is bitwise equal."""
     x, w1, wu, w2, dy = tensors(cuda, 8, dtype, (m, d), (d, h), (d, h), (h, o), (m, o),
                                 fan_in=True)
     dy = dy * m ** 0.5                   # undo fan_in's 1/sqrt(m): dy is O(1) too
@@ -269,14 +335,33 @@ def test_fused_mlp_bwd_kernels(cuda, m, d, h, o, act, dtype):
                          fused_mlp_bwd_plain(x, w1, w2, dy, act)):
         assert got.dtype == want.dtype and got.shape == want.shape
         close(got, want, TOL[dtype])
-    for got, want in zip(K.fused_mlp_swiglu_bwd(x, w1, wu, w2, dy, act=act),
-                         fused_mlp_swiglu_bwd_plain(x, w1, wu, w2, dy, act)):
+    gated = K.fused_mlp_swiglu_bwd(x, w1, wu, w2, dy, act=act)
+    for got, want in zip(gated, fused_mlp_swiglu_bwd_plain(x, w1, wu, w2, dy, act)):
         assert got.dtype == want.dtype and got.shape == want.shape
         close(got, want, TOL[dtype])
     after = K.launch_counts()
     assert after["fused_mlp_bwd"] == before["fused_mlp_bwd"] + 1
     assert after["fused_mlp_swiglu_bwd"] == before["fused_mlp_swiglu_bwd"] + 1
+    for a, b in zip(gated, K.fused_mlp_swiglu_bwd(x, w1, wu, w2, dy, act=act)):
+        assert torch.equal(a, b)
     assert K.launches_by_rows("fused_mlp_bwd")[m] == rows_before + 1
+
+
+@pytest.mark.parametrize("m,h,want", [(8192, 6912, (18, 4)), (300, 1100, (3, 1)),
+                                      (100, 300, (1, 1)), (2049, 14336, (38, 2))])
+def test_swiglu_bwd_partials(cuda, m, h, want):
+    """The gated bf16 backward leaves one f32 partial per cluster, as its
+    source counts them: dX over clusters of 2 hidden chunks of 192 (H
+    padded to a multiple of 8), dW over clusters of 8 row spans of 256 --
+    at gemma3-1b's 8192 x 6912, 18 and 4.  The unfolded call returns
+    buffers of exactly those counts."""
+    assert FM.swiglu_bwd_partials(m, h) == want
+    if m * h > 1 << 22:
+        return
+    x, wg, wu, wd, dy = tensors(cuda, 9, "bfloat16", (m, 64), (64, h), (64, h), (h, 64),
+                                (m, 64), fan_in=True)
+    dx, pg, pu, pd = FM.swiglu_bwd_bf16(x, wg, wu, wd, dy, "silu", parts=1)
+    assert dx.shape[0] == want[0] and pg.shape[0] == pu.shape[0] == pd.shape[0] == want[1]
 
 
 @pytest.mark.parametrize("gated", [False, True])

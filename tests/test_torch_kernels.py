@@ -28,8 +28,9 @@ from repro_torch.core.executor import tensor_from_numpy
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.kernels.fused_mlp import (fused_mlp_fwd_plain,
-                                           fused_mlp_swiglu_fwd_plain)
+from repro_torch.kernels import fused_mlp as FM
+from repro_torch.kernels.fused_mlp import (SMALL_M, fused_mlp_fwd_plain,
+                                           fused_mlp_swiglu_fwd_plain, fwd_form)
 from repro_torch.kernels.queue_reduce import queue_reduce_plain
 
 DTYPES = {"float32": (np.float32, jnp.float32, torch.float32),
@@ -255,6 +256,17 @@ class TestOracles:
         assert K.launches_by_rows("fused_mlp_bwd") == {}
         assert K.launches_by_rows("fused_mlp_swiglu_bwd") == {}
 
+    def test_reset_clears_launches_by_form(self, monkeypatch):
+        """The forward kernels' counts by form are zeroed with the totals."""
+        monkeypatch.setattr(K.fused_mlp_swiglu_fwd, "launches_by_form",
+                            {"small_m": 40, "tiled": 2})
+        monkeypatch.setattr(K.fused_mlp_swiglu_fwd, "launches", 42)
+        assert K.launches_by_form("fused_mlp_swiglu") == {"small_m": 40, "tiled": 2}
+        K.reset_launch_counts()
+        assert K.launches_by_form("fused_mlp_swiglu") == {}
+        assert K.launches_by_form("fused_mlp") == {}
+        assert K.launch_counts()["fused_mlp_swiglu"] == 0
+
     def test_reset_clears_launches_by_rows(self, monkeypatch):
         """The backward kernels' counts by input rows are zeroed with the
         totals."""
@@ -291,3 +303,32 @@ def test_decode_splits_cover_the_card(monkeypatch, n_blocks, block_s, want):
     monkeypatch.setattr(fa, "_sm_count", lambda device: 132)
     got = fa.decode_splits(torch.device("cuda"), n_blocks, block_s)
     assert got == want and 1 <= got <= fa.DECODE_MAX_SPLIT
+
+
+@pytest.mark.parametrize("m,form", [(1, "small_m"), (8, "small_m"), (SMALL_M, "small_m"),
+                                    (SMALL_M + 1, "tiled"), (8192, "tiled")])
+def test_forward_form_follows_rows(m, form):
+    """The forward's form is a function of x's rows alone: the small-M form
+    up to SMALL_M rows (phi3's 8 decode slots take it), the tiled form
+    above; the counter by form follows the same rule."""
+    assert fwd_form(m) == form
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("form", ["small_m", "tiled"])
+def test_forward_counts_the_form_launched(monkeypatch, gated, form):
+    """A forward wrapper counts its launch under the form the launch
+    reports, not the one the routing rule would pick for x's rows (8 rows
+    here, which the rule sends to the small-M form).  x lies on the meta
+    device so that the wrapper takes its launch path with no card."""
+    name, fn = (("fused_mlp_swiglu", K.fused_mlp_swiglu_fwd) if gated
+                else ("fused_mlp", K.fused_mlp_fwd))
+    x, w = torch.empty(8, 16, device="meta"), torch.empty(16, 16, device="meta")
+    y = torch.empty(8, 16, device="meta")
+    monkeypatch.setattr(FM, "_launch", lambda *args, **kw: (y, form))
+    monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(fn, "launches_by_form", {})
+    got = fn(x, w, w, w) if gated else fn(x, w, w)
+    assert got is y
+    assert K.launch_counts()[name] == 1
+    assert K.launches_by_form(name) == {form: 1}
