@@ -12,7 +12,9 @@ Phases, each failing the run on any error (no phase's exception is caught):
      a one-call PyTorch yardstick (never used by the port) and the bound;
      time the forward's two forms at phi3 widths for M in 1..128 (the
      small-M form up to its 64 rows) and print their crossover, B5 at the
-     fold B2's decode calls leave, and B7's dX and dW kernels apart;
+     folds B2 leaves (Llama widths, decode), B7's dX and dW kernels apart,
+     and B1 at whisper-small's two training shapes; the tiled forward's
+     rows carry the bytes of the f32 partials it wrote;
   4. the Llama3-8B challenge app at full width (d=4096, ff=14336, 32 heads
      of 128, vocab 128256, seq 2048, batch 4, its 2 layers + LM head, bf16
      weights from a seed; hkv=hq because the graph models GQA without
@@ -45,8 +47,9 @@ Phases, each failing the run on any error (no phase's exception is caught):
      torch.profiler split of one step; whisper-small (12 + 12 layers, 8 x
      1500 stub frames, 448 tokens) takes 3 steps, each launching
      fused_mlp_bwd 24 times (12 at the encoder's rows, 12 at the
-     decoder's) and fused_mlp 36 times; the reduced gemma3/whisper
-     configs (f32) train the same on the card as on the CPU, and twice
+     decoder's) and fused_mlp 36 times (12 at the encoder's rows, 24 --
+     forward and remat recompute -- at the decoder's); the reduced
+     gemma3/whisper configs (f32) train the same on the card as on the CPU, and twice
      alike on the card; the training launcher runs gemma3-1b for 4 steps in
      a subprocess and saves its checkpoint.
 The launch counters are zeroed just before phase 4 and read just after
@@ -54,9 +57,10 @@ phase 6 (the compiler's main path), and zeroed and read around each engine
 run of phase 7 (the serving paths) and each full-width run of phase 8
 (the training paths).  The second-to-last line is the
 per-kernel JSON summary: one row per kernel and main-path shape, its
-`launches` taken from the run of the path that row belongs to (for the two
-fused_mlp_bwd rows, only that run's launches at the row's input rows), with
-every run's own count beside it.  The last line is {"ok": true, "device": ...}.
+`launches` taken from the run of the path that row belongs to (for the
+whisper rows of fused_mlp and fused_mlp_bwd, only that run's launches at
+the row's input rows), with every run's own count beside it.  The last
+line is {"ok": true, "device": ...}.
 """
 import gc
 import json
@@ -93,7 +97,7 @@ from repro_torch.tree import flatten, leaves  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention_plain,  # noqa: E402
                                                  flash_decode_plain)
 from repro_torch.kernels import fused_mlp as FM  # noqa: E402
-from repro_torch.kernels.fused_mlp import (MAX_BLOCK_H, SMALL_M,  # noqa: E402
+from repro_torch.kernels.fused_mlp import (F32_BLOCK_H, SMALL_M,  # noqa: E402
                                            fused_mlp_bwd_plain,
                                            fused_mlp_fwd_plain,
                                            fused_mlp_swiglu_bwd_plain,
@@ -173,6 +177,10 @@ SUMMARY = {
                       "x, dy (12000, 768), 768 -> 3072 -> 768, gelu (encoder)", 8 * 1500),
     "fused_mlp_bwd_dec": ("fused_mlp_bwd", "train_whisper",
                           "x, dy (3584, 768), 768 -> 3072 -> 768, gelu (decoder)", 8 * 448),
+    "fused_mlp_train_enc": ("fused_mlp", "train_whisper",
+                            "x (12000, 768) -> 3072 -> 768, gelu (encoder)", 8 * 1500),
+    "fused_mlp_train_dec": ("fused_mlp", "train_whisper",
+                            "x (3584, 768) -> 3072 -> 768, gelu (decoder)", 8 * 448),
 }
 # phase 7: phi3-medium-14b behind the paged engine
 SERVE_ARCH = "phi3-medium-14b"
@@ -192,12 +200,12 @@ def ptxas_entries(log: str) -> list[str]:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             mangled, spill = ln.split("'")[1], ""
-            m = re.search(r"([a-z_]+_kernel)I(.*?)EEv", mangled)
+            m = re.search(r"([a-z_]+_(?:kernel|wgmma))I(.*?)EEv", mangled)
             if m:
                 args = re.sub(r"Li(\d+)E", r"\1,", m.group(2))
                 args = args.replace("13__nv_bfloat16", "bf16,")
-                args = args.replace("Lb1E", "true,").replace("Lb0E", "false,")
                 args = "f32," + args[1:] if args.startswith("f") else args
+                args = args.replace("Lb1E", "true,").replace("Lb0E", "false,")
                 name = f"{m.group(1)}<{args.rstrip(',')}>"
             else:
                 plain = re.search(r"\d+([a-z_]+_(?:kernel|wgmma))E", mangled)
@@ -310,9 +318,19 @@ def randn(gen, *shape, dtype, scale=1.0):
     return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
+def tiled_partials(dtype, x, w1, wu, w2, act) -> dict:
+    """{"partial_bytes": the .nbytes of the f32 partials the tiled bf16
+    forward writes for these operands (0 where it writes y itself)}, from
+    one unfolded launch; {} in float32."""
+    if dtype != torch.bfloat16:
+        return {}
+    raw = FM.forward_in_form("tiled", x, w1, wu, w2, act, fold=False)
+    return {"partial_bytes": raw.nbytes if raw.dtype == torch.float32 else 0}
+
+
 def kernel_cases(gen, dtype):
-    """(name, kernel call, plain call, library call, flops, bytes) at the
-    main path's shapes."""
+    """(name, kernel call, plain call, library call, flops, bytes[, reorder,
+    extra]) at the main path's shapes."""
     M, D, H = 8192, 4096, 14336                     # Llama3-8B FFN, batch 4 x 2048
     x = randn(gen, M, D, dtype=dtype)
     wg, wu = (randn(gen, D, H, dtype=dtype, scale=D ** -0.5) for _ in range(2))
@@ -321,7 +339,8 @@ def kernel_cases(gen, dtype):
            lambda: K.fused_mlp_swiglu_fwd(x, wg, wu, wd, act="identity"),
            lambda: fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, "identity"),
            lambda: ((x @ wg) * (x @ wu)) @ wd,
-           2.0 * M * D * H * 2 + 2.0 * M * H * D, nbytes(x, wg, wu, wd, x))
+           2.0 * M * D * H * 2 + 2.0 * M * H * D, nbytes(x, wg, wu, wd, x), None,
+           tiled_partials(dtype, x, wg, wu, wd, "identity"))
     del x, wg, wu, wd
     R, DI, HN = 4096 * 128, 256, 256                 # NeRF: 4096 rays x 128 samples
     x = randn(gen, R, DI, dtype=dtype)
@@ -331,7 +350,8 @@ def kernel_cases(gen, dtype):
            lambda: K.fused_mlp_fwd(x, w1, w2, act="relu"),
            lambda: fused_mlp_fwd_plain(x, w1, w2, "relu"),
            lambda: torch.relu(x @ w1) @ w2,
-           2.0 * R * DI * HN + 2.0 * R * HN * HN, nbytes(x, w1, w2, x))
+           2.0 * R * DI * HN + 2.0 * R * HN * HN, nbytes(x, w1, w2, x), None,
+           tiled_partials(dtype, x, w1, None, w2, "relu"))
     del x, w1, w2
     B, NH, S, HD = 4, 32, 2048, 128
     q, k, v = (randn(gen, B, NH, S, HD, dtype=dtype) for _ in range(3))
@@ -348,9 +368,11 @@ def kernel_cases(gen, dtype):
            lambda: torch.sum(part, dim=0),
            float(part.numel()), nbytes(part) + nbytes(part[0]))
     del part
-    # the Llama FFN's f32 partials (one per hidden chunk) folded to the
-    # output dtype -- queue_reduce's other main-path shape
-    n_split = -(-H // MAX_BLOCK_H[dtype])
+    # the Llama FFN's f32 partials (bf16: one per cluster of the tiled
+    # form, as its source counts them; f32: one per hidden chunk) folded to
+    # the output dtype -- queue_reduce's other main-path shape
+    n_split = (FM.tiled_geometry(H).partials if dtype == torch.bfloat16
+               else -(-H // F32_BLOCK_H))
     fold = randn(gen, n_split, M, D, dtype=torch.float32)
     yield ("queue_reduce_mlp_fold",
            lambda: K.queue_reduce(fold, out_dtype=dtype),
@@ -403,8 +425,8 @@ def reordered(plain, x, ws, dy, gen):
 def train_cases(gen, dtype):
     """Phase 8's MLP kernels at its shapes: gemma3-1b's FFN over 4 x 2048
     tokens (B2 forward, B7 backward) and whisper-small's over the encoder's
-    8 x 1500 and the decoder's 8 x 448 rows (B6).  float32 runs at fewer
-    rows.  Operations count the GEMMs the function needs (B7: g, u, dt, two
+    8 x 1500 and the decoder's 8 x 448 rows (B6 backward, B1 forward).
+    float32 runs at fewer rows.  Operations count the GEMMs the function needs (B7: g, u, dt, two
     for dX, three for dW = 8; B6: pre, dt, one for dX, two for dW = 5), not
     the kernels' own: they recompute g, u and dt (B6: pre and dt) in both of
     their kernels, 11 GEMMs (B6: 7)."""
@@ -418,7 +440,8 @@ def train_cases(gen, dtype):
            lambda: K.fused_mlp_swiglu_fwd(x, wg, wu, wd, act="silu"),
            lambda: fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, "silu"),
            lambda: (F.silu(x @ wg) * (x @ wu)) @ wd,
-           3 * gemm, nbytes(x, wg, wu, wd, x))
+           3 * gemm, nbytes(x, wg, wu, wd, x), None,
+           tiled_partials(dtype, x, wg, wu, wd, "silu"))
     extra = {}
     if dtype == torch.bfloat16:
         # the two kernels of the call apart (their f32 partials unfolded),
@@ -452,7 +475,15 @@ def train_cases(gen, dtype):
                5 * 2.0 * M * D * H, 2 * nbytes(x, w1, w2, dy) - nbytes(dy),
                lambda: reordered(lambda *a: fused_mlp_bwd_plain(*a, "gelu"), x, (w1, w2),
                                  dy, gen))
-        del x, dy, w1, w2
+        del dy
+        # B1, the forward of the same blocks (encoder; decoder and its remat)
+        yield ("fused_mlp_train_" + ("enc" if rows == 8 * 1500 else "dec"),
+               lambda: K.fused_mlp_fwd(x, w1, w2, act="gelu"),
+               lambda: fused_mlp_fwd_plain(x, w1, w2, "gelu"),
+               lambda: F.gelu(x @ w1, approximate="tanh") @ w2,
+               2 * 2.0 * M * D * H, nbytes(x, w1, w2, x), None,
+               tiled_partials(dtype, x, w1, None, w2, "gelu"))
+        del x, w1, w2
 
 
 def function_grads() -> None:
@@ -1010,8 +1041,9 @@ def profile_train_step(label, step_fn, state, batch, step_s: float) -> None:
         raise AssertionError(f"profile {label}: the trace holds no kernel")
     busy_ms = sum(r[2] for r in rows) / 1e3
     groups = {"B6/B7 backward (mlp_bwd_dx/dw, swiglu_bwd_dx/dw)": ("mlp_bwd", "swiglu_bwd"),
-              "B1/B2 forward (fused_mlp_kernel, small_m_kernel)": ("fused_mlp_kernel",
-                                                                   "small_m_kernel"),
+              "B1/B2 forward (mlp_fwd_wgmma, small_m_kernel)": ("mlp_fwd_wgmma",
+                                                                "fused_mlp_kernel",
+                                                                "small_m_kernel"),
               "B5 folds (queue_reduce)": ("queue_reduce",),
               "cuBLAS GEMMs": ("gemm", "nvjet", "xmma", "cutlass", "cublas")}
     split = {g: 0.0 for g in groups}
@@ -1063,9 +1095,10 @@ def phase_train_gemma() -> dict[str, int]:
     return launches
 
 
-def phase_train_whisper() -> tuple[dict[str, int], dict[int, int]]:
+def phase_train_whisper() -> tuple[dict[str, int], dict[str, dict[int, int]]]:
     """8b: whisper-small at full width, 8 x (1500 frames, 448 tokens).
-    Returns the run's launches and fused_mlp_bwd's by input rows."""
+    Returns the run's launches, and fused_mlp_bwd's and fused_mlp's by
+    input rows."""
     cfg = get_config("whisper-small")
     opt = adamw(TRAIN_LR)
     state = make_train_state(cfg, opt, seed=0, device="cuda")
@@ -1081,12 +1114,15 @@ def phase_train_whisper() -> tuple[dict[str, int], dict[int, int]]:
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     state, losses, secs = train_steps("whisper-small", state, step, [at(i) for i in range(3)], want)
-    launches, by_rows = K.launch_counts(), K.launches_by_rows("fused_mlp_bwd")
-    # one backward per encoder block at 8 x 1500 rows, per decoder block at 8 x 448
-    want_rows = {8 * 1500: 3 * cfg.n_layers, 8 * 448: 3 * cfg.n_layers}
-    print(f"train whisper-small: fused_mlp_bwd launches by rows {by_rows}", flush=True)
+    launches = K.launch_counts()
+    by_rows = {k: K.launches_by_rows(k) for k in ("fused_mlp_bwd", "fused_mlp")}
+    # one backward per encoder block at 8 x 1500 rows, per decoder block at 8
+    # x 448; one forward per encoder block, two per decoder block (remat)
+    want_rows = {"fused_mlp_bwd": {8 * 1500: 3 * cfg.n_layers, 8 * 448: 3 * cfg.n_layers},
+                 "fused_mlp": {8 * 1500: 3 * cfg.n_layers, 8 * 448: 6 * cfg.n_layers}}
+    print(f"train whisper-small: launches by rows {by_rows}", flush=True)
     if by_rows != want_rows:
-        raise AssertionError(f"fused_mlp_bwd by rows {by_rows}, want {want_rows}")
+        raise AssertionError(f"launches by rows {by_rows}, want {want_rows}")
     step_s = sum(secs[1:]) / len(secs[1:])
     print(f"train whisper-small: losses {losses}; {1e3 * step_s:.1f} ms per step (steps 2-3), "
           f"{8 * 448 / step_s:.0f} decoder tokens/s ({8 * 1500 / step_s:.0f} frames/s), "
@@ -1158,9 +1194,10 @@ def phase_train_launcher() -> None:
         shutil.rmtree(ckpt, ignore_errors=True)
 
 
-def phase_training() -> tuple[dict[str, dict[str, int]], dict[str, dict[int, int]]]:
+def phase_training() -> tuple[dict[str, dict[str, int]],
+                              dict[str, dict[str, dict[int, int]]]]:
     """Returns each full-width training run's launches, per kernel, and the
-    whisper run's fused_mlp_bwd launches by input rows."""
+    whisper run's fused_mlp_bwd and fused_mlp launches by input rows."""
     t_phase = time.perf_counter()
     # phase 7's engines hold reference cycles: collect them, or their pools
     # and the phi3 weights (76 GB) stay allocated
@@ -1226,7 +1263,7 @@ def main() -> int:
         print(f"launches, {path} run: { {k: n for k, n in counts.items() if n} }", flush=True)
 
     def launches(path, kern, n_rows=None):
-        return paths[path][kern] if n_rows is None else rows_by_path[path].get(n_rows, 0)
+        return paths[path][kern] if n_rows is None else rows_by_path[path][kern].get(n_rows, 0)
 
     # phase 3 leaves a case out where its shape does not occur (no decode
     # fold when the small-M form writes y itself)

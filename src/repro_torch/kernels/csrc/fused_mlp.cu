@@ -12,23 +12,51 @@
 // Two forms, chosen by M alone (kernels/fused_mlp.py `fwd_form`: the
 // small-M form for M <= SMALL_M = 64, its capacity; the tiled form above).
 //
-// Tiled form, fused_mlp_kernel (split H across blocks): block (i, s) owns
-// BM rows of X (128 for bf16, 64 for f32) and the hidden range
-// [BH s, BH s + BH).  It builds its hidden chunk once, 128 columns at a
-// time, in shared memory (act/gate applied in registers, rounded to the
-// input dtype as the TPU kernel does), then multiplies the chunk into every
-// 128-column tile of W2.  Operand tiles stream in through a 3-stage
-// cp.async pipeline (16-byte copies) so the next two k-steps load while the
-// tensor cores work on the current one.  With one split the block writes Y
-// directly; with n_split > 1 it writes f32 partials (n_split, M, Dout) that
-// the queue_reduce kernel folds -- the paper's split-reduction idea.  Extra
-// traffic against a kernel that never spills: 2 * n_split * M * Dout * 4
-// bytes of partials (written, then read by the fold); bsp instead moves the
-// hidden tensor, 2 * M * H * dtype bytes, and more for the gated form.  No
-// GEMM1 work is recomputed.  Bound on the H100: at Llama widths (M=8192,
-// Din=4096, H=14336, Dout=4096) 6 * M * Din * H FLOPs against ~0.5 GB of
-// operands -- tensor-core bound.  It issues WMMA (mma.sync) from
-// cp.async-staged tiles.
+// Tiled form in bf16, mlp_fwd_wgmma (TMA + wgmma; helpers in sm90.cuh and
+// wg_ring.cuh, shared with B7 in fused_mlp_bwd.cu).  What bounds it: at
+// gemma3-1b's training shape (M 8192, 1152 -> 6912 -> 1152) 391 GFLOP
+// against 49 MB of operands and output -- tensor-core bound on the card, as
+// Llama's widths are; NeRF's (524288, 256 -> 256 -> 256) is bytes-bound.
+// A block is a producer warpgroup whose thread 0 keeps TMA loads of 64 x 64
+// boxes (128-byte swizzle) in flight through an mbarrier ring (as many
+// 32 KB stages as shared memory holds beside the hidden atoms) and two
+// consumer warpgroups of 64 rows each; a block owns a 128-row tile and a
+// hidden chunk of nj 64-wide sub-chunks.  Stage 1 runs [g | u] = X [Wg |
+// Wu] as one wgmma m64n128 per 16-deep k slice (ungated: g for two
+// sub-chunks), X boxes read K-major and weight boxes MN-major (as stored:
+// no transposed copy of any weight); t = act(g) * u goes from registers,
+// rounded to bf16, into swizzled shared atoms.  Stage 2 multiplies the
+// atoms (K-major A) by W2 boxes (MN-major B) into 256-column passes of Y
+// (m64n256; the stage-1 and stage-2 accumulators share registers).  The TPU
+// kernel keeps the whole (block_m, Dout) f32 accumulator across its H loop;
+// a block cannot (128 x 1152 f32 is 590 KB), so the hidden chunks are spread
+// over a cluster of FW_CS = 8 blocks and each pass is folded over the
+// cluster in rank order through distributed shared memory before it is
+// stored: one f32 partial per cluster for queue_reduce, or Y itself where
+// one cluster spans H.  The fold's cluster barriers are its cost (four a
+// pass; the first waits for the slowest member), so a block's chunk is as
+// wide as shared memory allows, amortising each pass's fold over more
+// products, and half of the fold's rounds go through the ring slot the
+// pass's last step just freed.
+// Geometry (tiled_geometry) is a function of H alone: H <= 448 takes one
+// block (no cluster, Y written directly: NeRF's 256), otherwise as few
+// partials as chunks of at most 7 sub-chunks allow -- gemma3-1b's 6912: 2
+// partials (0.075 GB of f32 at M = 8192, where one partial per 512-wide
+// chunk would be 14 and 0.53 GB); Llama3-8B's 14336: 4 (0.54 GB, against 28
+// and 3.76 GB); whisper's 3072: 1.
+// The grid is persistent: as many clusters as the card holds at once, each
+// walking work items (group of chunks, row tile) group-major, so the next
+// item's boxes load while a consumer folds and stores.  Every output
+// element is one chain of wgmma steps in k order and a fold in rank order,
+// fixed by the widths alone: a row's result depends neither on M nor on
+// the other rows, and two runs give the same bits.
+//
+// Tiled form in float32, fused_mlp_kernel (SIMT, FMA): block (i,
+// s) owns 64 rows of X and the hidden range [BH s, BH s + BH), builds its
+// hidden chunk in shared memory through a 3-stage cp.async pipeline, and
+// multiplies it into every 128-column tile of W2 with FMA (the reduced
+// engines check against the CPU at 2e-4, which TF32 would miss); f32
+// partials (n_split, M, Dout) for queue_reduce.
 //
 // Small-M form, small_m_kernel (decode): at M = 8 the weights are all the
 // bytes -- 550 MB at phi3-medium-14b's 5120 -> 17920 -> 5120, 0.164 ms at the
@@ -56,11 +84,14 @@
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 3;
 // PERF.md): 0.227 ms with its fold at (8, 5120 -> 17920 -> 5120)
 // bf16, against the 0.164 ms byte bound and 0.217 ms for cuBLAS's unfused
-// chain, and below the tiled form's ~1.6 ms at every M it takes (1..64).
+// chain, and below the tiled form's ~0.86 ms at every M it takes (1..64).
 #include <cooperative_groups.h>
+
+#include <initializer_list>
 
 #include "common.cuh"
 #include "sm90.cuh"
+#include "wg_ring.cuh"
 
 using namespace kt;
 
@@ -68,11 +99,9 @@ namespace {
 
 constexpr int BN = 128, BK = 32, NW = 8, NT = NW * 32;
 constexpr int STAGES = 3;  // cp.async pipeline depth: two k-steps in flight
-// Rows per block: 128 on the tensor-core path, where the 2 x 4 warp grid's
-// 64 x 32 warp tiles halve the operand bytes per FLOP of 64-row blocks;
-// 64 on the f32 SIMT path, whose staging tiles are twice as wide in bytes.
-template <typename T> constexpr int kBM = sizeof(T) == 2 ? 128 : 64;
-template <typename T> constexpr int kWR = sizeof(T) == 2 ? 2 : 8;
+// The float32 tiled form (SIMT): 64 rows per block, each warp owning 8 of
+// the rows of every 128-column tile.
+constexpr int F32_BM = 64, F32_WR = 8;
 
 // Shared memory: the hidden chunk Hs, then STAGES staging slots of
 // (X tile, W tile[, Wu tile]).  The f32 epilogue tile Cs aliases the
@@ -85,14 +114,14 @@ struct MlpSmem {
     ldh = bh + Pad<T>::v;
     ldx = BK + Pad<T>::v;
     ldw = BN + Pad<T>::v;
-    size_t xb = align128(size_t(kBM<T>) * ldx * sizeof(T));
+    size_t xb = align128(size_t(F32_BM) * ldx * sizeof(T));
     size_t wb = align128(size_t(BK) * ldw * sizeof(T));
-    off_x = align128(size_t(kBM<T>) * ldh * sizeof(T));
+    off_x = align128(size_t(F32_BM) * ldh * sizeof(T));
     off_w = off_x + xb;
     off_u = off_w + wb;
     slot = (xb + wb + (gated ? wb : 0)) / sizeof(T);
     size_t staging = STAGES * slot * sizeof(T);
-    size_t cs = align128(size_t(kBM<T>) * (BN + 4) * sizeof(float));
+    size_t cs = align128(size_t(F32_BM) * (BN + 4) * sizeof(float));
     total = off_x + (staging > cs ? staging : cs);
   }
 };
@@ -110,8 +139,8 @@ fused_mlp_kernel(const T* __restrict__ X, const T* __restrict__ W1, const T* __r
   T* Us = reinterpret_cast<T*>(smem + L.off_u);
   float* Cs = reinterpret_cast<float*>(smem + L.off_x);
   constexpr int ldc = BN + 4;
-  constexpr int BM = kBM<T>;
-  using Acc = BlockAcc<T, BM, BN, NW, false, kWR<T>>;
+  constexpr int BM = F32_BM;
+  using Acc = BlockAcc<T, BM, BN, NW, false, F32_WR>;
   const int m0 = blockIdx.x * BM, h0 = blockIdx.y * BH;
   const int hn = min(BH, H - h0);
   const bool vx = vec_ok(X, Din);
@@ -211,11 +240,281 @@ int launch(const void* x, const void* w1, const void* wu, const void* w2, void* 
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.total));
   if (e != cudaSuccess) return int(e);
-  dim3 grid((M + kBM<T> - 1) / kBM<T>, (H + bh - 1) / bh);
+  dim3 grid((M + F32_BM - 1) / F32_BM, (H + bh - 1) / bh);
   kern<<<grid, NT, L.total, st>>>(static_cast<const T*>(x), static_cast<const T*>(w1),
                                   static_cast<const T*>(wu), static_cast<const T*>(w2), out, M,
                                   Din, H, Dout, bh, act, direct);
   return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Tiled bf16 form: TMA + wgmma, a hidden chunk per block, folded in a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int FW_NJ = 7;        // at most 7 64-wide hidden sub-chunks per block (448 columns)
+constexpr int FW_CS = 8;        // blocks per cluster when H needs more than one block
+constexpr int FW_SLOT = 4 * ATOM;  // a stage: 2 X boxes + Wg (+ Wu), or 4 W2 boxes
+constexpr int FW_PW = 256;         // columns of Y a stage-2 pass accumulates
+// Accumulator floats per thread per fold round: a round's reduce buffer is
+// one ring slot (CONSUMER_NT * FW_RBN floats), so a pass folds in four
+// rounds, the even ones through the slot its last step just freed, the odd
+// ones through a region of their own.
+constexpr int FW_RBN = 32;
+constexpr int FW_RB = CONSUMER_NT * FW_RBN * 4;  // the reduce buffer of odd rounds, bytes
+static_assert(FW_RB == FW_SLOT, "a ring slot holds an even round");
+constexpr int SMEM_MAX = 232448;                       // what a block may use
+
+// Dynamic shared memory of a block: the hidden atoms (2 per sub-chunk, one
+// per consumer warpgroup), the ring, the reduce buffers (clusters only), the
+// ring's barriers, and slack to align the base to 1024.
+constexpr int fw_smem(int nj, int cs, int st) {
+  return nj * 2 * ATOM + st * FW_SLOT + (cs > 1 ? FW_RB : 0) + 16 * st + 1024;
+}
+
+// The geometry of the tiled form for hidden width H, a function of H alone:
+// chunks of nj 64-wide sub-chunks, one per block; cs blocks per cluster
+// over consecutive chunks; one f32 partial per cluster; st ring stages,
+// as many as the shared memory left beside the atoms holds.  Where H fits
+// one block (H <= 448) that block writes Y itself (cs = 1, one partial);
+// otherwise clusters of FW_CS, as few partials as chunks of at most FW_NJ
+// sub-chunks allow, and the sub-chunks spread evenly over the chunks.
+struct TiledGeometry {
+  int nj, cs, partials, st;
+};
+
+inline TiledGeometry tiled_geometry(int H) {
+  const int units = (H + 63) / 64;
+  TiledGeometry g{units, 1, 1, 0};
+  if (units > FW_NJ) {
+    g.cs = FW_CS;
+    g.partials = (units + FW_NJ * FW_CS - 1) / (FW_NJ * FW_CS);
+    g.nj = (units + g.partials * FW_CS - 1) / (g.partials * FW_CS);
+  }
+  g.st = (SMEM_MAX - fw_smem(g.nj, g.cs, 0)) / (FW_SLOT + 16);
+  return g;
+}
+
+struct FwdArgs {
+  int M, Din, H, Dout, act, nj, partials, st;
+};
+
+// Work item i of the launch (items = partials x row tiles, group-major so
+// that the clusters in flight share a group's weights in L2): the cluster
+// of group g = i / n_rt builds hidden chunks g cs .. g cs + cs - 1 (member
+// r the chunk g cs + r, columns from 64 nj (g cs + r)) for the 128 rows
+// from 128 (i % n_rt).  A persistent grid: cluster c takes items c, c +
+// n_clusters, ...
+//
+// Per item, a block's steps through the ring:
+//   stage 1, ceil(Din / 64) steps for each group of 128 product columns:
+//     gated, [g | u] = X [Wg | Wu][:, sub-chunk j] side by side in one
+//     m64n128 product; ungated, g = X W1[:, sub-chunks 2c, 2c + 1].  X
+//     boxes are K-major A, weight boxes MN-major B (read as stored, no
+//     transposed copy).  After a group's last k step each consumer
+//     warpgroup writes t = act(g) * u (or act(g)), rounded to bf16, into
+//     its swizzled atoms (j, w) -- K-major A of stage 2;
+//   stage 2, ceil(Dout / 256) passes of nj steps: Y[rows, 256 columns] +=
+//     atom (j, w) x W2[64 hidden rows, 256 columns] (four MN-major boxes),
+//     then the pass's f32 tile is folded over the cluster in rank order
+//     and stored: bf16 Y where the launch leaves one partial, else f32
+//     partial g of out (partials, M, Dout).
+// Every output element is one chain of wgmma steps in k order plus a fold in rank order, fixed by
+// (Din, H, Dout) alone: a row's result does not depend on M, on the other
+// rows, or on the grid.
+template <bool GATED, int CS>
+__global__ void __launch_bounds__(RING_NT, 1)
+mlp_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap twg,
+              const __grid_constant__ CUtensorMap twu, const __grid_constant__ CUtensorMap tw2,
+              void* __restrict__ out, FwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const int nj = a.nj, ST = a.st;
+  unsigned char* TA = smem;  // atom (j, w) at (2 j + w) ATOM: rows 64 w.., hidden 64 j..
+  unsigned char* ring = TA + nj * 2 * ATOM;
+  float* rb = reinterpret_cast<float*>(ring + ST * FW_SLOT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(rb) +
+                                               (CS > 1 ? FW_RB : 0));
+  init_ring_barriers(ST, full);
+  const int rank = CS == 1 ? 0 : int(cooperative_groups::this_cluster().block_rank());
+  const int cl = blockIdx.x / CS, ncl = gridDim.x / CS;
+  const int w = (threadIdx.x >> 7) - 1;  // consumer warpgroup
+  const int nki = (a.Din + 63) / 64, npass = (a.Dout + FW_PW - 1) / FW_PW;
+  // stage 1 runs in column groups of 128 hidden-product columns: gated, one
+  // sub-chunk's g and u side by side; ungated, two sub-chunks' g
+  const int ngrp = GATED ? nj : (nj + 1) / 2;
+  const int s1 = ngrp * nki, S = s1 + npass * nj;  // steps per item
+  const int n_rt = (a.M + 127) / 128, items = a.partials * n_rt;
+  const int T = (items - cl + ncl - 1) / ncl * S;
+  const bool direct = a.partials == 1;
+  // the item of step t: its rows from m0, its chunk's hidden columns from h0
+  auto item = [&](int t, int& m0, int& h0, int& group) {
+    const int i = cl + (t / S) * ncl;
+    group = i / n_rt;
+    m0 = (i % n_rt) * 128;
+    h0 = (group * CS + rank) * nj * 64;
+  };
+  auto issue = [&](int t, int s) {
+    unsigned char* sl = ring + s * FW_SLOT;
+    int m0, h0, group;
+    item(t, m0, h0, group);
+    const int q = t % S;
+    if (q < s1) {
+      const int hj = h0 + (q / nki) * (GATED ? 64 : 128), k0 = (q % nki) * 64;
+      mbar_expect_tx(&full[s], 4 * ATOM);
+      tma_load_3d(sl, &tx, &full[s], k0, m0, 0);
+      tma_load_3d(sl + ATOM, &tx, &full[s], k0, m0 + 64, 0);
+      tma_load_3d(sl + 2 * ATOM, &twg, &full[s], hj, k0, 0);
+      if constexpr (GATED) tma_load_3d(sl + 3 * ATOM, &twu, &full[s], hj, k0, 0);
+      else tma_load_3d(sl + 3 * ATOM, &twg, &full[s], hj + 64, k0, 0);
+    } else {
+      const int r = q - s1, n0 = (r / nj) * FW_PW, hj = h0 + (r % nj) * 64;
+      mbar_expect_tx(&full[s], 4 * ATOM);
+      for (int c = 0; c < 4; ++c) tma_load_3d(sl + c * ATOM, &tw2, &full[s], n0 + 64 * c, hj, 0);
+    }
+  };
+  uint64_t* empty = full + ST;
+  if (threadIdx.x < 128) {
+    ring_produce(ST, T, empty, issue, [&](int t) {  // the fold after a pass's last step
+      const int q = t % S;
+      return CS > 1 && q >= s1 && (q - s1) % nj == nj - 1 ? 128 / FW_RBN : 0;
+    });
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x & 31;
+    int t = 0, round = 0;  // ring steps and fold rounds so far
+    auto acquire = [&]() {  // the next step's slot, once its boxes landed
+      const int s = t % ST;
+      mbar_wait(&full[s], (t / ST) & 1);
+      return s;
+    };
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    };
+    // once step t's products have read its slot: hand the slot back
+    auto settle = [&](int s) {
+      wgmma_wait0();
+      release(s);
+      ++t;
+    };
+    // accumulators: a column group's 64 floats in stage 1 (gated: g in
+    // 0..31, u in 32..63), a pass's 128 in stage 2 -- never live at once,
+    // so they share registers
+    float acc[128];
+    while (t < T) {
+      int m0, h0, group;
+      item(t, m0, h0, group);
+      for (int c = 0; c < ngrp; ++c) {
+        for (int kk = 0; kk < nki; ++kk) {
+          const int s = acquire();
+          const unsigned char* sl = ring + s * FW_SLOT;
+          wgmma_fence();
+#pragma unroll
+          for (int k4 = 0; k4 < 4; ++k4)  // the group's first product overwrites
+            wgmma_ss_n128t<0, 1>(acc, kdesc(sl + w * ATOM + k4 * 32),
+                                 mndesc(sl + 2 * ATOM + k4 * 2048, ATOM), kk | k4);
+          wgmma_commit();
+          settle(s);
+        }
+        fence_regs<64>(acc);
+        // t = act(g) * u into atom (c, w); ungated, act(g) into atoms (2c, w)
+        // and (2c + 1, w), the second only where the chunk has it
+        const int j = GATED ? c : 2 * c;
+        unsigned char* atom = TA + (2 * j + w) * ATOM;
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          float t0 = act_apply(a.act, acc[i]), t1 = act_apply(a.act, acc[i + 1]);
+          if constexpr (GATED) {
+            t0 *= acc[i + 32];
+            t1 *= acc[i + 33];
+          } else if (j + 1 < nj) {
+            atom_put(atom + 2 * ATOM, acc_row(i), acc_col(i),
+                     pack2(act_apply(a.act, acc[i + 32]), act_apply(a.act, acc[i + 33])));
+          }
+          atom_put(atom, acc_row(i), acc_col(i), pack2(t0, t1));
+        }
+        fence_proxy_async_smem();  // the atoms are wgmma operands next
+        warpgroup_sync(w);         // ... read by the whole warpgroup
+      }
+      for (int p = 0; p < npass; ++p) {
+        for (int j = 0; j < nj; ++j) {
+          const int s = acquire();
+          const unsigned char* sl = ring + s * FW_SLOT;
+          const unsigned char* atom = TA + (2 * j + w) * ATOM;
+          wgmma_fence();
+#pragma unroll
+          for (int k4 = 0; k4 < 4; ++k4)
+            wgmma_ss_n256t<0, 1>(acc, kdesc(atom + k4 * 32), mndesc(sl + k4 * 2048, ATOM),
+                                 j | k4);
+          wgmma_commit();
+          settle(s);
+        }
+        fence_regs<128>(acc);
+        const int row0 = m0 + 64 * w, col0 = p * FW_PW;
+        auto store = [&](int e, float v0, float v1) {
+          const int row = row0 + acc_row(e), col = col0 + acc_col(e);
+          if (!direct) {
+            put_f32_pair(static_cast<float*>(out) + size_t(group) * a.M * a.Dout, a.Dout, row, col,
+                         a.M, a.Dout, v0, v1);
+          } else if (row < a.M && col < a.Dout) {  // Dout is even: col + 1 < Dout too
+            __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + size_t(row) * a.Dout + col;
+            *reinterpret_cast<uint32_t*>(o) = pack2(v0, v1);
+          }
+        };
+        if constexpr (CS == 1) {
+#pragma unroll
+          for (int e = 0; e < 128; e += 2) store(e, acc[e], acc[e + 1]);
+        } else {
+          // even rounds through the slot of the pass's last step, which
+          // the producer refills only after the fold's barriers, once both
+          // warpgroups' products have read it
+          unsigned char* free_slot = ring + ((t - 1) % ST) * FW_SLOT;
+          auto buffer = [&](int r) {
+            return r & 1 ? rb : reinterpret_cast<float*>(free_slot);
+          };
+          consumers_sync();
+          cluster_fold<128, CS, FW_RBN>(acc, buffer, round, store);
+        }
+      }
+    }
+  }
+  cooperative_groups::this_cluster().sync();
+}
+
+// Clusters of the tiled form that can be resident on the current device at
+// once: the persistent grid's size.  Also allows the kernel the most shared
+// memory a block may use there, so that no launch has to.
+template <bool GATED, int CS>
+cudaError_t tiled_resident(const TiledGeometry& geo, int* clusters) {
+  auto kern = mlp_fwd_wgmma<GATED, CS>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CS);
+  cfg.blockDim = dim3(RING_NT);
+  cfg.dynamicSmemBytes = fw_smem(geo.nj, geo.cs, geo.st);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(clusters, kern, &cfg);
+}
+
+template <bool GATED>
+int launch_tiled(const CUtensorMap& tx, const CUtensorMap& twg, const CUtensorMap& twu,
+                 const CUtensorMap& tw2, void* out, const TiledGeometry& geo, const FwdArgs& a,
+                 int clusters, cudaStream_t st) {
+  const int n_rt = (a.M + 127) / 128, items = a.partials * n_rt;
+  const int ncl = clusters < items ? clusters : items;
+  const int smem = fw_smem(geo.nj, geo.cs, geo.st);
+  if (geo.cs == 1)
+    return int(launch_cluster(mlp_fwd_wgmma<GATED, 1>, dim3(ncl), smem, 1, st, tx, twg, twu, tw2,
+                              out, a));
+  return int(launch_cluster(mlp_fwd_wgmma<GATED, FW_CS>, dim3(ncl * FW_CS), smem, FW_CS, st, tx,
+                            twg, twu, tw2, out, a));
 }
 
 // ---------------------------------------------------------------------------
@@ -696,21 +995,69 @@ int launch_small(const SmallPlan& p, const void* x, const void* w1, const void* 
 
 }  // namespace
 
-// x (M, Din), w1 (Din, H), wu (Din, H) or null, w2 (H, Dout), all of one
-// dtype.  direct=1: out is (M, Dout) in that dtype and H <= block_h.
-// direct=0: out is f32 partials (ceil(H / block_h), M, Dout).
+// float32: x (M, Din), w1 (Din, H), wu (Din, H) or null, w2 (H, Dout).
+// direct=1: out is (M, Dout) f32 and H <= block_h.  direct=0: out is f32
+// partials (ceil(H / block_h), M, Dout).  (bf16 takes repro_fused_mlp_tiled.)
 extern "C" int repro_fused_mlp_fwd(const void* x, const void* w1, const void* wu, const void* w2,
                                    void* out, int M, int Din, int H, int Dout, int dtype,
                                    int gated, int act, int block_h, int direct, void* stream) {
-  if (block_h <= 0 || block_h % BN) return int(cudaErrorInvalidValue);
+  if (block_h <= 0 || block_h % BN || dtype != F32) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == BF16)
-    return gated ? launch<__nv_bfloat16, true>(x, w1, wu, w2, out, M, Din, H, Dout, block_h, act, direct, st)
-                 : launch<__nv_bfloat16, false>(x, w1, wu, w2, out, M, Din, H, Dout, block_h, act, direct, st);
-  if (dtype == F32)
-    return gated ? launch<float, true>(x, w1, wu, w2, out, M, Din, H, Dout, block_h, act, direct, st)
-                 : launch<float, false>(x, w1, wu, w2, out, M, Din, H, Dout, block_h, act, direct, st);
-  return int(cudaErrorInvalidValue);
+  return gated ? launch<float, true>(x, w1, wu, w2, out, M, Din, H, Dout, block_h, act, direct, st)
+               : launch<float, false>(x, w1, wu, w2, out, M, Din, H, Dout, block_h, act, direct, st);
+}
+
+// The tiled bf16 form's geometry for hidden width H (a multiple of 8):
+// geo = {nj, cs, partials, st} -- 64-wide sub-chunks per block, blocks per
+// cluster, the f32 partials it leaves for queue_reduce (1: it writes Y
+// itself), ring stages.  A function of H alone; the caller sizes its
+// buffers from it.
+extern "C" int repro_fused_mlp_tiled_geometry(int H, int* geo) {
+  if (H < 8 || H % 8) return int(cudaErrorInvalidValue);
+  const TiledGeometry g = tiled_geometry(H);
+  const int fields[] = {g.nj, g.cs, g.partials, g.st};
+  for (int i = 0; i < 4; ++i) geo[i] = fields[i];
+  return 0;
+}
+
+// Clusters of the tiled bf16 form (gated or not, at hidden width H) that
+// fit on the current device at once, the persistent grid's size; also
+// allows the kernel its shared memory there.  Call it on a device before
+// the form's first launch there.
+extern "C" int repro_fused_mlp_tiled_resident(int H, int gated, int* clusters) {
+  if (H < 8 || H % 8) return int(cudaErrorInvalidValue);
+  const TiledGeometry g = tiled_geometry(H);
+  const bool one = g.cs == 1;
+  cudaError_t e = gated ? (one ? tiled_resident<true, 1>(g, clusters)
+                               : tiled_resident<true, FW_CS>(g, clusters))
+                        : (one ? tiled_resident<false, 1>(g, clusters)
+                               : tiled_resident<false, FW_CS>(g, clusters));
+  return int(e);
+}
+
+// The tiled bf16 form on TMA + wgmma: x (M, Din), w1 (Din, H), wu (Din, H)
+// or null, w2 (H, Dout), every width a multiple of 8 and every pointer
+// 16-byte aligned (TMA's rule).  out is Y (M, Dout) bf16 when the geometry
+// leaves one partial, else f32 partials (partials, M, Dout).  clusters is
+// repro_fused_mlp_tiled_resident's count for these widths on this device.
+extern "C" int repro_fused_mlp_tiled(const void* x, const void* w1, const void* wu,
+                                     const void* w2, void* out, int M, int Din, int H, int Dout,
+                                     int gated, int act, int clusters, void* stream) {
+  if (M < 1 || Din < 8 || H < 8 || Dout < 8 || Din % 8 || H % 8 || Dout % 8 || clusters < 1)
+    return int(cudaErrorInvalidValue);
+  for (const void* p : {x, w1, w2, gated ? wu : w1})
+    if (reinterpret_cast<uintptr_t>(p) & 15) return int(cudaErrorInvalidValue);
+  CUtensorMap tx, twg, twu, tw2;
+  cudaError_t e = map64(&tx, x, M, Din);
+  if (e == cudaSuccess) e = map64(&twg, w1, Din, H);
+  if (e == cudaSuccess) e = map64(&twu, gated ? wu : w1, Din, H);
+  if (e == cudaSuccess) e = map64(&tw2, w2, H, Dout);
+  if (e != cudaSuccess) return int(e);
+  const TiledGeometry g = tiled_geometry(H);
+  const FwdArgs a{M, Din, H, Dout, act, g.nj, g.partials, g.st};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return gated ? launch_tiled<true>(tx, twg, twu, tw2, out, g, a, clusters, st)
+               : launch_tiled<false>(tx, twg, twu, tw2, out, g, a, clusters, st);
 }
 
 // Small-M form: its launch geometry for (Din, H, Dout) on the current

@@ -77,6 +77,7 @@
 
 #include "common.cuh"
 #include "sm90.cuh"
+#include "wg_ring.cuh"
 
 using namespace kt;
 
@@ -366,9 +367,6 @@ int launch_dw(const BwdArgs<T>& a, float* p1, float* pu, float* p2, int ms, cuda
 // The gated bf16 form (B7) on TMA + wgmma, partials folded across clusters
 // ---------------------------------------------------------------------------
 
-constexpr int WG_NT = 256;            // two consumer warpgroups of 64 rows ...
-constexpr int B7_NT = 384;            // ... after one producer warpgroup
-constexpr int ATOM = 64 * 64 * 2;     // one 64 x 64 bf16 TMA box, 128-byte swizzled
 constexpr int SLOT = 4 * ATOM;        // a ring stage: the largest step's boxes
 constexpr int RB_N = 32;              // accumulator floats per thread per reduce round
 constexpr int DX_NJ = 3;              // 64-wide hidden sub-chunks per dX block
@@ -380,7 +378,7 @@ constexpr int DW_CLUSTER = 8;         // dW blocks (row spans of one hidden chun
 // dynamic shared memory: the hidden atoms, the ring, the two reduce
 // buffers, the ring's full and empty barriers, and slack to align the base
 // to 1024
-constexpr int RB_FLOATS = 2 * WG_NT * RB_N;
+constexpr int RB_FLOATS = 2 * CONSUMER_NT * RB_N;
 constexpr int wg_smem(int atoms, int stages) {
   return atoms * ATOM + stages * SLOT + RB_FLOATS * 4 + 16 * stages + 1024;
 }
@@ -389,131 +387,18 @@ static_assert(DX_SMEM <= 232448 && DW_SMEM <= 232448, "a block may use 227 KB");
 static_assert(DW_MS % 128 == 0 && RB_N % (2 * DX_CLUSTER) == 0 && RB_N % (2 * DW_CLUSTER) == 0,
               "whole 128-row tiles; every member folds whole pairs");
 
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Descriptors of a K-major operand (rows 128 bytes apart, K steps of 32
-// bytes) and of an MN-major one (K steps of 16 rows = 2048 bytes; `lbo`
-// between 64-wide column atoms along M or N).
-__device__ __forceinline__ uint64_t kdesc(const unsigned char* p) { return sw128_desc(p, 16, 1024); }
-__device__ __forceinline__ uint64_t mndesc(const unsigned char* p, uint32_t lbo) {
-  return sw128_desc(p, lbo, 1024);
-}
-
-// (row, column) within a warpgroup's 64-row accumulator of element i: rows
-// lane / 4 (+8 for the upper pair) of the warp's 16, columns 8 (i / 4) +
-// 2 (lane % 4) (+1)
-__device__ __forceinline__ int acc_row(int i) {
-  return 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2) + 8 * ((i >> 1) & 1);
-}
-__device__ __forceinline__ int acc_col(int i) { return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1); }
-
-// Write a bf16 pair (columns c, c + 1, c even) at row r of a swizzled atom.
-__device__ __forceinline__ void atom_put(unsigned char* atom, int r, int c, uint32_t v) {
-  *reinterpret_cast<uint32_t*>(atom + r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2) = v;
-}
-
-// The ring of ST slots, warp-specialised as csrc/flash_attention.cu's:
-// warpgroup 0 produces -- its thread 0 refills slot t % ST with step t's
-// TMA boxes (issue(t, slot) arms the slot's full barrier) once the slot's
-// empty barrier says every consumer warp released step t - ST -- and
-// warpgroups 1 and 2 consume: wait for step t, run consume(t, slot,
-// release), which calls release() once its products have read the slot.
-// The producer takes part in the cluster barriers of the consumers' folds
-// (syncs(t) of them after step t), ST - 1 steps behind its copies so that
-// the next steps' boxes are in flight while the consumers fold.  No block
-// leaves before its whole cluster (whose reduce buffers it may still read).
-template <int ST, typename Issue, typename Syncs, typename Consume>
-__device__ __forceinline__ void run_ring(int T, uint64_t* full, uint64_t* empty, Issue issue,
-                                         Syncs syncs, Consume consume) {
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  if (threadIdx.x < 128) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    for (int t = 0; t < T + ST - 1; ++t) {
-      if (t < T && threadIdx.x == 0) {
-        const int s = t % ST;
-        if (t >= ST) mbar_wait(&empty[s], ((t / ST) + 1) & 1);
-        issue(t, s);
-      }
-      const int td = t - (ST - 1);
-      if (td >= 0)
-        for (int k = syncs(td); k > 0; --k) cluster.sync();
-    }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    const int lane = threadIdx.x & 31;
-    for (int t = 0; t < T; ++t) {
-      const int s = t % ST;
-      mbar_wait(&full[s], (t / ST) & 1);
-      consume(t, s, [&]() {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[s]);
-      });
-    }
-  }
-  cluster.sync();
-}
-
-// Named barriers of the consumers: both warpgroups, or warpgroup w alone.
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
-__device__ __forceinline__ void warpgroup_sync(int w) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + w) : "memory");
-}
-
-// Fold this thread's N accumulator floats over the CS blocks of the cluster
-// in rank order and store the sums as f32 at out[(row0 + row) * ld + col0 +
-// col], masked to rows < nrows, columns < ncols.  RB_N floats a round,
-// rounds alternating between two reduce buffers (`round` counts them):
-// every member parks its own in the round's buffer (element i of consumer
-// thread c at i * WG_NT + c), one cluster barrier, then member `rank`
-// loads element range `rank` of the round from every member at once, sums
-// it in rank order and writes it.  A buffer is written again two rounds
-// later, after the next round's barrier, which every member reaches only
-// once done reading it.  The producer warpgroup joins each of the N / RB_N
-// barriers.
+// Fold this consumer thread's N accumulator floats over the CS blocks of
+// the cluster in rank order (`cluster_fold`) and store the sums as f32 at
+// out[(row0 + row) * ld + col0 + col], masked to rows < nrows, columns <
+// ncols.
 template <int N, int CS>
 __device__ __forceinline__ void cluster_store(const float* acc, float* rb, int& round, float* out,
                                               size_t ld, int row0, int col0, int nrows,
                                               int ncols) {
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  constexpr int SHARE = RB_N / CS;
-  const int rank = int(cluster.block_rank()), ct = threadIdx.x - 128;  // consumer thread
-#pragma unroll
-  for (int base = 0; base < N; base += RB_N, ++round) {
-    float* buf = rb + (round & 1) * WG_NT * RB_N;
-#pragma unroll
-    for (int i = 0; i < RB_N; ++i) buf[i * WG_NT + ct] = acc[base + i];
-    cluster.sync();
-    float v[CS][SHARE];
-#pragma unroll
-    for (int q = 0; q < CS; ++q) {
-      const float* r = cluster.map_shared_rank(buf, q) + rank * SHARE * WG_NT + ct;
-#pragma unroll
-      for (int i = 0; i < SHARE; ++i) v[q][i] = r[i * WG_NT];
-    }
-#pragma unroll
-    for (int i = 0; i < SHARE; i += 2) {
-      float v0 = v[0][i], v1 = v[0][i + 1];
-#pragma unroll
-      for (int q = 1; q < CS; ++q) {
-        v0 += v[q][i];
-        v1 += v[q][i + 1];
-      }
-      const int e = base + rank * SHARE + i;
-      const int row = row0 + acc_row(e), col = col0 + acc_col(e);
-      if (row < nrows && col < ncols) {
-        float* o = out + size_t(row) * ld + col;
-        if (col + 1 < ncols) *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-        else o[0] = v0;
-      }
-    }
-  }
+  auto buffer = [&](int r) { return rb + (r & 1) * CONSUMER_NT * RB_N; };
+  cluster_fold<N, CS, RB_N>(acc, buffer, round, [&](int e, float v0, float v1) {
+    put_f32_pair(out, ld, row0 + acc_row(e), col0 + acc_col(e), nrows, ncols, v0, v1);
+  });
 }
 
 struct B7Args {
@@ -594,33 +479,13 @@ __device__ __forceinline__ void put_hidden(int act, float* dt, float* g, float* 
   fence_proxy_async_smem();  // the atoms are wgmma operands next
 }
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-// The ring's barriers, after the reduce buffer: full[ST] (one arrival and
-// the step's bytes), then empty[ST] (one arrival per consumer warp).
-template <int ST>
-__device__ __forceinline__ uint64_t* init_ring_barriers(float* rb) {
-  uint64_t* full = reinterpret_cast<uint64_t*>(rb + RB_FLOATS);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < ST; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&full[ST + s], WG_NT / 32);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-  return full;
-}
-
 // dX: block (blockIdx.x: hidden chunk of 64 DX_NJ columns, blockIdx.y:
 // 128-row tile); cluster = DX_CLUSTER consecutive chunks of one row tile.
 // Recompute dg, du of the chunk into atoms, then per 128-wide dX column tile p the chunk's K steps of
 // dg Wg^T + du Wu^T (Wg / Wu boxes K-major as B: rows din, columns h),
 // folded over the cluster into partial chunk / cluster of out
 // (n_partials, M, Din).
-__global__ void __launch_bounds__(B7_NT, 1)
+__global__ void __launch_bounds__(RING_NT, 1)
 swiglu_bwd_dx_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
                     const __grid_constant__ CUtensorMap twg, const __grid_constant__ CUtensorMap twu,
                     const __grid_constant__ CUtensorMap twd, float* __restrict__ out, B7Args a) {
@@ -630,7 +495,8 @@ swiglu_bwd_dx_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constan
   unsigned char* DU = DG + DX_NJ * 2 * ATOM;
   unsigned char* ring = DU + DX_NJ * 2 * ATOM;
   float* rb = reinterpret_cast<float*>(ring + DX_ST * SLOT);
-  uint64_t* full = init_ring_barriers<DX_ST>(rb);
+  uint64_t* full = reinterpret_cast<uint64_t*>(rb + RB_FLOATS);
+  init_ring_barriers(DX_ST, full);
   const B7Maps mp{&tx, &tdy, &twg, &twu, &twd};
   const int cs = int(cooperative_groups::this_cluster().num_blocks());
   const int chunk = blockIdx.x;
@@ -693,7 +559,7 @@ swiglu_bwd_dx_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constan
       }
     }
   };
-  run_ring<DX_ST>(T, full, full + DX_ST, issue, syncs, consume);
+  run_ring(DX_ST, T, full, full + DX_ST, issue, syncs, consume);
 }
 
 // dW: block (blockIdx.x: DW_MS-row span, blockIdx.y: 64-wide hidden chunk);
@@ -706,7 +572,7 @@ swiglu_bwd_dx_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constan
 //     columns 64 w.. of the tile;
 // each tile folded over the cluster into partial blockIdx.x / cluster:
 // pg, pu (n, H, Din) -- transposed -- and pd (n, H, Dout).
-__global__ void __launch_bounds__(B7_NT, 1)
+__global__ void __launch_bounds__(RING_NT, 1)
 swiglu_bwd_dw_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
                     const __grid_constant__ CUtensorMap twg, const __grid_constant__ CUtensorMap twu,
                     const __grid_constant__ CUtensorMap twd, float* __restrict__ pg,
@@ -719,7 +585,8 @@ swiglu_bwd_dw_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constan
   unsigned char* TT = DU + NA * ATOM;
   unsigned char* ring = TT + NA * ATOM;
   float* rb = reinterpret_cast<float*>(ring + DW_ST * SLOT);
-  uint64_t* full = init_ring_barriers<DW_ST>(rb);
+  uint64_t* full = reinterpret_cast<uint64_t*>(rb + RB_FLOATS);
+  init_ring_barriers(DW_ST, full);
   const B7Maps mp{&tx, &tdy, &twg, &twu, &twd};
   const int cs = int(cooperative_groups::this_cluster().num_blocks());
   const int mb = blockIdx.x * DW_MS, h0 = blockIdx.y * 64;
@@ -808,36 +675,15 @@ swiglu_bwd_dw_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constan
       }
     }
   };
-  run_ring<DW_ST>(T, full, full + DW_ST, issue, syncs, consume);
+  run_ring(DW_ST, T, full, full + DW_ST, issue, syncs, consume);
 }
 
-// A tensor map over a row-major (rows, cols) bf16 matrix in 64 x 64 boxes.
-cudaError_t map64(CUtensorMap* m, const void* p, int rows, int cols) {
-  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows), 1};
-  const cuuint64_t strides[2] = {cuuint64_t(cols) * 2, cuuint64_t(rows) * cols * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
-  return encode_sw128_bf16_3d(m, p, dims, strides, box);
-}
-
+// Allow the kernel its shared memory, then launch it in clusters.
 template <typename Kern, typename... Args>
-cudaError_t launch_cluster(Kern kern, dim3 grid, int smem, int cluster, cudaStream_t st,
-                           Args... args) {
+cudaError_t launch_b7(Kern kern, dim3 grid, int smem, int cluster, cudaStream_t st,
+                      Args... args) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(B7_NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, args...);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  return e != cudaSuccess ? e : launch_cluster(kern, grid, smem, cluster, st, args...);
 }
 
 }  // namespace
@@ -925,10 +771,10 @@ extern "C" int repro_swiglu_bwd_wgmma(const void* x, const void* wg, const void*
   int n_dx = 0, n_dw = 0;
   repro_swiglu_bwd_partials(M, H, &n_dx, &n_dw);
   if (parts & 1)
-    e = launch_cluster(swiglu_bwd_dx_wgmma, dim3(n_dx * DX_CLUSTER, (M + 127) / 128), DX_SMEM,
+    e = launch_b7(swiglu_bwd_dx_wgmma, dim3(n_dx * DX_CLUSTER, (M + 127) / 128), DX_SMEM,
                        DX_CLUSTER, st, tx, tdy, twg, twu, twd, static_cast<float*>(dx), a);
   if (e != cudaSuccess || !(parts & 2)) return int(e);
-  e = launch_cluster(swiglu_bwd_dw_wgmma, dim3(n_dw * DW_CLUSTER, (H + 63) / 64), DW_SMEM,
+  e = launch_b7(swiglu_bwd_dw_wgmma, dim3(n_dw * DW_CLUSTER, (H + 63) / 64), DW_SMEM,
                      DW_CLUSTER, st, tx, tdy, twg, twu, twd, static_cast<float*>(pg), static_cast<float*>(pu),
                      static_cast<float*>(pd), a);
   return int(e);

@@ -13,11 +13,17 @@ hidden tensor never reaches HBM.  Two forms, chosen by x's rows alone
 hidden range, each block builds its part of the hidden chunk with the
 weights as mma's 16-row operand and the tokens as its 8-wide N, the
 cluster exchanges the parts through distributed shared memory and each
-block multiplies the whole chunk into its columns of W2; above SMALL_M each
-block builds a (128 rows, block_h) hidden chunk in shared memory and
-multiplies it straight into W2.  Either way the f32 partials of Y (one per
-cluster, or per hidden chunk) are folded by `queue_reduce` into the output
-dtype; the csrc header counts their bytes.
+block multiplies the whole chunk into its columns of W2.  Above SMALL_M,
+bfloat16 runs the tiled form on TMA + wgmma: a block builds t = act(x @ wg)
+* (x @ wu) for 128 rows and a chunk of up to 448 hidden columns into
+shared memory and multiplies it into 128-column tiles of y, which a cluster
+of 8 blocks over consecutive chunks folds through distributed shared
+memory.  Its geometry is a function of the hidden width alone
+(`tiled_geometry`): H <= 448 takes one block and writes y itself; wider,
+one f32 partial per cluster (2 at gemma3-1b's 6912, 4 at Llama's 14336).
+float32 runs a SIMT kernel (FMA), one f32 partial per hidden chunk of
+F32_BLOCK_H.  Partials are folded by `queue_reduce` into the output dtype;
+the csrc header counts their bytes.
 
 The backward kernels (csrc/fused_mlp_bwd.cu) replace `fused_mlp_bwd` and
 `fused_mlp_swiglu_bwd` the same way: the hidden tiles are recomputed from X,
@@ -43,17 +49,18 @@ from .queue_reduce import queue_reduce
 
 ACT_CODES = {"identity": 0, "relu": 1, "gelu": 2, "silu": 3}
 
-# Widest hidden chunk per block: the block's rows of it (128 for bf16, 64
-# for f32) must fit in shared memory beside the 3-stage staging tiles
-# (211 KB for bf16 at 512, 191 KB for f32 at 256, of the 227 KB a block may
-# use).
-MAX_BLOCK_H = {torch.bfloat16: 512, torch.float32: 256}
+# float32's hidden chunk per block (the SIMT kernel): its 64 rows of it
+# fit in shared memory beside the 3-stage staging tiles (191 KB of the
+# 227 KB a block may use).  bfloat16's chunks are the tiled form's own
+# (`tiled_geometry`).
+F32_BLOCK_H = 256
 
 # Rows at or below which the forward runs its small-M form (csrc/fused_mlp.cu
 # `small_m_kernel`: the weights as mma's 16-row operand, the token rows as
 # its 8-wide N, one cluster per hidden range); above it, the 128-row tiled
 # form.  64 is the form's capacity: on the H100 it is faster than the tiled
-# form at every M it takes (PERF.md, the crossover at phi3 widths).
+# form at every M it takes (PERF.md, the crossover at phi3 widths;
+# chip_smoke.py phase 3 fails if that stops holding).
 SMALL_M = 64
 
 
@@ -81,6 +88,49 @@ def _kernel():
     v, i = ctypes.c_void_p, ctypes.c_int
     return _build.kernel_function("fused_mlp", "repro_fused_mlp_fwd",
                                   [v, v, v, v, v] + [i] * 9 + [v])
+
+
+@functools.cache
+def _tiled_kernels():
+    v, i, p = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    geometry = _build.kernel_function("fused_mlp", "repro_fused_mlp_tiled_geometry", [i, p])
+    resident = _build.kernel_function("fused_mlp", "repro_fused_mlp_tiled_resident",
+                                      [i, i, p])
+    run = _build.kernel_function("fused_mlp", "repro_fused_mlp_tiled",
+                                 [v] * 5 + [i] * 7 + [v])
+    return geometry, resident, run
+
+
+class TiledGeometry(NamedTuple):
+    """The tiled bf16 form's geometry for one hidden width, as its source
+    (csrc/fused_mlp.cu `tiled_geometry`) computes it from the width alone:
+    64-wide hidden sub-chunks per block, blocks per cluster, the f32
+    partials it leaves for queue_reduce (1: it writes y itself), and its
+    ring's stages."""
+    nj: int
+    cs: int
+    partials: int
+    st: int
+
+
+@functools.cache
+def tiled_geometry(hdim: int) -> TiledGeometry:
+    """The tiled bf16 form's geometry at hidden width hdim (padded to a
+    multiple of 8, as the launch pads it)."""
+    geo = (ctypes.c_int * 4)()
+    _tiled_kernels()[0](-(-hdim // 8) * 8, geo)
+    return TiledGeometry(*geo)
+
+
+@functools.cache
+def tiled_resident(device: int, hdim: int, gated: bool) -> int:
+    """Clusters of the tiled bf16 form resident on a device at once (the
+    persistent grid's size) at hidden width hdim; asking the source also
+    allows the kernel its shared memory there."""
+    n = ctypes.c_int()
+    with torch.cuda.device(device):
+        _tiled_kernels()[1](-(-hdim // 8) * 8, int(gated), ctypes.byref(n))
+    return n.value
 
 
 @functools.cache
@@ -192,12 +242,56 @@ def forward_in_form(form: str, x, w1, wu, w2, act: str, fold: bool = True):
     """The forward kernel in the given form ("small_m", which takes at most
     SMALL_M rows, or "tiled"), uncounted: phase 3 of chip_smoke.py times
     the two forms against each other with it.  wu None is the ungated MLP.
-    fold=False returns the small-M form's output as the kernel wrote it:
-    its f32 partials, or y where it leaves one."""
+    fold=False returns the kernel's output as it wrote it: its f32
+    partials, or y where it leaves one (padded to widths of 8 in the
+    bfloat16 tiled form)."""
     what = "fused_mlp" if wu is None else "fused_mlp_swiglu"
-    if not fold and form != "small_m":
-        raise ValueError("fold=False is the small-M form's")
     return _launch(what, x, w1, wu, w2, act, form, fold)[0]
+
+
+def _launch_f32(x, w1, wu, w2, act: str, code: int, dims):
+    """The SIMT kernel (float32): hidden chunks of F32_BLOCK_H, one f32
+    partial each."""
+    m, d_in, hdim, d_out = dims
+    bh = min(F32_BLOCK_H, -(-hdim // 128) * 128)
+    n_split = -(-hdim // bh)
+    if n_split == 1:
+        out = torch.empty((m, d_out), dtype=x.dtype, device=x.device)
+    else:
+        out = torch.empty((n_split, m, d_out), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _kernel()(x.data_ptr(), w1.data_ptr(), None if wu is None else wu.data_ptr(),
+                  w2.data_ptr(), out.data_ptr(), m, d_in, hdim, d_out, code,
+                  int(wu is not None), ACT_CODES[act], bh, int(n_split == 1),
+                  _build.stream_of(x))
+    return out if n_split == 1 else queue_reduce(out, op="sum", out_dtype=x.dtype)
+
+
+def _launch_tiled(x, w1, wu, w2, act: str, dims, fold: bool = True):
+    """The tiled bfloat16 form (TMA + wgmma): operands zero-padded to widths
+    of 8 where TMA cannot read them as they are, buffers sized by the
+    source's geometry, its partials folded only where it leaves more than
+    one."""
+    m, d_in, hdim, d_out = dims
+    d8, h8, o8 = (-(-n // 8) * 8 for n in (d_in, hdim, d_out))
+    xp, w1p, w2p = _padded(x, m, d8), _padded(w1, d8, h8), _padded(w2, h8, o8)
+    wup = None if wu is None else _padded(wu, d8, h8)
+    geo = tiled_geometry(h8)
+    clusters = tiled_resident(x.device.index, h8, wu is not None)
+    if geo.partials == 1:
+        out = torch.empty((m, o8), dtype=x.dtype, device=x.device)
+    else:
+        out = torch.empty((geo.partials, m, o8), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _tiled_kernels()[2](xp.data_ptr(), w1p.data_ptr(),
+                            None if wup is None else wup.data_ptr(), w2p.data_ptr(),
+                            out.data_ptr(), m, d8, h8, o8, int(wu is not None),
+                            ACT_CODES[act], clusters, _build.stream_of(x))
+    if not fold:
+        return out
+    if geo.partials > 1:
+        out = queue_reduce(out, op="sum", out_dtype=x.dtype)
+    return out if o8 == d_out else out[:, :d_out].contiguous()
 
 
 def _launch(what: str, x, w1, wu, w2, act: str, form: str | None = None,
@@ -209,40 +303,29 @@ def _launch(what: str, x, w1, wu, w2, act: str, form: str | None = None,
         if dims[0] > SMALL_M:
             raise ValueError(f"{what}: the small-M form takes at most {SMALL_M} rows")
         return _launch_small(x, w1, wu, w2, act, code, dims, fold), "small_m"
-    m, d_in, hdim, d_out = dims
-    bh = min(MAX_BLOCK_H[x.dtype], -(-hdim // 128) * 128)
-    n_split = -(-hdim // bh)
-    if n_split == 1:
-        out = torch.empty((m, d_out), dtype=x.dtype, device=x.device)
-    else:
-        out = torch.empty((n_split, m, d_out), dtype=torch.float32,
-                          device=x.device)
-    with torch.cuda.device(x.device):
-        _kernel()(x.data_ptr(), w1.data_ptr(),
-                  None if wu is None else wu.data_ptr(), w2.data_ptr(),
-                  out.data_ptr(), m, d_in, hdim, d_out, code,
-                  int(wu is not None), ACT_CODES[act], bh, int(n_split == 1),
-                  _build.stream_of(x))
-    if n_split == 1:
-        return out, "tiled"
-    return queue_reduce(out, op="sum", out_dtype=x.dtype), "tiled"
+    if x.dtype == torch.float32:
+        if not fold:
+            raise ValueError("fold=False is the small-M and bfloat16 tiled forms'")
+        return _launch_f32(x, w1, wu, w2, act, code, dims), "tiled"
+    return _launch_tiled(x, w1, wu, w2, act, dims, fold), "tiled"
 
 
-def _count_fwd(fn, form: str) -> None:
-    """One launch of a forward wrapper's kernel, counted in total and by
-    the form `_launch` launched."""
+def _count_fwd(fn, form: str, x) -> None:
+    """One launch of a forward wrapper's kernel, counted in total, by the
+    form `_launch` launched and by x's rows (whisper's encoder and decoder
+    run one width at two row counts)."""
     fn.launches += 1
     fn.launches_by_form[form] = fn.launches_by_form.get(form, 0) + 1
+    fn.launches_by_rows[x.shape[0]] = fn.launches_by_rows.get(x.shape[0], 0) + 1
 
 
 def fused_mlp_fwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
                   act: str = "gelu") -> torch.Tensor:
-    """act(x @ w1) @ w2 for 2-D x, the hidden dim streamed through shared
-    memory in the widest chunks that fit (MAX_BLOCK_H)."""
+    """act(x @ w1) @ w2 for 2-D x, the hidden tensor kept on chip."""
     if x.device.type == "cpu":
         return fused_mlp_fwd_plain(x, w1, w2, act)
     y, form = _launch("fused_mlp", x, w1, None, w2, act)
-    _count_fwd(fused_mlp_fwd, form)
+    _count_fwd(fused_mlp_fwd, form, x)
     return y
 
 
@@ -253,7 +336,7 @@ def fused_mlp_swiglu_fwd(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     if x.device.type == "cpu":
         return fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, act)
     y, form = _launch("fused_mlp_swiglu", x, wg, wu, wd, act)
-    _count_fwd(fused_mlp_swiglu_fwd, form)
+    _count_fwd(fused_mlp_swiglu_fwd, form, x)
     return y
 
 
@@ -376,4 +459,6 @@ fused_mlp_swiglu_bwd.launches = 0
 fused_mlp_bwd.launches_by_rows = {}
 fused_mlp_fwd.launches_by_form = {}
 fused_mlp_swiglu_fwd.launches_by_form = {}
+fused_mlp_fwd.launches_by_rows = {}
+fused_mlp_swiglu_fwd.launches_by_rows = {}
 fused_mlp_swiglu_bwd.launches_by_rows = {}

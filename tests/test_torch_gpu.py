@@ -148,6 +148,83 @@ def test_fused_mlp_small_m_rows_independent(cuda, gated, dtype):
     assert torch.equal(y[:1], run(x[:1].contiguous()))
 
 
+# (Din, H, Dout) for the tiled bf16 form: widths TMA cannot read as they are
+# (60, 300, 50; 100, 1000, 72; 96, 6900, 40 -- padded to multiples of 8),
+# H that one block takes (300), H over one cluster of 8 (1000, 2000) and H
+# over several clusters, each leaving an f32 partial (6900)
+TILED_WIDTHS = [(60, 300, 50), (100, 1000, 72), (64, 2000, 96), (96, 6900, 40)]
+ACTS = ["identity", "relu", "gelu", "silu"]
+
+
+def _tiled(gated, x, w1, wu, w2, act):
+    return (K.fused_mlp_swiglu_fwd(x, w1, wu, w2, act=act) if gated
+            else K.fused_mlp_fwd(x, w1, w2, act=act))
+
+
+@pytest.mark.parametrize("m", [65, 130, 300])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("gated", [False, True])
+def test_fused_mlp_tiled_form(cuda, gated, act, m):
+    """The bf16 tiled form (TMA + wgmma) of B1 and B2 against the plain
+    version, every activation, at widths that need padding and widths
+    spread over clusters, each launch counted under "tiled"."""
+    name = "fused_mlp_swiglu" if gated else "fused_mlp"
+    for i, (d, h, o) in enumerate(TILED_WIDTHS):
+        x, w1, wu, w2 = _mlp_case(cuda, 40 + i, "bfloat16", m, d, h, o)
+        before = K.launches_by_form(name).get("tiled", 0)
+        got = _tiled(gated, x, w1, wu, w2, act)
+        want = (fused_mlp_swiglu_fwd_plain(x, w1, wu, w2, act) if gated
+                else fused_mlp_fwd_plain(x, w1, w2, act))
+        assert got.dtype == want.dtype and got.shape == want.shape
+        close(got, want, TOL["bfloat16"])
+        assert K.launches_by_form(name)["tiled"] == before + 1
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_fused_mlp_tiled_rows_independent(cuda, gated):
+    """A row's result does not depend on M: rows 0..64 of x at M = 300 are
+    bitwise those of the first 65 rows alone, and two launches give the
+    same bits (the geometry is a function of the widths, the fold runs in
+    rank order, no atomics)."""
+    for i, (d, h, o) in enumerate(TILED_WIDTHS):
+        x, w1, wu, w2 = _mlp_case(cuda, 50 + i, "bfloat16", 300, d, h, o)
+        y = _tiled(gated, x, w1, wu, w2, "silu")
+        assert torch.equal(y, _tiled(gated, x, w1, wu, w2, "silu"))
+        assert torch.equal(y[:65], _tiled(gated, x[:65].contiguous(), w1, wu, w2, "silu"))
+
+
+@pytest.mark.parametrize("h,cs,partials", [(300, 1, 1), (2000, 8, 1), (6900, 8, 2),
+                                           (14336, 8, 4)])
+def test_fused_mlp_tiled_partials(cuda, h, cs, partials):
+    """The tiled form leaves the partials its source counts: none (y in
+    bf16) where one block or one cluster spans H, one f32 partial per
+    cluster otherwise -- at Llama3-8B's 14336, 4."""
+    geo = FM.tiled_geometry(h)
+    assert (geo.cs, geo.partials) == (cs, partials)
+    x, w1, wu, w2 = _mlp_case(cuda, 60, "bfloat16", 130, 64, h, 40)
+    raw = FM.forward_in_form("tiled", x, w1, wu, w2, "silu", fold=False)
+    if partials == 1:
+        assert raw.shape == (130, 40) and raw.dtype == torch.bfloat16
+    else:
+        assert raw.shape == (partials, 130, 40) and raw.dtype == torch.float32
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_fused_mlp_f32_keeps_simt_kernel(cuda, gated, monkeypatch):
+    """float32 above SMALL_M runs the SIMT kernel, never the bf16 tiled
+    form, and holds the plain version to 2e-4."""
+    def refuse(*_, **__):
+        raise AssertionError("float32 reached the bf16 tiled form")
+
+    monkeypatch.setattr(FM, "_launch_tiled", refuse)
+    for i, (d, h, o) in enumerate(TILED_WIDTHS[:3]):
+        x, w1, wu, w2 = _mlp_case(cuda, 70 + i, "float32", 300, d, h, o)
+        got = _tiled(gated, x, w1, wu, w2, "gelu")
+        want = (fused_mlp_swiglu_fwd_plain(x, w1, wu, w2, "gelu") if gated
+                else fused_mlp_fwd_plain(x, w1, w2, "gelu"))
+        close(got, want, TOL["float32"])
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("shape", [(2, 8, 2, 200, 200, 64, True),
                                    (2, 4, 4, 256, 256, 128, False),

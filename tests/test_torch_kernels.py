@@ -9,6 +9,7 @@ reference's (tests/test_kernels.py:25): float32 2e-4, bfloat16 2e-2.
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_gpu.py.
 """
+import contextlib
 import importlib
 
 import jax.numpy as jnp
@@ -332,3 +333,96 @@ def test_forward_counts_the_form_launched(monkeypatch, gated, form):
     assert got is y
     assert K.launch_counts()[name] == 1
     assert K.launches_by_form(name) == {form: 1}
+
+
+class _FakeTiled:
+    """Stands in for the tiled forward's ctypes entry points and its fold
+    (csrc/fused_mlp.cu is built only where nvcc and a card exist): records
+    what `_launch` hands them.  x lies on the meta device, so `_launch`
+    takes its launch path with no card."""
+
+    def __init__(self, monkeypatch, geometry):
+        self.runs, self.folds, self.f32_runs = [], [], []
+        monkeypatch.setattr(FM._build, "cuda_operands",
+                            lambda what, *ts: _build.DTYPE_CODES[ts[0].dtype])
+        monkeypatch.setattr(FM._build, "stream_of", lambda t: 0)
+        monkeypatch.setattr(FM.torch.cuda, "device", lambda d: contextlib.nullcontext())
+        monkeypatch.setattr(FM, "tiled_geometry", lambda hdim: geometry)
+        monkeypatch.setattr(FM, "tiled_resident", lambda device, hdim, gated: 15)
+        monkeypatch.setattr(FM, "_tiled_kernels",
+                            lambda: (None, None, lambda *args: self.runs.append(args)))
+        monkeypatch.setattr(FM, "_kernel", lambda: lambda *args: self.f32_runs.append(args))
+
+        def fold(p, op="sum", out_dtype=None):
+            self.folds.append((tuple(p.shape), p.dtype, op, out_dtype))
+            return torch.empty(p.shape[1:], dtype=out_dtype, device=p.device)
+        monkeypatch.setattr(FM, "queue_reduce", fold)
+
+
+def _meta(*shapes, dtype=torch.bfloat16):
+    return [torch.empty(*s, dtype=dtype, device="meta") for s in shapes]
+
+
+@pytest.mark.parametrize("partials", [1, 3])
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("widths", [(64, 1024, 128), (60, 1000, 50)])
+def test_tiled_forward_sizes_partials_by_source(monkeypatch, partials, gated, widths):
+    """The bf16 tiled forward allocates exactly the partials the source's
+    geometry reports -- y itself (m, Dout padded to 8) in bf16 for one, f32
+    (partials, m, Dout8) otherwise -- folds them only when there is more
+    than one, pads widths that are not multiples of 8 and slices y back."""
+    d, h, o = widths
+    o8 = -(-o // 8) * 8
+    fake = _FakeTiled(monkeypatch, FM.TiledGeometry(nj=7, cs=8, partials=partials, st=2))
+    x, w1, wu, w2 = _meta((130, d), (d, h), (d, h), (h, o))
+    y = (K.fused_mlp_swiglu_fwd(x, w1, wu, w2, act="silu") if gated
+         else K.fused_mlp_fwd(x, w1, w2, act="gelu"))
+    assert y.shape == (130, o) and y.dtype == torch.bfloat16
+    assert len(fake.runs) == 1 and not fake.f32_runs
+    run = fake.runs[0]
+    assert run[5:9] == (130, -(-d // 8) * 8, -(-h // 8) * 8, o8)
+    assert run[9] == int(gated) and (run[2] is None) == (not gated)
+    assert run[11] == 15                                 # the resident clusters
+    if partials == 1:
+        assert fake.folds == []
+    else:
+        assert fake.folds == [((partials, 130, o8), torch.float32, "sum", torch.bfloat16)]
+    raw = FM.forward_in_form("tiled", x, w1, wu if gated else None, w2, "silu", fold=False)
+    assert raw.shape == ((130, o8) if partials == 1 else (partials, 130, o8))
+    assert raw.dtype == (torch.bfloat16 if partials == 1 else torch.float32)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_forward_dtypes_reach_their_own_entry_points(monkeypatch, gated):
+    """Above SMALL_M, bfloat16 launches the TMA + wgmma tiled form
+    (repro_fused_mlp_tiled) and float32 the SIMT kernel
+    (repro_fused_mlp_fwd), one launch each, counted under "tiled"."""
+    fake = _FakeTiled(monkeypatch, FM.TiledGeometry(nj=4, cs=1, partials=1, st=5))
+    name, fn = (("fused_mlp_swiglu", K.fused_mlp_swiglu_fwd) if gated
+                else ("fused_mlp", K.fused_mlp_fwd))
+    K.reset_launch_counts()
+    for dtype in (torch.bfloat16, torch.float32):
+        x, w1, w2 = _meta((SMALL_M + 1, 64), (64, 256), (256, 64), dtype=dtype)
+        fn(x, w1, w1, w2) if gated else fn(x, w1, w2)
+    assert len(fake.runs) == 1 and len(fake.f32_runs) == 1
+    assert fake.f32_runs[0][9] == _build.DTYPE_CODES[torch.float32]
+    assert K.launch_counts()[name] == 2
+    assert K.launches_by_form(name) == {"tiled": 2}
+    K.reset_launch_counts()
+
+
+def test_forward_launches_by_rows_are_counted_and_reset(monkeypatch):
+    """fused_mlp_fwd counts its launches by x's rows (whisper's encoder and
+    decoder blocks run one width at two row counts), and
+    reset_launch_counts clears them with the totals."""
+    _FakeTiled(monkeypatch, FM.TiledGeometry(nj=6, cs=8, partials=1, st=3))
+    K.reset_launch_counts()
+    for rows in (1500, 448, 448):
+        x, w1, w2 = _meta((rows, 64), (64, 128), (128, 64))
+        K.fused_mlp_fwd(x, w1, w2, act="gelu")
+    assert K.launches_by_rows("fused_mlp") == {1500: 1, 448: 2}
+    assert K.launch_counts()["fused_mlp"] == 3
+    K.reset_launch_counts()
+    assert K.launches_by_rows("fused_mlp") == {}
+    assert K.launches_by_rows("fused_mlp_swiglu") == {}
+    assert K.launch_counts()["fused_mlp"] == 0
