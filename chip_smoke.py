@@ -11,10 +11,14 @@ Phases, each failing the run on any error (no phase's exception is caught):
      main path gives it, in bf16 and f32, and time kernel, plain version,
      a one-call PyTorch yardstick (never used by the port) and the bound;
      time the forward's two forms at phi3 widths for M in 1..128 (the
-     small-M form up to its 64 rows) and print their crossover, B5 at the
-     folds B2 leaves (Llama widths, decode), B7's dX and dW kernels apart,
-     and B1 at whisper-small's two training shapes; the tiled forward's
-     rows carry the bytes of the f32 partials it wrote;
+     small-M form up to its 64 rows) and print their crossover; B5 at the
+     compiler's fan-in and at the folds B2 leaves (Llama widths, decode) and
+     B7 leaves (its dX partials at gemma3-1b's widths, the deepest fold of
+     training), each first held bitwise to the sequential f32 fold; B6 at
+     whisper-small's two training shapes and B7 at gemma3-1b's, each with
+     its dX and dW kernels timed apart; B1 at
+     whisper-small's two training shapes; the tiled forward's and the bf16
+     backward's rows carry the bytes of the f32 partials they wrote;
   4. the Llama3-8B challenge app at full width (d=4096, ff=14336, 32 heads
      of 128, vocab 128256, seq 2048, batch 4, its 2 layers + LM head, bf16
      weights from a seed; hkv=hq because the graph models GQA without
@@ -48,7 +52,9 @@ Phases, each failing the run on any error (no phase's exception is caught):
      1500 stub frames, 448 tokens) takes 3 steps, each launching
      fused_mlp_bwd 24 times (12 at the encoder's rows, 12 at the
      decoder's) and fused_mlp 36 times (12 at the encoder's rows, 24 --
-     forward and remat recompute -- at the decoder's); the reduced
+     forward and remat recompute -- at the decoder's), with a
+     torch.profiler split of a fourth step on step 0's batch, whose loss
+     must have fallen; the reduced
      gemma3/whisper configs (f32) train the same on the card as on the CPU, and twice
      alike on the card; the training launcher runs gemma3-1b for 4 steps in
      a subprocess and saves its checkpoint.
@@ -104,7 +110,7 @@ from repro_torch.kernels.fused_mlp import (F32_BLOCK_H, SMALL_M,  # noqa: E402
                                            fused_mlp_swiglu_fwd_plain)
 from repro_torch.kernels.ref import DACTS  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_flash_decode_plain  # noqa: E402
-from repro_torch.kernels.queue_reduce import queue_reduce_plain  # noqa: E402
+from repro_torch.kernels.queue_reduce import queue_reduce_plain, sequential_fold  # noqa: E402
 from repro_torch.kernels.ref import paged_rows  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.serve import (PagedKVExecutor, PagedServingEngine,  # noqa: E402
@@ -169,6 +175,8 @@ SUMMARY = {
                                 "x (8, 5120) -> 17920 -> 5120, silu (small-M form)"),
     "queue_reduce_decode_fold": ("queue_reduce", "serve_native",
                                  "B2's decode partials (n, 8, 5120) f32 -> bf16"),
+    "queue_reduce_train_fold": ("queue_reduce", "train_gemma3",
+                                "B7's dX partials (18, 8192, 1152) f32 -> bf16"),
     "fused_mlp_swiglu_train": ("fused_mlp_swiglu", "train_gemma3",
                                "x (8192, 1152) -> 6912 -> 1152, silu"),
     "fused_mlp_swiglu_bwd": ("fused_mlp_swiglu_bwd", "train_gemma3",
@@ -202,11 +210,11 @@ def ptxas_entries(log: str) -> list[str]:
             mangled, spill = ln.split("'")[1], ""
             m = re.search(r"([a-z_]+_(?:kernel|wgmma))I(.*?)EEv", mangled)
             if m:
-                args = re.sub(r"Li(\d+)E", r"\1,", m.group(2))
-                args = args.replace("13__nv_bfloat16", "bf16,")
-                args = "f32," + args[1:] if args.startswith("f") else args
-                args = args.replace("Lb1E", "true,").replace("Lb0E", "false,")
-                name = f"{m.group(1)}<{args.rstrip(',')}>"
+                codes = {"f": "f32", "Lb1E": "true", "Lb0E": "false"}
+                args = [codes.get(t, "bf16" if "bfloat16" in t or t.startswith("S") else t[2:-1])
+                        for t in re.findall(r"13__nv_bfloat16|S\d*_|f|Lb[01]E|Li\d+E",
+                                            m.group(2))]
+                name = f"{m.group(1)}<{','.join(args)}>"
             else:
                 plain = re.search(r"\d+([a-z_]+_(?:kernel|wgmma))E", mangled)
                 name = plain.group(1) if plain else mangled
@@ -328,6 +336,22 @@ def tiled_partials(dtype, x, w1, wu, w2, act) -> dict:
     return {"partial_bytes": raw.nbytes if raw.dtype == torch.float32 else 0}
 
 
+def fold_case(name, x, out_dtype, **extra):
+    """A phase-3 case of queue_reduce folding x (N, R, C) into out_dtype by
+    sum, first held bitwise to the sequential f32 fold on the card."""
+    if not torch.equal(K.queue_reduce(x, out_dtype=out_dtype), sequential_fold(x, out_dtype)):
+        raise AssertionError(f"{name}[{x.dtype}]: queue_reduce differs from the sequential "
+                             f"f32 fold")
+    print(f"{name}[{x.dtype} -> {out_dtype}]: bitwise equal to the sequential f32 fold",
+          flush=True)
+    return (name,
+            lambda: K.queue_reduce(x, out_dtype=out_dtype),
+            lambda: queue_reduce_plain(x, "sum", out_dtype),
+            lambda: torch.sum(x, dim=0),
+            float(x.numel()), nbytes(x) + x[0].numel() * torch.finfo(out_dtype).bits // 8,
+            None, extra)
+
+
 def kernel_cases(gen, dtype):
     """(name, kernel call, plain call, library call, flops, bytes[, reorder,
     extra]) at the main path's shapes."""
@@ -362,11 +386,7 @@ def kernel_cases(gen, dtype):
            4.0 * B * NH * HD * (S * (S + 1) / 2), nbytes(q, k, v, q))
     del q, k, v
     part = randn(gen, 16, 1024, 256, dtype=dtype)     # phase 6's fan-in partials
-    yield ("queue_reduce",
-           lambda: K.queue_reduce(part),
-           lambda: queue_reduce_plain(part),
-           lambda: torch.sum(part, dim=0),
-           float(part.numel()), nbytes(part) + nbytes(part[0]))
+    yield fold_case("queue_reduce", part, dtype)
     del part
     # the Llama FFN's f32 partials (bf16: one per cluster of the tiled
     # form, as its source counts them; f32: one per hidden chunk) folded to
@@ -374,11 +394,7 @@ def kernel_cases(gen, dtype):
     n_split = (FM.tiled_geometry(H).partials if dtype == torch.bfloat16
                else -(-H // F32_BLOCK_H))
     fold = randn(gen, n_split, M, D, dtype=torch.float32)
-    yield ("queue_reduce_mlp_fold",
-           lambda: K.queue_reduce(fold, out_dtype=dtype),
-           lambda: queue_reduce_plain(fold, "sum", dtype),
-           lambda: torch.sum(fold, dim=0),
-           float(fold.numel()), nbytes(fold) + fold[0].numel() * torch.finfo(dtype).bits // 8)
+    yield fold_case("queue_reduce_mlp_fold", fold, dtype)
     del fold
     yield from decode_cases(gen, dtype)
     yield from train_cases(gen, dtype)
@@ -422,6 +438,21 @@ def reordered(plain, x, ws, dy, gen):
     return outs
 
 
+def bwd_parts(x, w1, wu, w2, dy, act) -> dict:
+    """The bf16 backward's two kernels apart, for phase 3's row: dx_ms and
+    dw_ms time the dX and the dW kernel alone (their f32 partials
+    unfolded), partial_bytes is the .nbytes of the partials they wrote (dX's
+    from the dX kernel, dW's from the dW kernel), which the folds read
+    again."""
+    dx_part = FM.bwd_bf16(x, w1, wu, w2, dy, act, parts=1)[0]
+    dw_parts = FM.bwd_bf16(x, w1, wu, w2, dy, act, parts=2)[1:]
+    partial_bytes = dx_part.nbytes + sum(t.nbytes for t in dw_parts)
+    del dx_part, dw_parts
+    return {"dx_ms": lambda: FM.bwd_bf16(x, w1, wu, w2, dy, act, parts=1),
+            "dw_ms": lambda: FM.bwd_bf16(x, w1, wu, w2, dy, act, parts=2),
+            "partial_bytes": partial_bytes}
+
+
 def train_cases(gen, dtype):
     """Phase 8's MLP kernels at its shapes: gemma3-1b's FFN over 4 x 2048
     tokens (B2 forward, B7 backward) and whisper-small's over the encoder's
@@ -447,13 +478,7 @@ def train_cases(gen, dtype):
         # the two kernels of the call apart (their f32 partials unfolded),
         # and the bytes of the partials they wrote (which the folds read
         # again): dX's from the dX kernel alone, dW's from the dW kernel's
-        dx_part = FM.swiglu_bwd_bf16(x, wg, wu, wd, dy, "silu", parts=1)[0]
-        dw_parts = FM.swiglu_bwd_bf16(x, wg, wu, wd, dy, "silu", parts=2)[1:]
-        partial_bytes = dx_part.nbytes + sum(t.nbytes for t in dw_parts)
-        del dx_part, dw_parts
-        extra = {"dx_ms": lambda: FM.swiglu_bwd_bf16(x, wg, wu, wd, dy, "silu", parts=1),
-                 "dw_ms": lambda: FM.swiglu_bwd_bf16(x, wg, wu, wd, dy, "silu", parts=2),
-                 "partial_bytes": partial_bytes}
+        extra = bwd_parts(x, wg, wu, wd, dy, "silu")
     yield ("fused_mlp_swiglu_bwd",
            lambda: K.fused_mlp_swiglu_bwd(x, wg, wu, wd, dy, act="silu"),
            lambda: fused_mlp_swiglu_bwd_plain(x, wg, wu, wd, dy, "silu"),
@@ -462,6 +487,14 @@ def train_cases(gen, dtype):
            lambda: reordered(lambda *a: fused_mlp_swiglu_bwd_plain(*a, "silu"), x,
                              (wg, wu, wd), dy, gen), extra)
     del x, dy, wg, wu, wd
+    # the deepest fold the training run makes: B7's dX partials at these
+    # widths (bf16: one per cluster of hidden chunks, as its source counts
+    # them; f32: one per hidden chunk of the WMMA kernel)
+    n_fold = (FM.swiglu_bwd_partials(M, H)[0] if dtype == torch.bfloat16
+              else -(-H // FM.F32_BWD_BLOCK_H))
+    fold = randn(gen, n_fold, M, D, dtype=torch.float32)
+    yield fold_case("queue_reduce_train_fold", fold, dtype)
+    del fold
     D, H = 768, 3072
     for name, rows in (("fused_mlp_bwd", 8 * 1500), ("fused_mlp_bwd_dec", 8 * 448)):
         M = rows if dtype == torch.bfloat16 else rows // 8
@@ -474,7 +507,8 @@ def train_cases(gen, dtype):
                lambda: mlp_bwd_chain(x, w1, w2, dy),
                5 * 2.0 * M * D * H, 2 * nbytes(x, w1, w2, dy) - nbytes(dy),
                lambda: reordered(lambda *a: fused_mlp_bwd_plain(*a, "gelu"), x, (w1, w2),
-                                 dy, gen))
+                                 dy, gen),
+               bwd_parts(x, w1, None, w2, dy, "gelu") if dtype == torch.bfloat16 else {})
         del dy
         # B1, the forward of the same blocks (encoder; decoder and its remat)
         yield ("fused_mlp_train_" + ("enc" if rows == 8 * 1500 else "dec"),
@@ -589,12 +623,8 @@ def decode_cases(gen, dtype):
     # the fold those partials take in the tick, right after B2 wrote them
     # (so timed with a warm L2)
     n_part = fold.shape[0]
-    yield ("queue_reduce_decode_fold",
-           lambda: K.queue_reduce(fold, out_dtype=dtype),
-           lambda: queue_reduce_plain(fold, "sum", dtype),
-           lambda: torch.sum(fold, dim=0),
-           float(fold.numel()), nbytes(fold) + fold[0].numel() * torch.finfo(dtype).bits // 8,
-           None, {"shape": f"({n_part}, {B}, {D}) f32 -> ({B}, {D}) {str(dtype)[6:]}"})
+    yield fold_case("queue_reduce_decode_fold", fold, dtype,
+                    shape=f"({n_part}, {B}, {D}) f32 -> ({B}, {D}) {str(dtype)[6:]}")
 
 
 def phase_kernels() -> dict:
@@ -1001,6 +1031,16 @@ def train_batches(cfg, batch: int, seq: int, seed: int = 0):
     return at
 
 
+def alloc_calls() -> dict[str, int]:
+    """The caching allocator's calls into the driver so far: cudaMalloc,
+    cudaFree (each a device-wide synchronization) and the retries that
+    free its cache to satisfy an allocation."""
+    stats = torch.cuda.memory_stats()
+    return {"cudaMalloc": stats.get("num_device_alloc", 0),
+            "cudaFree": stats.get("num_device_free", 0),
+            "retries": stats.get("num_alloc_retries", 0)}
+
+
 def train_steps(label, state, step_fn, batches, want):
     """Run `step_fn` over `batches` (counters zeroed by the caller before
     the run); each step must launch exactly `want` of the kernels named
@@ -1008,6 +1048,7 @@ def train_steps(label, state, step_fn, batches, want):
     losses, secs = [], []
     for i, b in enumerate(batches):
         before = K.launch_counts()
+        mem = alloc_calls()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step_fn(state, b)
@@ -1015,9 +1056,10 @@ def train_steps(label, state, step_fn, batches, want):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         delta = {k: n - before[k] for k, n in K.launch_counts().items()}
+        mem = {k: n - mem[k] for k, n in alloc_calls().items()}
         print(f"train {label} step {i}: loss {loss:.5f}, grad norm {m['grad_norm'].item():.4f}, "
-              f"{1e3 * secs[-1]:.1f} ms, launches { {k: n for k, n in delta.items() if n} }",
-              flush=True)
+              f"{1e3 * secs[-1]:.1f} ms, launches { {k: n for k, n in delta.items() if n} }, "
+              f"allocator {mem}", flush=True)
         bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
         if bad or not math.isfinite(loss):
             raise AssertionError(f"train {label} step {i}: loss {loss}, launches "
@@ -1026,13 +1068,14 @@ def train_steps(label, state, step_fn, batches, want):
     return state, losses, secs
 
 
-def profile_train_step(label, step_fn, state, batch, step_s: float) -> None:
+def profile_train_step(label, step_fn, state, batch, step_s: float) -> float:
     """One step under torch.profiler: device time by kernel, grouped, and
-    the device's idle share of an unprofiled step (`step_s`)."""
+    the device's idle share of an unprofiled step (`step_s`).  Returns the
+    step's loss."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         out, m = step_fn(state, batch)
-        m["loss"].item()
+        loss = m["loss"].item()
         torch.cuda.synchronize()
     del out
     rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
@@ -1040,7 +1083,7 @@ def profile_train_step(label, step_fn, state, batch, step_s: float) -> None:
     if not rows:
         raise AssertionError(f"profile {label}: the trace holds no kernel")
     busy_ms = sum(r[2] for r in rows) / 1e3
-    groups = {"B6/B7 backward (mlp_bwd_dx/dw, swiglu_bwd_dx/dw)": ("mlp_bwd", "swiglu_bwd"),
+    groups = {"B6/B7 backward (mlp_bwd_dx/dw_wgmma, mlp_bwd_dx/dw_kernel)": ("mlp_bwd",),
               "B1/B2 forward (mlp_fwd_wgmma, small_m_kernel)": ("mlp_fwd_wgmma",
                                                                 "fused_mlp_kernel",
                                                                 "small_m_kernel"),
@@ -1058,6 +1101,7 @@ def profile_train_step(label, step_fn, state, batch, step_s: float) -> None:
         print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f} %  {g}", flush=True)
     for key, count, us in sorted(rows, key=lambda r: -r[2])[:12]:
         print(f"  {us / 1e3:9.3f} ms {count:5d} calls  {key[:90]}", flush=True)
+    return loss
 
 
 def phase_train_gemma() -> dict[str, int]:
@@ -1127,6 +1171,13 @@ def phase_train_whisper() -> tuple[dict[str, int], dict[str, dict[int, int]]]:
     print(f"train whisper-small: losses {losses}; {1e3 * step_s:.1f} ms per step (steps 2-3), "
           f"{8 * 448 / step_s:.0f} decoder tokens/s ({8 * 1500 / step_s:.0f} frames/s), "
           f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    # the profiled step takes step 0's batch again: its loss must have fallen
+    again = profile_train_step("whisper-small", step, state, at(0), step_s)
+    print(f"train whisper-small: step 0's batch again after 3 steps: loss {losses[0]:.5f} -> "
+          f"{again:.5f}", flush=True)
+    if not again < losses[0]:
+        raise AssertionError(f"whisper-small: loss on step 0's batch did not fall: {losses[0]} "
+                             f"-> {again}")
     return launches, by_rows
 
 

@@ -154,6 +154,12 @@ def cuda_operands(what: str, *tensors: torch.Tensor) -> int:
     return DTYPE_CODES[first.dtype]
 
 
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, asked once per device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def stream_of(t: torch.Tensor) -> int:
     """Handle of PyTorch's current stream on `t`'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,6 +1,6 @@
 // The warp-specialised TMA ring and the cluster fold shared by the fused
 // MLP kernels on TMA + wgmma (fused_mlp.cu's tiled bf16 forward, B1 / B2;
-// fused_mlp_bwd.cu's gated bf16 backward, B7).
+// fused_mlp_bwd.cu's bf16 backward, B6 and B7).
 //
 // A block is 384 threads: warpgroup 0 produces (its thread 0 keeps TMA
 // loads of 64 x 64 bf16 boxes, 128-byte swizzled, in flight through a ring

@@ -235,9 +235,7 @@ def decode_operands(what: str, q, *tensors) -> int:
     return code
 
 
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+_sm_count = _build.sm_count
 
 
 def decode_splits(device: torch.device, n_blocks: int, block_s: int) -> int:

@@ -29,9 +29,10 @@ The backward kernels (csrc/fused_mlp_bwd.cu) replace `fused_mlp_bwd` and
 `fused_mlp_swiglu_bwd` the same way: the hidden tiles are recomputed from X,
 dY and the weights into shared memory; dX comes out as f32 partials over
 hidden chunks, each dW as f32 partials over row slices, and `queue_reduce`
-folds both in a fixed order.  The gated bfloat16 form runs on TMA and wgmma
+folds both in a fixed order.  bfloat16 (both forms) runs on TMA and wgmma
 with 128-row tiles, and a cluster of blocks sums its partials over
-distributed shared memory before writing them (`swiglu_bwd_partials`).
+distributed shared memory before writing them (`swiglu_bwd_partials`,
+`mlp_bwd_partials`); float32 runs WMMA kernels.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -75,13 +76,13 @@ fused_mlp_swiglu_fwd_plain = ref.mlp_swiglu_ref
 fused_mlp_bwd_plain = ref.mlp_bwd_ref
 fused_mlp_swiglu_bwd_plain = ref.mlp_swiglu_bwd_ref
 
-# Backward tiles: the dX kernel's hidden chunk (its 64 rows of da, or of dg
-# and du, sit in shared memory beside the staging ring: 216 KB for the gated
-# bf16 form at 512) and the dW kernel's row slice (t and da, or t, dg and du,
-# for that many rows of a 64-wide hidden chunk: 194 KB gated bf16 at 256).
-# float32 stages two slots instead of three, and its tiles are 4-byte wide.
-BWD_BLOCK_H = {torch.bfloat16: 512, torch.float32: 128}
-BWD_BLOCK_M = {torch.bfloat16: 256, torch.float32: 128}
+# float32 backward tiles (the WMMA kernels): the dX kernel's hidden chunk
+# (its 64 rows of da, or of dg and du, sit in shared memory beside the
+# staging ring) and the dW kernel's row slice (t and da, or t, dg and du,
+# for that many rows of a 64-wide hidden chunk).  bfloat16's tiles are the
+# TMA + wgmma kernels' own (`mlp_bwd_partials`, `swiglu_bwd_partials`).
+F32_BWD_BLOCK_H = 128
+F32_BWD_BLOCK_M = 128
 
 @functools.cache
 def _kernel():
@@ -173,19 +174,31 @@ def small_m_plan(device: int, d_in: int, hdim: int, d_out: int, code: int,
 
 
 @functools.cache
-def _swiglu_bwd_partials():
+def _bwd_partials_fns():
     p = ctypes.POINTER(ctypes.c_int)
-    return _build.kernel_function("fused_mlp_bwd", "repro_swiglu_bwd_partials",
-                                  [ctypes.c_int] * 2 + [p, p])
+    return {gated: _build.kernel_function("fused_mlp_bwd", symbol, [ctypes.c_int] * 2 + [p, p])
+            for gated, symbol in ((True, "repro_swiglu_bwd_partials"),
+                                  (False, "repro_mlp_bwd_partials"))}
+
+
+def _bwd_partials(m: int, hdim: int, gated: bool) -> tuple[int, int]:
+    n_dx, n_dw = ctypes.c_int(), ctypes.c_int()
+    _bwd_partials_fns()[gated](m, -(-hdim // 8) * 8, ctypes.byref(n_dx), ctypes.byref(n_dw))
+    return n_dx.value, n_dw.value
 
 
 def swiglu_bwd_partials(m: int, hdim: int) -> tuple[int, int]:
     """(dX partials, dW partials) the gated bf16 backward writes at m rows
     and hidden width hdim, as its source counts them: one per cluster of
     hidden chunks, one per cluster of row spans."""
-    n_dx, n_dw = ctypes.c_int(), ctypes.c_int()
-    _swiglu_bwd_partials()(m, -(-hdim // 8) * 8, ctypes.byref(n_dx), ctypes.byref(n_dw))
-    return n_dx.value, n_dw.value
+    return _bwd_partials(m, hdim, True)
+
+
+def mlp_bwd_partials(m: int, hdim: int) -> tuple[int, int]:
+    """The same for the ungated bf16 backward, whose dX chunks are twice
+    as wide (it keeps one hidden tensor on chip where the gated form keeps
+    two): half the dX partials, the same dW partials."""
+    return _bwd_partials(m, hdim, False)
 
 
 @functools.cache
@@ -343,8 +356,8 @@ def fused_mlp_swiglu_fwd(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 @functools.cache
 def _wgmma_bwd_kernel():
     v, i = ctypes.c_void_p, ctypes.c_int
-    return _build.kernel_function("fused_mlp_bwd", "repro_swiglu_bwd_wgmma",
-                                  [v] * 9 + [i] * 6 + [v])
+    return _build.kernel_function("fused_mlp_bwd", "repro_mlp_bwd_wgmma",
+                                  [v] * 9 + [i] * 7 + [v])
 
 
 def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -358,46 +371,52 @@ def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return out
 
 
-def swiglu_bwd_bf16(x, wg, wu, wd, dy, act: str = "silu", parts: int = 3):
-    """(dx, dwg, dwu, dwd) of the gated bf16 backward: the TMA + wgmma
-    kernels and four folds, uncounted (fused_mlp_swiglu_bwd counts its
-    calls).  parts 1 or 2 launches only the dX or only the dW kernel and
-    returns the f32 partials (dx, pg, pu, pd) unfolded: chip_smoke.py times
-    the two kernels apart with it."""
-    (m, d_in), hdim, d_out = x.shape, wg.shape[1], wd.shape[1]
+def bwd_bf16(x, w1, wu, w2, dy, act: str, parts: int = 3):
+    """(dx, dw1[, dwu], dw2) of the bf16 backward -- ungated where wu is
+    None (B6), gated otherwise (B7) -- on the TMA + wgmma kernels, then the
+    folds, uncounted (fused_mlp_bwd and fused_mlp_swiglu_bwd count their
+    calls).  Widths that are not multiples of 8 are zero-padded for TMA and
+    sliced back off; dW1 (dWg, dWu) comes back from its transposed (H, Din)
+    partial.  parts 1 or 2 launches only the dX or only the dW kernel and
+    returns the f32 partials (dx, p1[, pu], p2) unfolded: chip_smoke.py
+    times the two kernels apart with it."""
+    gated = wu is not None
+    (m, d_in), hdim, d_out = x.shape, w1.shape[1], w2.shape[1]
     d8, h8, o8 = (-(-n // 8) * 8 for n in (d_in, hdim, d_out))
     xp, dyp = _padded(x, m, d8), _padded(dy, m, o8)
-    wgp, wup, wdp = _padded(wg, d8, h8), _padded(wu, d8, h8), _padded(wd, h8, o8)
-    n_dx, n_dw = swiglu_bwd_partials(m, hdim)
+    w1p, w2p = _padded(w1, d8, h8), _padded(w2, h8, o8)
+    wup = _padded(wu, d8, h8) if gated else None
+    n_dx, n_dw = (swiglu_bwd_partials if gated else mlp_bwd_partials)(m, hdim)
     dev, f32 = x.device, torch.float32
     dx = torch.empty((n_dx, m, d8), dtype=f32, device=dev)
-    pg = torch.empty((n_dw, h8, d8), dtype=f32, device=dev)
-    pu = torch.empty((n_dw, h8, d8), dtype=f32, device=dev)
-    pd = torch.empty((n_dw, h8, o8), dtype=f32, device=dev)
+    p1 = torch.empty((n_dw, h8, d8), dtype=f32, device=dev)
+    pu = torch.empty((n_dw, h8, d8), dtype=f32, device=dev) if gated else None
+    p2 = torch.empty((n_dw, h8, o8), dtype=f32, device=dev)
     with torch.cuda.device(dev):
-        _wgmma_bwd_kernel()(xp.data_ptr(), wgp.data_ptr(), wup.data_ptr(), wdp.data_ptr(),
-                            dyp.data_ptr(), dx.data_ptr(), pg.data_ptr(), pu.data_ptr(),
-                            pd.data_ptr(), m, d8, h8, o8, ACT_CODES[act], parts,
-                            _build.stream_of(x))
+        _wgmma_bwd_kernel()(xp.data_ptr(), w1p.data_ptr(), wup.data_ptr() if gated else None,
+                            w2p.data_ptr(), dyp.data_ptr(), dx.data_ptr(), p1.data_ptr(),
+                            pu.data_ptr() if gated else None, p2.data_ptr(), m, d8, h8, o8,
+                            int(gated), ACT_CODES[act], parts, _build.stream_of(x))
+    p_in = (p1, pu) if gated else (p1,)
     if parts != 3:
-        return dx, pg, pu, pd
+        return (dx, *p_in, p2)
     dx = queue_reduce(dx, op="sum", out_dtype=x.dtype)[:, :d_in]
-    dwg = queue_reduce(pg, op="sum", out_dtype=wg.dtype)[:hdim, :d_in].t()
-    dwu = queue_reduce(pu, op="sum", out_dtype=wu.dtype)[:hdim, :d_in].t()
-    dwd = queue_reduce(pd, op="sum", out_dtype=wd.dtype)[:hdim, :d_out]
-    return tuple(t.contiguous() for t in (dx, dwg, dwu, dwd))
+    dw_in = [queue_reduce(p, op="sum", out_dtype=w1.dtype)[:hdim, :d_in].t() for p in p_in]
+    dw2 = queue_reduce(p2, op="sum", out_dtype=w2.dtype)[:hdim, :d_out]
+    return tuple(t.contiguous() for t in (dx, *dw_in, dw2))
 
 
 def _launch_bwd(what: str, x, w1, wu, w2, dy, act: str):
     """(dx, dw1[, dwu], dw2): both backward kernels, then the folds."""
     code, (m, d_in, hdim, d_out) = _check(what, x, w1, wu, w2, act, dy)
+    if x.dtype == torch.bfloat16:
+        return bwd_bf16(x, w1, wu, w2, dy, act)
+    # float32: the WMMA kernels
     gated = wu is not None
-    if gated and x.dtype == torch.bfloat16:
-        return swiglu_bwd_bf16(x, w1, wu, w2, dy, act)
     dev, f32 = x.device, torch.float32
-    bh = min(BWD_BLOCK_H[x.dtype], -(-hdim // 128) * 128)
+    bh = min(F32_BWD_BLOCK_H, -(-hdim // 128) * 128)
     n_split = -(-hdim // bh)
-    n_ms = -(-m // BWD_BLOCK_M[x.dtype])
+    n_ms = -(-m // F32_BWD_BLOCK_M)
     dx = torch.empty((n_split, m, d_in), dtype=f32, device=dev)
     p1 = torch.empty((n_ms, d_in, hdim), dtype=f32, device=dev)
     pu = torch.empty((n_ms, d_in, hdim), dtype=f32, device=dev) if gated else None
@@ -412,7 +431,7 @@ def _launch_bwd(what: str, x, w1, wu, w2, dy, act: str):
         k_dw(x.data_ptr(), w1.data_ptr(), wu_ptr, w2.data_ptr(), dy.data_ptr(),
              p1.data_ptr(), None if pu is None else pu.data_ptr(), p2.data_ptr(),
              m, d_in, hdim, d_out, code, int(gated), ACT_CODES[act],
-             BWD_BLOCK_M[x.dtype], stream)
+             F32_BWD_BLOCK_M, stream)
     dx = queue_reduce(dx, op="sum", out_dtype=x.dtype)
     dws = [queue_reduce(p1, op="sum", out_dtype=w1.dtype)]
     if gated:

@@ -26,7 +26,7 @@ from repro_torch.kernels.fused_mlp import (SMALL_M, fused_mlp_bwd_plain,
                                            fused_mlp_fwd_plain, fused_mlp_swiglu_bwd_plain,
                                            fused_mlp_swiglu_fwd_plain, fwd_form)
 from repro_torch.kernels.paged_attention import paged_flash_decode_plain
-from repro_torch.kernels.queue_reduce import queue_reduce_plain
+from repro_torch.kernels.queue_reduce import queue_reduce_plain, sequential_fold
 from repro_torch.kernels.ref import paged_rows
 from repro_torch.models import get_model
 from repro_torch.optim import adamw
@@ -261,6 +261,58 @@ def test_queue_reduce_kernel(cuda, op, dtype):
           queue_reduce_plain(x, op, torch.float32), TOL[dtype])
 
 
+def _fold_input(cuda, shape, dtype: str, offset):
+    """Seeded (N, R, C) values; with `offset`, a contiguous view that starts
+    one element into its storage (a base that is not 16-byte aligned)."""
+    n = int(np.prod(shape))
+    (flat,) = tensors(cuda, 11, dtype, (n + offset,))
+    return flat[offset:].view(shape)
+
+
+# (N, R, C, in dtype, out dtype): B2's decode fold, a single payload, and
+# payload strides that are not a multiple of 16 bytes
+FOLD_SHAPES = [(63, 8, 5120, "float32", "bfloat16"), (1, 40, 96, "float32", "float32"),
+               (16, 33, 70, "bfloat16", "bfloat16"), (5, 3, 7, "float32", "bfloat16"),
+               (16, 1024, 256, "bfloat16", "float32")]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", FOLD_SHAPES)
+def test_queue_reduce_bitwise_sequential_fold(cuda, shape, offset):
+    """The counted wrapper equals the sequential f32 fold bit for bit, on
+    any base and payload stride, and counts one launch."""
+    *nrc, dt, out_dt = shape
+    x = _fold_input(cuda, tuple(nrc), dt, offset)
+    before = K.launch_counts()["queue_reduce"]
+    assert torch.equal(K.queue_reduce(x, out_dtype=DTYPES[out_dt]),
+                       sequential_fold(x, DTYPES[out_dt]))
+    assert K.launch_counts()["queue_reduce"] == before + 1
+
+
+def test_queue_reduce_long_stream_bitwise(cuda):
+    """B2's Llama fold (537 MB, outputs enough to fill the card) is still
+    bitwise the sequential fold."""
+    x = torch.randn(4, 8192, 4096, generator=torch.Generator(device=cuda).manual_seed(12),
+                    device=cuda)
+    assert torch.equal(K.queue_reduce(x, out_dtype=torch.bfloat16),
+                       sequential_fold(x, torch.bfloat16))
+
+
+@pytest.mark.parametrize("op,fn", [("max", torch.amax), ("min", torch.amin)])
+@pytest.mark.parametrize("shape", FOLD_SHAPES[:4])
+def test_queue_reduce_nan_propagates(cuda, shape, op, fn):
+    """max and min propagate a NaN as torch.amax / amin do, and otherwise
+    equal them."""
+    *nrc, dt, out_dt = shape
+    x = _fold_input(cuda, tuple(nrc), dt, 0).clone()
+    x.view(-1)[x.numel() // 3] = float("nan")
+    want = fn(x.float(), dim=0).to(DTYPES[out_dt]).float()
+    got = K.queue_reduce(x, op=op, out_dtype=DTYPES[out_dt]).float()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert got.isnan().any()
+
+
 @pytest.mark.parametrize("name", ["dlrm", "mgn", "nerf", "graphcast", "llama"])
 def test_kitsune_on_card_launches_kernels(cuda, name):
     graph, feeds = apps.tiny_instances(cuda, seed=6)[name]
@@ -391,7 +443,7 @@ def test_reduced_engine_on_card_equals_cpu(cuda, arch):
 # ---------------------------------------------------------------------------
 
 BWD_SHAPES = [(100, 60, 300, 50, "relu"),       # no 16-byte rows, one chunk
-              (130, 64, 700, 96, "gelu"),       # ragged H over 512 / 128 chunks
+              (130, 64, 700, 96, "gelu"),       # ragged H over 384 / 192 / 128 chunks
               (300, 128, 1100, 128, "silu"),    # ragged M over 256 / 128 slices
               (64, 32, 128, 40, "identity"),
               (260, 64, 200, 72, "silu"),       # ragged M over 128-row tiles and 256-row spans
@@ -402,7 +454,8 @@ BWD_SHAPES = [(100, 60, 300, 50, "relu"),       # no 16-byte rows, one chunk
 @pytest.mark.parametrize("m,d,h,o,act", BWD_SHAPES)
 def test_fused_mlp_bwd_kernels(cuda, m, d, h, o, act, dtype):
     """B6 and B7 against their plain versions (kernels/ref.py), ragged M
-    and H included; one launch each; a second B7 call is bitwise equal."""
+    and H included; one launch each; a second call of each is bitwise
+    equal."""
     x, w1, wu, w2, dy = tensors(cuda, 8, dtype, (m, d), (d, h), (d, h), (h, o), (m, o),
                                 fan_in=True)
     dy = dy * m ** 0.5                   # undo fan_in's 1/sqrt(m): dy is O(1) too
@@ -422,6 +475,9 @@ def test_fused_mlp_bwd_kernels(cuda, m, d, h, o, act, dtype):
     for a, b in zip(gated, K.fused_mlp_swiglu_bwd(x, w1, wu, w2, dy, act=act)):
         assert torch.equal(a, b)
     assert K.launches_by_rows("fused_mlp_bwd")[m] == rows_before + 1
+    ungated = K.fused_mlp_bwd(x, w1, w2, dy, act=act)
+    for a, b in zip(ungated, K.fused_mlp_bwd(x, w1, w2, dy, act=act)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("m,h,want", [(8192, 6912, (18, 4)), (300, 1100, (3, 1)),
@@ -437,8 +493,52 @@ def test_swiglu_bwd_partials(cuda, m, h, want):
         return
     x, wg, wu, wd, dy = tensors(cuda, 9, "bfloat16", (m, 64), (64, h), (64, h), (h, 64),
                                 (m, 64), fan_in=True)
-    dx, pg, pu, pd = FM.swiglu_bwd_bf16(x, wg, wu, wd, dy, "silu", parts=1)
+    dx, pg, pu, pd = FM.bwd_bf16(x, wg, wu, wd, dy, "silu", parts=1)
     assert dx.shape[0] == want[0] and pg.shape[0] == pu.shape[0] == pd.shape[0] == want[1]
+
+
+# the ungated bf16 backward's partials at BWD_SHAPES: dX one per cluster of
+# 2 hidden chunks of 384 columns, dW one per cluster of 8 row spans of 256
+MLP_BWD_PARTIALS = [(1, 1), (1, 1), (2, 1), (1, 1), (1, 1), (2, 1)]
+
+
+@pytest.mark.parametrize("m,h,want", [(12000, 3072, (4, 6)), (3584, 3072, (4, 2))]
+                         + [(m, h, w) for (m, _, h, _, _), w in zip(BWD_SHAPES, MLP_BWD_PARTIALS)])
+def test_mlp_bwd_partials(cuda, m, h, want):
+    """The ungated bf16 backward leaves the partials its source counts: dX
+    over clusters of 2 hidden chunks of 384 (twice the gated form's 192,
+    which halves them), dW over clusters of 8 row spans of 256 -- at
+    whisper-small's encoder 4 and 6, at its decoder 4 and 2.  The unfolded
+    calls return buffers of exactly those counts."""
+    assert FM.mlp_bwd_partials(m, h) == want
+    x, w1, w2, dy = tensors(cuda, 10, "bfloat16", (m, 64), (64, h), (h, 64), (m, 64), fan_in=True)
+    dx = FM.bwd_bf16(x, w1, None, w2, dy, "gelu", parts=1)[0]
+    _, p1, p2 = FM.bwd_bf16(x, w1, None, w2, dy, "gelu", parts=2)
+    assert dx.shape[0] == want[0] and p1.shape[0] == p2.shape[0] == want[1]
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_mlp_bwd_bf16_runs_wgmma(cuda, act, monkeypatch):
+    """bf16 fused_mlp_bwd runs the TMA + wgmma kernels, never the float32
+    WMMA ones (their entry points are patched to raise): against the plain
+    version with test_fused_mlp_bwd_kernels' tolerances at BWD_SHAPES, every
+    activation, one launch counted per call, two calls bitwise equal."""
+    def refuse():
+        raise AssertionError("bf16 reached the WMMA backward")
+
+    monkeypatch.setattr(FM, "_bwd_kernels", refuse)
+    for i, (m, d, h, o, _) in enumerate(BWD_SHAPES):
+        x, w1, w2, dy = tensors(cuda, 12 + i, "bfloat16", (m, d), (d, h), (h, o), (m, o),
+                                fan_in=True)
+        dy = dy * m ** 0.5                   # undo fan_in's 1/sqrt(m): dy is O(1) too
+        before = K.launch_counts()["fused_mlp_bwd"]
+        got = K.fused_mlp_bwd(x, w1, w2, dy, act=act)
+        assert K.launch_counts()["fused_mlp_bwd"] == before + 1
+        for g, w in zip(got, fused_mlp_bwd_plain(x, w1, w2, dy, act)):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            close(g, w, TOL["bfloat16"])
+        for a, b in zip(got, K.fused_mlp_bwd(x, w1, w2, dy, act=act)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("gated", [False, True])

@@ -32,7 +32,7 @@ from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels import fused_mlp as FM
 from repro_torch.kernels.fused_mlp import (SMALL_M, fused_mlp_fwd_plain,
                                            fused_mlp_swiglu_fwd_plain, fwd_form)
-from repro_torch.kernels.queue_reduce import queue_reduce_plain
+from repro_torch.kernels.queue_reduce import queue_reduce_plain, sequential_fold
 
 DTYPES = {"float32": (np.float32, jnp.float32, torch.float32),
           "bfloat16": (ml_dtypes.bfloat16, jnp.bfloat16, torch.bfloat16)}
@@ -426,3 +426,164 @@ def test_forward_launches_by_rows_are_counted_and_reset(monkeypatch):
     assert K.launches_by_rows("fused_mlp") == {}
     assert K.launches_by_rows("fused_mlp_swiglu") == {}
     assert K.launch_counts()["fused_mlp"] == 0
+
+
+class _FakeBwd:
+    """Stands in for the backward's ctypes entry points and its folds
+    (csrc/fused_mlp_bwd.cu is built only where nvcc and a card exist):
+    records what `_launch_bwd` hands them.  The operands lie on the meta
+    device, so the wrappers take their launch path with no card."""
+
+    def __init__(self, monkeypatch, partials):
+        self.wgmma, self.dx, self.dw, self.folds = [], [], [], []
+        monkeypatch.setattr(FM._build, "cuda_operands",
+                            lambda what, *ts: _build.DTYPE_CODES[ts[0].dtype])
+        monkeypatch.setattr(FM._build, "stream_of", lambda t: 0)
+        monkeypatch.setattr(FM.torch.cuda, "device", lambda d: contextlib.nullcontext())
+        monkeypatch.setattr(FM, "mlp_bwd_partials", lambda m, h: partials)
+        monkeypatch.setattr(FM, "swiglu_bwd_partials", lambda m, h: partials)
+        monkeypatch.setattr(FM, "_wgmma_bwd_kernel", lambda: lambda *a: self.wgmma.append(a))
+        monkeypatch.setattr(FM, "_bwd_kernels", lambda: (lambda *a: self.dx.append(a),
+                                                         lambda *a: self.dw.append(a)))
+
+        def fold(p, op="sum", out_dtype=None):
+            self.folds.append((tuple(p.shape), p.dtype, op, out_dtype))
+            return torch.empty(p.shape[1:], dtype=out_dtype, device=p.device)
+        monkeypatch.setattr(FM, "queue_reduce", fold)
+
+
+def _bwd_call(gated, m, d, h, o, dtype):
+    x, w1, wu, w2, dy = _meta((m, d), (d, h), (d, h), (h, o), (m, o), dtype=dtype)
+    return (K.fused_mlp_swiglu_bwd(x, w1, wu, w2, dy, act="silu") if gated
+            else K.fused_mlp_bwd(x, w1, w2, dy, act="gelu"))
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("widths", [(64, 1024, 128), (60, 1000, 50)])
+def test_bf16_bwd_sizes_partials_by_source(monkeypatch, gated, widths):
+    """The bf16 backward (B6 ungated, B7 gated) launches the TMA + wgmma
+    entry point once with widths padded to multiples of 8, allocates
+    exactly the partials its source reports (dX (n_dx, m, Din8); dW1 -- and
+    dWu -- transposed (n_dw, H8, Din8); dW2 (n_dw, H8, Dout8)), folds each
+    with queue_reduce into the operands' dtype, and slices and transposes
+    the gradients back to the operands' shapes."""
+    d, h, o = widths
+    d8, h8, o8 = (-(-n // 8) * 8 for n in widths)
+    fake = _FakeBwd(monkeypatch, (3, 2))
+    out = _bwd_call(gated, 130, d, h, o, torch.bfloat16)
+    assert len(fake.wgmma) == 1 and not fake.dx and not fake.dw
+    run = fake.wgmma[0]
+    assert run[9:13] == (130, d8, h8, o8)
+    assert run[13] == int(gated) and run[14] == FM.ACT_CODES["silu" if gated else "gelu"]
+    assert run[15] == 3                                  # both kernels
+    assert (run[2] is None) == (not gated) and (run[7] is None) == (not gated)
+    want = [((3, 130, d8), torch.float32, "sum", torch.bfloat16)]
+    want += [((2, h8, d8), torch.float32, "sum", torch.bfloat16)] * (2 if gated else 1)
+    want += [((2, h8, o8), torch.float32, "sum", torch.bfloat16)]
+    assert fake.folds == want
+    shapes = [(130, d), (d, h)] + [(d, h)] * gated + [(h, o)]
+    assert [tuple(t.shape) for t in out] == shapes
+    assert all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in out)
+
+
+@pytest.mark.parametrize("parts", [1, 2])
+def test_bf16_bwd_parts_return_partials_unfolded(monkeypatch, parts):
+    """bwd_bf16(parts=1|2) launches one kernel and returns its f32 partials
+    as written, with no fold: (dx, p1, p2) ungated."""
+    fake = _FakeBwd(monkeypatch, (4, 6))
+    x, w1, w2, dy = _meta((100, 64), (64, 3072), (3072, 64), (100, 64))
+    dx, p1, p2 = FM.bwd_bf16(x, w1, None, w2, dy, "gelu", parts=parts)
+    assert fake.wgmma[0][15] == parts and not fake.folds
+    assert (dx.shape, p1.shape, p2.shape) == ((4, 100, 64), (6, 3072, 64), (6, 3072, 64))
+    assert dx.dtype == p1.dtype == p2.dtype == torch.float32
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_f32_bwd_keeps_wmma_kernels(monkeypatch, gated):
+    """float32 (gated and ungated) still launches repro_fused_mlp_bwd_dx and
+    _dw, never the bf16 TMA + wgmma entry point, with partials over hidden
+    chunks and row slices of F32_BWD_BLOCK_H / F32_BWD_BLOCK_M."""
+    fake = _FakeBwd(monkeypatch, (3, 2))
+    out = _bwd_call(gated, 300, 64, 700, 40, torch.float32)
+    assert not fake.wgmma and len(fake.dx) == len(fake.dw) == 1
+    assert fake.dx[0][10:12] == (_build.DTYPE_CODES[torch.float32], int(gated))
+    assert fake.dx[0][13] == FM.F32_BWD_BLOCK_H and fake.dw[0][15] == FM.F32_BWD_BLOCK_M
+    n_split, n_ms = -(-700 // FM.F32_BWD_BLOCK_H), -(-300 // FM.F32_BWD_BLOCK_M)
+    assert fake.folds[0][0] == (n_split, 300, 64) and fake.folds[1][0] == (n_ms, 64, 700)
+    want = [(300, 64), (64, 700)] + [(64, 700)] * gated + [(700, 40)]
+    assert [tuple(t.shape) for t in out] == want
+
+
+def test_card_bwd_never_runs_plain(monkeypatch):
+    """A tensor off the CPU never reaches the backward's plain versions (patched
+    to raise): both wrappers, both dtypes, launch their kernels and count."""
+    def boom(*_, **__):
+        raise AssertionError("a plain version ran for a non-CPU operand")
+
+    _FakeBwd(monkeypatch, (1, 1))
+    monkeypatch.setattr(FM, "fused_mlp_bwd_plain", boom)
+    monkeypatch.setattr(FM, "fused_mlp_swiglu_bwd_plain", boom)
+    K.reset_launch_counts()
+    for dtype in (torch.bfloat16, torch.float32):
+        for gated in (False, True):
+            _bwd_call(gated, 64, 32, 128, 40, dtype)
+    assert K.launch_counts()["fused_mlp_bwd"] == K.launch_counts()["fused_mlp_swiglu_bwd"] == 2
+    K.reset_launch_counts()
+
+
+class _FakeReduce:
+    """Stands in for queue_reduce's ctypes entry point (csrc/queue_reduce.cu
+    is built only where nvcc and a card exist): records what each launch
+    hands it."""
+
+    def __init__(self, monkeypatch, sms=132):
+        self.runs = []
+        QR = importlib.import_module("repro_torch.kernels.queue_reduce")
+        monkeypatch.setattr(QR._build, "cuda_operands",
+                            lambda what, *ts: _build.DTYPE_CODES[ts[0].dtype])
+        monkeypatch.setattr(QR._build, "stream_of", lambda t: 0)
+        monkeypatch.setattr(QR._build, "sm_count", lambda device: sms)
+        monkeypatch.setattr(QR.torch.cuda, "device", lambda d: contextlib.nullcontext())
+        monkeypatch.setattr(QR, "_kernel", lambda: lambda *a: self.runs.append(a))
+        monkeypatch.setattr(QR, "queue_reduce_plain", _plain_refused)
+
+
+def _plain_refused(*_, **__):
+    raise AssertionError("a plain version ran for a non-CPU operand")
+
+
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((63, 8, 5120), torch.float32, 0),       # B2's decode fold: 10 MB
+    ((16, 1024, 256), torch.bfloat16, 0),    # the compiler's fan-in
+    ((4, 8192, 4096), torch.float32, 0),     # B2's Llama fold: 537 MB
+    ((18, 8192, 1152), torch.float32, 0),    # B7's dX partials at gemma3-1b
+    ((4, 8192, 4096), torch.float32, 1),     # a base that is not 16-byte aligned
+    ((64, 1, 1048579), torch.float32, 0)])   # a payload stride of 4 mod 16 bytes
+def test_queue_reduce_hands_entry_point_sizes(monkeypatch, shape, dtype, offset):
+    """A non-CPU x of any base and payload stride reaches the one entry
+    point (never the plain version) with N, R * C, the dtype and op codes
+    and the card's SM count as the host caches it, and counts one launch."""
+    fake = _FakeReduce(monkeypatch, sms=132)
+    n = int(np.prod(shape))
+    x = torch.empty(n + offset, dtype=dtype, device="meta")[offset:].view(shape)
+    monkeypatch.setattr(K.queue_reduce, "launches", 0)
+    out = K.queue_reduce(x, op="max", out_dtype=torch.bfloat16)
+    assert out.shape == shape[1:] and out.dtype == torch.bfloat16
+    assert K.queue_reduce.launches == 1
+    (run,) = fake.runs
+    assert run[2:8] == (shape[0], shape[1] * shape[2], _build.DTYPE_CODES[dtype],
+                        _build.DTYPE_CODES[torch.bfloat16], 1, 132)
+
+
+@pytest.mark.parametrize("shape", [(16, 64, 128), (3, 40, 96), (1, 32, 8)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_sequential_fold_is_the_pallas_order(shape, dtype):
+    """sequential_fold, the oracle the card's kernel is held to bit for
+    bit, equals the TPU kernel (interpret mode: one payload a grid step into
+    an f32 accumulator) bit for bit on the same values."""
+    (x,) = arrays(15, dtype, shape)
+    jx, tx = both(x)
+    got = sequential_fold(tx)
+    want = np.asarray(pallas_reduce(jx, op="sum", block_rows=8, interpret=True))
+    assert got.dtype == DTYPES[dtype][2]
+    np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))
