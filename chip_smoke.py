@@ -33,15 +33,20 @@ Phases, each failing the run on any error (no phase's exception is caught):
      axis 0, kitsune (queue_reduce) against bsp;
   7. serving: phi3-medium-14b at full width and depth (40 layers, bf16
      weights from a seed, 29.3 GB) behind `PagedServingEngine`, 16 requests
-     through 8 slots with chunked prefill, slot refill and prefix hits: the
-     native tick must launch paged_flash_decode and fused_mlp_swiglu exactly
+     through 8 slots with chunked prefill, slot refill and prefix hits,
+     every tick a replay of a captured CUDA graph (one per bucket; the
+     replays must equal the ticks): the native tick must launch
+     paged_flash_decode and fused_mlp_swiglu exactly
      40 times per decode step, every fused_mlp_swiglu launch in its small-M
      form, a "gather" run flash_decode as often with
-     bitwise-equal tokens, one request served alone by an engine whose KV
+     bitwise-equal tokens, one replay per (mode, bucket) must equal eager
+     `paged_tick` on copies of the pools bit for bit (tokens, logits,
+     pages), a short async run must serve the native run's tokens, one
+     request served alone by an engine whose KV
      pools are sized by the profiling pass (num_blocks=None, as the
      launcher builds it) must equal its tokens in the batch, and the
-     reduced config (f32) must serve the same tokens on the card as on the
-     CPU;
+     reduced config (f32) must serve the same tokens on the card (captured)
+     as on the CPU (eager); a one-step tick is profiled eager and replayed;
   8. training (phase 3 also holds the backward kernels and each autograd
      Function's gradients): gemma3-1b at full width and depth (26 layers,
      1.00 B bf16 parameters from a seed, AdamW, remat, 4 x 2048 tokens) takes
@@ -113,8 +118,9 @@ from repro_torch.kernels.paged_attention import paged_flash_decode_plain  # noqa
 from repro_torch.kernels.queue_reduce import queue_reduce_plain, sequential_fold  # noqa: E402
 from repro_torch.kernels.ref import paged_rows  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
-from repro_torch.serve import (PagedKVExecutor, PagedServingEngine,  # noqa: E402
-                               ServeConfig, paged_tick)
+from repro_torch.serve import (AsyncServingEngine, CapturedTick,  # noqa: E402
+                               PagedKVExecutor, PagedServingEngine, ServeConfig,
+                               paged_tick)
 
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s, H100 SXM
 HBM = 3.35e12                                           # B/s
@@ -859,47 +865,119 @@ def serve_run(cfg, params, prompts, label, **overrides):
     if st["pool"]["active"] != 0 or len(done) != len(prompts):
         raise AssertionError(f"serve {label}: {len(done)} of {len(prompts)} done, "
                              f"pool {st['pool']}")
+    check_graphs(label, eng)
     return done, eng, launches, wall
 
 
-def profile_decode_ticks(cfg, params, eng, mode: str) -> None:
+def check_graphs(label, eng) -> dict:
+    """Every tick of the run replayed a captured graph: prints the graphs,
+    replays, capture seconds and graph pool bytes; fails unless the replays
+    equal the ticks and every bucket is a CapturedTick."""
+    st = eng.stats()
+    g = st["graphs"]
+    print(f"serve {label} graphs: {g['graphs']} captured (buckets {sorted(eng._steps)}), "
+          f"{g['replays']} replays for {st['ticks']} ticks, {g['capture_s']:.2f} s capturing "
+          f"(warm-up included), graph pool {g['pool_bytes'] / 1e6:.1f} MB", flush=True)
+    if (g["replays"] != st["ticks"] or g["graphs"] == 0
+            or not all(isinstance(f, CapturedTick) for f in eng._steps.values())):
+        raise AssertionError(f"serve {label}: not every tick replayed a graph: {g}, "
+                             f"{st['ticks']} ticks")
+    return g
+
+
+def tick_state(cfg, eng, n_steps: int, seed: int) -> dict:
+    """A host tick state over `eng`'s pools at phase 7's shape: all 8 slots
+    at ragged contexts (64-191 tokens) on distinct pages, each feeding 1 to
+    n_steps tokens (slot 1 idle when n_steps > 1, so the masked writes run)."""
+    rng = np.random.default_rng(seed)
+    b, v = SERVE_CONFIG["batch"], eng.max_blocks
+    n_tok = rng.integers(1, n_steps + 1, b)
+    if n_steps > 1:
+        n_tok[1] = 0
+    tables = 1 + np.arange(b * v).reshape(b, v) % eng.pool.num_blocks
+    return {"tokens": torch.from_numpy(rng.integers(2, cfg.vocab, (b, n_steps))),
+            "n_tok": torch.from_numpy(n_tok), "pos": torch.from_numpy(rng.integers(64, 192, b)),
+            "tables": torch.from_numpy(tables.astype(np.int32)), "kp": eng.kp, "vp": eng.vp}
+
+
+def captured_equals_eager(cfg, params, eng) -> None:
+    """One replay of each of `eng`'s graphs against eager `paged_tick` on
+    copies of the pools: tokens, positions, logits and every page but the
+    null page (which takes every idle slot's masked writes, in an order the
+    scatter leaves undefined, and is never read unmasked) bit for bit."""
+    mode, bs = eng.sc.paged_attention, eng.sc.block_size
+    for (n_steps, v_blocks), step in sorted(eng._steps.items()):
+        state = tick_state(cfg, eng, n_steps, seed=n_steps)
+        kp, vp = eng.kp.clone(), eng.vp.clone()
+        dev = {k: t.to("cuda") for k, t in state.items()}
+        want = paged_tick(params, {**dev, "kp": kp, "vp": vp}, cfg, block_size=bs,
+                          n_steps=n_steps, mode=mode)
+        got = step(state)
+        torch.cuda.synchronize()
+        same = {k: torch.equal(got[k], want[k]) for k in ("tokens_next", "pos", "logits")}
+        same["pages"] = torch.equal(eng.kp[bs:], kp[bs:]) and torch.equal(eng.vp[bs:], vp[bs:])
+        print(f"serve {mode}: replayed tick ({n_steps} steps, {v_blocks} blocks) against eager "
+              f"paged_tick: {same}", flush=True)
+        if not all(same.values()):
+            raise AssertionError(f"captured {mode} tick ({n_steps}, {v_blocks}) differs "
+                                 f"from eager: {same}")
+        ms = {}
+        for form, tick in (("eager", lambda: paged_tick(params, {**dev, "kp": kp, "vp": vp}, cfg,
+                                                       block_size=bs, n_steps=n_steps,
+                                                       mode=mode)["tokens_next"].cpu()),
+                           ("replayed", lambda: step(state)["tokens_next"].cpu())):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                tick()
+            ms[form] = 1e3 * (time.perf_counter() - t0) / 3
+        print(f"serve {mode}: tick of {n_steps} steps, host clock (mean of 3): eager "
+              f"{ms['eager']:.2f} ms, replayed {ms['replayed']:.2f} ms", flush=True)
+        del kp, vp
+
+
+def profile_decode_ticks(cfg, params, eng) -> None:
     """Three one-step ticks with all 8 slots decoding at ragged contexts
-    (64-191 tokens, pages drawn from `eng`'s pools) under torch.profiler:
+    (64-191 tokens, pages drawn from `eng`'s pools) under torch.profiler,
+    eager `paged_tick` and then a replay of `eng`'s captured graph (host
+    copies in and the sampled tokens out included, as the engine ticks):
     device time per kernel and the device's idle share of the tick, whose
     wall time is taken again without the profiler."""
-    rng = np.random.default_rng(13)
-    b, bs, v_blocks = SERVE_CONFIG["batch"], SERVE_CONFIG["block_size"], eng.max_blocks
-    tables = 1 + np.arange(b * v_blocks).reshape(b, v_blocks) % eng.pool.num_blocks
-    state = {"tokens": torch.from_numpy(rng.integers(2, cfg.vocab, (b, 1))).to("cuda"),
-             "n_tok": torch.ones(b, dtype=torch.int64, device="cuda"),
-             "pos": torch.from_numpy(rng.integers(64, 192, b)).to("cuda"),
-             "tables": torch.from_numpy(tables.astype(np.int32)).to("cuda"),
-             "kp": eng.kp, "vp": eng.vp}
+    mode, bs = eng.sc.paged_attention, eng.sc.block_size
+    state = tick_state(cfg, eng, 1, seed=13)
+    dev = {k: t.to("cuda") for k, t in state.items()}
+    replay = eng._get_step(1, eng.max_blocks)
+    forms = {
+        "eager": lambda: paged_tick(params, dev, cfg, block_size=bs, n_steps=1,
+                                    mode=mode)["tokens_next"].cpu(),
+        "replayed": lambda: replay(state)["tokens_next"].cpu()}
+    for form, tick in forms.items():
+        def ticks(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                tick()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n
 
-    def ticks(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            paged_tick(params, state, cfg, block_size=bs, n_steps=1, mode=mode)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / n
-
-    ticks(1)
-    wall = ticks(3)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        ticks(3)
-    # kernels only: a CPU op's self device time repeats its kernels' times
-    rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(r[2] for r in rows) / 3e3
-    if not rows:
-        raise AssertionError(f"profile {mode}: the trace holds no kernel")
-    print(f"profile {mode} decode tick (1 step, 8 slots): {1e3 * wall:.2f} ms wall, "
-          f"{busy_ms:.2f} ms of kernels, device idle {100 * (1 - busy_ms / (1e3 * wall)):.1f} %",
-          flush=True)
-    for key, count, us in sorted(rows, key=lambda r: -r[2])[:10]:
-        print(f"  {us / 3e3:8.3f} ms/tick {count // 3:5d} calls/tick  {key[:90]}", flush=True)
+        ticks(1)
+        wall = ticks(3)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            ticks(3)
+        # kernels only: a CPU op's self device time repeats its kernels' times
+        rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        busy_ms = sum(r[2] for r in rows) / 3e3
+        if not rows:
+            raise AssertionError(f"profile {mode} {form}: the trace holds no kernel")
+        print(f"profile {mode} {form} decode tick (1 step, 8 slots): {1e3 * wall:.2f} ms wall, "
+              f"{busy_ms:.2f} ms of kernels, device idle "
+              f"{100 * (1 - busy_ms / (1e3 * wall)):.1f} %", flush=True)
+        for key, count, us in sorted(rows, key=lambda r: -r[2])[:10]:
+            print(f"  {us / 3e3:8.3f} ms/tick {count // 3:5d} calls/tick  {key[:90]}",
+                  flush=True)
 
 
 def phase_serving() -> dict[str, dict[str, int]]:
@@ -936,14 +1014,31 @@ def phase_serving() -> dict[str, dict[str, int]]:
         raise AssertionError(f"native tick moves more KV bytes than gather: {traffic}")
     if not eng.stats()["prefix_cache"]["hits"]:
         raise AssertionError("no prefix-cache hit in the native run")
+    capture_s = eng.stats()["graphs"]["capture_s"]
     print(f"decode step: {1e3 * wall / steps:.2f} ms measured (host clock, whole ticks "
-          f"over decode steps) against a weight-read bound of "
-          f"{1e3 * step_bytes / HBM:.2f} ms ({step_bytes / 1e9:.2f} GB / 3.35 TB/s)",
+          f"over decode steps, {capture_s:.2f} s of capture included; "
+          f"{1e3 * (wall - capture_s) / steps:.2f} ms without it) against a weight-read "
+          f"bound of {1e3 * step_bytes / HBM:.2f} ms ({step_bytes / 1e9:.2f} GB / 3.35 TB/s)",
           flush=True)
     runs["serve_native"] = launches
-    profile_decode_ticks(cfg, params, eng, "native")
-    profile_decode_ticks(cfg, params, eng, "gather")
+    captured_equals_eager(cfg, params, eng)
+    profile_decode_ticks(cfg, params, eng)
     del eng
+    gc.collect()                     # engines hold cycles: free their pools and graphs
+    torch.cuda.empty_cache()
+
+    # a short async run: the tick thread captures its own graphs
+    with AsyncServingEngine(cfg, params, ServeConfig(**SERVE_CONFIG), eos_id=-1) as aeng:
+        t0 = time.perf_counter()
+        handles = {rid: aeng.submit(prompts[rid], rid=rid) for rid in range(4)}
+        got = {rid: h.result(timeout=300) for rid, h in handles.items()}
+    print(f"serve async: {len(got)} requests in {time.perf_counter() - t0:.2f} s", flush=True)
+    check_graphs("async", aeng.engine)
+    if got != {rid: native[rid] for rid in got}:
+        raise AssertionError("async tokens differ from the native run's")
+    print("serve: async tokens equal the native run's", flush=True)
+    del aeng
+    gc.collect()
     torch.cuda.empty_cache()
 
     gather, eng, launches, _ = serve_run(cfg, params, prompts, "gather",
@@ -959,7 +1054,10 @@ def phase_serving() -> dict[str, dict[str, int]]:
         raise AssertionError(f"gather tokens differ from native for requests {diff}")
     print("serve: gather tokens bitwise equal to native", flush=True)
     runs["serve_gather"] = launches
+    captured_equals_eager(cfg, params, eng)
+    profile_decode_ticks(cfg, params, eng)
     del eng
+    gc.collect()
     torch.cuda.empty_cache()
 
     # request 0 alone, on pools sized by the profiling pass (the launcher's
@@ -970,12 +1068,14 @@ def phase_serving() -> dict[str, dict[str, int]]:
         raise AssertionError(f"request 0 alone {solo[0]} != in the batch {native[0]}")
     free, total = torch.cuda.mem_get_info()
     print(f"serve solo: default capacity {eng.pool.num_blocks} blocks "
-          f"({nbytes(eng.kp, eng.vp) / 1e9:.2f} GB of KV pools); card {free / 1e9:.2f} GB "
-          f"free of {total / 1e9:.2f} GB after the run, peak reserved "
+          f"({nbytes(eng.kp, eng.vp) / 1e9:.2f} GB of KV pools, "
+          f"{eng.stats()['graphs']['pool_bytes'] / 1e9:.3f} GB of graph pool); card "
+          f"{free / 1e9:.2f} GB free of {total / 1e9:.2f} GB after the run, peak reserved "
           f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB", flush=True)
     print("serve: request 0 alone equals its tokens in the full batch", flush=True)
     runs["serve_solo"] = launches
     del params, eng
+    gc.collect()
     torch.cuda.empty_cache()
 
     # the reduced config in f32, the same weights on the card and the CPU
@@ -995,6 +1095,8 @@ def phase_serving() -> dict[str, dict[str, int]]:
         eng.tick()
         first = eng.last_logits.float().cpu()
         small_runs[dev] = (eng.run_until_done(), first)
+        if dev == "cuda":
+            check_graphs("reduced", eng)
     logit_err = (small_runs["cpu"][1] - small_runs["cuda"][1]).abs().max().item()
     print(f"serve reduced: first-tick logits card vs CPU max |diff| {logit_err:.3g} "
           f"(limit 2e-4)", flush=True)

@@ -692,6 +692,19 @@ cudaError_t dispatch_group(int G, F f) {
   return f(std::integral_constant<int, 8>{});
 }
 
+// Call f(gp, dp) once for every (GP, DP) bucket pair that dispatch_group and
+// dispatch_head_dim select: every instantiation of a decode kernel.
+template <typename F>
+cudaError_t for_each_decode_bucket(F f) {
+  for (int g : {1, 2, 4, 8})
+    for (int d : {32, 64, 128, 256}) {
+      cudaError_t e = dispatch_group(
+          g, [&](auto gp) { return dispatch_head_dim(d, [&](auto dp) { return f(gp, dp); }); });
+      if (e != cudaSuccess) return e;
+    }
+  return cudaSuccess;
+}
+
 // Merge the partials of a decode launch (see decode_combine_kernel).
 template <typename T>
 cudaError_t launch_decode_combine(const float* o, const float* m, const float* l, void* out,

@@ -61,12 +61,8 @@ int launch(const void* q, const void* k, const void* v, const int* valid, int va
   cudaError_t e = dispatch_group(G, [&](auto gp) {
     return dispatch_head_dim(D, [&](auto dp) {
       constexpr int GP = decltype(gp)::value, DP = decltype(dp)::value;
-      auto kern = flash_decode_kernel<T, GP, DP>;
       const int bytes = int(DecodeSmem<T, GP, DP>::total);
-      cudaError_t err =
-          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (err != cudaSuccess) return err;
-      kern<<<dim3(B * Hkv, n_part), DEC_NT, bytes, st>>>(
+      flash_decode_kernel<T, GP, DP><<<dim3(B * Hkv, n_part), DEC_NT, bytes, st>>>(
           static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), valid,
           valid_all, o, m, l, Hkv, G, S, D, block_s, n_split, scale);
       return cudaGetLastError();
@@ -76,7 +72,28 @@ int launch(const void* q, const void* k, const void* v, const int* valid, int va
   return int(launch_decode_combine<T>(o, m, l, out, B * Hkv * G, n_part, G, D, st));
 }
 
+// Raises every instantiation's dynamic shared-memory limit to what it takes,
+// on the current device.  A launch never does: it may lie inside a captured
+// CUDA graph, where it should be the launch alone.
+template <typename T>
+cudaError_t allow_smem() {
+  return for_each_decode_bucket([](auto gp, auto dp) {
+    constexpr int GP = decltype(gp)::value, DP = decltype(dp)::value;
+    return cudaFuncSetAttribute(flash_decode_kernel<T, GP, DP>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                int(DecodeSmem<T, GP, DP>::total));
+  });
+}
+
 }  // namespace
+
+// Once per (device, dtype), before the first launch there: the kernels'
+// shared-memory limit (allow_smem).
+extern "C" int repro_flash_decode_allow(int dtype) {
+  if (dtype == BF16) return int(allow_smem<__nv_bfloat16>());
+  if (dtype == F32) return int(allow_smem<float>());
+  return int(cudaErrorInvalidValue);
+}
 
 // q (B, Hkv * G, 1, D), k/v (B, Hkv, S, D), out like q; valid (B,) int32 on
 // the device, or null to use valid_all for every slot.  Each chunk of

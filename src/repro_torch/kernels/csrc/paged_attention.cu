@@ -66,12 +66,8 @@ int launch(const void* q, const void* kp, const void* vp, const int* tables, int
   cudaError_t e = dispatch_group(G, [&](auto gp) {
     return dispatch_head_dim(D, [&](auto dp) {
       constexpr int GP = decltype(gp)::value, DP = decltype(dp)::value;
-      auto kern = paged_decode_kernel<T, GP, DP>;
       const int bytes = int(DecodeSmem<T, GP, DP>::total);
-      cudaError_t err =
-          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (err != cudaSuccess) return err;
-      kern<<<dim3(B * Hkv, n_part), DEC_NT, bytes, st>>>(
+      paged_decode_kernel<T, GP, DP><<<dim3(B * Hkv, n_part), DEC_NT, bytes, st>>>(
           static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), tables,
           n_table, valid, o, m, l, Hkv, G, D, bs, block_s, n_split, plane_stride, plane_base,
           pool_rows, scale);
@@ -82,7 +78,26 @@ int launch(const void* q, const void* kp, const void* vp, const int* tables, int
   return int(launch_decode_combine<T>(o, m, l, out, B * Hkv * G, n_part, G, D, st));
 }
 
+// As flash_decode.cu's: every instantiation's shared-memory limit, on the
+// current device, set outside any launch.
+template <typename T>
+cudaError_t allow_smem() {
+  return for_each_decode_bucket([](auto gp, auto dp) {
+    constexpr int GP = decltype(gp)::value, DP = decltype(dp)::value;
+    return cudaFuncSetAttribute(paged_decode_kernel<T, GP, DP>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                int(DecodeSmem<T, GP, DP>::total));
+  });
+}
+
 }  // namespace
+
+// Once per (device, dtype), before the first launch there.
+extern "C" int repro_paged_decode_allow(int dtype) {
+  if (dtype == BF16) return int(allow_smem<__nv_bfloat16>());
+  if (dtype == F32) return int(allow_smem<float>());
+  return int(cudaErrorInvalidValue);
+}
 
 // q (B, Hkv * G, 1, D), out like q.  kp/vp: pools of pool_rows rows, each
 // row plane_stride planes of D values (G * A * Hkv for the 5-D form, Hkv for

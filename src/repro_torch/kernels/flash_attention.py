@@ -220,6 +220,18 @@ def _decode_kernel():
         [v, v, v, v, i, v, v, v, v] + [i] * 7 + [ctypes.c_float, i, v])
 
 
+@functools.cache
+def decode_allowed(lib: str, device: int, code: int) -> None:
+    """Raise the shared-memory limit of decode library `lib`'s kernels
+    ("flash_decode" or "paged_attention") for one dtype on one device, once:
+    the launches themselves then call no runtime function but the launch,
+    as a launch captured into a CUDA graph should."""
+    symbol = {"flash_decode": "repro_flash_decode_allow",
+              "paged_attention": "repro_paged_decode_allow"}[lib]
+    with torch.cuda.device(device):
+        _build.kernel_function(lib, symbol, [ctypes.c_int])(code)
+
+
 def decode_operands(what: str, q, *tensors) -> int:
     """`_build.cuda_operands` plus the decode kernels' own limits on q
     (B, Hq, 1, D) and 16-byte aligned operands; returns the dtype code."""
@@ -297,6 +309,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o, m, l = decode_scratch(q, hkv, n_s * n_split)
     out = torch.empty_like(q)
     scale = scale if scale is not None else d ** -0.5
+    decode_allowed("flash_decode", q.device.index, code)
     with torch.cuda.device(q.device):
         _decode_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          None if valid is None else valid.data_ptr(), valid_all,

@@ -21,8 +21,9 @@ import torch
 
 from . import _build
 from .flash_attention import (DECODE_MAX_BLOCK_S, DECODE_MAX_GROUP,
-                              decode_operands, decode_scratch, decode_splits,
-                              device_valid, flash_decode_plain, page_block_s)
+                              decode_allowed, decode_operands, decode_scratch,
+                              decode_splits, device_valid, flash_decode_plain,
+                              page_block_s)
 from .ref import paged_rows
 
 
@@ -112,6 +113,7 @@ def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     o, m, l = decode_scratch(q, hkv, n_s * n_split)
     out = torch.empty_like(q)
     scale = scale if scale is not None else d ** -0.5
+    decode_allowed("paged_attention", q.device.index, code)
     with torch.cuda.device(q.device):
         _kernel()(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
                   n_table, valid.data_ptr(), o.data_ptr(), m.data_ptr(),

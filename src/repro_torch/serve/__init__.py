@@ -1,8 +1,8 @@
 """Paged serving on the port's decode kernels (counterpart of `repro.serve`)."""
 from .block_pool import NULL_BLOCK, BlockPool, OutOfBlocks
 from .engine import (AsyncServingEngine, PagedKVExecutor, PagedServingEngine,
-                     RequestHandle, ServeConfig, ServingEngine, paged_tick,
-                     serve_step)
+                     CapturedTick, RequestHandle, ServeConfig, ServingEngine,
+                     TickGraphError, paged_tick, serve_step)
 from .faults import (SITES, DeadlineExceeded, EngineError, FaultInjector,
                      FaultSpec, QueueFull, parse_fault_plan)
 from .prefix_cache import PrefixCache, block_key
@@ -11,7 +11,7 @@ from .scheduler import Request, Scheduler, blocks_for
 __all__ = [
     "ServeConfig", "ServingEngine", "serve_step",
     "PagedServingEngine", "PagedKVExecutor", "AsyncServingEngine",
-    "RequestHandle", "paged_tick",
+    "RequestHandle", "paged_tick", "CapturedTick", "TickGraphError",
     "BlockPool", "OutOfBlocks", "NULL_BLOCK",
     "PrefixCache", "block_key",
     "Scheduler", "Request", "blocks_for",

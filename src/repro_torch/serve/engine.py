@@ -17,15 +17,23 @@
     `submit()` returns a streaming `RequestHandle` immediately; `drain()`
     stops the loop after in-flight work completes.
 
-Every tick runs eagerly over the full slot batch on the parameters' device
-(CUDA graphs are later work).  The batch shape never changes, so every op
-of a step sees the same shapes each tick, and each slot's outputs depend
-only on its own tokens: a refilled slot is bitwise equal to serving its
-request alone, and the two KV data paths ("native" and "gather") are
-bitwise equal to each other.
+The paged tick runs over the full slot batch on the parameters' device.
+On a CUDA device every tick replays a captured CUDA graph, one per
+(chunk width, view) bucket (`PagedServingEngine._get_step`, the
+counterpart of the reference's one compiled program per bucket): the host
+copies the tick's tokens, positions and block tables into the graph's
+input buffers, replays it, and reads the sampled tokens back.  There is no
+eager tick on the card.  On the CPU the same tick runs eagerly, as the
+tests drive it.  The legacy engine stays eager everywhere.  The batch shape
+never changes, so every op of a step sees the same shapes each tick, and
+each slot's outputs depend only on its own tokens: a refilled slot is
+bitwise equal to serving its request alone, and the two KV data paths
+("native" and "gather") are bitwise equal to each other.
 """
 from __future__ import annotations
 
+import functools
+import gc
 import threading
 import time
 from collections import deque
@@ -36,6 +44,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.costmodel import paged_decode_traffic
+from ..kernels import add_launches, launch_delta, launch_state, restore_launches
 from ..kernels.ref import paged_rows
 from ..models import check_decode, get_model
 from ..models import lm
@@ -109,7 +118,12 @@ class ServingEngine:
     slots with ONE contiguous (B, max_len) cache and a shared position clock
     (so a slot refilled mid-stream attends its predecessor's stale entries;
     the paged engine's per-slot clock fixes that).  With batch=1 it is the
-    per-request ground truth."""
+    per-request ground truth.
+
+    Its tick runs eagerly on every device, the card included: the position
+    is a Python int that changes every tick, so a captured graph would need
+    it moved into a device buffer first (ROADMAP A7).  The reference
+    compiles this tick once (`repro/serve/engine.py` `ServingEngine`)."""
 
     def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
                  eos_id: int = 1):
@@ -298,6 +312,113 @@ def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
             "kp": kp, "vp": vp}
 
 
+class TickGraphError(EngineError):
+    """Capturing or replaying a tick's CUDA graph failed.  The device's
+    fault, not a request's: `PagedServingEngine.tick` blames no request,
+    degrades the engine and raises it, and nothing retries eagerly."""
+
+
+_capture_lock = threading.Lock()
+
+
+@functools.cache
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream every tick on `device` warms up and is captured on, one
+    for the process: cuBLAS keeps a workspace for each stream it has run
+    on, which a stream per engine would leave behind per engine."""
+    return torch.cuda.Stream(device)
+
+
+class CapturedTick:
+    """One (n_steps, v_blocks) bucket of `paged_tick` as a CUDA graph.
+
+    Owns static input buffers -- tokens (B, n_steps), n_tok (B,), pos (B,)
+    int64 and tables (B, v_blocks) int32 -- and uses the engine's page pools
+    in place.  The warm-up run (on the device's capture stream, where the
+    capture happens too, so cuBLAS has its workspace there) and the capture
+    both see n_tok = 0 in every slot, so every KV row they write is the
+    null page's row 0: capturing between two live ticks leaves every slot's
+    pages as they were.
+    The capture mode is "thread_local": the async engine captures on its
+    tick thread while the caller's threads keep running, and a runtime call
+    there must not invalidate the capture.  Captures in one process take
+    turns (`_capture_lock`) on the device's one capture stream.
+
+    Calling it copies the host tensors of a tick state into the buffers,
+    replays the graph on the current stream and returns its outputs
+    ("tokens_next", "pos" and "logits"; the logits are a copy, since the
+    next replay overwrites the graph's own buffer).  The launch counters do
+    not move in a replay: each call adds what the capture launched."""
+
+    def __init__(self, params, cfg: ArchConfig, kp: torch.Tensor, vp: torch.Tensor, *,
+                 batch: int, block_size: int, n_steps: int, v_blocks: int, mode: str,
+                 pool):
+        dev = kp.device
+        stream = _capture_stream(dev)
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.state = {"tokens": torch.zeros((batch, n_steps), **i64),
+                      "n_tok": torch.zeros(batch, **i64), "pos": torch.zeros(batch, **i64),
+                      "tables": torch.zeros((batch, v_blocks), dtype=torch.int32, device=dev),
+                      "kp": kp, "vp": vp}
+        tick = functools.partial(paged_tick, params, self.state, cfg, block_size=block_size,
+                                 n_steps=n_steps, mode=mode)
+        t0 = time.perf_counter()
+        with _capture_lock:
+            out = self._capture(tick, stream, pool, f"{n_steps} steps, {v_blocks} blocks")
+        self.capture_s = time.perf_counter() - t0
+        self.out = {k: out[k] for k in ("tokens_next", "pos", "logits")}
+        self.replays = 0
+
+    def _capture(self, tick, stream: torch.cuda.Stream, pool, what: str) -> dict:
+        """Warm `tick` up on `stream`, capture it there into self.graph and
+        return its outputs; sets self.launches and leaves the counters as
+        they were."""
+        dev = stream.device
+        counts = launch_state()
+        try:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                tick()
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            self.graph = torch.cuda.CUDAGraph()
+            at_capture = launch_state()
+            # a graph the collector frees on this thread mid-capture (a
+            # dropped engine's, say) destroys an executable graph, which
+            # invalidates the capture: collect first, and not during it
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                # the outer context puts the caller's stream back even when
+                # the capture's own exit raises
+                with torch.cuda.stream(stream), torch.cuda.graph(
+                        self.graph, pool=pool, stream=stream,
+                        capture_error_mode="thread_local"):
+                    out = tick()
+            finally:
+                if collecting:
+                    gc.enable()
+            self.launches = launch_delta(at_capture, launch_state())
+        except Exception as exc:
+            raise TickGraphError(f"capturing the tick ({what}) failed: "
+                                 f"{type(exc).__name__}: {exc}", site="tick.graph") from exc
+        finally:
+            restore_launches(counts)     # neither the warm-up nor the capture is a tick
+        return out
+
+    def __call__(self, state: dict) -> dict:
+        try:
+            for k in ("tokens", "n_tok", "pos", "tables"):
+                self.state[k].copy_(state[k])
+            self.graph.replay()
+        except Exception as exc:
+            raise TickGraphError(f"replaying the tick failed: {type(exc).__name__}: {exc}",
+                                 site="tick.graph") from exc
+        self.replays += 1
+        add_launches(self.launches)
+        return {**self.out, "logits": self.out["logits"].clone()}
+
+
 class PagedKVExecutor:
     """Capacity owner for the paged engine, in the vLLM ExecutorBase shape:
     `get_max_allowed_kv_blocks()` runs a profiling pass (parameter bytes +
@@ -448,11 +569,17 @@ class PagedServingEngine:
         self._rid = 0
         self._view_buckets = (list(range(1, self.max_blocks + 1)) if sc.view_buckets
                               else [self.max_blocks])
+        # the tick per (n_steps, v_blocks) bucket (_get_step); on the card
+        # every CapturedTick of the engine shares one graph memory pool
+        self._steps: dict[tuple[int, int], object] = {}
+        self._graph_pool = None
         self.ticks = 0
         self.decode_steps = 0            # decode steps run, over all ticks
         self.tokens_out = 0
         self.peak_active = 0
-        self.last_logits: torch.Tensor | None = None   # the last tick's (B, vocab)
+        # the last tick's (B, vocab) logits; on the card a copy of the
+        # graph's buffer, which the next replay overwrites
+        self.last_logits: torch.Tensor | None = None
         # analytic per-tick KV bytes for BOTH tick data paths, accumulated
         # from each tick's actual geometry (costmodel.paged_decode_traffic)
         self.kv_traffic = {"ticks": 0, "gather_bytes": 0, "native_bytes": 0}
@@ -471,6 +598,42 @@ class PagedServingEngine:
             if v >= need_blocks:
                 return v
         return self._view_buckets[-1]
+
+    # -- the tick per (chunk width, view) bucket ---------------------------
+    def _get_step(self, n_steps: int, v_blocks: int):
+        """The callable `_tick_inner` runs on a tick state for this bucket,
+        made once per engine.  On the CPU: `paged_tick`, eager.  On a CUDA
+        device: a `CapturedTick`, captured here on first use (on the
+        calling thread); a failed capture raises TickGraphError."""
+        key = (n_steps, v_blocks)
+        fn = self._steps.get(key)
+        if fn is not None:
+            return fn
+        sc = self.sc
+        if self.device.type == "cuda":
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            fn = CapturedTick(self.params, self.cfg, self.kp, self.vp, batch=sc.batch,
+                              block_size=sc.block_size, n_steps=n_steps, v_blocks=v_blocks,
+                              mode=sc.paged_attention, pool=self._graph_pool)
+        else:
+            fn = functools.partial(paged_tick, self.params, cfg=self.cfg,
+                                   block_size=sc.block_size, n_steps=n_steps,
+                                   mode=sc.paged_attention)
+        self._steps[key] = fn
+        return fn
+
+    def graph_stats(self) -> dict:
+        """The captured ticks: graphs, replays, seconds spent capturing
+        (warm-up included) and the bytes the shared graph pool holds on the
+        card (the allocator's segments of that pool)."""
+        graphs = [g for g in self._steps.values() if isinstance(g, CapturedTick)]
+        pool_bytes = 0
+        if self._graph_pool is not None:
+            pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                             if tuple(seg["segment_pool_id"]) == tuple(self._graph_pool))
+        return {"graphs": len(graphs), "replays": sum(g.replays for g in graphs),
+                "capture_s": sum(g.capture_s for g in graphs), "pool_bytes": pool_bytes}
 
     # -- request lifecycle -------------------------------------------------
     def submit(self, prompt: list[int], rid: int | None = None,
@@ -703,7 +866,10 @@ class PagedServingEngine:
         Any exception inside the tick is caught, blamed on the culpable
         request, and ONLY that handle fails with a structured EngineError;
         after `max_tick_retries` consecutive failing ticks the engine enters
-        the terminal degraded state with every remaining handle failed."""
+        the terminal degraded state with every remaining handle failed.
+        The one exception is TickGraphError, the device's failure to capture
+        or replay the tick: no request is blamed, the engine degrades at once
+        and the error propagates to the caller."""
         if self.state != "healthy":
             self._fail_stragglers()
             return 0
@@ -718,6 +884,10 @@ class PagedServingEngine:
         self._expire_deadlines()
         try:
             left = self._tick_inner()
+        except TickGraphError as exc:
+            exc.tick = t
+            self._enter_degraded(exc)
+            raise
         except Exception as exc:  # noqa: BLE001 -- isolate, blame, keep serving
             self.consecutive_failures += 1
             self.ticks_since_progress += 1
@@ -797,14 +967,14 @@ class PagedServingEngine:
                 tokens[i, 0] = slot["last"]
         need = max(blocks_for(int(self.pos[i]) + n_tok[i], self.sc.block_size) for i in active)
         v_blocks = self._view_for(need)
-        dev = self.device
-        state = {"tokens": torch.from_numpy(tokens).to(dev),
-                 "n_tok": torch.tensor(n_tok, dtype=torch.int64, device=dev),
-                 "pos": torch.from_numpy(self.pos).to(dev),
-                 "tables": torch.from_numpy(self.tables[:, :v_blocks].copy()).to(dev),
+        # host tensors: the CPU tick runs on them, a captured one copies them
+        # into its input buffers
+        state = {"tokens": torch.from_numpy(tokens),
+                 "n_tok": torch.tensor(n_tok, dtype=torch.int64),
+                 "pos": torch.from_numpy(self.pos),
+                 "tables": torch.from_numpy(self.tables[:, :v_blocks].copy()),
                  "kp": self.kp, "vp": self.vp}
-        out = paged_tick(self.params, state, self.cfg, block_size=self.sc.block_size,
-                         n_steps=c, mode=self.sc.paged_attention)
+        out = self._get_step(c, v_blocks)(state)
         nxt = out["tokens_next"].cpu().numpy()
         self.pos = out["pos"].cpu().numpy()
         self.last_logits = out["logits"]
@@ -897,6 +1067,8 @@ class PagedServingEngine:
             s["faults_fired"] = self.injector.fired()
         if self.executor.profile_error:
             s["profile_error"] = self.executor.profile_error
+        if self.device.type == "cuda":
+            s["graphs"] = self.graph_stats()
         return s
 
 
@@ -905,8 +1077,11 @@ class AsyncServingEngine:
 
     `submit()` enqueues from any thread and returns the streaming handle
     immediately; a daemon thread ticks whenever work is pending and parks on
-    a condition variable when idle.  `drain()` waits for in-flight requests
-    to finish and stops the loop; the engine is also a context manager.  If
+    a condition variable when idle.  On the card that thread also captures
+    the ticks' CUDA graphs, in the "thread_local" capture mode, so the
+    submitting threads' own CUDA calls cannot break a capture.  `drain()`
+    waits for in-flight requests to finish and stops the loop; the engine
+    is also a context manager.  If
     a tick raises past the engine's own isolation, the loop records it as
     the TERMINAL error, degrades the engine (failing every handle) and
     exits; `drain()` then raises that error."""

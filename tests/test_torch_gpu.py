@@ -1,6 +1,7 @@
-"""The port on the card: every CUDA kernel against its plain version, and
-the kitsune mode of the tiny challenge apps against bsp with the lowered
-sites' launches counted.  All tests carry the `gpu` marker and skip where
+"""The port on the card: every CUDA kernel against its plain version, the
+kitsune mode of the tiny challenge apps against bsp with the lowered
+sites' launches counted, and the paged engine's captured tick (CUDA graphs)
+against eager `paged_tick`, under the reference's fault scenarios.  All tests carry the `gpu` marker and skip where
 no CUDA device is present; this file imports neither jax nor the reference
 package, so it also runs where only PyTorch is installed:
 
@@ -30,7 +31,10 @@ from repro_torch.kernels.queue_reduce import queue_reduce_plain, sequential_fold
 from repro_torch.kernels.ref import paged_rows
 from repro_torch.models import get_model
 from repro_torch.optim import adamw
-from repro_torch.serve import PagedServingEngine, ServeConfig
+from repro_torch.serve import (AsyncServingEngine, CapturedTick, FaultSpec,
+                               PagedServingEngine, ServeConfig, TickGraphError,
+                               paged_tick)
+from repro_torch.serve import engine as engine_module
 from repro_torch.train import TrainConfig, make_train_state, make_train_step
 from repro_torch.tree import flatten
 
@@ -436,6 +440,197 @@ def test_reduced_engine_on_card_equals_cpu(cuda, arch):
         if dev == "cuda" and arch == "phi3-medium-14b":
             assert launched == cfg.n_layers * eng.stats()["decode_steps"]
     assert outs["cpu"] == outs["cuda"]
+
+
+# ---------------------------------------------------------------------------
+# the paged engine's captured tick (one CUDA graph per bucket)
+# ---------------------------------------------------------------------------
+
+SERVE_PROMPTS = {i: [3 + i, 17, 5, 9, 2 + i] for i in range(6)}
+FAULT_PROMPTS = {i: [3 + i, 17, 5] for i in range(4)}
+
+
+def _card_engine(cuda, arch="phi3-medium-14b", **kw):
+    """The reduced (f32) config's engine on the card, and its cfg and
+    params; kw overrides the ServeConfig."""
+    cfg = get_config(arch).reduced()
+    params = to_device(get_model(cfg).init(0, "cpu"), cuda)
+    sc = dict(max_len=32, batch=4, num_blocks=24, prefill_chunk=3)
+    sc.update(kw)
+    return cfg, params, PagedServingEngine(cfg, params, ServeConfig(**sc), eos_id=-1)
+
+
+def _serve(eng, prompts=SERVE_PROMPTS):
+    handles = {rid: eng.submit(list(p), rid=rid) for rid, p in prompts.items()}
+    return handles, eng.run_until_done()
+
+
+def _tick_state(eng, cfg, c, seed):
+    """A host tick state of chunk width c: ragged n_tok (one slot idle),
+    positions 0-15 and distinct pages per slot."""
+    rng = np.random.default_rng(seed)
+    b, v = eng.sc.batch, eng.max_blocks
+    n_tok = rng.integers(1, c + 1, b)
+    n_tok[1] = 0
+    tables = 1 + np.arange(b * v).reshape(b, v) % eng.pool.num_blocks
+    return {"tokens": torch.from_numpy(rng.integers(2, cfg.vocab, (b, c))),
+            "n_tok": torch.from_numpy(n_tok), "pos": torch.from_numpy(rng.integers(0, 16, b)),
+            "tables": torch.from_numpy(tables.astype(np.int32))}
+
+
+def _pages(pool, eng):
+    """Every page but the null page: page 0 takes the masked writes of every
+    idle slot, in an order the scatter leaves undefined, and is never read
+    unmasked."""
+    return pool[eng.sc.block_size:]
+
+
+@pytest.mark.parametrize("mode", ["native", "gather"])
+@pytest.mark.parametrize("c", [1, 3])
+def test_captured_tick_equals_eager(cuda, mode, c):
+    """One replay of the (c, max_blocks) graph against eager `paged_tick`
+    on copies of the same pools: tokens, positions, logits and every page
+    bitwise equal."""
+    cfg, params, eng = _card_engine(cuda, paged_attention=mode)
+    _serve(eng)                                   # pools hold a finished run's pages
+    step = eng._get_step(c, eng.max_blocks)
+    assert isinstance(step, CapturedTick)
+    state = _tick_state(eng, cfg, c, seed=c)
+    kp, vp = eng.kp.clone(), eng.vp.clone()
+    want = paged_tick(params, {**{k: t.to(cuda) for k, t in state.items()}, "kp": kp, "vp": vp},
+                      cfg, block_size=eng.sc.block_size, n_steps=c, mode=mode)
+    got = step({**state, "kp": eng.kp, "vp": eng.vp})
+    for key in ("tokens_next", "pos", "logits"):
+        assert torch.equal(got[key], want[key]), key
+    assert torch.equal(_pages(eng.kp, eng), _pages(kp, eng))
+    assert torch.equal(_pages(eng.vp, eng), _pages(vp, eng))
+
+
+def test_replays_count_the_captured_launches(cuda):
+    """The counters do not move while a graph is captured, and N replays
+    add N times what one eager tick launches, per kernel and per form."""
+    cfg, params, eng = _card_engine(cuda)
+    state = _tick_state(eng, cfg, 3, seed=0)
+    before = K.launch_counts()
+    forms = K.launches_by_form("fused_mlp_swiglu")
+    paged_tick(params, {**{k: t.to(cuda) for k, t in state.items()}, "kp": eng.kp.clone(),
+                        "vp": eng.vp.clone()}, cfg, block_size=eng.sc.block_size, n_steps=3,
+               mode="native")
+    eager = {k: n - before[k] for k, n in K.launch_counts().items()}
+    eager_forms = {f: n - forms.get(f, 0)
+                   for f, n in K.launches_by_form("fused_mlp_swiglu").items()}
+    assert eager["paged_flash_decode"] == 3 * cfg.n_layers
+    at_capture = K.launch_counts()
+    step = eng._get_step(3, eng.max_blocks)
+    assert K.launch_counts() == at_capture
+    forms = K.launches_by_form("fused_mlp_swiglu")
+    for _ in range(4):
+        step({**state, "kp": eng.kp, "vp": eng.vp})
+    assert {k: n - at_capture[k] for k, n in K.launch_counts().items()} == \
+        {k: 4 * n for k, n in eager.items()}
+    assert {f: n - forms.get(f, 0) for f, n in K.launches_by_form("fused_mlp_swiglu").items()
+            if n != forms.get(f, 0)} == {f: 4 * n for f, n in eager_forms.items() if n}
+    assert eng.graph_stats()["replays"] == 4
+
+
+@pytest.mark.parametrize("mode", ["native", "gather"])
+def test_capture_between_live_ticks_keeps_pages(cuda, mode):
+    """Capturing a new bucket in the middle of a run changes no page but
+    the null page, and the run still serves the clean run's tokens."""
+    _, _, clean_eng = _card_engine(cuda, paged_attention=mode)
+    _, clean = _serve(clean_eng)
+    _, _, eng = _card_engine(cuda, paged_attention=mode)
+    for rid, p in SERVE_PROMPTS.items():
+        eng.submit(list(p), rid=rid)
+    for _ in range(4):
+        eng.tick()
+    kp, vp = eng.kp.clone(), eng.vp.clone()
+    eng._get_step(2, eng.max_blocks)              # a bucket the run never uses
+    assert torch.equal(_pages(eng.kp, eng), _pages(kp, eng))
+    assert torch.equal(_pages(eng.vp, eng), _pages(vp, eng))
+    assert eng.run_until_done() == clean
+
+
+def test_every_card_tick_replays_a_graph(cuda):
+    """No eager tick on the card: every tick that ran a step replayed a
+    graph, one per bucket met, and the tokens equal the CPU's."""
+    cfg, params, eng = _card_engine(cuda)
+    _, done = _serve(eng)
+    st = eng.stats()
+    assert all(isinstance(fn, CapturedTick) for fn in eng._steps.values())
+    assert set(eng._steps) == {(1, eng.max_blocks), (3, eng.max_blocks)}
+    assert st["graphs"]["graphs"] == 2
+    assert st["graphs"]["replays"] == st["kv_traffic"]["ticks"] == st["ticks"]
+    assert st["graphs"]["pool_bytes"] > 0
+    cpu = PagedServingEngine(cfg, get_model(cfg).init(0, "cpu"), eng.sc, eos_id=-1)
+    assert _serve(cpu)[1] == done
+
+
+FAULT_CASES = {
+    "tick.step": (("tick.step", dict(ticks=(3,), rid=1)), {}, {1}),
+    "tick.logits": (("tick.logits", dict(ticks=(6,), rid=0)), {"nan_guard": True}, {0}),
+    "pool.alloc": (("pool.alloc", dict(hits=(3,))), {}, set()),
+    "prefill.chunk": (("prefill.chunk", dict(ticks=(0,))), {}, set()),
+    "prefill.chunk_persistent": (("prefill.chunk", {}), {}, {1, 2, 3}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FAULT_CASES))
+def test_fault_sites_on_captured_engine(cuda, case):
+    """The reference's fault scenarios on the captured engine: the culprit
+    (and only it) fails at its site, survivors equal the clean captured
+    run bitwise, the pool drains, the engine stays healthy."""
+    (site, spec), kw, failed = FAULT_CASES[case]
+    small = dict(max_len=24, batch=2, num_blocks=16)
+    _, _, clean_eng = _card_engine(cuda, **small)
+    _, clean = _serve(clean_eng, FAULT_PROMPTS)
+    _, _, eng = _card_engine(cuda, **small, fault_plan=(FaultSpec(site, **spec),), **kw)
+    handles, done = _serve(eng, FAULT_PROMPTS)
+    assert set(eng.failed) == failed
+    assert all(e.site == site for e in eng.failed.values())
+    assert set(done) | failed == set(FAULT_PROMPTS)
+    for rid, out in done.items():
+        assert out == clean[rid], f"survivor {rid} diverged"
+    assert all(h.done() for h in handles.values())
+    assert eng.pool.check()["active"] == 0 and eng.health()["state"] == "healthy"
+    assert eng.stats()["graphs"]["replays"] > 0
+
+
+def test_async_card_run_equals_sync(cuda):
+    """The async engine captures on its tick thread and serves the sync
+    engine's tokens."""
+    _, _, sync = _card_engine(cuda)
+    _, want = _serve(sync)
+    _, _, inner = _card_engine(cuda)
+    with AsyncServingEngine(engine=inner) as eng:
+        handles = {rid: eng.submit(list(p), rid=rid) for rid, p in SERVE_PROMPTS.items()}
+        got = {rid: h.result(timeout=300) for rid, h in handles.items()}
+    assert got == want
+    assert inner.stats()["graphs"]["replays"] == inner.stats()["ticks"]
+
+
+def test_sync_inside_tick_raises_out_of_tick(cuda, monkeypatch):
+    """A host sync inside the captured tick breaks the capture: tick()
+    raises TickGraphError, no request is blamed, nothing retries eagerly,
+    and every handle reaches a terminal state."""
+    real = engine_module.paged_tick
+
+    def syncing_tick(*args, **kw):
+        out = real(*args, **kw)
+        out["pos"].sum().item()                     # a device -> host sync
+        return out
+
+    monkeypatch.setattr(engine_module, "paged_tick", syncing_tick)
+    _, _, eng = _card_engine(cuda)
+    handles = {rid: eng.submit(list(p), rid=rid) for rid, p in SERVE_PROMPTS.items()}
+    with pytest.raises(TickGraphError, match="capturing the tick"):
+        eng.tick()
+    assert eng.health()["state"] == "degraded"
+    assert eng._steps == {}
+    assert all(e.site == "engine.degraded" for e in eng.failed.values())
+    assert set(eng.failed) == set(SERVE_PROMPTS)
+    assert all(h.done() and h.error() is not None for h in handles.values())
+    assert eng.tick() == 0                          # degraded: no tick runs
 
 
 # ---------------------------------------------------------------------------
