@@ -18,7 +18,11 @@ Phases, each failing the run on any error (no phase's exception is caught):
      whisper-small's two training shapes and B7 at gemma3-1b's, each with
      its dX and dW kernels timed apart; B1 at
      whisper-small's two training shapes; the tiled forward's and the bf16
-     backward's rows carry the bytes of the f32 partials they wrote;
+     backward's rows carry the bytes of the f32 partials they wrote; and
+     the decode kernels at phase 9's shapes (B2's small-M form at hymba's
+     and maverick's FFN widths and B1's at whisper's, with their folds; B8
+     and B4 at 5 query heads per kv head, D 64 and 128; B4 at whisper's
+     cache);
   4. the Llama3-8B challenge app at full width (d=4096, ff=14336, 32 heads
      of 128, vocab 128256, seq 2048, batch 4, its 2 layers + LM head, bf16
      weights from a seed; hkv=hq because the graph models GQA without
@@ -62,17 +66,39 @@ Phases, each failing the run on any error (no phase's exception is caught):
      must have fallen; the reduced
      gemma3/whisper configs (f32) train the same on the card as on the CPU, and twice
      alike on the card; the training launcher runs gemma3-1b for 4 steps in
-     a subprocess and saves its checkpoint.
+     a subprocess and saves its checkpoint;
+  9. the model families beyond dense, each model in its own scope, bf16
+     weights from a seed: (a) hymba-1.5b at full width and depth (32
+     layers, attention + Mamba heads, 1.59 B parameters) behind the paged
+     engine with per-slot SSM state, phase 7's 16 requests through 8 slots,
+     every tick a replay: 32 paged_flash_decode and 32 small-M
+     fused_mlp_swiglu launches per decode step, gather == native, request
+     0 alone == in the batch, every bucket's replay == eager `paged_tick`
+     (pages and SSM state included), prefix caching off by the engine's
+     rule, the reduced config's card tokens == its CPU tokens, a profiled
+     one-step tick; (b) llama4-maverick at full width cut to 2 layers (a
+     dense and a MoE layer of 128 experts, 35 GB): 8 requests, 2
+     paged_flash_decode and 1 small-M fused_mlp_swiglu per step, gather ==
+     native, replay == eager, reduced card == CPU (no solo == batched:
+     capacity routing couples the slots); (c) xlstm-350m at full depth on
+     the engine without pages, 8 requests through 4 slots, captured ==
+     eager on the card, reduced card == CPU; (d) whisper-small decode: 8 x
+     1500 stub frames encoded, the cross cache built, 16 decode steps at
+     batch 8 with 12 flash_decode and 12 small-M fused_mlp launches each,
+     the first step's logits held to the plain path within MODEL_TOL.
 The launch counters are zeroed just before phase 4 and read just after
 phase 6 (the compiler's main path), and zeroed and read around each engine
-run of phase 7 (the serving paths) and each full-width run of phase 8
-(the training paths).  The second-to-last line is the
+run of phases 7 and 9 (the serving paths), each full-width run of phase 8
+(the training paths) and phase 9's whisper decode steps.  The second-to-last line is the
 per-kernel JSON summary: one row per kernel and main-path shape, its
 `launches` taken from the run of the path that row belongs to (for the
 whisper rows of fused_mlp and fused_mlp_bwd, only that run's launches at
 the row's input rows), with every run's own count beside it.  The last
 line is {"ok": true, "device": ...}.
 """
+import contextlib
+import dataclasses
+import functools
 import gc
 import json
 import math
@@ -117,7 +143,8 @@ from repro_torch.kernels.ref import DACTS  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_flash_decode_plain  # noqa: E402
 from repro_torch.kernels.queue_reduce import queue_reduce_plain, sequential_fold  # noqa: E402
 from repro_torch.kernels.ref import paged_rows  # noqa: E402
-from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import encdec, get_model  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.serve import (AsyncServingEngine, CapturedTick,  # noqa: E402
                                PagedKVExecutor, PagedServingEngine, ServeConfig,
                                paged_tick)
@@ -195,6 +222,31 @@ SUMMARY = {
                             "x (12000, 768) -> 3072 -> 768, gelu (encoder)", 8 * 1500),
     "fused_mlp_train_dec": ("fused_mlp", "train_whisper",
                             "x (3584, 768) -> 3072 -> 768, gelu (decoder)", 8 * 448),
+    # phase 9
+    "fused_mlp_swiglu_hymba": ("fused_mlp_swiglu", "serve_hymba_native",
+                               "x (8, 1600) -> 5504 -> 1600, silu (small-M form), hymba-1.5b"),
+    "queue_reduce_hymba_fold": ("queue_reduce", "serve_hymba_native",
+                                "B2's hymba partials (n, 8, 1600) f32 -> bf16"),
+    "paged_flash_decode_hymba": ("paged_flash_decode", "serve_hymba_native",
+                                 "q (8, 25, 1, 64), pools (8208, 32, 1, 5, 64), tables (8, 32), "
+                                 "G = 5"),
+    "flash_decode_hymba": ("flash_decode", "serve_hymba_gather",
+                           "q (8, 25, 1, 64), k/v (8, 5, 512, 64), ragged valid, G = 5"),
+    "fused_mlp_swiglu_maverick": ("fused_mlp_swiglu", "serve_maverick_native",
+                                  "x (8, 5120) -> 16384 -> 5120, silu (small-M form), "
+                                  "llama4-maverick dense layer"),
+    "queue_reduce_maverick_fold": ("queue_reduce", "serve_maverick_native",
+                                   "B2's maverick partials (n, 8, 5120) f32 -> bf16"),
+    "paged_flash_decode_maverick": ("paged_flash_decode", "serve_maverick_native",
+                                    "q (8, 40, 1, 128), pools (8208, 1, 2, 8, 128), "
+                                    "tables (8, 32), G = 5"),
+    "flash_decode_maverick": ("flash_decode", "serve_maverick_gather",
+                              "q (8, 40, 1, 128), k/v (8, 8, 512, 128), ragged valid, G = 5"),
+    "fused_mlp_whisper_decode": ("fused_mlp", "whisper_decode",
+                                 "x (8, 768) -> 3072 -> 768, gelu (small-M form), "
+                                 "whisper-small decoder"),
+    "flash_decode_whisper": ("flash_decode", "whisper_decode",
+                             "q (8, 12, 1, 64), k/v (8, 12, 448, 64), valid 16, G = 1"),
 }
 # phase 7: phi3-medium-14b behind the paged engine
 SERVE_ARCH = "phi3-medium-14b"
@@ -204,7 +256,22 @@ SERVE_REQUESTS = 16
 # phase-3 cases timed with a cold L2 (cuda_ms): the decode kernels, whose
 # inputs would otherwise stay cached between timed calls
 COLD_CASES = {"flash_decode", "flash_decode_s4096", "paged_flash_decode",
-              "fused_mlp_swiglu_decode"}
+              "fused_mlp_swiglu_decode", "fused_mlp_swiglu_hymba", "fused_mlp_swiglu_maverick",
+              "fused_mlp_whisper_decode", "paged_flash_decode_hymba",
+              "paged_flash_decode_maverick", "flash_decode_hymba", "flash_decode_maverick",
+              "flash_decode_whisper"}
+# phase 9: the families beyond dense, each served (or decoded) at full width
+HYMBA, MAVERICK, XLSTM, WHISPER = ("hymba-1.5b", "llama4-maverick-400b-a17b", "xlstm-350m",
+                                   "whisper-small")
+# maverick's depth cut to one layer group: its dense layer and its MoE layer
+# (moe_period 2); the whole model (~800 GB in bf16) fits no single card
+MAVERICK_LAYERS = 2
+MAVERICK_REQUESTS = 8
+XLSTM_CONFIG = dict(SERVE_CONFIG, batch=4)
+XLSTM_REQUESTS = 8
+# whisper decode: 8 x 1500 stub frames encoded, then 16 decode steps against
+# a self-attention cache of the model's 448 trained positions
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_MAX_LEN, WHISPER_STEPS = 8, 1500, 448, 16
 
 
 def ptxas_entries(log: str) -> list[str]:
@@ -403,6 +470,7 @@ def kernel_cases(gen, dtype):
     yield fold_case("queue_reduce_mlp_fold", fold, dtype)
     del fold
     yield from decode_cases(gen, dtype)
+    yield from family_cases(gen, dtype)
     yield from train_cases(gen, dtype)
 
 
@@ -633,6 +701,114 @@ def decode_cases(gen, dtype):
                     shape=f"({n_part}, {B}, {D}) f32 -> ({B}, {D}) {str(dtype)[6:]}")
 
 
+def family_cases(gen, dtype):
+    """Phase 9's kernels at the shapes its models give them, 8 slots: B2's
+    small-M form at hymba-1.5b's FFN (1600 -> 5504 -> 1600; 1600 is no
+    multiple of 128) and maverick's dense layer (5120 -> 16384 -> 5120),
+    B1's at whisper-small's decoder (768 -> 3072 -> 768, gelu), each with
+    its B5 fold where it leaves partials; B8 over hymba's pools (25 q / 5 kv
+    heads of 64, 32 layers) and maverick's (40 / 8 of 128, a dense and a
+    MoE site): 5 query heads per kv head in the kernels' 8-row bucket; B4 at
+    hymba's and maverick's gather views (G = 5) and at whisper's
+    self-attention cache (G = 1, D = 64).  Bounds count the rows the valid
+    lengths cover."""
+    B = SERVE_CONFIG["batch"]
+    esize = torch.finfo(dtype).bits // 8
+    for name, arch, gated, act in (("fused_mlp_swiglu_hymba", HYMBA, True, "silu"),
+                                   ("fused_mlp_swiglu_maverick", MAVERICK, True, "silu"),
+                                   ("fused_mlp_whisper_decode", WHISPER, False, "gelu")):
+        cfg = get_config(arch)
+        D, H = cfg.d_model, cfg.dense_d_ff or cfg.d_ff
+        x = randn(gen, B, D, dtype=dtype)
+        w1 = randn(gen, D, H, dtype=dtype, scale=D ** -0.5)
+        wu = randn(gen, D, H, dtype=dtype, scale=D ** -0.5) if gated else None
+        w2 = randn(gen, H, D, dtype=dtype, scale=H ** -0.5)
+        fold = FM.forward_in_form("small_m", x, w1, wu, w2, act, fold=False)
+        partial_bytes = fold.nbytes if fold.dtype == torch.float32 else 0
+        print(f"small-M form at ({B}, {D}->{H}->{D}) {act} {dtype}: output "
+              f"{tuple(fold.shape)} {fold.dtype}, {partial_bytes} bytes of f32 partials",
+              flush=True)
+        if gated:
+            yield (name,
+                   lambda: K.fused_mlp_swiglu_fwd(x, w1, wu, w2, act=act),
+                   lambda: fused_mlp_swiglu_fwd_plain(x, w1, wu, w2, act),
+                   lambda: (F.silu(x @ w1) * (x @ wu)) @ w2,
+                   2.0 * B * D * H * 3, nbytes(x, w1, wu, w2, x), None,
+                   {"partial_bytes": partial_bytes})
+        else:
+            yield (name,
+                   lambda: K.fused_mlp_fwd(x, w1, w2, act=act),
+                   lambda: fused_mlp_fwd_plain(x, w1, w2, act),
+                   lambda: F.gelu(x @ w1, approximate="tanh") @ w2,
+                   2.0 * B * D * H * 2, nbytes(x, w1, w2, x), None,
+                   {"partial_bytes": partial_bytes})
+        if partial_bytes and gated:
+            yield fold_case(name.replace("fused_mlp_swiglu", "queue_reduce") + "_fold", fold,
+                            dtype, shape=f"({fold.shape[0]}, {B}, {D}) f32 -> ({B}, {D}) "
+                                         f"{str(dtype)[6:]}")
+        del x, w1, wu, w2, fold
+    rng = np.random.default_rng(9)
+    bs, n_blocks = SERVE_CONFIG["block_size"], SERVE_CONFIG["num_blocks"]
+    v_blocks = SERVE_CONFIG["max_len"] // bs
+    for name, arch, n_g, n_a in (("paged_flash_decode_hymba", HYMBA, 32, 1),
+                                 ("paged_flash_decode_maverick", MAVERICK, 1, 2)):
+        cfg = get_config(arch)
+        HQ, HKV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        pool = ((n_blocks + 1) * bs, n_g, n_a, HKV, HD)
+        kp, vp = randn(gen, *pool, dtype=dtype), randn(gen, *pool, dtype=dtype)
+        q = randn(gen, B, HQ, 1, HD, dtype=dtype)
+        valid_np = rng.integers(1, v_blocks * bs + 1, B)
+        tables_np = rng.permutation(np.arange(1, n_blocks + 1))[:B * v_blocks].reshape(
+            B, v_blocks)
+        tables_np[np.arange(v_blocks)[None, :] >= -(-valid_np // bs)[:, None]] = 0
+        tables = torch.from_numpy(tables_np.astype(np.int32)).to("cuda")
+        valid = torch.from_numpy(valid_np.astype(np.int32)).to("cuda")
+        layer = (n_g - 1, n_a - 1)
+        got = K.paged_flash_decode(q, kp, vp, tables, valid_len=valid, block_size=bs,
+                                   layer=layer)
+        rows_idx = paged_rows(tables, bs)
+        ck = kp[rows_idx, layer[0], layer[1]].transpose(1, 2).contiguous()
+        cv = vp[rows_idx, layer[0], layer[1]].transpose(1, 2).contiguous()
+        if not torch.equal(got, K.flash_decode(q, ck, cv, valid_len=valid, block_s=256)):
+            raise AssertionError(f"{name}[{dtype}] differs from gather + flash_decode at the "
+                                 f"same chunk size")
+        print(f"{name}[{dtype}] bitwise equal to gather + flash_decode", flush=True)
+        del ck, cv
+        rows = int(valid.sum())
+        yield (name,
+               lambda: K.paged_flash_decode(q, kp, vp, tables, valid_len=valid,
+                                            block_size=bs, layer=layer),
+               lambda: paged_flash_decode_plain(q, kp, vp, tables, valid_len=valid,
+                                                block_size=bs, layer=layer),
+               None,
+               4.0 * rows * HQ * HD,
+               2 * nbytes(q) + 2 * rows * HKV * HD * esize + nbytes(tables, valid))
+        del kp, vp, q
+    for name, arch, s_len, fixed in (("flash_decode_hymba", HYMBA, SERVE_CONFIG["max_len"], None),
+                                     ("flash_decode_maverick", MAVERICK, SERVE_CONFIG["max_len"],
+                                      None),
+                                     ("flash_decode_whisper", WHISPER, WHISPER_MAX_LEN,
+                                      WHISPER_STEPS)):
+        cfg = get_config(arch)
+        HQ, HKV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = randn(gen, B, HQ, 1, HD, dtype=dtype)
+        k, v = (randn(gen, B, HKV, s_len, HD, dtype=dtype) for _ in range(2))
+        if fixed is None:
+            valid = torch.from_numpy(rng.integers(1, s_len + 1, B).astype(np.int32)).to("cuda")
+            rows = int(valid.sum())
+            lens = valid[:, None]
+        else:
+            valid, rows, lens = fixed, B * fixed, fixed
+        mask = (torch.arange(s_len, device="cuda")[None, :] < lens)[:, None, None, :]
+        yield (name,
+               lambda: K.flash_decode(q, k, v, valid_len=valid),
+               lambda: flash_decode_plain(q, k, v, valid_len=valid),
+               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                      enable_gqa=True),
+               4.0 * rows * HQ * HD, 2 * nbytes(q) + 2 * rows * HKV * HD * esize)
+        del q, k, v
+
+
 def phase_kernels() -> dict:
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -838,10 +1014,10 @@ def serve_prompts(vocab: int) -> dict[int, list[int]]:
     return prompts
 
 
-def serve_run(cfg, params, prompts, label, **overrides):
+def serve_run(cfg, params, prompts, label, base=SERVE_CONFIG, **overrides):
     """Serve `prompts` to completion with the launch counters zeroed just
     before and read just after; returns (tokens, engine, launches, seconds)."""
-    sc = ServeConfig(**{**SERVE_CONFIG, **overrides})
+    sc = ServeConfig(**{**base, **overrides})
     eng = PagedServingEngine(cfg, params, sc, eos_id=-1)
     for rid, p in prompts.items():
         eng.submit(p, rid=rid)
@@ -860,9 +1036,9 @@ def serve_run(cfg, params, prompts, label, **overrides):
           f"{st['tokens_out'] / wall:.1f} tokens/s, {1e3 * wall / st['ticks']:.1f} ms "
           f"per tick, {1e3 * wall / steps:.2f} ms per decode step; launches "
           f"{ {k: n for k, n in launches.items() if n} }; prefix cache "
-          f"{st['prefix_cache']}; preemptions {st['scheduler']['preemptions']}; "
-          f"kv traffic {st['kv_traffic']}", flush=True)
-    if st["pool"]["active"] != 0 or len(done) != len(prompts):
+          f"{st.get('prefix_cache', 'off')}; preemptions {st['scheduler']['preemptions']}; "
+          f"kv traffic {st.get('kv_traffic', 'none')}", flush=True)
+    if st.get("pool", {"active": 0})["active"] != 0 or len(done) != len(prompts):
         raise AssertionError(f"serve {label}: {len(done)} of {len(prompts)} done, "
                              f"pool {st['pool']}")
     check_graphs(label, eng)
@@ -886,43 +1062,61 @@ def check_graphs(label, eng) -> dict:
 
 
 def tick_state(cfg, eng, n_steps: int, seed: int) -> dict:
-    """A host tick state over `eng`'s pools at phase 7's shape: all 8 slots
+    """A host tick state over `eng`'s pools at phase 7's shape: all slots
     at ragged contexts (64-191 tokens) on distinct pages, each feeding 1 to
-    n_steps tokens (slot 1 idle when n_steps > 1, so the masked writes run)."""
+    n_steps tokens (slot 1 idle when n_steps > 1, so the masked writes run);
+    no tables and pools where the engine keeps no KV."""
     rng = np.random.default_rng(seed)
-    b, v = SERVE_CONFIG["batch"], eng.max_blocks
+    b = eng.sc.batch
     n_tok = rng.integers(1, n_steps + 1, b)
     if n_steps > 1:
         n_tok[1] = 0
-    tables = 1 + np.arange(b * v).reshape(b, v) % eng.pool.num_blocks
-    return {"tokens": torch.from_numpy(rng.integers(2, cfg.vocab, (b, n_steps))),
-            "n_tok": torch.from_numpy(n_tok), "pos": torch.from_numpy(rng.integers(64, 192, b)),
-            "tables": torch.from_numpy(tables.astype(np.int32)), "kp": eng.kp, "vp": eng.vp}
+    state = {"tokens": torch.from_numpy(rng.integers(2, cfg.vocab, (b, n_steps))),
+             "n_tok": torch.from_numpy(n_tok), "pos": torch.from_numpy(rng.integers(64, 192, b))}
+    if eng.has_kv:
+        v = eng.max_blocks
+        tables = 1 + np.arange(b * v).reshape(b, v) % eng.pool.num_blocks
+        state.update(tables=torch.from_numpy(tables.astype(np.int32)), kp=eng.kp, vp=eng.vp)
+    return state
+
+
+def state_copies(eng) -> dict:
+    """Copies of `eng`'s pools and recurrent-state buffers, for an eager
+    tick beside the engine's own."""
+    out = {k: t.clone() for k, t in eng.aux.items()}
+    if eng.has_kv:
+        out.update(kp=eng.kp.clone(), vp=eng.vp.clone())
+    return out
 
 
 def captured_equals_eager(cfg, params, eng) -> None:
     """One replay of each of `eng`'s graphs against eager `paged_tick` on
-    copies of the pools: tokens, positions, logits and every page but the
-    null page (which takes every idle slot's masked writes, in an order the
-    scatter leaves undefined, and is never read unmasked) bit for bit."""
+    copies of the pools and the recurrent state: tokens, positions, logits,
+    every page but the null page (which takes every idle slot's masked
+    writes, in an order the scatter leaves undefined, and is never read
+    unmasked) and every recurrent-state entry bit for bit."""
     mode, bs = eng.sc.paged_attention, eng.sc.block_size
     for (n_steps, v_blocks), step in sorted(eng._steps.items()):
         state = tick_state(cfg, eng, n_steps, seed=n_steps)
-        kp, vp = eng.kp.clone(), eng.vp.clone()
+        copies = state_copies(eng)
         dev = {k: t.to("cuda") for k, t in state.items()}
-        want = paged_tick(params, {**dev, "kp": kp, "vp": vp}, cfg, block_size=bs,
+        want = paged_tick(params, {**dev, **copies}, cfg, block_size=bs,
                           n_steps=n_steps, mode=mode)
         got = step(state)
         torch.cuda.synchronize()
         same = {k: torch.equal(got[k], want[k]) for k in ("tokens_next", "pos", "logits")}
-        same["pages"] = torch.equal(eng.kp[bs:], kp[bs:]) and torch.equal(eng.vp[bs:], vp[bs:])
+        if eng.has_kv:
+            same["pages"] = (torch.equal(eng.kp[bs:], copies["kp"][bs:])
+                             and torch.equal(eng.vp[bs:], copies["vp"][bs:]))
+        for name in eng.aux:
+            same[name] = torch.equal(eng.aux[name], copies[name])
         print(f"serve {mode}: replayed tick ({n_steps} steps, {v_blocks} blocks) against eager "
               f"paged_tick: {same}", flush=True)
         if not all(same.values()):
             raise AssertionError(f"captured {mode} tick ({n_steps}, {v_blocks}) differs "
                                  f"from eager: {same}")
         ms = {}
-        for form, tick in (("eager", lambda: paged_tick(params, {**dev, "kp": kp, "vp": vp}, cfg,
+        for form, tick in (("eager", lambda: paged_tick(params, {**dev, **copies}, cfg,
                                                        block_size=bs, n_steps=n_steps,
                                                        mode=mode)["tokens_next"].cpu()),
                            ("replayed", lambda: step(state)["tokens_next"].cpu())):
@@ -933,7 +1127,7 @@ def captured_equals_eager(cfg, params, eng) -> None:
             ms[form] = 1e3 * (time.perf_counter() - t0) / 3
         print(f"serve {mode}: tick of {n_steps} steps, host clock (mean of 3): eager "
               f"{ms['eager']:.2f} ms, replayed {ms['replayed']:.2f} ms", flush=True)
-        del kp, vp
+        del copies
 
 
 def profile_decode_ticks(cfg, params, eng) -> None:
@@ -945,8 +1139,8 @@ def profile_decode_ticks(cfg, params, eng) -> None:
     wall time is taken again without the profiler."""
     mode, bs = eng.sc.paged_attention, eng.sc.block_size
     state = tick_state(cfg, eng, 1, seed=13)
-    dev = {k: t.to("cuda") for k, t in state.items()}
-    replay = eng._get_step(1, eng.max_blocks)
+    dev = {**{k: t.to("cuda") for k, t in state.items()}, **state_copies(eng)}
+    replay = eng._get_step(1, eng.max_blocks if eng.has_kv else 0)
     forms = {
         "eager": lambda: paged_tick(params, dev, cfg, block_size=bs, n_steps=1,
                                     mode=mode)["tokens_next"].cpu(),
@@ -972,12 +1166,43 @@ def profile_decode_ticks(cfg, params, eng) -> None:
         busy_ms = sum(r[2] for r in rows) / 3e3
         if not rows:
             raise AssertionError(f"profile {mode} {form}: the trace holds no kernel")
-        print(f"profile {mode} {form} decode tick (1 step, 8 slots): {1e3 * wall:.2f} ms wall, "
-              f"{busy_ms:.2f} ms of kernels, device idle "
+        print(f"profile {cfg.name} {mode} {form} decode tick (1 step, {eng.sc.batch} slots): "
+              f"{1e3 * wall:.2f} ms wall, {busy_ms:.2f} ms of kernels, device idle "
               f"{100 * (1 - busy_ms / (1e3 * wall)):.1f} %", flush=True)
         for key, count, us in sorted(rows, key=lambda r: -r[2])[:10]:
             print(f"  {us / 3e3:8.3f} ms/tick {count // 3:5d} calls/tick  {key[:90]}",
                   flush=True)
+
+
+def reduced_card_equals_cpu(cfg) -> None:
+    """The reduced config in f32, the same weights on the card and the CPU:
+    12 prompts through 4 slots, captured on the card, eager on the CPU;
+    first-tick logits within 2e-4 and the same tokens."""
+    small = cfg.reduced()
+    cpu_params = get_model(small).init(seed=0, device="cpu")
+    card_params = to_device(cpu_params, "cuda")
+    rng = np.random.default_rng(12)
+    small_prompts = {rid: rng.integers(2, small.vocab, int(rng.integers(3, 40))).tolist()
+                     for rid in range(12)}
+    small_sc = dict(max_len=64, batch=4, block_size=8, prefill_chunk=8, num_blocks=48,
+                    max_new_tokens=16)
+    small_runs = {}
+    for dev, p in (("cpu", cpu_params), ("cuda", card_params)):
+        eng = PagedServingEngine(small, p, ServeConfig(**small_sc), eos_id=-1)
+        for rid, pr in small_prompts.items():
+            eng.submit(pr, rid=rid)
+        eng.tick()
+        first = eng.last_logits.float().cpu()
+        small_runs[dev] = (eng.run_until_done(), first)
+        if dev == "cuda":
+            check_graphs(f"{small.name}", eng)
+    logit_err = (small_runs["cpu"][1] - small_runs["cuda"][1]).abs().max().item()
+    print(f"serve {small.name}: first-tick logits card vs CPU max |diff| {logit_err:.3g} "
+          f"(limit 2e-4)", flush=True)
+    if logit_err > 2e-4 or small_runs["cpu"][0] != small_runs["cuda"][0]:
+        raise AssertionError(f"{small.name}: card and CPU disagree (logits {logit_err:.3g})")
+    print(f"serve {small.name}: {len(small_runs['cuda'][0])} requests, card tokens equal CPU "
+          f"tokens", flush=True)
 
 
 def phase_serving() -> dict[str, dict[str, int]]:
@@ -1078,33 +1303,7 @@ def phase_serving() -> dict[str, dict[str, int]]:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the reduced config in f32, the same weights on the card and the CPU
-    small = cfg.reduced()
-    cpu_params = get_model(small).init(seed=0, device="cpu")
-    card_params = to_device(cpu_params, "cuda")
-    rng = np.random.default_rng(12)
-    small_prompts = {rid: rng.integers(2, small.vocab, int(rng.integers(3, 40))).tolist()
-                     for rid in range(12)}
-    small_sc = dict(max_len=64, batch=4, block_size=8, prefill_chunk=8, num_blocks=48,
-                    max_new_tokens=16)
-    small_runs = {}
-    for dev, p in (("cpu", cpu_params), ("cuda", card_params)):
-        eng = PagedServingEngine(small, p, ServeConfig(**small_sc), eos_id=-1)
-        for rid, pr in small_prompts.items():
-            eng.submit(pr, rid=rid)
-        eng.tick()
-        first = eng.last_logits.float().cpu()
-        small_runs[dev] = (eng.run_until_done(), first)
-        if dev == "cuda":
-            check_graphs("reduced", eng)
-    logit_err = (small_runs["cpu"][1] - small_runs["cuda"][1]).abs().max().item()
-    print(f"serve reduced: first-tick logits card vs CPU max |diff| {logit_err:.3g} "
-          f"(limit 2e-4)", flush=True)
-    if logit_err > 2e-4 or small_runs["cpu"][0] != small_runs["cuda"][0]:
-        raise AssertionError(f"reduced {SERVE_ARCH}: card and CPU disagree "
-                             f"(logits {logit_err:.3g})")
-    print(f"serve reduced: {len(small_runs['cuda'][0])} requests, card tokens equal CPU tokens",
-          flush=True)
+    reduced_card_equals_cpu(cfg)
     print(f"phase 7 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
     return runs
 
@@ -1369,6 +1568,280 @@ def phase_training() -> tuple[dict[str, dict[str, int]],
     return runs, {"train_whisper": whisper_rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the model families beyond dense
+# ---------------------------------------------------------------------------
+
+def describe(label, cfg, params, t0) -> int:
+    """Print the model's size; returns the bytes one decode step reads at
+    least: every weight once (the tied LM head's whole table among them)."""
+    step_bytes = nbytes(*leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
+    print(f"{label}: {n_params / 1e9:.3f} B parameters ({step_bytes / 1e9:.2f} GB), "
+          f"{cfg.n_layers} layers, drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    return step_bytes
+
+
+def decode_step_ms(label, eng, wall, step_bytes) -> None:
+    steps = eng.stats()["decode_steps"]
+    capture_s = eng.stats()["graphs"]["capture_s"]
+    print(f"{label} decode step: {1e3 * wall / steps:.2f} ms measured (host clock, whole "
+          f"ticks over {steps} decode steps, {capture_s:.2f} s of capture included; "
+          f"{1e3 * (wall - capture_s) / steps:.2f} ms without it) against a weight-read "
+          f"bound of {1e3 * step_bytes / HBM:.3f} ms ({step_bytes / 1e9:.2f} GB / 3.35 TB/s)",
+          flush=True)
+
+
+def expect_launches(label, launches, want) -> None:
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{label} launched {launches}, want {want}")
+
+
+def free() -> None:
+    """Collect the engines the caller dropped (they hold reference cycles)
+    and give their pools and graphs back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class EagerCardEngine(PagedServingEngine):
+    """The paged engine with every tick run eagerly on the card, no graph:
+    the oracle a captured run is held to."""
+
+    def _get_step(self, n_steps: int, v_blocks: int):
+        tick = functools.partial(paged_tick, self.params, cfg=self.cfg,
+                                 block_size=self.sc.block_size, n_steps=n_steps,
+                                 mode=self.sc.paged_attention)
+        return lambda state: tick({k: t.to(self.device) for k, t in state.items()})
+
+
+def phase_hymba() -> dict[str, dict[str, int]]:
+    """9a: hymba-1.5b at full width and depth behind the paged engine."""
+    t0 = time.perf_counter()
+    cfg = get_config(HYMBA)
+    params = get_model(cfg).init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    step_bytes = describe(HYMBA, cfg, params, t0)
+    prompts = serve_prompts(cfg.vocab)
+    runs = {}
+    native, eng, launches, wall = serve_run(cfg, params, prompts, "hymba native")
+    steps = eng.stats()["decode_steps"]
+    expect_launches("hymba native", launches, {
+        "paged_flash_decode": cfg.n_layers * steps, "fused_mlp_swiglu": cfg.n_layers * steps,
+        "fused_mlp_swiglu_small_m": cfg.n_layers * steps, "flash_decode": 0})
+    if eng.prefix_enabled or "prefix_cache" in eng.stats():
+        raise AssertionError("hymba: prefix caching must be off with recurrent state")
+    decode_step_ms("hymba native", eng, wall, step_bytes)
+    runs["serve_hymba_native"] = launches
+    captured_equals_eager(cfg, params, eng)
+    profile_decode_ticks(cfg, params, eng)
+    del eng
+    free()
+
+    gather, eng, launches, wall = serve_run(cfg, params, prompts, "hymba gather",
+                                            paged_attention="gather")
+    expect_launches("hymba gather", launches, {
+        "flash_decode": cfg.n_layers * steps, "fused_mlp_swiglu": cfg.n_layers * steps,
+        "paged_flash_decode": 0})
+    if gather != native:
+        raise AssertionError(f"hymba: gather tokens differ from native for requests "
+                             f"{[rid for rid in native if native[rid] != gather.get(rid)]}")
+    print("serve hymba: gather tokens bitwise equal to native", flush=True)
+    decode_step_ms("hymba gather", eng, wall, step_bytes)
+    runs["serve_hymba_gather"] = launches
+    captured_equals_eager(cfg, params, eng)
+    del eng
+    free()
+
+    solo, eng, launches, _ = serve_run(cfg, params, {0: prompts[0]}, "hymba solo")
+    if solo[0] != native[0]:
+        raise AssertionError(f"hymba: request 0 alone {solo[0]} != in the batch {native[0]}")
+    print("serve hymba: request 0 alone equals its tokens in the full batch", flush=True)
+    runs["serve_hymba_solo"] = launches
+    del params, eng
+    free()
+    reduced_card_equals_cpu(cfg)
+    return runs
+
+
+def phase_maverick() -> dict[str, dict[str, int]]:
+    """9b: llama4-maverick at full width, its depth cut to one dense and one
+    MoE layer."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MAVERICK), n_layers=MAVERICK_LAYERS)
+    params = get_model(cfg).init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    step_bytes = describe(f"{MAVERICK} ({MAVERICK_LAYERS} layers)", cfg, params, t0)
+    experts = nbytes(*leaves(params["blocks"]["sub1"]["moe"]["experts"]))
+    print(f"maverick: every decode step runs all {cfg.n_experts} experts' capacity slots, "
+          f"{experts / 1e9:.2f} GB of expert weights: >= {1e3 * experts / HBM:.2f} ms",
+          flush=True)
+    prompts = dict(list(serve_prompts(cfg.vocab).items())[:MAVERICK_REQUESTS])
+    runs = {}
+    native, eng, launches, wall = serve_run(cfg, params, prompts, "maverick native")
+    steps = eng.stats()["decode_steps"]
+    expect_launches("maverick native", launches, {
+        "paged_flash_decode": cfg.n_layers * steps, "fused_mlp_swiglu": steps,
+        "fused_mlp_swiglu_small_m": steps, "flash_decode": 0})
+    decode_step_ms("maverick native", eng, wall, step_bytes)
+    runs["serve_maverick_native"] = launches
+    captured_equals_eager(cfg, params, eng)
+    profile_decode_ticks(cfg, params, eng)
+    del eng
+    free()
+
+    gather, eng, launches, _ = serve_run(cfg, params, prompts, "maverick gather",
+                                         paged_attention="gather")
+    expect_launches("maverick gather", launches, {
+        "flash_decode": cfg.n_layers * steps, "fused_mlp_swiglu": steps,
+        "paged_flash_decode": 0})
+    if gather != native:
+        raise AssertionError("maverick: gather tokens differ from native")
+    print("serve maverick: gather tokens bitwise equal to native", flush=True)
+    runs["serve_maverick_gather"] = launches
+    captured_equals_eager(cfg, params, eng)
+    del params, eng
+    free()
+    reduced_card_equals_cpu(get_config(MAVERICK))
+    return runs
+
+
+def phase_xlstm() -> dict[str, dict[str, int]]:
+    """9c: xlstm-350m at full depth on the engine without pages."""
+    t0 = time.perf_counter()
+    cfg = get_config(XLSTM)
+    params = get_model(cfg).init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    step_bytes = describe(XLSTM, cfg, params, t0)
+    prompts = dict(list(serve_prompts(cfg.vocab).items())[:XLSTM_REQUESTS])
+    captured, eng, launches, wall = serve_run(cfg, params, prompts, "xlstm captured",
+                                              base=XLSTM_CONFIG)
+    if eng.has_kv or eng.pool is not None or any(launches.values()):
+        raise AssertionError(f"xlstm: pages {eng.has_kv}, launches {launches}")
+    decode_step_ms("xlstm captured", eng, wall, step_bytes)
+    captured_equals_eager(cfg, params, eng)
+    del eng
+    free()
+    eager = EagerCardEngine(cfg, params, ServeConfig(**XLSTM_CONFIG), eos_id=-1)
+    for rid, p in prompts.items():
+        eager.submit(p, rid=rid)
+    t1 = time.perf_counter()
+    done = eager.run_until_done()
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t1) / eager.stats()["decode_steps"]
+    print(f"serve xlstm eager on the card: {eager_ms:.2f} ms per decode step", flush=True)
+    if done != captured:
+        raise AssertionError("xlstm: captured tokens differ from the eager card run's")
+    print("serve xlstm: captured tokens equal the eager card run's", flush=True)
+    del params, eager
+    free()
+    reduced_card_equals_cpu(cfg)
+    return {"serve_xlstm": launches}
+
+
+@contextlib.contextmanager
+def plain_decode_kernels():
+    """The model layers' decode attention and MLP run their kernels' plain
+    versions (the chunk math in torch ops) while the block is open."""
+    def mlp(x, w1, w2, *, act):
+        y = fused_mlp_fwd_plain(x.reshape(-1, x.shape[-1]), w1, w2, act)
+        return y.reshape(*x.shape[:-1], w2.shape[1])
+
+    saved = model_layers.k_decode, model_layers.k_mlp
+    model_layers.k_decode = lambda q, k, v, valid_len=None: flash_decode_plain(
+        q, k, v, valid_len=valid_len)
+    model_layers.k_mlp = mlp
+    try:
+        yield
+    finally:
+        model_layers.k_decode, model_layers.k_mlp = saved
+
+
+def phase_whisper_decode() -> dict[str, dict[str, int]]:
+    """9d: whisper-small decode at full width: 8 x 1500 stub frames encoded,
+    the cross cache built, 16 greedy decode steps at batch 8."""
+    t0 = time.perf_counter()
+    cfg = get_config(WHISPER)
+    params = get_model(cfg).init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    describe(WHISPER, cfg, params, t0)
+    b, n = WHISPER_BATCH, WHISPER_FRAMES
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    frames = torch.randn((b, n, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    tok = torch.randint(2, cfg.vocab, (b,), generator=gen, device="cuda")
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        enc = encdec.encode(params, frames, cfg)
+        cache = encdec.build_cross_cache(params, enc, cfg, encdec.init_cache(
+            cfg, b, WHISPER_MAX_LEN, enc_len=n, device="cuda"))
+        torch.cuda.synchronize()
+        print(f"whisper: encoder over {b} x {n} frames and the cross cache in "
+              f"{time.perf_counter() - t1:.2f} s", flush=True)
+        with plain_decode_kernels():
+            want, _ = encdec.decode_step(params, tok, 0, {k: v.clone() for k, v in cache.items()},
+                                         cfg)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        first, step_s = None, []
+        for t in range(WHISPER_STEPS):
+            t1 = time.perf_counter()
+            logits, cache = encdec.decode_step(params, tok, t, cache, cfg)
+            first = logits.clone() if first is None else first
+            tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+        launches = K.launch_counts()
+        launches["fused_mlp_small_m"] = K.launches_by_form("fused_mlp").get("small_m", 0)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            encdec.decode_step(params, tok, WHISPER_STEPS, cache, cfg)
+            torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t1)
+    rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(r[2] for r in rows) / 1e3
+    print(f"whisper decode: one profiled step {prof_ms:.2f} ms wall (profiler on), "
+          f"{busy_ms:.3f} ms of kernels", flush=True)
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:8]:
+        print(f"  {us / 1e3:8.3f} ms {count:5d} calls  {key[:90]}", flush=True)
+    wall = sum(step_s[1:]) / (WHISPER_STEPS - 1)
+    expect_launches("whisper decode", launches, {
+        "flash_decode": cfg.n_layers * WHISPER_STEPS, "fused_mlp": cfg.n_layers * WHISPER_STEPS,
+        "fused_mlp_small_m": cfg.n_layers * WHISPER_STEPS, "paged_flash_decode": 0})
+    rel = rel_err(first, want)
+    dec_bytes = nbytes(*leaves(params["dec"]), params["embed"], params["final_norm"],
+                       cache["xk"], cache["xv"])
+    print(f"whisper decode: {WHISPER_STEPS} steps at batch {b}, the first {1e3 * step_s[0]:.2f} "
+          f"ms, the others {1e3 * wall:.3f} ms each (host clock, eager, a sync after each) "
+          f"against a bound of {1e3 * dec_bytes / HBM:.3f} ms "
+          f"(decoder weights, LM head and cross cache, {dec_bytes / 1e9:.3f} GB / 3.35 TB/s); "
+          f"launches {launches}; first step's logits against the plain path: relative error "
+          f"{rel:.3g} (limit {MODEL_TOL})", flush=True)
+    if rel > MODEL_TOL:
+        raise AssertionError(f"whisper decode: relative error {rel:.3g} against the plain path")
+    return {"whisper_decode": launches}
+
+
+def phase_families() -> dict[str, dict[str, int]]:
+    """Returns each phase-9 run's launches, per kernel."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 9 starts with {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+          flush=True)
+    runs = {}
+    for part in (phase_hymba, phase_maverick, phase_xlstm, phase_whisper_decode):
+        t0 = time.perf_counter()
+        runs.update(part())
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 9 {part.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 9 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return runs
+
+
 def to_device(tree: dict, device) -> dict:
     return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
@@ -1412,6 +1885,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_paths, rows_by_path = phase_training()
     paths.update(train_paths)
+    paths.update(phase_families())
     for path, counts in paths.items():
         print(f"launches, {path} run: { {k: n for k, n in counts.items() if n} }", flush=True)
 

@@ -3,11 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-medium-14b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
         --reduced --device cpu --engine async --requests 16 --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
 
-``--engine`` picks the stack: ``paged`` (block-paged KV + chunked prefill,
-the production default), ``async`` (the same engine behind the background
-tick loop / streaming handles), or ``legacy`` (the contiguous-cache
-baseline).  Weights are random, drawn from ``--seed`` on ``--device``
+``--arch`` takes any of the ten configs.  ``--engine`` picks the stack:
+``paged`` (block-paged KV + chunked prefill, the production default; with
+per-slot recurrent state for hymba and xlstm, and no pages for xlstm),
+``async`` (the same engine behind the background tick loop / streaming
+handles), or ``legacy`` (the contiguous-cache baseline, and the engine
+that decodes the encoder-decoder: whisper-small with a zero cross
+cache).  Weights are random, drawn from ``--seed`` on ``--device``
 (default ``cuda``); ``--reduced`` serves the architecture's small f32
 variant.  ``--num-blocks`` overrides the profiled pool capacity.
 

@@ -1,11 +1,9 @@
-"""Model entry point: family dispatch for init / forward / KV cache /
-decode.
+"""Model entry point: family dispatch for init / forward / cache / decode,
+the counterpart of `repro/models/__init__.py`.
 
-The dense family is ported for the full-sequence forward and for decode
-(`lm.py`); the encoder-decoder (`encdec.py`, whisper) for init and the
-forward, its decode waiting for the serving of that family (ROADMAP A7).
-The other families are not ported yet (ROADMAP A5 zoo forward, A7
-serving's recurrent families).
+`lm.py` covers the decoder-only families (dense, moe, hybrid, ssm, vlm)
+and `encdec.py` the encoder-decoder (whisper).  `models/zoo.py` waits for
+the capture front-end (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -23,35 +21,37 @@ class Model(NamedTuple):
 
 
 def check_decode(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError unless `cfg`'s family can decode here."""
-    if cfg.family != "dense":
+    """Raise NotImplementedError unless `cfg` can decode here: every family
+    decodes, but a float8_e4m3fn KV cache is not ported (ROADMAP A5)."""
+    if cfg.kv_cache_dtype != "bfloat16":
         raise NotImplementedError(
-            f"{cfg.name}: decoding the {cfg.family} family is not ported yet "
-            f"(ROADMAP A7 serving)")
+            f"{cfg.name}: a {cfg.kv_cache_dtype} KV cache is not ported (ROADMAP A5)")
 
 
 def get_model(cfg: ArchConfig) -> Model:
     if cfg.family == "encdec":
         def fwd(params, batch, **kw):
+            kw.pop("moe_groups", None)
             return encdec.forward(params, batch["frame_embeds"], batch["tokens"], cfg, **kw)
 
-        def no_decode(*_, **__):
-            check_decode(cfg)
+        def icache(batch, max_len, **kw):
+            return encdec.init_cache(cfg, batch, max_len, **kw)
+
+        def dstep(params, token, pos, cache, **kw):
+            return encdec.decode_step(params, token, pos, cache, cfg, **kw)
 
         return Model(lambda seed=0, device="cuda": encdec.init_params(cfg, seed, device),
-                     fwd, no_decode, no_decode)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP A5 zoo forward, A7 serving)")
+                     fwd, icache, dstep)
 
     def init(seed: int = 0, device="cuda"):
         return lm.init_params(cfg, seed, device)
 
     def fwd(params, batch, **kw):
-        return lm.forward(params, batch["tokens"], cfg, **kw)
+        return lm.forward(params, batch["tokens"], cfg,
+                          patch_embeds=batch.get("patch_embeds"), **kw)
 
     def icache(batch, max_len, **kw):
+        kw.pop("enc_len", None)
         return lm.init_cache(cfg, batch, max_len, **kw)
 
     def dstep(params, token, pos, cache, **kw):

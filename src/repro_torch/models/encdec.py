@@ -9,8 +9,14 @@ the encoder states.  Parameters keep the reference's stacked layout
 (`enc/attn/wq` of shape (n_layers, d_model, q_dim)), so its `init_params`
 output converts with `core.executor.params_from_numpy`.  The encoder runs
 without remat and the decoder's layers under `torch.utils.checkpoint` when
-`remat` is set, as in the reference.  Decode (`init_cache`,
-`build_cross_cache`, `decode_step`) is not ported (ROADMAP A7).
+`remat` is set, as in the reference.
+
+Decode: `init_cache` holds the decoder's self-attention K/V and the
+cross-attention K/V of the encoder states, `build_cross_cache` fills the
+latter once per request, and `decode_step` runs one token against both.
+As in the reference, the decoder's self-attention in decode ropes q and k
+(theta 1e4) on top of the learned positions, which the full-sequence
+forward does not (the reference documents this deviation).
 """
 from __future__ import annotations
 
@@ -114,3 +120,61 @@ def forward(params: dict, frame_embeds: torch.Tensor, tokens: torch.Tensor,
     if return_hidden:
         return x
     return x @ params["embed"].T
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, enc_len: int = 1500,
+               dtype=None, device="cuda") -> dict:
+    """Zeros: self-attention "k"/"v" (n_layers, batch, Hkv, max_len, D) and
+    cross-attention "xk"/"xv" (n_layers, batch, Hkv, enc_len, D)."""
+    if dtype is None:
+        dtype = DTYPES[cfg.dtype]
+    n, h, d = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(dtype=dtype, device=device)
+    return {"k": torch.zeros((n, batch, h, max_len, d), **kw),
+            "v": torch.zeros((n, batch, h, max_len, d), **kw),
+            "xk": torch.zeros((n, batch, h, enc_len, d), **kw),
+            "xv": torch.zeros((n, batch, h, enc_len, d), **kw)}
+
+
+def build_cross_cache(params: dict, enc: torch.Tensor, cfg: ArchConfig, cache: dict) -> dict:
+    """The cross-attention K/V of the encoder states enc (B, S_enc, D), every
+    decoder layer's, computed once per request: a new cache dict whose
+    "xk"/"xv" are (n_layers, B, Hkv, S_enc, D)."""
+    b, sk, _ = enc.shape
+    xk, xv = [], []
+    for p in unstack(params["dec"]):
+        xk.append((enc @ p["xattn"]["wk"]).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
+                  .transpose(1, 2))
+        xv.append((enc @ p["xattn"]["wv"]).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
+                  .transpose(1, 2))
+    return dict(cache, xk=torch.stack(xk).to(cache["xk"].dtype),
+                xv=torch.stack(xv).to(cache["xv"].dtype))
+
+
+def decode_step(params: dict, token: torch.Tensor, pos, cache: dict,
+                cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """One decoder token against the self-attention cache (updated in
+    place; `flash_decode` at every layer) and the fixed cross cache
+    (`chunked_attention`, as the reference attends it).  token: (B,) ids;
+    pos: a python int or a per-slot (B,) tensor.  Returns (logits
+    (B, vocab), cache)."""
+    x = L.embed(params["embed"], token[:, None]).to(params["embed"].dtype)
+    pmax = params["pos_dec"].shape[0]
+    if torch.is_tensor(pos):
+        x = x + params["pos_dec"][pos.clamp(max=pmax - 1)][:, None]
+    else:
+        x = x + params["pos_dec"][min(pos, pmax - 1)][None, None]
+    b = x.shape[0]
+    valid = (pos + 1).to(torch.int32) if torch.is_tensor(pos) else pos + 1
+    for i, p in enumerate(unstack(params["dec"])):
+        x = x + L.attention_decode(p["attn"], L.rms_norm(x, p["ln1"]), cache["k"][i],
+                                   cache["v"][i], pos, n_heads=cfg.n_heads,
+                                   n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim, theta=1e4,
+                                   valid=valid)
+        h = L.rms_norm(x, p["ln_x"])
+        q = (h @ p["xattn"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+        o = chunked_attention(q.transpose(1, 2), cache["xk"][i], cache["xv"][i], causal=False)
+        x = x + o.transpose(1, 2).reshape(b, 1, cfg.q_dim) @ p["xattn"]["wo"]
+        x = x + L.mlp_block(p["mlp"], L.rms_norm(x, p["ln2"]), act="gelu")
+    x = L.rms_norm(x, params["final_norm"])
+    return (x @ params["embed"].T)[:, 0], cache

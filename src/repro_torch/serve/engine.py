@@ -28,7 +28,17 @@ tests drive it.  The legacy engine stays eager everywhere.  The batch shape
 never changes, so every op of a step sees the same shapes each tick, and
 each slot's outputs depend only on its own tokens: a refilled slot is
 bitwise equal to serving its request alone, and the two KV data paths
-("native" and "gather") are bitwise equal to each other.
+("native" and "gather") are bitwise equal to each other.  (MoE families
+are the exception the reference shares: capacity routing couples the
+slots of a step, ROADMAP C.)
+
+Recurrent families carry per-slot state beside the pages -- hymba's SSM
+state, xlstm's mLSTM and sLSTM state, keyed as `models.lm.init_cache` keys
+them -- which each decode step advances only in its active slots, and which
+the engine resets in place when it refills a slot.  xlstm attends nowhere:
+its engine has no pages, pools or tables.  The paged engine serves every
+decoder-only family; the encoder-decoder (whisper) decodes through the
+legacy engine and `models.encdec`.
 """
 from __future__ import annotations
 
@@ -236,6 +246,17 @@ class RequestHandle:
         return self.tokens()
 
 
+# batch axis of each recurrent (non-KV) cache entry, per models/lm.init_cache
+_AUX_BATCH_AXIS = {"ssm": 1, "mC": 2, "mn": 2, "mm": 2, "sc": 2, "sn": 2, "sm": 2}
+
+
+def aux_state(cfg: ArchConfig, batch: int, device) -> dict:
+    """The recurrent (non-KV) entries of `lm.init_cache` for `batch` slots
+    in their initial state: {} for a family that only attends."""
+    full = lm.init_cache(cfg, batch, 1, device=device)
+    return {k: v for k, v in full.items() if k in _AUX_BATCH_AXIS}
+
+
 def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
                n_steps: int, mode: str = "gather"):
     """One serving tick over paged KV: `n_steps` decode steps with per-slot
@@ -257,26 +278,33 @@ def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
       kp/vp  (P, G, A, Hkv, D)   flat page pools (P = (num_blocks+1) * bs;
                                  page 0 is the reserved null page), updated
                                  in place
+      + recurrent entries (ssm/mC/...) keyed as in lm.init_cache, updated
+        in place in the active slots only
+    A family with no KV (xlstm) has no tables and pools.
 
     A slot's outputs depend only on its own fed tokens: masked-out steps
     write at a stationary position that a later active step overwrites, or
     that is redirected to the null page (native) / skipped by the scatter
-    (gather); positions past a slot's valid length get probability 0.
+    (gather); positions past a slot's valid length get probability 0; an
+    inactive slot's recurrent state is written back unchanged.
     """
     model = get_model(cfg)
     tokens, n_tok, pos = state["tokens"], state["n_tok"], state["pos"]
-    kp, vp, tables = state["kp"], state["vp"], state["tables"]
-    b, bs, v_blocks = tokens.shape[0], block_size, tables.shape[1]
-    native = mode == "native"
+    b, bs = tokens.shape[0], block_size
+    has_kv = "kp" in state
+    native = has_kv and mode == "native"
+    cache = {name: state[name] for name in _AUX_BATCH_AXIS if name in state}
+    if has_kv:
+        kp, vp, tables = state["kp"], state["vp"], state["tables"]
+        v_blocks, tables_l = tables.shape[1], tables.long()
     if native:
-        cache = {"kp": kp, "vp": vp}
-    else:
+        cache.update(kp=kp, vp=vp)
+    elif has_kv:
         view_len = v_blocks * bs
         rows = paged_rows(tables, bs)
         # (B, L, G, A, H, D) -> (G, A, B, H, L, D): the dense cache layout
-        cache = {"k": kp[rows].permute(2, 3, 0, 4, 1, 5).contiguous(),
-                 "v": vp[rows].permute(2, 3, 0, 4, 1, 5).contiguous()}
-    tables_l = tables.long()
+        cache.update(k=kp[rows].permute(2, 3, 0, 4, 1, 5).contiguous(),
+                     v=vp[rows].permute(2, 3, 0, 4, 1, 5).contiguous())
     pos0 = pos
     logits = None
     for j in range(n_steps):
@@ -289,12 +317,15 @@ def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
             write_rows = torch.where(active, phys * bs + pos % bs, torch.zeros_like(pos))
             lg, _ = model.decode_step(params, tokens[:, j], pos, cache,
                                       block_tables=tables, block_size=bs,
-                                      kv_write_rows=write_rows)
+                                      kv_write_rows=write_rows, state_mask=active)
         else:
-            lg, _ = model.decode_step(params, tokens[:, j], pos, cache)
+            lg, _ = model.decode_step(params, tokens[:, j], pos, cache, state_mask=active)
         logits = lg if logits is None else torch.where(active[:, None], lg, logits)
         pos = torch.where(active, pos + 1, pos)
 
+    out = {"tokens_next": logits.argmax(dim=-1), "logits": logits, "pos": pos}
+    if not has_kv:
+        return out
     if not native:
         # scatter the freshly written view columns back to their pages;
         # columns of masked steps go to the null page's row 0
@@ -308,8 +339,7 @@ def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
         for pool, view in ((kp, cache["k"]), (vp, cache["v"])):
             written = view[:, :, slots, :, cols]                     # (B, C, G, A, H, D)
             pool[flat] = written.reshape(b * n_steps, *pool.shape[1:])
-    return {"tokens_next": logits.argmax(dim=-1), "logits": logits, "pos": pos,
-            "kp": kp, "vp": vp}
+    return {**out, "kp": kp, "vp": vp}
 
 
 class TickGraphError(EngineError):
@@ -333,12 +363,16 @@ class CapturedTick:
     """One (n_steps, v_blocks) bucket of `paged_tick` as a CUDA graph.
 
     Owns static input buffers -- tokens (B, n_steps), n_tok (B,), pos (B,)
-    int64 and tables (B, v_blocks) int32 -- and uses the engine's page pools
-    in place.  The warm-up run (on the device's capture stream, where the
-    capture happens too, so cuBLAS has its workspace there) and the capture
-    both see n_tok = 0 in every slot, so every KV row they write is the
-    null page's row 0: capturing between two live ticks leaves every slot's
-    pages as they were.
+    int64 and tables (B, v_blocks) int32 (none without KV) -- and uses the
+    engine's page pools and recurrent-state buffers (`aux`) in place: the
+    graph updates them as the eager tick does, and the engine's refill
+    reset writes into the same buffers before a replay, on the same stream.
+    The warm-up run (on the device's capture stream, where the capture
+    happens too, so cuBLAS has its workspace there) and the capture both
+    see n_tok = 0 in every slot, so every KV row they write is the null
+    page's row 0 and every slot's recurrent state is written back as it
+    was: capturing between two live ticks leaves every slot's pages and
+    state bitwise as they were.
     The capture mode is "thread_local": the async engine captures on its
     tick thread while the caller's threads keep running, and a runtime call
     there must not invalidate the capture.  Captures in one process take
@@ -350,16 +384,20 @@ class CapturedTick:
     next replay overwrites the graph's own buffer).  The launch counters do
     not move in a replay: each call adds what the capture launched."""
 
-    def __init__(self, params, cfg: ArchConfig, kp: torch.Tensor, vp: torch.Tensor, *,
-                 batch: int, block_size: int, n_steps: int, v_blocks: int, mode: str,
-                 pool):
-        dev = kp.device
+    def __init__(self, params, cfg: ArchConfig, kp: torch.Tensor | None,
+                 vp: torch.Tensor | None, aux: dict, *, batch: int, block_size: int,
+                 n_steps: int, v_blocks: int, mode: str, pool):
+        dev = params["embed"].device
         stream = _capture_stream(dev)
         i64 = dict(dtype=torch.int64, device=dev)
         self.state = {"tokens": torch.zeros((batch, n_steps), **i64),
                       "n_tok": torch.zeros(batch, **i64), "pos": torch.zeros(batch, **i64),
-                      "tables": torch.zeros((batch, v_blocks), dtype=torch.int32, device=dev),
-                      "kp": kp, "vp": vp}
+                      **aux}
+        self.inputs = ("tokens", "n_tok", "pos")
+        if kp is not None:
+            self.state.update(tables=torch.zeros((batch, v_blocks), dtype=torch.int32,
+                                                 device=dev), kp=kp, vp=vp)
+            self.inputs += ("tables",)
         tick = functools.partial(paged_tick, params, self.state, cfg, block_size=block_size,
                                  n_steps=n_steps, mode=mode)
         t0 = time.perf_counter()
@@ -408,7 +446,7 @@ class CapturedTick:
 
     def __call__(self, state: dict) -> dict:
         try:
-            for k in ("tokens", "n_tok", "pos", "tables"):
+            for k in self.inputs:
                 self.state[k].copy_(state[k])
             self.graph.replay()
         except Exception as exc:
@@ -475,7 +513,7 @@ class PagedKVExecutor:
         state = {"tokens": torch.zeros((b, 1), **zeros), "n_tok": torch.zeros(b, **zeros),
                  "pos": torch.zeros(b, **zeros),
                  "tables": torch.zeros((b, 1), dtype=torch.int32, device=dev),
-                 "kp": kp, "vp": vp}
+                 "kp": kp, "vp": vp, **aux_state(self.cfg, b, dev)}
         torch.cuda.synchronize(dev)
         held = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -529,10 +567,12 @@ class PagedServingEngine:
     def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
                  eos_id: int = 1, clock=time.monotonic):
         _check_compile_mode(sc)
+        if cfg.family == "encdec":
+            raise ValueError("paged serving covers decoder-only families")
         if sc.paged_attention not in ("gather", "native"):
             raise ValueError("paged_attention must be 'gather' or 'native', "
                              f"got {sc.paged_attention!r}")
-        check_decode(cfg)                # refuses families not ported
+        check_decode(cfg)                # refuses what the port cannot decode
         self.cfg = cfg
         self.params = params
         self.sc = sc
@@ -544,18 +584,29 @@ class PagedServingEngine:
 
         b = sc.batch
         self.max_blocks = blocks_for(sc.max_len, sc.block_size)
-        self.executor = PagedKVExecutor(cfg, params, sc, fault=self.injector)
-        if sc.num_blocks is not None:
-            num = sc.num_blocks
-        else:
-            num, _ = self.executor.get_max_allowed_kv_blocks()
-        self.kp, self.vp = self.executor.initialize_cache(num)
-        self.pool = BlockPool(num, sc.block_size,
-                              on_evict=lambda key, bid: self.prefix.on_evict(key, bid),
-                              fault=self.injector)
-        self.prefix = PrefixCache(self.pool)
-        self.tables = np.zeros((b, self.max_blocks), np.int32)
-        self.prefix_enabled = sc.prefix_caching
+        # per-slot recurrent state: the initial values, and the buffers the
+        # ticks advance in place (a captured tick's graph holds these)
+        full = lm.init_cache(cfg, b, 1, device=self.device)
+        self.aux_init = {k: v for k, v in full.items() if k in _AUX_BATCH_AXIS}
+        self.aux = {k: v.clone() for k, v in self.aux_init.items()}
+        self.has_kv = "k" in full
+        self.executor = self.pool = self.prefix = self.tables = None
+        self.kp = self.vp = None
+        if self.has_kv:
+            self.executor = PagedKVExecutor(cfg, params, sc, fault=self.injector)
+            if sc.num_blocks is not None:
+                num = sc.num_blocks
+            else:
+                num, _ = self.executor.get_max_allowed_kv_blocks()
+            self.kp, self.vp = self.executor.initialize_cache(num)
+            self.pool = BlockPool(num, sc.block_size,
+                                  on_evict=lambda key, bid: self.prefix.on_evict(key, bid),
+                                  fault=self.injector)
+            self.prefix = PrefixCache(self.pool)
+            self.tables = np.zeros((b, self.max_blocks), np.int32)
+        # prefix reuse is only sound when KV pages are the whole model state:
+        # a recurrent family would need the matching recurrent state too
+        self.prefix_enabled = sc.prefix_caching and self.has_kv and not self.aux_init
 
         self.scheduler = Scheduler(block_size=sc.block_size,
                                    prefill_chunk=sc.prefill_chunk,
@@ -567,7 +618,8 @@ class PagedServingEngine:
         self.failed: dict[int, EngineError] = {}
         self.handles: dict[int, RequestHandle] = {}
         self._rid = 0
-        self._view_buckets = (list(range(1, self.max_blocks + 1)) if sc.view_buckets
+        self._view_buckets = ([0] if not self.has_kv
+                              else list(range(1, self.max_blocks + 1)) if sc.view_buckets
                               else [self.max_blocks])
         # the tick per (n_steps, v_blocks) bucket (_get_step); on the card
         # every CapturedTick of the engine shares one graph memory pool
@@ -613,9 +665,10 @@ class PagedServingEngine:
         if self.device.type == "cuda":
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
-            fn = CapturedTick(self.params, self.cfg, self.kp, self.vp, batch=sc.batch,
-                              block_size=sc.block_size, n_steps=n_steps, v_blocks=v_blocks,
-                              mode=sc.paged_attention, pool=self._graph_pool)
+            fn = CapturedTick(self.params, self.cfg, self.kp, self.vp, self.aux,
+                              batch=sc.batch, block_size=sc.block_size, n_steps=n_steps,
+                              v_blocks=v_blocks, mode=sc.paged_attention,
+                              pool=self._graph_pool)
         else:
             fn = functools.partial(paged_tick, self.params, cfg=self.cfg,
                                    block_size=sc.block_size, n_steps=n_steps,
@@ -665,7 +718,7 @@ class PagedServingEngine:
             handle._fail(ValueError(
                 f"prompt of {len(prompt)} tokens >= max_len {self.sc.max_len}"))
             return handle
-        if self.scheduler.admission_cost(req) > self.pool.num_blocks:
+        if self.pool is not None and self.scheduler.admission_cost(req) > self.pool.num_blocks:
             self.handles[rid] = handle
             self.scheduler.rejected += 1
             handle._fail(ValueError(
@@ -691,8 +744,9 @@ class PagedServingEngine:
             reused = 0
             if self.prefix_enabled and not req.resume_out:
                 reused_bids, reused = self.prefix.match(req.prompt)
-            self.tables[i, :] = 0
-            self.tables[i, :len(reused_bids)] = reused_bids
+            if self.tables is not None:
+                self.tables[i, :] = 0
+                self.tables[i, :len(reused_bids)] = reused_bids
             self.slots[i] = {
                 "rid": req.rid, "req": req, "prompt": req.prompt,
                 "seq": req.feed, "out": list(req.resume_out),
@@ -702,15 +756,26 @@ class PagedServingEngine:
             }
             self.pos[i] = reused
             self._tick_admitted.append(req.rid)
+            self._reset_state(i)
+
+    def _reset_state(self, i: int) -> None:
+        """Put slot i's recurrent state back to its initial value, in place
+        in the tick's buffers (on the current stream, before the next
+        tick): every admission -- a refill, or a preempted request's
+        recompute -- starts from the state a fresh engine has."""
+        for name, init in self.aux_init.items():
+            ax = _AUX_BATCH_AXIS[name]
+            self.aux[name].select(ax, i).copy_(init.select(ax, i))
 
     def _release(self, i: int, *, cache_prefix: bool) -> None:
         slot = self.slots[i]
-        bids = [int(b) for b in self.tables[i, :slot["nblocks"]]]
-        if cache_prefix and self.prefix_enabled:
-            self.prefix.insert(slot["prompt"], bids)
-        for bid in bids:
-            self.pool.decref(bid)
-        self.tables[i, :] = 0
+        if self.pool is not None:
+            bids = [int(b) for b in self.tables[i, :slot["nblocks"]]]
+            if cache_prefix and self.prefix_enabled:
+                self.prefix.insert(slot["prompt"], bids)
+            for bid in bids:
+                self.pool.decref(bid)
+            self.tables[i, :] = 0
         self.pos[i] = 0
         self.slots[i] = None
 
@@ -721,7 +786,7 @@ class PagedServingEngine:
         req = self.slots[i]["req"]
         req.resume_out = list(self.slots[i]["out"])
         self._release(i, cache_prefix=False)
-        if self.scheduler.admission_cost(req) > self.pool.num_blocks:
+        if self.pool is not None and self.scheduler.admission_cost(req) > self.pool.num_blocks:
             self.scheduler.rejected += 1
             req.handle._fail(OutOfBlocks(f"request {req.rid} grew past pool capacity"))
             return
@@ -731,6 +796,8 @@ class PagedServingEngine:
         """Allocate pages so every slot's table covers pos + n_tok this
         tick; on exhaustion, preempt the newest slot and retry (the slot
         being grown preempts ITSELF when it is the newest)."""
+        if self.pool is None:
+            return
         order = sorted((s["admit_seq"], i) for i, s in enumerate(self.slots) if s is not None)
         for _, i in order:
             slot = self.slots[i]
@@ -965,15 +1032,18 @@ class PagedServingEngine:
                 tokens[i, :t] = slot["seq"][slot["fed"]:slot["fed"] + t]
             else:
                 tokens[i, 0] = slot["last"]
-        need = max(blocks_for(int(self.pos[i]) + n_tok[i], self.sc.block_size) for i in active)
-        v_blocks = self._view_for(need)
         # host tensors: the CPU tick runs on them, a captured one copies them
         # into its input buffers
         state = {"tokens": torch.from_numpy(tokens),
                  "n_tok": torch.tensor(n_tok, dtype=torch.int64),
-                 "pos": torch.from_numpy(self.pos),
-                 "tables": torch.from_numpy(self.tables[:, :v_blocks].copy()),
-                 "kp": self.kp, "vp": self.vp}
+                 "pos": torch.from_numpy(self.pos), **self.aux}
+        v_blocks = 0
+        if self.has_kv:
+            need = max(blocks_for(int(self.pos[i]) + n_tok[i], self.sc.block_size)
+                       for i in active)
+            v_blocks = self._view_for(need)
+            state.update(tables=torch.from_numpy(self.tables[:, :v_blocks].copy()),
+                         kp=self.kp, vp=self.vp)
         out = self._get_step(c, v_blocks)(state)
         nxt = out["tokens_next"].cpu().numpy()
         self.pos = out["pos"].cpu().numpy()
@@ -981,15 +1051,16 @@ class PagedServingEngine:
         self.decode_steps += c
         self._progressed = True
 
-        # analytic KV bytes for this tick's geometry, BOTH data paths
-        g_, a_, h_, d_ = self.executor.page_shape
-        tr = paged_decode_traffic(
-            batch=self.sc.batch, v_blocks=v_blocks, block_size=self.sc.block_size,
-            n_steps=c, row_bytes=h_ * d_ * self.kp.element_size(), n_sites=g_ * a_,
-            alloc_blocks=int(np.count_nonzero(self.tables[:, :v_blocks])))
-        self.kv_traffic["ticks"] += 1
-        self.kv_traffic["gather_bytes"] += tr["gather_bytes"]
-        self.kv_traffic["native_bytes"] += tr["native_bytes"]
+        if self.has_kv:
+            # analytic KV bytes for this tick's geometry, BOTH data paths
+            g_, a_, h_, d_ = self.executor.page_shape
+            tr = paged_decode_traffic(
+                batch=self.sc.batch, v_blocks=v_blocks, block_size=self.sc.block_size,
+                n_steps=c, row_bytes=h_ * d_ * self.kp.element_size(), n_sites=g_ * a_,
+                alloc_blocks=int(np.count_nonzero(self.tables[:, :v_blocks])))
+            self.kv_traffic["ticks"] += 1
+            self.kv_traffic["gather_bytes"] += tr["gather_bytes"]
+            self.kv_traffic["native_bytes"] += tr["native_bytes"]
 
         # slots that finish prefill this tick sample their first/next token
         sampling = [i for i in active
@@ -1050,8 +1121,9 @@ class PagedServingEngine:
     def stats(self) -> dict:
         s = {"ticks": self.ticks, "decode_steps": self.decode_steps,
              "tokens_out": self.tokens_out, "peak_active": self.peak_active,
-             "scheduler": self.scheduler.stats(), "health": self.health(),
-             "pool": self.pool.check()}
+             "scheduler": self.scheduler.stats(), "health": self.health()}
+        if self.pool is not None:
+            s["pool"] = self.pool.check()
         n = self.kv_traffic["ticks"]
         if n:
             s["kv_traffic"] = {
@@ -1065,7 +1137,7 @@ class PagedServingEngine:
             s["prefix_cache"] = self.prefix.stats()
         if self.injector is not None:
             s["faults_fired"] = self.injector.fired()
-        if self.executor.profile_error:
+        if self.executor is not None and self.executor.profile_error:
             s["profile_error"] = self.executor.profile_error
         if self.device.type == "cuda":
             s["graphs"] = self.graph_stats()

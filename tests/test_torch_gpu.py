@@ -1,9 +1,12 @@
 """The port on the card: every CUDA kernel against its plain version, the
 kitsune mode of the tiny challenge apps against bsp with the lowered
 sites' launches counted, and the paged engine's captured tick (CUDA graphs)
-against eager `paged_tick`, under the reference's fault scenarios.  All tests carry the `gpu` marker and skip where
-no CUDA device is present; this file imports neither jax nor the reference
-package, so it also runs where only PyTorch is installed:
+against eager `paged_tick`, under the reference's fault scenarios and for
+the recurrent families (hymba's SSM state, xlstm's page-less engine); MoE
+routing under capture; whisper decode on the card against the CPU.  All
+tests carry the `gpu` marker and skip where no CUDA device is present; this
+file imports neither jax nor the reference package, so it also runs where
+only PyTorch is installed:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -29,7 +32,8 @@ from repro_torch.kernels.fused_mlp import (SMALL_M, fused_mlp_bwd_plain,
 from repro_torch.kernels.paged_attention import paged_flash_decode_plain
 from repro_torch.kernels.queue_reduce import queue_reduce_plain, sequential_fold
 from repro_torch.kernels.ref import paged_rows
-from repro_torch.models import get_model
+from repro_torch.models import encdec, get_model
+from repro_torch.models import layers as L
 from repro_torch.optim import adamw
 from repro_torch.serve import (AsyncServingEngine, CapturedTick, FaultSpec,
                                PagedServingEngine, ServeConfig, TickGraphError,
@@ -631,6 +635,174 @@ def test_sync_inside_tick_raises_out_of_tick(cuda, monkeypatch):
     assert set(eng.failed) == set(SERVE_PROMPTS)
     assert all(h.done() and h.error() is not None for h in handles.values())
     assert eng.tick() == 0                          # degraded: no tick runs
+
+
+# ---------------------------------------------------------------------------
+# the model families beyond dense: recurrent state under capture, MoE
+# routing under capture, the decode kernels at hymba's and maverick's groups
+# ---------------------------------------------------------------------------
+
+RECURRENT = ["hymba-1.5b", "xlstm-350m"]
+
+
+def _family_tick_state(eng, cfg, c, seed):
+    """`_tick_state` for any family: no tables where the engine has no KV."""
+    rng = np.random.default_rng(seed)
+    b = eng.sc.batch
+    n_tok = rng.integers(1, c + 1, b)
+    n_tok[1] = 0
+    state = {"tokens": torch.from_numpy(rng.integers(2, cfg.vocab, (b, c))),
+             "n_tok": torch.from_numpy(n_tok), "pos": torch.from_numpy(rng.integers(0, 16, b))}
+    if eng.has_kv:
+        v = eng.max_blocks
+        tables = 1 + np.arange(b * v).reshape(b, v) % eng.pool.num_blocks
+        state["tables"] = torch.from_numpy(tables.astype(np.int32))
+    return state
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("c", [1, 3])
+def test_recurrent_captured_tick_equals_eager(cuda, arch, c):
+    """One replay against eager `paged_tick` on copies of the pools and of
+    the recurrent state: tokens, positions, logits, every page and every
+    state entry bitwise equal (one slot idle, so the masked writes run)."""
+    cfg, params, eng = _card_engine(cuda, arch)
+    _serve(eng)                                   # state holds a finished run's
+    step = eng._get_step(c, eng.max_blocks if eng.has_kv else 0)
+    assert isinstance(step, CapturedTick)
+    state = _family_tick_state(eng, cfg, c, seed=c)
+    copies = {k: t.clone() for k, t in eng.aux.items()}
+    if eng.has_kv:
+        copies.update(kp=eng.kp.clone(), vp=eng.vp.clone())
+    want = paged_tick(params, {**{k: t.to(cuda) for k, t in state.items()}, **copies}, cfg,
+                      block_size=eng.sc.block_size, n_steps=c, mode="native")
+    got = step(state)
+    for key in ("tokens_next", "pos", "logits"):
+        assert torch.equal(got[key], want[key]), key
+    for name in eng.aux:
+        assert torch.equal(eng.aux[name], copies[name]), name
+    if eng.has_kv:
+        assert torch.equal(_pages(eng.kp, eng), _pages(copies["kp"], eng))
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_capture_between_live_ticks_keeps_recurrent_state(cuda, arch):
+    """Capturing a new bucket in the middle of a run leaves every slot's
+    recurrent state (and every page but the null page) bitwise as it was,
+    and the run still serves the clean run's tokens."""
+    _, _, clean_eng = _card_engine(cuda, arch)
+    _, clean = _serve(clean_eng)
+    _, _, eng = _card_engine(cuda, arch)
+    for rid, p in SERVE_PROMPTS.items():
+        eng.submit(list(p), rid=rid)
+    for _ in range(4):
+        eng.tick()
+    aux = {k: t.clone() for k, t in eng.aux.items()}
+    pages = _pages(eng.kp, eng).clone() if eng.has_kv else None
+    eng._get_step(2, eng.max_blocks if eng.has_kv else 0)    # a bucket the run never uses
+    for name, t in aux.items():
+        assert torch.equal(eng.aux[name], t), name
+    if eng.has_kv:
+        assert torch.equal(_pages(eng.kp, eng), pages)
+    assert eng.run_until_done() == clean
+
+
+@pytest.mark.parametrize("arch", RECURRENT + ["llama4-maverick-400b-a17b", "pixtral-12b"])
+def test_reduced_family_engine_on_card_equals_cpu(cuda, arch):
+    """Captured on the card, eager on the CPU, the same f32 weights: the
+    same tokens; every card tick replays a graph."""
+    cfg = get_config(arch).reduced()
+    params = get_model(cfg).init(0, "cpu")
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", to_device(params, cuda))):
+        sc = ServeConfig(max_len=32, batch=4, num_blocks=24, prefill_chunk=3)
+        eng = PagedServingEngine(cfg, p, sc, eos_id=-1)
+        outs[dev] = _serve(eng)[1]
+        if dev == "cuda":
+            st = eng.stats()
+            assert st["graphs"]["replays"] == st["ticks"] > 0
+    assert outs["cpu"] == outs["cuda"]
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_block_under_capture(cuda, top_k):
+    """Dispatch, expert products and combine captured in a CUDA graph (no
+    host sync on the way) equal the eager block bit for bit, on the
+    captured inputs and on new ones copied into the graph's buffer."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = L.init_moe(gen, 64, 128, 16, groups=1, dtype=torch.bfloat16, device=cuda)
+    p = {k: ({n: t[0] for n, t in v.items()} if isinstance(v, dict) else v[0])
+         for k, v in p.items()}
+    xs = [torch.randn((8, 1, 64), generator=gen, device=cuda).to(torch.bfloat16)
+          for _ in range(2)]
+
+    def block(x):
+        return L.moe_block(p, x, n_experts=16, top_k=top_k, num_groups=1)
+
+    static = xs[0].clone()
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        block(static)
+    torch.cuda.current_stream(cuda).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = block(static)
+    for x in xs:
+        static.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize(cuda)
+        assert torch.equal(out, block(x))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hq,hkv,d,sites", [(25, 5, 64, (32, 1)), (40, 8, 128, (1, 2))])
+def test_decode_kernels_at_five_query_heads_per_kv_head(cuda, dtype, hq, hkv, d, sites):
+    """hymba's (25 q / 5 kv heads of 64) and maverick's (40 / 8 of 128)
+    decode: G = 5 in the kernels' 8-row group bucket.  paged_flash_decode
+    against its plain version and bitwise equal to gathering the view and
+    running flash_decode, which is held to its plain version too."""
+    q, kp, vp, tables, valid = _paged_case(cuda, dtype, hq=hq, hkv=hkv, d=d, sites=sites,
+                                           pages=300)
+    bs, site = 16, (sites[0] - 1, sites[1] - 1)
+    got = K.paged_flash_decode(q, kp, vp, tables, valid_len=valid, block_size=bs, layer=site)
+    close(got, paged_flash_decode_plain(q, kp, vp, tables, valid_len=valid, block_size=bs,
+                                        layer=site), TOL[dtype])
+    rows = paged_rows(tables, bs)
+    ck = kp[rows, site[0], site[1]].transpose(1, 2).contiguous()
+    cv = vp[rows, site[0], site[1]].transpose(1, 2).contiguous()
+    dense = K.flash_decode(q, ck, cv, valid_len=valid, block_s=page_block_s(ck.shape[2], bs, None))
+    assert torch.equal(got, dense)
+    close(dense, flash_decode_plain(q, ck, cv, valid_len=valid), TOL[dtype])
+
+
+def test_whisper_decode_on_card_equals_cpu(cuda):
+    """The reduced whisper's cross cache and four decode steps: the card
+    (flash_decode at every layer, fused_mlp's small-M form) against the CPU
+    (their plain versions), f32."""
+    cfg = get_config("whisper-small").reduced()
+    params = get_model(cfg).init(0, "cpu")
+    frames = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 24, cfg.d_model)).astype(np.float32))
+    logits = {}
+    for dev, p in (("cpu", params), ("cuda", to_device(params, cuda))):
+        with torch.no_grad():
+            enc = encdec.encode(p, frames.to(dev), cfg)
+            cache = encdec.build_cross_cache(
+                p, enc, cfg, encdec.init_cache(cfg, 2, 16, enc_len=24, device=dev))
+            tok = torch.tensor([3, 5], device=dev)
+            steps = []
+            before = K.launch_counts()
+            for t in range(4):
+                lg, cache = encdec.decode_step(p, tok, t, cache, cfg)
+                tok = lg.argmax(-1)
+                steps.append(lg.cpu())
+            if dev == "cuda":
+                after = K.launch_counts()
+                assert after["flash_decode"] - before["flash_decode"] == 4 * cfg.n_layers
+                assert after["fused_mlp"] - before["fused_mlp"] == 4 * cfg.n_layers
+        logits[dev] = torch.stack(steps)
+    close(logits["cuda"], logits["cpu"], TOL["float32"])
 
 
 # ---------------------------------------------------------------------------
