@@ -85,11 +85,32 @@ Phases, each failing the run on any error (no phase's exception is caught):
      eager on the card, reduced card == CPU; (d) whisper-small decode: 8 x
      1500 stub frames encoded, the cross cache built, 16 decode steps at
      batch 8 with 12 flash_decode and 12 small-M fused_mlp launches each,
-     the first step's logits held to the plain path within MODEL_TOL.
+     the first step's logits held to the plain path within MODEL_TOL;
+ 10. the capture front-end (`repro_torch.compile(fn, example_inputs)`,
+     kernels reached through the lowering pass): (a) `compile_train_step`
+     on gemma3-1b at full width and depth (batch 4 x 2048, no depth cut:
+     trace and passes take ~12-18 s), 3 kitsune steps against 3 eager
+     `make_train_step` steps from the same weights, losses within 1e-3 and
+     parameters within twice the eager run's own spread over three
+     reorderings of its sums (phase 3's bf16 dW rule over the trajectory,
+     `hold_train_run`), each kitsune step launching fused_mlp_swiglu 52 and
+     fused_mlp_swiglu_bwd 26 times, then 2 bsp steps; trace and pass
+     seconds, ms a step of kitsune, bsp and eager, the kitsune run's peak
+     memory; (b) the same for whisper-small (8 x 1500 frames, 448 tokens),
+     fused_mlp 36 and fused_mlp_bwd 24 a step; (c) the traced zoo forward
+     of gemma3-1b at full width (2 x 1024) in kitsune mode, bitwise the raw
+     forward here, fused_mlp_swiglu 26 times; (d) the paged and the legacy
+     engine with compile_mode="kitsune" against compile_mode=None on
+     phi3-medium-14b at full width cut to 4 layers (a 16-step prefill tick
+     of 40 layers would trace ~50k nodes): the same tokens, the paged tick
+     launching paged_flash_decode and fused_mlp_swiglu, the legacy one
+     flash_decode; (e) a traced `paged_decode_atom` at phase 7's decode
+     shape, lowered to paged_flash_decode, against its plain version.
 The launch counters are zeroed just before phase 4 and read just after
 phase 6 (the compiler's main path), and zeroed and read around each engine
-run of phases 7 and 9 (the serving paths), each full-width run of phase 8
-(the training paths) and phase 9's whisper decode steps.  The second-to-last line is the
+run of phases 7, 9 and 10 (the serving paths), each full-width run of
+phases 8 and 10 (the training paths), phase 9's whisper decode steps and
+phase 10's traced forward and atom.  The second-to-last line is the
 per-kernel JSON summary: one row per kernel and main-path shape, its
 `launches` taken from the run of the path that row belongs to (for the
 whisper rows of fused_mlp and fused_mlp_bwd, only that run's launches at
@@ -128,8 +149,8 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
-from repro_torch.train import (TrainConfig, make_train_state,  # noqa: E402
-                               make_train_step)
+from repro_torch.train import (TrainConfig, compile_train_step,  # noqa: E402
+                               make_train_state, make_train_step)
 from repro_torch.tree import flatten, leaves  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention_plain,  # noqa: E402
                                                  flash_decode_plain)
@@ -143,11 +164,14 @@ from repro_torch.kernels.ref import DACTS  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_flash_decode_plain  # noqa: E402
 from repro_torch.kernels.queue_reduce import queue_reduce_plain, sequential_fold  # noqa: E402
 from repro_torch.kernels.ref import paged_rows  # noqa: E402
-from repro_torch.models import encdec, get_model  # noqa: E402
+from repro_torch.models import encdec, get_model, zoo  # noqa: E402
+from repro_torch.models import atoms as model_atoms  # noqa: E402
+from repro_torch.models import lm as model_lm  # noqa: E402
+from repro_torch.models.atoms import paged_decode_atom  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.serve import (AsyncServingEngine, CapturedTick,  # noqa: E402
                                PagedKVExecutor, PagedServingEngine, ServeConfig,
-                               paged_tick)
+                               ServingEngine, paged_tick)
 
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s, H100 SXM
 HBM = 3.35e12                                           # B/s
@@ -1842,6 +1866,290 @@ def phase_families() -> dict[str, dict[str, int]]:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the capture front-end
+# ---------------------------------------------------------------------------
+
+# 10d: phi3-medium-14b at full width, its depth cut: a tick traces every
+# decode step of every layer (a 16-step prefill tick of 40 layers is ~50k
+# nodes), so each engine holds TRACED_SERVE_LAYERS layers
+TRACED_SERVE_LAYERS = 4
+TRACED_SERVE_CONFIG = dict(SERVE_CONFIG, num_blocks=128)
+TRACED_SERVE_REQUESTS = 8
+# 10c: the traced zoo forward's batch (its logits are (2, 1024, 262144) bf16)
+ZOO_BATCH, ZOO_SEQ = 2, 1024
+
+
+def clone_tree(tree):
+    return torch.utils._pytree.tree_map(lambda t: t.clone(), tree)
+
+
+def compiled_train_step(label, cfg, opt, tc, state, batch, mode):
+    """`compile_train_step` in `mode`, timed; returns (app, trace s, passes s)."""
+    t0 = time.perf_counter()
+    app = compile_train_step(cfg, opt, tc, state=state, batch=batch, compile_mode=mode)
+    total = time.perf_counter() - t0
+    trace_s = app.pass_records[0].seconds
+    low = app.lowering.summary() if app.lowering is not None else "no kernel lowering"
+    print(f"traced {label} {mode}: trace {trace_s:.1f} s ({len(app.graph.nodes)} nodes, "
+          f"{len(app.traced.consts)} consts, {len(app.donation)} outputs written into the "
+          f"donated state), the other passes {total - trace_s:.1f} s; {low}", flush=True)
+    return app, trace_s, total - trace_s
+
+
+def leaf_spread(got_state, want_state) -> dict[str, tuple[float, float, float]]:
+    """Per parameter: (max |err|, elementwise ratio against bf16's
+    atol=rtol, relative error) of one run's parameters against another's."""
+    out = {}
+    for (path, a), (_, b) in zip(flatten(got_state["params"]), flatten(want_state["params"])):
+        err, ratio = worst(a, b, TOL[torch.bfloat16])
+        out[path] = (err, ratio, rel_err(a, b))
+    return out
+
+
+def hold_train_run(label, got_state, got_losses, want_state, want_losses, spread) -> None:
+    """The compiled step's 3-step run against the eager step's from one
+    state.  Both launch the same kernels; their sums differ in order (the
+    traced attention backward, split reductions), and AdamW turns a
+    gradient's last bits into whole bf16 ulps of a parameter.  So each
+    parameter is held by phase 3's bf16 dW rule (`check`), taken over the
+    trajectory: within FLOOR_FACTOR times the eager run's own spread over
+    three reorderings of its sums (`spread`: the same steps on the batch
+    rows reversed, and with the chunked attention's online softmax over
+    chunks of 512 and of 256 keys instead of 1024) -- elementwise ratio,
+    max |err| and relative error alike -- and never looser than phase 3's
+    bounds (a ratio of 1 against atol=rtol=2e-2, a relative error of 1e-2).
+    Losses within 1e-3 relative."""
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got_losses, want_losses))
+    worst_rel, bad = 0.0, []
+    for path, (err, ratio, rel) in leaf_spread(got_state, want_state).items():
+        f_err, f_ratio, f_rel = spread[path]
+        err_limit = FLOOR_FACTOR * f_err if ratio > 1.0 else math.inf
+        ratio_limit = max(1.0, FLOOR_FACTOR * f_ratio)
+        rel_limit = max(REL_TOL[torch.bfloat16], FLOOR_FACTOR * f_rel)
+        worst_rel = max(worst_rel, rel)
+        if err > err_limit or ratio > ratio_limit or rel > rel_limit:
+            bad.append((path, err, ratio, rel, (err_limit, ratio_limit, rel_limit)))
+    spread_rel = max(r for _, _, r in spread.values())
+    print(f"traced {label}: losses {got_losses} against eager {want_losses} (max relative "
+          f"difference {loss_rel:.3g}, limit 1e-3); parameters' worst relative error "
+          f"{worst_rel:.3g} against the eager run, whose own spread over three "
+          f"reorderings of its sums reaches {spread_rel:.3g} (limit per parameter "
+          f"{FLOOR_FACTOR:g} times its spread, at least atol=rtol=2e-2 and 1e-2)", flush=True)
+    if loss_rel > 1e-3 or bad:
+        raise AssertionError(f"traced {label}: losses {got_losses}, eager {want_losses}; "
+                             f"parameters out of bounds (path, err, ratio, rel, limits) {bad}")
+
+
+def phase_traced_train(name, batch, seq, want) -> dict[str, int]:
+    """10a / 10b: `compile_train_step` at full width and depth: 3 kitsune
+    steps against 3 eager `make_train_step` steps from the same weights and
+    batches (`hold_train_run`, against the eager run's own spread over
+    three reorderings of its sums), each kitsune step launching
+    `want`; then 2 bsp steps.  Prints
+    the trace and pass seconds, ms a step of each mode and the peak memory
+    of the kitsune run.  Returns the kitsune run's launches."""
+    cfg = get_config(name)
+    opt = adamw(TRAIN_LR)
+    tc = TrainConfig(remat=True, xent_chunk=512)
+    state = make_train_state(cfg, opt, seed=0, device="cuda")
+    at = train_batches(cfg, batch, seq)
+    batches = [at(i) for i in range(3)]
+    eager = make_train_step(cfg, opt, tc)
+    eager_state, eager_losses, eager_s = train_steps(f"{name} eager", clone_tree(state), eager,
+                                                     batches, {})
+    # the eager run's own spread: the same steps with their sums reordered
+    spread: dict[str, tuple[float, float, float]] = {}
+    flipped = [{k: v.flip(0) for k, v in b.items()} for b in batches]
+    for what, data, chunk in (("batch rows reversed", flipped, None),
+                              ("attention in chunks of 512 keys", batches, 512),
+                              ("attention in chunks of 256 keys", batches, 256)):
+        ctx = (model_atoms.patched(attention=functools.partial(model_lm.chunked_attention,
+                                                               chunk=chunk))
+               if chunk else contextlib.nullcontext())
+        with ctx:
+            other, _, _ = train_steps(f"{name} eager ({what})", clone_tree(state), eager,
+                                      data, {})
+        for path, vals in leaf_spread(other, eager_state).items():
+            spread[path] = tuple(max(a, b) for a, b in zip(spread.get(path, vals), vals))
+        del other
+        free()
+    app, trace_s, pass_s = compiled_train_step(name, cfg, opt, tc, state, batches[0], "kitsune")
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    state, losses, kit_s = train_steps(f"{name} kitsune", state, app, batches, want)
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hold_train_run(name, state, losses, eager_state, eager_losses, spread)
+    del eager_state
+    free()
+    bsp, bsp_trace_s, bsp_pass_s = compiled_train_step(name, cfg, opt, tc, state, batches[0],
+                                                       "bsp")
+    plain = {k: 0 for k in want}
+    state, _, bsp_s = train_steps(f"{name} bsp", state, bsp, batches[:2], plain)
+    print(f"traced {name}: ms a step (steps 2-3; bsp step 2) kitsune "
+          f"{1e3 * sum(kit_s[1:]) / 2:.1f} (first {1e3 * kit_s[0]:.1f}, its programs built), "
+          f"bsp {1e3 * bsp_s[1]:.1f}, eager make_train_step {1e3 * sum(eager_s[1:]) / 2:.1f}; "
+          f"trace {trace_s:.1f} s + passes {pass_s:.1f} s (bsp {bsp_trace_s:.1f} + "
+          f"{bsp_pass_s:.1f}); depth not cut ({cfg.n_layers} layers); kitsune peak allocated "
+          f"{peak / 1e9:.2f} GB", flush=True)
+    del app, bsp, state
+    free()
+    return launches
+
+
+def phase_traced_zoo() -> dict[str, int]:
+    """10c: the zoo forward of gemma3-1b at full width and depth, traced
+    and compiled in kitsune mode, against the raw forward."""
+    zf = zoo.build("gemma3-1b", batch=ZOO_BATCH, seq=ZOO_SEQ, reduced=False, device="cuda")
+    with torch.no_grad():
+        want = zf.fn(*zf.example_inputs)
+    t0 = time.perf_counter()
+    app = repro_torch.compile(zf.fn, zf.example_inputs, mode="kitsune")
+    compile_s = time.perf_counter() - t0
+    app(*zf.example_inputs)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = app(*zf.example_inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    err, rel = check("traced zoo gemma3-1b forward", got, want, torch.bfloat16)
+    print(f"traced zoo gemma3-1b forward ({ZOO_BATCH} x {ZOO_SEQ}, {len(app.graph.nodes)} nodes, "
+          f"traced and compiled in {compile_s:.1f} s): kitsune {1e3 * wall:.1f} ms, logits "
+          f"max |err| {err:.3g}, relative {rel:.3g} against the raw forward; launches "
+          f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+    expect_launches("traced zoo", launches, {"fused_mlp_swiglu": zf.cfg.n_layers})
+    del app, zf, got, want
+    free()
+    return launches
+
+
+def phase_traced_serve() -> dict[str, dict[str, int]]:
+    """10d: both engines with compile_mode="kitsune" against
+    compile_mode=None on phi3-medium-14b at full width, depth cut to
+    TRACED_SERVE_LAYERS: the same tokens."""
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=TRACED_SERVE_LAYERS)
+    params = get_model(cfg).init(seed=0, device="cuda")
+    prompts = dict(list(serve_prompts(cfg.vocab).items())[:TRACED_SERVE_REQUESTS])
+    runs = {}
+    for engine in ("paged", "legacy"):
+        out = {}
+        for mode in (None, "kitsune"):
+            sc = ServeConfig(**{**TRACED_SERVE_CONFIG, "compile_mode": mode})
+            if engine == "legacy":
+                sc = ServeConfig(max_len=160, batch=TRACED_SERVE_CONFIG["batch"],
+                                 compile_mode=mode)
+            t0 = time.perf_counter()
+            if engine == "paged":
+                eng = PagedServingEngine(cfg, params, sc, eos_id=-1)
+                for rid, p in prompts.items():
+                    eng.submit(p, rid=rid)
+            else:
+                eng = ServingEngine(cfg, params, sc, eos_id=-1)
+                for rid, p in prompts.items():
+                    eng.submit(rid, p[:48])
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            done = eng.run_until_done()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = K.launch_counts()
+            out[mode] = done
+            ticks = eng.ticks if engine == "paged" else eng.pos
+            traces = len(eng._steps) if engine == "paged" else 1
+            print(f"traced serve {engine} compile_mode={mode}: {len(done)} requests, "
+                  f"{sum(len(v) for v in done.values())} tokens, {ticks} ticks in {wall:.2f} s "
+                  f"({traces if mode else 0} traced tick programs, traces included); launches "
+                  f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+            if mode is not None:
+                runs[f"traced_serve_{engine}"] = launches
+            del eng
+            free()
+        if out[None] != out["kitsune"]:
+            diff = [rid for rid in out[None] if out[None][rid] != out["kitsune"].get(rid)]
+            raise AssertionError(f"traced serve {engine}: tokens differ for requests {diff}")
+        print(f"traced serve {engine}: compile_mode=kitsune tokens == compile_mode=None tokens "
+              f"({cfg.n_layers} of phi3-medium-14b's 40 layers)", flush=True)
+    want = {"paged_flash_decode": 1, "fused_mlp_swiglu": 1}
+    missing = [k for k in want if not runs["traced_serve_paged"][k]]
+    if missing or not runs["traced_serve_legacy"]["flash_decode"]:
+        raise AssertionError(f"traced serve: kernels never launched: {missing} {runs}")
+    del params
+    free()
+    return runs
+
+
+def phase_traced_paged_atom() -> dict[str, int]:
+    """10e: a traced `paged_decode_atom` at phase 7's decode shape and the
+    output projection after it, the atom lowered to B8 in kitsune mode,
+    against the plain version through the same projection."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    b, hq, hkv, d, bs, v_blocks = 8, 40, 10, 128, 16, 32
+    rows = (b * v_blocks + 1) * bs
+    q = randn(gen, b, hq, 1, d, dtype=torch.bfloat16)
+    kp, vp = (randn(gen, rows, hkv, d, dtype=torch.bfloat16) for _ in range(2))
+    tables = (1 + torch.randperm(b * v_blocks, generator=gen, device="cuda")).to(
+        torch.int32).reshape(b, v_blocks)
+    valid = torch.randint(1, v_blocks * bs + 1, (b,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    wo = randn(gen, hq * d, 5120, dtype=torch.bfloat16, scale=(hq * d) ** -0.5)
+    atom = paged_decode_atom(bs)
+
+    def site(q, kp, vp, tables, valid):
+        """Decode attention, then phi3's output projection."""
+        return atom(q, kp, vp, tables, valid).reshape(b, hq * d) @ wo
+
+    app = repro_torch.compile(site, (q, kp, vp, tables, valid), mode="kitsune")
+    matches = [m for pl in app.lowering.pipelines.values() for m in pl.matches]
+    K.reset_launch_counts()
+    got = app(q, kp, vp, tables, valid)
+    launches = K.launch_counts()
+    want = paged_flash_decode_plain(q, kp, vp, tables, valid_len=valid,
+                                    block_size=bs).reshape(b, hq * d) @ wo
+    err, rel = check("traced paged_decode_atom", got, want, torch.bfloat16)
+    print(f"traced paged_decode_atom: plan {[m.label() for m in matches]}, launches "
+          f"{ {k: n for k, n in launches.items() if n} }, max |err| {err:.3g}, relative "
+          f"{rel:.3g} against the plain version", flush=True)
+    expect_launches("traced paged_decode_atom", launches, {"paged_flash_decode": 1})
+    return launches
+
+
+def phase_traced() -> dict[str, dict[str, int]]:
+    """Returns each phase-10 run's launches, per kernel."""
+    t_phase = time.perf_counter()
+    free()
+    print(f"phase 10 starts with {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+          flush=True)
+    gemma, whisper = get_config("gemma3-1b"), get_config("whisper-small")
+    runs = {}
+    t0 = time.perf_counter()
+    runs["traced_train_gemma3"] = phase_traced_train(
+        "gemma3-1b", 4, 2048, {"fused_mlp_swiglu": 2 * gemma.n_layers,
+                               "fused_mlp_swiglu_bwd": gemma.n_layers,
+                               "fused_mlp": 0, "fused_mlp_bwd": 0})
+    print(f"phase 10a: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    runs["traced_train_whisper"] = phase_traced_train(
+        "whisper-small", 8, 448, {"fused_mlp": 3 * whisper.n_layers,
+                                  "fused_mlp_bwd": 2 * whisper.n_layers,
+                                  "fused_mlp_swiglu": 0, "fused_mlp_swiglu_bwd": 0})
+    print(f"phase 10b: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    runs["traced_zoo_gemma3"] = phase_traced_zoo()
+    print(f"phase 10c: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    runs.update(phase_traced_serve())
+    print(f"phase 10d: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    runs["traced_paged_atom"] = phase_traced_paged_atom()
+    print(f"phase 10e: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 10 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return runs
+
+
 def to_device(tree: dict, device) -> dict:
     return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
@@ -1886,6 +2194,7 @@ def main() -> int:
     train_paths, rows_by_path = phase_training()
     paths.update(train_paths)
     paths.update(phase_families())
+    paths.update(phase_traced())
     for path, counts in paths.items():
         print(f"launches, {path} run: { {k: n for k, n in counts.items() if n} }", flush=True)
 

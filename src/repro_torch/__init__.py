@@ -8,13 +8,18 @@ Front door:
     import repro_torch
     app = repro_torch.compile(graph, repro_torch.CompilerOptions(mode="kitsune"))
     report = app.run(feeds, params)
+
+    app = repro_torch.compile(fn, example_inputs)   # any PyTorch callable
+    outputs = app(*example_inputs)
 """
 from .api import (CompiledApp, CompilerOptions, Graph, Node, PassManager,
-                  TensorSpec, compile, graph_fingerprint, init_params,
-                  lowering_count, params_from_numpy, structural_fingerprint)
+                  TensorSpec, TracedApp, atomic, atomic_vjp, compile,
+                  graph_fingerprint, init_params, lowering_count,
+                  params_from_numpy, structural_fingerprint, trace)
 
 __all__ = [
-    "compile", "CompilerOptions", "CompiledApp", "PassManager",
+    "compile", "CompilerOptions", "CompiledApp", "TracedApp", "PassManager",
+    "trace", "atomic", "atomic_vjp",
     "init_params", "params_from_numpy", "lowering_count",
     "Graph", "Node", "TensorSpec", "graph_fingerprint",
     "structural_fingerprint",

@@ -4,6 +4,7 @@ The paper's SS5 flow is exposed as ONE front door (compiler.py):
 
     app = repro_torch.compile(graph, CompilerOptions(mode=...))  # passes
     app.run(feeds, params)                                       # cached
+    app = repro_torch.compile(fn, example_inputs)   # traced (trace.py)
 
 with the stages runnable as named passes through PassManager:
 
@@ -32,8 +33,10 @@ from .executor import (GraphExecutor, ExecutorBackend, BSPBackend,
                        clear_executable_cache, lowering_count)
 from .lower import (KernelMatch, LoweringPlan, PipelineLowering, Verdict,
                     lower_pipeline, lower_pipelines)
+from .trace import (AtomicSpec, TracedFunction, atomic, atomic_vjp,
+                    attention_flops, trace)
 from .compiler import (CompilerOptions, CompiledApp, CompileState,
-                       PassManager, PassRecord, compile)
+                       PassManager, PassRecord, TracedApp, compile)
 
 __all__ = [
     "Graph", "Node", "TensorSpec", "MXU", "VPU", "graph_fingerprint",
@@ -53,5 +56,7 @@ __all__ = [
     "KernelMatch", "LoweringPlan", "PipelineLowering", "Verdict",
     "lower_pipeline", "lower_pipelines",
     "CompilerOptions", "CompiledApp", "CompileState", "PassManager",
-    "PassRecord", "compile",
+    "PassRecord", "TracedApp", "compile",
+    "AtomicSpec", "TracedFunction", "atomic", "atomic_vjp",
+    "attention_flops", "trace",
 ]

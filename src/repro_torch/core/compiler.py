@@ -27,8 +27,10 @@ Pieces:
     `run()` calls (and fresh `compile()`s of an identical graph) perform
     zero new builds.
 
-Graphs only: compiling a traced callable (the reference's `TracedApp`,
-`trace` and `cached_jit`) waits for the capture front-end.
+Callables: `repro_torch.compile(fn, example_inputs)` traces `fn` first
+(core/trace.py; tracing is pass 0 of the pipeline) and returns a TracedApp
+that is itself callable like `fn`.  The reference's `cached_jit` has no
+counterpart yet: it comes with `torch.compile` of the eager paths.
 """
 from __future__ import annotations
 
@@ -37,12 +39,14 @@ from dataclasses import dataclass, field, replace
 from typing import Any, Callable
 
 import torch
+from torch.utils import _pytree as pytree
 
 from .balance import BalanceResult, balance as _balance_pipeline
 from .costmodel import H100, GraphCost, HwSpec, evaluate
 from .executor import Engine, ExecutionReport, init_params, make_backend
 from .graph import Graph, graph_fingerprint
 from .lower import POLICIES, LoweringPlan, lower_pipelines
+from .trace import TracedFunction, donate_outputs, trace as trace_fn
 from .patterns import PATTERN_LIBRARY, Selection, select_subgraphs
 from .pipeline import (DEFAULT_TILE_BYTES, SPLIT_REDUCTION_MIN, DedupeInfo,
                        OpQueue, Pipeline, PipelinedGraph, Stage,
@@ -455,7 +459,7 @@ class CompiledApp:
                  f"  executes as {how}",
                  f"  lowering policy {self.options.lowering_policy} (the "
                  f"'auto' microbenchmark policy and block-size autotuning "
-                 f"are not ported); buffer donation: not applicable"]
+                 f"are not ported)"]
         for r in self.pass_records:
             flag = " [disabled]" if r.disabled else ""
             lines.append(f"  pass {r.name:<16} {r.seconds * 1e3:8.2f} ms"
@@ -493,7 +497,11 @@ class CompiledApp:
                                  f"{'+'.join(m.ops)} -> {m.out}")
                 for op, why in low.fallbacks.items():
                     lines.append(f"    fallback {op}: {why}")
+        lines.extend(self._describe_donation())
         return "\n".join(lines)
+
+    def _describe_donation(self) -> list[str]:
+        return []
 
     def lowering_verdicts(self) -> list[dict]:
         """Per-site kernel-lowering verdict rows."""
@@ -506,21 +514,160 @@ class CompiledApp:
                 f"{len(self.pipelined.pipelines)} pipelines)")
 
 
-def compile(graph: Graph, options: CompilerOptions | None = None, *,
+class TracedApp(CompiledApp):
+    """A CompiledApp built by tracing a PyTorch callable (core/trace.py).
+
+    Behaves like the original function: `app(*args)` feeds the positional
+    tensors (plus the captured consts) through the compiled executor and
+    returns outputs in the function's own pytree structure.  Weights live in
+    the traced consts, so `init_params()` is empty and `run()` needs no
+    params dict.  The graph holds its own backward, so it runs under
+    `torch.no_grad()`.
+
+    `donate_feeds` are the input names whose storage the outputs reuse
+    (`donation`: the (input, output value) pairs, core/trace.py
+    `donate_outputs`): as with `jax.jit`'s donation, those inputs are
+    CONSUMED by a call -- they hold the new values afterwards -- so feed
+    each call the previous call's outputs.  A donated input that shares its
+    storage with another input is copied first and so left alone."""
+
+    def __init__(self, traced: TracedFunction, options: CompilerOptions,
+                 state: CompileState, pass_records: list[PassRecord],
+                 donate_feeds: frozenset[str] = frozenset(),
+                 donation: list[tuple[str, str]] | None = None):
+        self.traced = traced
+        self.donate_feeds = donate_feeds
+        self.donation = list(donation or [])
+        self._donated = tuple(d for d, _ in self.donation)
+        super().__init__(traced.graph, options, state, pass_records)
+
+    def __call__(self, *args):
+        report = self.run(self.traced.feeds(*args))
+        return self.traced.unflatten_outputs(report.outputs)
+
+    def run(self, feeds: dict[str, torch.Tensor], params: dict | None = None,
+            ) -> ExecutionReport:
+        full = dict(self.traced.consts)
+        full.update(feeds)
+        if self._donated:
+            self._unalias(full)
+        with torch.no_grad():
+            return super().run(full, params)
+
+    def _unalias(self, feeds: dict) -> None:
+        """Copy each donated feed that shares its storage with another feed:
+        writing it in place would change the other."""
+        owners: dict[int, int] = {}
+        for t in feeds.values():
+            ptr = t.untyped_storage().data_ptr()
+            owners[ptr] = owners.get(ptr, 0) + 1
+        for d in self._donated:
+            t = feeds[d]
+            if owners[t.untyped_storage().data_ptr()] > 1:
+                feeds[d] = t.clone()
+
+    def init_params(self, seed: int = 0, dtype=torch.float32, device="cuda",
+                    scale: float = 0.02) -> dict:
+        return {}  # weights are captured consts, fed automatically
+
+    def _describe_donation(self) -> list[str]:
+        if not self.donate_feeds:
+            return []
+        nbytes = sum(self.graph.nodes[d].out.nbytes for d, _ in self.donation)
+        return [f"  donation declared={len(self.donate_feeds)} feeds, "
+                f"{len(self.donation)} reused by outputs "
+                f"({nbytes / 1e6:.2f} MB written in place)"]
+
+    def __repr__(self):
+        return (f"TracedApp({self.graph.name!r}, mode={self.options.mode!r}, "
+                f"{len(self.graph.nodes)} nodes, "
+                f"{len(self.traced.consts)} consts)")
+
+
+def _run_passes(graph: Graph, options: CompilerOptions,
+                pm: PassManager) -> tuple[CompileState, list[PassRecord]]:
+    state = CompileState(graph)
+    records = pm.run(state, options)
+    _ensure_pipelined(state, options)
+    return state, records
+
+
+def compile(graph: Graph | Callable, *args,
+            options: CompilerOptions | None = None,
+            example_inputs: tuple | None = None,
             pass_manager: PassManager | None = None,
+            donate_argnums: tuple[int, ...] = (),
+            donate_feeds: tuple[str, ...] = (),
             **option_overrides) -> CompiledApp:
-    """Compile an operator graph into a CompiledApp:
-    `repro_torch.compile(g)` / `repro_torch.compile(g, mode="vertical")` /
-    `repro_torch.compile(g, CompilerOptions(...))`."""
-    if not isinstance(graph, Graph):
-        raise TypeError("repro_torch.compile takes a Graph; compiling a "
-                        "callable needs the capture front-end, not ported yet")
+    """Compile an operator graph OR any PyTorch callable.
+
+    Graphs: `repro_torch.compile(g)` / `repro_torch.compile(g,
+    mode="vertical")` / `repro_torch.compile(g, CompilerOptions(...))`.
+    Callables: `repro_torch.compile(fn, example_inputs)` (optionally with a
+    CompilerOptions third positional / keyword) traces `fn` under fake
+    tensors -- tracing is pass 0 of the pipeline -- and returns a TracedApp
+    that is itself callable like `fn`.  `example_inputs` is the tuple of
+    positional example arguments (a single tensor may be passed bare).
+
+    Donation (callables only): `donate_argnums` marks positional arguments
+    whose storage the app may reuse for its outputs -- the training step
+    donates its (state,) argument, so parameters and optimizer moments are
+    written in place instead of doubling resident memory; `donate_feeds`
+    names input feeds (`arg<i>`) directly.  Only those inputs are donated."""
+    for a in args:
+        if isinstance(a, CompilerOptions):
+            if options is not None:
+                raise TypeError("options given twice")
+            options = a
+        elif example_inputs is None:
+            example_inputs = a
+        else:
+            raise TypeError(f"unexpected positional argument {a!r}")
     if options is None:
         options = CompilerOptions(**option_overrides)
     elif option_overrides:
         options = replace(options, **option_overrides)
     pm = pass_manager or PassManager()
-    state = CompileState(graph)
-    records = pm.run(state, options)
-    _ensure_pipelined(state, options)
-    return CompiledApp(graph, options, state, records)
+    if isinstance(graph, Graph):
+        if example_inputs is not None:
+            raise TypeError("example_inputs is only valid when compiling a "
+                            "callable")
+        if donate_argnums or donate_feeds:
+            raise TypeError("donation is only valid when compiling a callable")
+        state, records = _run_passes(graph, options, pm)
+        return CompiledApp(graph, options, state, records)
+    if not callable(graph):
+        raise TypeError(f"compile takes a Graph or a callable, got {graph!r}")
+    if example_inputs is None:
+        raise TypeError("repro_torch.compile(fn, ...) needs example_inputs")
+    if not isinstance(example_inputs, (tuple, list)):
+        example_inputs = (example_inputs,)
+    example_inputs = tuple(example_inputs)
+    t0 = time.perf_counter()
+    traced = trace_fn(graph, *example_inputs)
+    donate = set(donate_feeds)
+    if donate_argnums:
+        # argument positions -> the traced input names their flattened
+        # leaves occupy (in_names is leaf-ordered)
+        spans, start = [], 0
+        for a in example_inputs:
+            n = len(pytree.tree_leaves(a))
+            spans.append((start, start + n))
+            start += n
+        for i in donate_argnums:
+            if not 0 <= i < len(spans):
+                raise ValueError(f"donate_argnums {i} out of range for "
+                                 f"{len(spans)} example inputs")
+            lo, hi = spans[i]
+            donate.update(traced.in_names[lo:hi])
+    unknown = donate - set(traced.in_names)
+    if unknown:
+        raise ValueError(f"donate_feeds {sorted(unknown)} are not inputs")
+    donation = donate_outputs(traced, donate) if donate else []
+    rec = PassRecord("trace", time.perf_counter() - t0, False,
+                     f"{len(traced.graph.nodes)} nodes, "
+                     f"{len(traced.consts)} consts, "
+                     f"{len(donation)} donated outputs")
+    state, records = _run_passes(traced.graph, options, pm)
+    return TracedApp(traced, options, state, [rec] + records,
+                     frozenset(donate), donation)

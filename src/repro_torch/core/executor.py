@@ -30,9 +30,12 @@ first run per feed/param shape signature resolves every value name to an
 integer slot and binds the cached programs; steady-state `Engine.run` is a
 tight loop over prebound programs.
 
-Buffer donation (the reference's in-place reuse of dead XLA buffers) has no
-counterpart here: PyTorch frees a dead intermediate as soon as its last
-reference goes, which the plan's release lists arrange.
+PyTorch frees a dead intermediate as soon as its last reference goes,
+which the plan's release lists arrange (and an sf-node program's own drop
+lists, inside it).  Buffer donation -- the reference's in-place reuse of
+dead XLA buffers -- is a graph rewrite for traced callables
+(core/trace.py `donate_outputs`): copy nodes write each output into a
+donated input once nothing reads that input any more.
 """
 from __future__ import annotations
 
@@ -110,10 +113,11 @@ def params_from_numpy(params, device="cuda", dtype=None) -> dict[str, Any]:
 def _eval_node(n: Node, inputs: list[torch.Tensor], p: dict | None) -> torch.Tensor:
     if n.kind in ("input", "const"):
         raise AssertionError("inputs are fed externally")
-    if "_eval" in n.attrs:
-        raise NotImplementedError(
-            f"{n.name}: traced nodes need the capture front-end, which is not "
-            f"ported yet")
+    ev = n.attrs.get("_eval")
+    if ev is not None:
+        # a traced node (core/trace.py): the exact recorded op.  A traced
+        # graph holds its own backward, so TracedApp runs it under no_grad.
+        return ev(*inputs)
     if n.kind == "linear":
         y = inputs[0] @ p["w"]
         if n.attrs.get("bias"):
@@ -331,15 +335,36 @@ def _sf_program(g: Graph, name: str, members: list[str],
     # single-consumer-internal by matcher contract, so never exports
     internal = {o for km in (matches or ()) for o in km.ops if o != km.out}
     need, exports = subgraph_interface(g, members, internal)
+    # values no later item reads and the program does not export are dropped
+    # after their last reader: a traced sf-node can span a whole backward
+    # pass, whose intermediates must not all live to the program's end
+    last: dict[str, int] = {}
+    for k, (is_kernel, item) in enumerate(schedule):
+        if is_kernel:
+            reads = {i for o in item.ops for i in g.nodes[o].inputs
+                     if i not in item.ops}
+        else:
+            reads = item.inputs
+        for i in reads:
+            last[i] = k
+    keep = set(exports)
+    drop: list[tuple[str, ...]] = [() for _ in schedule]
+    for nm, k in last.items():
+        if nm not in keep:
+            drop[k] += (nm,)
+    steps = [(is_kernel, item, drop[k])
+             for k, (is_kernel, item) in enumerate(schedule)]
 
     def fn(feed: dict[str, torch.Tensor], params: dict) -> dict:
         vals = dict(feed)
-        for is_kernel, item in schedule:
+        for is_kernel, item, dead in steps:
             if is_kernel:
                 vals[item.out] = item.call(vals, params)
             else:
                 ins = [vals[i] for i in item.inputs]
                 vals[item.name] = _eval_node(item, ins, params.get(item.name))
+            for nm in dead:
+                del vals[nm]
         return {m: vals[m] for m in exports}
 
     return Program(name, need, pkeys, fn, outs=exports)

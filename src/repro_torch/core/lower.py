@@ -14,6 +14,15 @@ post epilogue-fusion) onto the kernels:
   * dX/dW multicast GEMMs in synthesized backward graphs -> fused_mlp_bwd
     (plan-only: those graphs are cost-model artifacts and carry no weights,
     so the match is recorded for analysis but never executed)
+  * HINTED atomics in traced graphs (core/trace.py: the kernel ops of
+    kernels/ops.py, and `atomic` / `atomic_vjp` ops with `lower=` hints,
+    such as models/atoms.py installs for a training capture) -> EXECUTABLE
+    kernel calls: fused_mlp / fused_mlp_swiglu forward, fused_mlp_bwd /
+    fused_mlp_swiglu_bwd backward, flash_decode and paged_flash_decode.
+    The hint pins the node's semantics, so the opacity of its eval closure
+    is not a bar -- this is how the backward of a traced
+    `torch.autograd.grad` training step runs the Fig 2(c) multicast kernels
+    instead of replaying plain closures.
 
 Every match is EXACT: a chain is only lowered when its intermediate values
 are single-consumer-internal and the member ops' semantics are fully known,
@@ -22,9 +31,9 @@ Anything that does not match falls back to the op-by-op path with a recorded
 REASON -- `CompiledApp.describe()` prints which stages lowered and why others
 did not.
 
-Not ported yet (the reference has them): kernel-hinted atomics from traced
-graphs (the capture front-end), the "auto" lowering policy's compile-time
-microbenchmark and the block-size autotuner.  Policies here: "always" (the default) lowers every match, "cost"
+Not ported yet (the reference has them): the "auto" lowering policy's
+compile-time microbenchmark and the block-size autotuner.  Policies here:
+"always" (the default) lowers every match, "cost"
 lets the roofline model (`cost_kernel_site` vs `cost_vertical` on the
 compile's HwSpec) accept or decline each site.
 """
@@ -35,7 +44,8 @@ from typing import Callable
 
 import numpy as np
 
-from ..kernels import attention, decode_attention, mlp, mlp_swiglu, reduce
+from ..kernels import (attention, decode_attention, mlp, mlp_bwd, mlp_swiglu,
+                       mlp_swiglu_bwd, paged_decode_attention, reduce)
 from .costmodel import H100, HwSpec, cost_kernel_site, cost_vertical
 from .executor import _eval_node
 from .graph import Graph, Node
@@ -214,9 +224,121 @@ def _queue_reduce_call(partial: Node) -> Callable:
     return call
 
 
+def _atomic_mlp_fwd_call(inputs: list[str], meta: dict) -> Callable:
+    x, w1, w2 = inputs
+    act = meta["act"]
+
+    def call(vals, params):
+        return mlp(vals[x], vals[w1], vals[w2], act=act)
+    return call
+
+
+def _atomic_swiglu_fwd_call(inputs: list[str], meta: dict) -> Callable:
+    x, wg, wu, wd = inputs
+    act = meta["act"]
+
+    def call(vals, params):
+        return mlp_swiglu(vals[x], vals[wg], vals[wu], vals[wd], act=act)
+    return call
+
+
+def _atomic_mlp_bwd_call(inputs: list[str], meta: dict) -> Callable:
+    x, w1, w2, dy = inputs
+    act = meta["act"]
+
+    def call(vals, params):
+        return mlp_bwd(vals[x], vals[w1], vals[w2], vals[dy], act=act)
+    return call
+
+
+def _atomic_swiglu_bwd_call(inputs: list[str], meta: dict) -> Callable:
+    x, wg, wu, wd, dy = inputs
+    act = meta["act"]
+
+    def call(vals, params):
+        return mlp_swiglu_bwd(vals[x], vals[wg], vals[wu], vals[wd], vals[dy],
+                              act=act)
+    return call
+
+
+def _decode_call(inputs: list[str], meta: dict) -> Callable:
+    q, k, v, *valid = inputs
+
+    def call(vals, params):
+        vl = vals[valid[0]] if valid else meta.get("valid_int")
+        return decode_attention(vals[q], vals[k], vals[v], valid_len=vl)
+    return call
+
+
+def _paged_decode_call(inputs: list[str], meta: dict) -> Callable:
+    q, kp, vp, tbl, *valid = inputs
+    bs, layer = int(meta["block_size"]), meta.get("layer")
+
+    def call(vals, params):
+        vl = vals[valid[0]] if valid else meta.get("valid_int")
+        return paged_decode_attention(vals[q], vals[kp], vals[vp], vals[tbl],
+                                      valid_len=vl, block_size=bs, layer=layer)
+    return call
+
+
 # ---------------------------------------------------------------------------
 # matchers
 # ---------------------------------------------------------------------------
+
+# lower_hint family -> (kernel label, operand counts, call factory)
+_HINTED_KERNELS: dict[str, tuple] = {
+    "mlp_fwd": ("fused_mlp", (3,), _atomic_mlp_fwd_call),
+    "swiglu_fwd": ("fused_mlp_swiglu", (4,), _atomic_swiglu_fwd_call),
+    "mlp_bwd": ("fused_mlp_bwd", (4,), _atomic_mlp_bwd_call),
+    "swiglu_bwd": ("fused_mlp_swiglu_bwd", (5,), _atomic_swiglu_bwd_call),
+    # the decode ops carry their valid length as a tensor operand or, when
+    # it was a python int, inside the node's params (meta "valid_int")
+    "decode": ("flash_decode", (3, 4), _decode_call),
+    "paged_decode": ("paged_flash_decode", (4, 5), _paged_decode_call),
+}
+_MLP_FAMILIES = ("mlp_fwd", "swiglu_fwd", "mlp_bwd", "swiglu_bwd")
+
+
+def _try_hinted_atomic(g: Graph, n: Node, mset: set[str], taken: set[str],
+                       note: Callable) -> KernelMatch | None:
+    """Atomic nodes whose spec carries a kernel-lowering hint (core/trace.py
+    `AtomicSpec.lower`).  The hint pins the node's semantics, so the opacity
+    of its eval closure is NOT a bar: this is how traced training graphs get
+    EXECUTABLE fused_mlp_bwd matches instead of the plan-only dX/dW analysis
+    of synthesized backwards."""
+    hint = n.attrs.get("lower_hint")
+    if not hint:
+        return None
+    family, *opts = hint
+    meta = dict(tuple(kv) for kv in opts)
+    if family in ("attention_fwd", "attention_bwd"):
+        # the training atomics keep attention single-node; the backward runs
+        # the explicit recompute closure and the forward's window arrives as
+        # a runtime operand -- both stay on the plain path, as in the
+        # reference (no attention-backward kernel)
+        note(n.name, "atomic attention: recompute/plain closure path "
+                     "(window is a runtime operand; no backward kernel)")
+        return None
+    spec = _HINTED_KERNELS.get(family)
+    if spec is None:
+        note(n.name, f"unknown lower hint {family!r}")
+        return None
+    kernel, n_in, factory = spec
+    if len(n.inputs) not in n_in:
+        note(n.name, f"{kernel}: expected {' or '.join(map(str, n_in))} operands, "
+                     f"got {len(n.inputs)}")
+        return None
+    if family in _MLP_FAMILIES:
+        act = meta.get("act", "identity")
+        if act not in _LOWERABLE_ACTS:
+            note(n.name, f"{kernel}: act {act!r} has no kernel implementation")
+            return None
+        if len(g.nodes[n.inputs[0]].out.shape) < 2:
+            note(n.name, f"{kernel}: input rank < 2")
+            return None
+    return KernelMatch(kernel, (n.name,), n.name, meta,
+                       _call=factory(list(n.inputs), meta))
+
 
 def _is_opaque(n: Node) -> bool:
     return "_eval" in n.attrs
@@ -355,8 +477,8 @@ def _try_mlp_bwd(g: Graph, n: Node, mset: set[str], taken: set[str],
                        {"multicast": dname}, executable=False)
 
 
-_MATCHERS = (_try_attention, _try_queue_reduce, _try_swiglu, _try_mlp,
-             _try_mlp_bwd)
+_MATCHERS = (_try_hinted_atomic, _try_attention, _try_queue_reduce,
+             _try_swiglu, _try_mlp, _try_mlp_bwd)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,10 @@
 """Hand-written Hopper kernels (csrc/*.cu) with their PyTorch wrappers,
 plain versions and launch counters.
 
+Each wrapper is also a `torch.library` custom op (kernels/ops.py,
+`torch.ops.repro_torch.*`), which is how the models and the capture
+front-end reach it.
+
 `launch_counts()` reads, and `reset_launch_counts()` zeroes, the per-kernel
 counters: each wrapper adds one where it launches its CUDA kernel and
 nowhere else, so a run can show which kernels its path went through.

@@ -29,6 +29,7 @@ from pathlib import Path
 from typing import Callable
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -152,6 +153,24 @@ def cuda_operands(what: str, *tensors: torch.Tensor) -> int:
         raise ValueError(f"{what}: dtype {first.dtype} not supported "
                          f"(float32 or bfloat16)")
     return DTYPE_CODES[first.dtype]
+
+
+_PROXY = torch._C._TorchDispatchModeKey.PROXY
+
+
+def capturing() -> bool:
+    """Whether a `make_fx` capture (core/trace.py) is recording."""
+    return torch._C._get_dispatch_mode(_PROXY) is not None
+
+
+def refuse_capture(what: str, t: torch.Tensor) -> None:
+    """Raise if kernel wrapper `what` is reached under a capture: a fake
+    tensor, or an active proxy mode (`make_fx`).  A launch there would run
+    nothing, or leave an output with no graph edge; a capture reaches the
+    kernels only as their ops (kernels/ops.py)."""
+    if capturing() or isinstance(t, FakeTensor):
+        raise RuntimeError(f"{what}: a kernel wrapper was called under a capture; "
+                           f"call its op (repro_torch.kernels.ops) instead")
 
 
 @functools.cache

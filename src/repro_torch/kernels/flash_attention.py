@@ -79,6 +79,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D); Hq % Hkv == 0 (query-head
     groups share a kv head), D <= 128."""
+    _build.refuse_capture("flash_attention", q)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
@@ -283,6 +284,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     on the card an int32 tensor on q's device, see `device_valid`; the CPU
     version also takes a 0-d tensor or another integer dtype).
     """
+    _build.refuse_capture("flash_decode", q)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, valid_len=valid_len, scale=scale,
                                   block_s=block_s)

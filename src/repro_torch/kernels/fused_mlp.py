@@ -335,6 +335,7 @@ def _count_fwd(fn, form: str, x) -> None:
 def fused_mlp_fwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
                   act: str = "gelu") -> torch.Tensor:
     """act(x @ w1) @ w2 for 2-D x, the hidden tensor kept on chip."""
+    _build.refuse_capture("fused_mlp_fwd", x)
     if x.device.type == "cpu":
         return fused_mlp_fwd_plain(x, w1, w2, act)
     y, form = _launch("fused_mlp", x, w1, None, w2, act)
@@ -346,6 +347,7 @@ def fused_mlp_swiglu_fwd(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                          wd: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
     """(act(x @ wg) * (x @ wu)) @ wd -- SwiGLU with act=silu; the builder
     graphs' plain gate*up form lowers here with act=identity."""
+    _build.refuse_capture("fused_mlp_swiglu_fwd", x)
     if x.device.type == "cpu":
         return fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, act)
     y, form = _launch("fused_mlp_swiglu", x, wg, wu, wd, act)
@@ -452,6 +454,7 @@ def fused_mlp_bwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                   dy: torch.Tensor, *, act: str = "gelu"):
     """(dx, dw1, dw2) of act(x @ w1) @ w2 for 2-D x and dy: the recomputed
     hidden tile feeds the dX GEMM and both dW GEMMs (Fig 2c)."""
+    _build.refuse_capture("fused_mlp_bwd", x)
     if x.device.type == "cpu":
         return fused_mlp_bwd_plain(x, w1, w2, dy, act)
     out = _launch_bwd("fused_mlp_bwd", x, w1, None, w2, dy, act)
@@ -464,6 +467,7 @@ def fused_mlp_swiglu_bwd(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     """(dx, dwg, dwu, dwd) of (act(x @ wg) * (x @ wu)) @ wd: the gated
     multicast, one recomputed (t, dg, du) tile set per row slice feeding all
     three weight-gradient GEMMs."""
+    _build.refuse_capture("fused_mlp_swiglu_bwd", x)
     if x.device.type == "cpu":
         return fused_mlp_swiglu_bwd_plain(x, wg, wu, wd, dy, act)
     out = _launch_bwd("fused_mlp_swiglu_bwd", x, wg, wu, wd, dy, act)

@@ -1,126 +1,340 @@
-"""Public wrappers around the kernels, the counterparts of
-`repro.kernels.ops`: x may carry leading batch dims, which are flattened
-for the kernel and restored after.
+"""The kernel wrappers as `torch.library` custom ops, and the public
+functions over them, the counterparts of `repro.kernels.ops`: x may carry
+leading batch dims, which are flattened for the kernel and restored after.
 
-`mlp` and `mlp_swiglu` are differentiable: under autograd they run as
-`torch.autograd.Function`s whose forward launches the fused forward kernel
-and saves only x and the weights (never the (M, H) hidden tensor), and
-whose backward launches the fused backward kernel -- the counterparts of
-the reference's custom VJP (ops.py `_fused_mlp`) and of `atoms.swiglu_atom`,
-which pairs the gated forward with `mlp_swiglu_bwd_ref`.  Without autograd
-(serving, `torch.no_grad()`) they call the forward kernel directly.
+Each wrapper of kernels/ is one op in the `repro_torch` namespace
+(`torch.ops.repro_torch.fused_mlp_fwd`, ...).  An op's real implementation
+is the wrapper itself, so an eager call runs exactly what it ran before:
+the CUDA kernel for CUDA tensors, the plain version for CPU tensors.  Its
+`register_fake` rule gives the output's shape, dtype and layout from the
+inputs' alone, so a capture under fake tensors (core/trace.py) records the
+op as ONE graph node and never reaches a kernel.  The two MLP forward ops
+carry an autograd formula whose backward is the matching backward op --
+the counterpart of the reference's custom VJP (ops.py `_fused_mlp`) and of
+`atoms.swiglu_atom` -- so a captured training step holds both directions
+as single nodes, and under remat the recomputed forward is a node too.
+Only x and the weights are saved for the backward, never the (M, H)
+hidden tensor.
 
-Each call reaches its kernel's wrapper, which runs the CUDA kernel for CUDA
-tensors and the plain version for CPU tensors.  No `_blocks`/`_pad_to`
-tiling rule is needed: the Hopper kernels mask their own ragged edges.
+`OP_SPECS` names, for each op, what the capture front-end records of it:
+the graph node's kind, its flop count, the kernel-lowering hint that
+core/lower.py binds back to the kernel, and the plain version that the
+node runs when it is not lowered.  So in a captured graph a kernel is
+reached only through the lowering pass, and the bsp and vertical modes
+stay op-by-op baselines.
+
 Tile sizes follow from dtype and shape inside each wrapper; the reference's
 `KernelConfig` knobs come back with the block-size autotuner.
 """
 from __future__ import annotations
 
+from typing import Callable, NamedTuple, Optional
+
 import torch
+from torch.library import custom_op
 
-from .flash_attention import flash_attention, flash_decode
-from .fused_mlp import (fused_mlp_bwd, fused_mlp_fwd, fused_mlp_swiglu_bwd,
-                        fused_mlp_swiglu_fwd)
-from .paged_attention import paged_flash_decode
-from .queue_reduce import queue_reduce
+from .flash_attention import (flash_attention, flash_attention_plain,
+                              flash_decode, flash_decode_plain)
+from .fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_fwd,
+                        fused_mlp_fwd_plain, fused_mlp_swiglu_bwd,
+                        fused_mlp_swiglu_bwd_plain, fused_mlp_swiglu_fwd,
+                        fused_mlp_swiglu_fwd_plain)
+from .paged_attention import paged_flash_decode, paged_flash_decode_plain
+from .queue_reduce import queue_reduce, queue_reduce_plain
 
+Tensor = torch.Tensor
 
-class FusedMLP(torch.autograd.Function):
-    """act(x @ w1) @ w2 for 2-D x: B1 forward, B6 backward."""
-
-    @staticmethod
-    def forward(ctx, x, w1, w2, act):
-        ctx.act = act
-        ctx.save_for_backward(x, w1, w2)
-        return fused_mlp_fwd(x, w1, w2, act=act)
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, w1, w2 = ctx.saved_tensors
-        return (*fused_mlp_bwd(x, w1, w2, dy.contiguous(), act=ctx.act), None)
+# ---------------------------------------------------------------------------
+# the ops
+# ---------------------------------------------------------------------------
 
 
-class FusedSwiGLU(torch.autograd.Function):
-    """(act(x @ wg) * (x @ wu)) @ wd for 2-D x: B2 forward, B7 backward."""
-
-    @staticmethod
-    def forward(ctx, x, wg, wu, wd, act):
-        ctx.act = act
-        ctx.save_for_backward(x, wg, wu, wd)
-        return fused_mlp_swiglu_fwd(x, wg, wu, wd, act=act)
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, wg, wu, wd = ctx.saved_tensors
-        return (*fused_mlp_swiglu_bwd(x, wg, wu, wd, dy.contiguous(), act=ctx.act),
-                None)
+@custom_op("repro_torch::fused_mlp_fwd", mutates_args=())
+def fused_mlp_fwd_op(x: Tensor, w1: Tensor, w2: Tensor, act: str) -> Tensor:
+    """B1: act(x @ w1) @ w2 for 2-D x."""
+    return fused_mlp_fwd(x, w1, w2, act=act)
 
 
-def _differentiable(*ts: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+@fused_mlp_fwd_op.register_fake
+def _(x, w1, w2, act):
+    return x.new_empty((x.shape[0], w2.shape[1]))
 
 
-def mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
-        act: str = "gelu") -> torch.Tensor:
-    """act(x @ w1) @ w2; x may have leading batch dims."""
+@custom_op("repro_torch::fused_mlp_swiglu_fwd", mutates_args=())
+def fused_mlp_swiglu_fwd_op(x: Tensor, wg: Tensor, wu: Tensor, wd: Tensor,
+                            act: str) -> Tensor:
+    """B2: (act(x @ wg) * (x @ wu)) @ wd for 2-D x."""
+    return fused_mlp_swiglu_fwd(x, wg, wu, wd, act=act)
+
+
+@fused_mlp_swiglu_fwd_op.register_fake
+def _(x, wg, wu, wd, act):
+    return x.new_empty((x.shape[0], wd.shape[1]))
+
+
+@custom_op("repro_torch::fused_mlp_bwd", mutates_args=())
+def fused_mlp_bwd_op(x: Tensor, w1: Tensor, w2: Tensor, dy: Tensor,
+                     act: str) -> tuple[Tensor, Tensor, Tensor]:
+    """B6: (dx, dw1, dw2) of act(x @ w1) @ w2 for 2-D x and dy."""
+    return fused_mlp_bwd(x, w1, w2, dy, act=act)
+
+
+@fused_mlp_bwd_op.register_fake
+def _(x, w1, w2, dy, act):
+    return torch.empty_like(x), torch.empty_like(w1), torch.empty_like(w2)
+
+
+@custom_op("repro_torch::fused_mlp_swiglu_bwd", mutates_args=())
+def fused_mlp_swiglu_bwd_op(x: Tensor, wg: Tensor, wu: Tensor, wd: Tensor,
+                            dy: Tensor, act: str
+                            ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """B7: (dx, dwg, dwu, dwd) of the gated MLP for 2-D x and dy."""
+    return fused_mlp_swiglu_bwd(x, wg, wu, wd, dy, act=act)
+
+
+@fused_mlp_swiglu_bwd_op.register_fake
+def _(x, wg, wu, wd, dy, act):
+    return (torch.empty_like(x), torch.empty_like(wg), torch.empty_like(wu),
+            torch.empty_like(wd))
+
+
+def _save_operands(ctx, inputs, output):
+    *tensors, act = inputs
+    ctx.act = act
+    ctx.save_for_backward(*tensors)
+
+
+def _mlp_backward(ctx, dy):
+    return (*fused_mlp_bwd_op(*ctx.saved_tensors, dy.contiguous(), ctx.act), None)
+
+
+def _swiglu_backward(ctx, dy):
+    return (*fused_mlp_swiglu_bwd_op(*ctx.saved_tensors, dy.contiguous(), ctx.act),
+            None)
+
+
+fused_mlp_fwd_op.register_autograd(_mlp_backward, setup_context=_save_operands)
+fused_mlp_swiglu_fwd_op.register_autograd(_swiglu_backward,
+                                          setup_context=_save_operands)
+
+
+@custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                       window: Optional[int]) -> Tensor:
+    """B3: online-softmax attention, q (B, Hq, S, D), k/v (B, Hkv, S, D)."""
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+def _valid_arg(valid_len) -> tuple[Optional[Tensor], Optional[int]]:
+    """A decode op's valid length as (tensor, int): the kernels take a
+    python int without a device copy, so it crosses as an int."""
+    if torch.is_tensor(valid_len):
+        return valid_len, None
+    return None, valid_len
+
+
+def _valid_len(valid: Optional[Tensor], valid_int: Optional[int]):
+    return valid if valid is not None else valid_int
+
+
+@custom_op("repro_torch::flash_decode", mutates_args=())
+def flash_decode_op(q: Tensor, k: Tensor, v: Tensor, valid: Optional[Tensor],
+                    valid_int: Optional[int]) -> Tensor:
+    """B4: split-K decode attention, q (B, Hq, 1, D), k/v (B, Hkv, S, D)."""
+    return flash_decode(q, k, v, valid_len=_valid_len(valid, valid_int))
+
+
+@flash_decode_op.register_fake
+def _(q, k, v, valid, valid_int):
+    return torch.empty_like(q)
+
+
+@custom_op("repro_torch::paged_flash_decode", mutates_args=())
+def paged_flash_decode_op(q: Tensor, kp: Tensor, vp: Tensor, tables: Tensor,
+                          valid: Optional[Tensor], valid_int: Optional[int],
+                          block_size: int, layer: Optional[list[int]]) -> Tensor:
+    """B8: decode attention through per-slot block tables."""
+    return paged_flash_decode(q, kp, vp, tables,
+                              valid_len=_valid_len(valid, valid_int),
+                              block_size=block_size,
+                              layer=None if layer is None else tuple(layer))
+
+
+@paged_flash_decode_op.register_fake
+def _(q, kp, vp, tables, valid, valid_int, block_size, layer):
+    return torch.empty_like(q)
+
+
+@custom_op("repro_torch::queue_reduce", mutates_args=())
+def queue_reduce_op(x: Tensor, op: str) -> Tensor:
+    """B5: (N, R, C) -> (R, C) over axis 0 through an f32 accumulator."""
+    return queue_reduce(x, op=op)
+
+
+@queue_reduce_op.register_fake
+def _(x, op):
+    return x.new_empty(x.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# what the capture front-end records of each op
+# ---------------------------------------------------------------------------
+
+class OpSpec(NamedTuple):
+    """kind: the graph node's op kind.  flops(*args): the node's flop
+    count from the op's arguments (fake tensors at capture).  lower(*args):
+    the kernel-lowering hint for the op's arguments (None: never lowered).
+    plain(*args): the op's function in torch ops, which an unlowered node
+    runs."""
+    kind: str
+    flops: Callable
+    lower: Callable | None
+    plain: Callable
+
+
+def attention_flops(in_vals: list, out_vals: list) -> float:
+    """q (B, Hq, S, D) against k (B, Hkv, T, D): two products of
+    2 * B * Hq * S * T * D each."""
+    shaped = [a for a in in_vals if a.ndim == 4]
+    if len(shaped) < 2:
+        return sum(2.0 * a.numel() for a in in_vals)
+    b, hq, s, d = shaped[0].shape
+    return 2 * 2.0 * b * hq * s * shaped[1].shape[2] * d
+
+
+def mlp_flops(n_in: int, n_out: int, bwd: bool = False) -> Callable:
+    """Flops of an MLP op whose x is (..., D), first weight (D, H) and last
+    weight (H, O) (before dy in a backward): `n_in` products of x's width
+    (2 M D H each, M rows) and `n_out` of the output's (2 M H O each)."""
+    def flops(*args) -> float:
+        ts = [a for a in args if isinstance(a, torch.Tensor)]
+        d, h = ts[0].shape[-1], ts[1].shape[1]
+        o = ts[-2 if bwd else -1].shape[1]
+        return 2.0 * (ts[0].numel() // d) * h * (n_in * d + n_out * o)
+    return flops
+
+
+def _paged_flops(q, kp, vp, tables, valid, valid_int, block_size, layer) -> float:
+    b, hq, _, d = q.shape
+    return 4.0 * b * hq * tables.shape[1] * block_size * d
+
+
+def _plain_decode(q, k, v, valid, valid_int):
+    return flash_decode_plain(q, k, v, valid_len=_valid_len(valid, valid_int))
+
+
+def _plain_paged(q, kp, vp, tables, valid, valid_int, block_size, layer):
+    return paged_flash_decode_plain(
+        q, kp, vp, tables, valid_len=_valid_len(valid, valid_int),
+        block_size=block_size, layer=None if layer is None else tuple(layer))
+
+
+def _valid_hint(valid, valid_int) -> tuple:
+    """A python-int valid length is no graph operand: the hint carries it."""
+    return () if valid is not None else (("valid_int", valid_int),)
+
+
+def _paged_hint(q, kp, vp, tables, valid, valid_int, block_size, layer):
+    hint = ("paged_decode", ("block_size", int(block_size)))
+    if layer is not None:
+        hint += (("layer", tuple(int(i) for i in layer)),)
+    return hint + _valid_hint(valid, valid_int)
+
+
+OP_SPECS: dict[str, OpSpec] = {
+    "repro_torch::fused_mlp_fwd": OpSpec(
+        "matmul", mlp_flops(1, 1), lambda x, w1, w2, act: ("mlp_fwd", ("act", act)),
+        lambda x, w1, w2, act: fused_mlp_fwd_plain(x, w1, w2, act)),
+    "repro_torch::fused_mlp_swiglu_fwd": OpSpec(
+        "matmul", mlp_flops(2, 1),
+        lambda x, wg, wu, wd, act: ("swiglu_fwd", ("act", act)),
+        lambda x, wg, wu, wd, act: fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, act)),
+    "repro_torch::fused_mlp_bwd": OpSpec(
+        "matmul", mlp_flops(3, 2, bwd=True),
+        lambda x, w1, w2, dy, act: ("mlp_bwd", ("act", act)),
+        lambda x, w1, w2, dy, act: fused_mlp_bwd_plain(x, w1, w2, dy, act)),
+    "repro_torch::fused_mlp_swiglu_bwd": OpSpec(
+        "matmul", mlp_flops(6, 2, bwd=True),
+        lambda x, wg, wu, wd, dy, act: ("swiglu_bwd", ("act", act)),
+        lambda x, wg, wu, wd, dy, act: fused_mlp_swiglu_bwd_plain(x, wg, wu, wd, dy, act)),
+    # B3 stays opaque, as the reference's attention atomics do: no traced
+    # path reaches it (the models' training attention is chunked torch ops)
+    "repro_torch::flash_attention": OpSpec(
+        "attention", lambda q, k, v, *_: attention_flops([q, k], []), None,
+        lambda q, k, v, causal, window: flash_attention_plain(
+            q, k, v, causal=causal, window=window)),
+    "repro_torch::flash_decode": OpSpec(
+        "attention", lambda q, k, v, *_: attention_flops([q, k], []),
+        lambda q, k, v, valid, valid_int: ("decode",) + _valid_hint(valid, valid_int),
+        _plain_decode),
+    "repro_torch::paged_flash_decode": OpSpec(
+        "attention", _paged_flops, _paged_hint, _plain_paged),
+    "repro_torch::queue_reduce": OpSpec(
+        "reduce", lambda x, op: float(x.numel()), None,
+        lambda x, op: queue_reduce_plain(x, op)),
+}
+
+
+# ---------------------------------------------------------------------------
+# public functions
+# ---------------------------------------------------------------------------
+
+def mlp(x: Tensor, w1: Tensor, w2: Tensor, *, act: str = "gelu") -> Tensor:
+    """act(x @ w1) @ w2; x may have leading batch dims.  Differentiable:
+    the backward is B6."""
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if _differentiable(x2, w1, w2):
-        y = FusedMLP.apply(x2, w1, w2, act)
-    else:
-        y = fused_mlp_fwd(x2, w1, w2, act=act)
+    y = fused_mlp_fwd_op(x.reshape(-1, x.shape[-1]), w1, w2, act)
     return y.reshape(*lead, w2.shape[1])
 
 
-def mlp_swiglu(x: torch.Tensor, wg, wu, wd, *,
-               act: str = "silu") -> torch.Tensor:
+def mlp_swiglu(x: Tensor, wg, wu, wd, *, act: str = "silu") -> Tensor:
+    """(act(x @ wg) * (x @ wu)) @ wd; x may have leading batch dims.
+    Differentiable: the backward is B7."""
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if _differentiable(x2, wg, wu, wd):
-        y = FusedSwiGLU.apply(x2, wg, wu, wd, act)
-    else:
-        y = fused_mlp_swiglu_fwd(x2, wg, wu, wd, act=act)
+    y = fused_mlp_swiglu_fwd_op(x.reshape(-1, x.shape[-1]), wg, wu, wd, act)
     return y.reshape(*lead, wd.shape[1])
 
 
-def mlp_bwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-            dy: torch.Tensor, *, act: str = "gelu"):
+def mlp_bwd(x: Tensor, w1: Tensor, w2: Tensor, dy: Tensor, *, act: str = "gelu"):
     """(dx, dw1, dw2) of act(x @ w1) @ w2; x/dy may have leading batch dims."""
-    dx, dw1, dw2 = fused_mlp_bwd(x.reshape(-1, x.shape[-1]), w1, w2,
-                                 dy.reshape(-1, dy.shape[-1]), act=act)
+    dx, dw1, dw2 = fused_mlp_bwd_op(x.reshape(-1, x.shape[-1]), w1, w2,
+                                    dy.reshape(-1, dy.shape[-1]), act)
     return dx.reshape(x.shape), dw1, dw2
 
 
-def mlp_swiglu_bwd(x: torch.Tensor, wg, wu, wd, dy: torch.Tensor, *,
-                   act: str = "silu"):
+def mlp_swiglu_bwd(x: Tensor, wg, wu, wd, dy: Tensor, *, act: str = "silu"):
     """(dx, dwg, dwu, dwd) of (act(x @ wg) * (x @ wu)) @ wd; x/dy may have
     leading batch dims."""
-    dx, dwg, dwu, dwd = fused_mlp_swiglu_bwd(
-        x.reshape(-1, x.shape[-1]), wg, wu, wd, dy.reshape(-1, dy.shape[-1]), act=act)
+    dx, dwg, dwu, dwd = fused_mlp_swiglu_bwd_op(
+        x.reshape(-1, x.shape[-1]), wg, wu, wd, dy.reshape(-1, dy.shape[-1]), act)
     return dx.reshape(x.shape), dwg, dwu, dwd
 
 
 def attention(q, k, v, *, causal: bool = True,
-              window: int | None = None) -> torch.Tensor:
-    return flash_attention(q, k, v, causal=causal, window=window)
+              window: int | None = None) -> Tensor:
+    return flash_attention_op(q, k, v, causal, window)
 
 
-def decode_attention(q, k, v, *, valid_len=None) -> torch.Tensor:
+def decode_attention(q, k, v, *, valid_len=None) -> Tensor:
     """Single-token attention, q (B, Hq, 1, D) against k/v (B, Hkv, S, D)."""
-    return flash_decode(q, k, v, valid_len=valid_len)
+    return flash_decode_op(q, k, v, *_valid_arg(valid_len))
 
 
 def paged_decode_attention(q, kp, vp, tables, *, valid_len, block_size: int,
-                           layer=None) -> torch.Tensor:
+                           layer=None) -> Tensor:
     """Decode attention straight out of the flat page pools (no dense-view
     gather): kp/vp (P, Hkv, D) or (P, G, A, Hkv, D) + layer=(g, a), tables
     (B, V), valid_len (B,)."""
-    return paged_flash_decode(q, kp, vp, tables, valid_len=valid_len,
-                              block_size=block_size, layer=layer)
+    return paged_flash_decode_op(q, kp, vp, tables, *_valid_arg(valid_len),
+                                 int(block_size),
+                                 None if layer is None else [int(i) for i in layer])
 
 
-def reduce(x: torch.Tensor, *, op: str = "sum") -> torch.Tensor:
+def reduce(x: Tensor, *, op: str = "sum") -> Tensor:
     """Reduce axis 0 of (N, R, C)."""
-    return queue_reduce(x, op=op)
+    return queue_reduce_op(x, op)

@@ -69,6 +69,7 @@ def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     (B,) position clock (or a python int); positions >= valid are masked.
     On the card, tables and valid_len are int32 tensors on q's device.
     `block_s` is aligned to whole pages by `page_block_s`."""
+    _build.refuse_capture("paged_flash_decode", q)
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, kp, vp, tables, valid_len=valid_len,
                                         block_size=block_size, layer=layer,

@@ -51,6 +51,7 @@ def queue_reduce(x: torch.Tensor, *, op: str = "sum",
 
     Each payload x[n] is one queue pop folded into the accumulator; only the
     final result is written (BSP writes/reads log-tree intermediates)."""
+    _build.refuse_capture("queue_reduce", x)
     if op not in _OPS:
         raise ValueError(f"queue_reduce: unknown op {op!r}")
     if x.device.type == "cpu":

@@ -12,8 +12,11 @@ tolerance: Supervisor + Checkpointer (async saves every `--ckpt-every`
 steps and at the last step into `--ckpt`; a directory that already holds a
 committed step resumes from it).  AdamW with a cosine schedule, or
 Adafactor for configs over 100 B parameters, as the reference launcher
-picks.  Not ported: `--compile-mode` (needs the capture front-end, ROADMAP
-A4) and meshes other than 1 x 1 (ROADMAP A8).
+picks.  `--compile-mode bsp|vertical|kitsune` runs the step through the
+dataflow pipeline (`train.compile_train_step`: the full forward, backward
+and optimizer step traced and compiled, its state donated in place),
+compiled on the first step's state and batch.  Not ported: meshes other
+than 1 x 1 (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from ..configs import get_config
 from ..data import DataConfig, SyntheticLM
 from ..optim import adafactor, adamw, cosine_schedule
 from ..runtime import StragglerMonitor, Supervisor
-from ..train import TrainConfig, make_train_state, make_train_step
+from ..train import (TrainConfig, compile_train_step, make_train_state,
+                     make_train_step)
 
 DEFAULT_CKPT = Path(__file__).resolve().parents[3] / "build" / "train_ckpt"
 
@@ -47,6 +51,11 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt", default=str(DEFAULT_CKPT))
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--compile-mode", default=None,
+                    choices=("bsp", "vertical", "kitsune"),
+                    help="run the training step through the dataflow pipeline "
+                         "(the full fwd+bwd+optimizer step traced and compiled, "
+                         "state donated in place) instead of eagerly")
     args = ap.parse_args(argv)
     if args.mesh_data * args.mesh_model != 1:
         raise SystemExit("only a 1 x 1 mesh is ported (ROADMAP A8)")
@@ -63,7 +72,24 @@ def main(argv=None):
         cosine_schedule(3e-4, warmup=20, total=args.steps))
     tc = TrainConfig(remat=True, microbatches=args.microbatches,
                      xent_chunk=min(512, args.seq))
-    step_fn = make_train_step(cfg, opt, tc)
+    if args.compile_mode is not None:
+        # compiled on the first step (the trace takes that step's state and
+        # batch; the Supervisor may restore the state from a checkpoint first)
+        compiled = {}
+
+        def step_fn(state, batch):
+            if "app" not in compiled:
+                t0 = time.perf_counter()
+                app = compiled["app"] = compile_train_step(
+                    cfg, opt, tc, state=state, batch=batch,
+                    compile_mode=args.compile_mode)
+                low = app.lowering.summary() if app.lowering is not None \
+                    else "no kernel lowering in this mode"
+                print(f"compiled ({args.compile_mode}, {len(app.graph.nodes)} nodes, "
+                      f"{time.perf_counter() - t0:.1f} s): {low}", flush=True)
+            return compiled["app"](state, batch)
+    else:
+        step_fn = make_train_step(cfg, opt, tc)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                   global_batch=args.batch, seed=args.seed))
     ck = Checkpointer(args.ckpt, keep=3, async_save=True)

@@ -2,8 +2,9 @@
 the counterpart of `repro/models/__init__.py`.
 
 `lm.py` covers the decoder-only families (dense, moe, hybrid, ssm, vlm)
-and `encdec.py` the encoder-decoder (whisper).  `models/zoo.py` waits for
-the capture front-end (ROADMAP A4).
+and `encdec.py` the encoder-decoder (whisper).  `zoo.py` builds each config
+as a traceable function for `repro_torch.compile(fn, example_inputs)`, and
+`atoms.py` holds the training atomics a traced step keeps whole.
 """
 from __future__ import annotations
 

@@ -13,7 +13,6 @@ writes it into the cache in place.
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -22,6 +21,7 @@ import torch.nn.functional as F
 from ..kernels import (decode_attention as k_decode, mlp as k_mlp,
                        mlp_swiglu as k_mlp_swiglu,
                        paged_decode_attention as k_paged_decode)
+from ..kernels._build import capturing
 from ..kernels.ref import paged_rows
 
 NEG_INF = -1e30
@@ -37,11 +37,21 @@ def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * g
 
 
-@functools.cache
+_ROPE_FREQ: dict[tuple, torch.Tensor] = {}
+
+
 def _rope_freq(theta: float, half: int, device: torch.device) -> torch.Tensor:
     """theta ** (-i / half) in float32, made once per (theta, width, device):
-    a decode step would otherwise rebuild it at every site."""
-    return theta ** (-torch.arange(0, half, dtype=torch.float32, device=device) / half)
+    a decode step would otherwise rebuild it at every site.  Under a capture
+    (core/trace.py) it is made as graph ops and not kept: a kept fake tensor
+    would outlive the capture."""
+    key = (theta, half, device)
+    freq = _ROPE_FREQ.get(key)
+    if freq is None:
+        freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=device) / half)
+        if not capturing():
+            _ROPE_FREQ[key] = freq
+    return freq
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.Tensor:

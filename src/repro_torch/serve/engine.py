@@ -24,7 +24,10 @@ counterpart of the reference's one compiled program per bucket): the host
 copies the tick's tokens, positions and block tables into the graph's
 input buffers, replays it, and reads the sampled tokens back.  There is no
 eager tick on the card.  On the CPU the same tick runs eagerly, as the
-tests drive it.  The legacy engine stays eager everywhere.  The batch shape
+tests drive it.  The legacy engine stays eager everywhere.  With
+`ServeConfig.compile_mode`, either engine's tick is instead traced
+(core/trace.py) and run on that compiler mode's executor, the kernels
+reached through the lowering pass.  The batch shape
 never changes, so every op of a step sees the same shapes each tick, and
 each slot's outputs depend only on its own tokens: a refilled slot is
 bitwise equal to serving its request alone, and the two KV data paths
@@ -53,6 +56,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..core.compiler import compile as compile_fn
 from ..core.costmodel import paged_decode_traffic
 from ..kernels import add_launches, launch_delta, launch_state, restore_launches
 from ..kernels.ref import paged_rows
@@ -68,8 +72,10 @@ from .scheduler import Request, Scheduler, blocks_for
 class ServeConfig:
     max_len: int
     batch: int
-    # Only None is ported: a tick traced through the compiler's executors
-    # needs the capture front-end (ROADMAP A4).
+    # None: the eager tick (a captured CUDA graph per bucket for the paged
+    # engine on the card).  "bsp" / "vertical" / "kitsune": the tick traced
+    # through the capture front-end and run on that executor
+    # (`repro_torch.compile`), one trace per tick shape.
     compile_mode: str | None = None
     # -- paged engine knobs -------------------------------------------------
     block_size: int = 8            # token positions per KV page
@@ -105,11 +111,19 @@ def _device_of(params: dict) -> torch.device:
     return params["embed"].device
 
 
-def _check_compile_mode(sc: ServeConfig) -> None:
-    if sc.compile_mode is not None:
-        raise NotImplementedError(
-            "ServeConfig.compile_mode needs the capture front-end, which is "
-            "not ported yet (ROADMAP A4)")
+def _compiled(fn, example: tuple, sc: ServeConfig, device: torch.device):
+    """`fn` traced on `example` and compiled in `sc.compile_mode`, as a
+    callable of the same arguments that moves host tensors to `device`
+    (the engines build their tick inputs on the host).  The tick writes its
+    cache in place: the trace functionalizes those writes and the compiled
+    graph's trailing copies put them into the engine's buffers."""
+    app = compile_fn(fn, example, mode=sc.compile_mode)
+
+    def step(params, state):
+        return app(params, {k: v.to(device) if torch.is_tensor(v) else v
+                            for k, v in state.items()})
+    step.app = app
+    return step
 
 
 def serve_step(params, state, cfg: ArchConfig):
@@ -130,14 +144,14 @@ class ServingEngine:
     the paged engine's per-slot clock fixes that).  With batch=1 it is the
     per-request ground truth.
 
-    Its tick runs eagerly on every device, the card included: the position
-    is a Python int that changes every tick, so a captured graph would need
-    it moved into a device buffer first (ROADMAP A7).  The reference
-    compiles this tick once (`repro/serve/engine.py` `ServingEngine`)."""
+    Its tick runs eagerly on every device, the card included, with the
+    position a Python int (ROADMAP A7).  With `ServeConfig.compile_mode`
+    the tick is traced once and runs on the compiler's executor, the
+    counterpart of the reference's compiled tick: the position then enters
+    as a (B,) device tensor, so that one trace serves every tick."""
 
     def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
                  eos_id: int = 1):
-        _check_compile_mode(sc)
         self.cfg = cfg
         self.params = params
         self.sc = sc
@@ -149,6 +163,13 @@ class ServingEngine:
         self.cache = get_model(cfg).init_cache(sc.batch, sc.max_len, device=self.device)
         self.tokens = np.zeros(sc.batch, np.int64)
         self.pos = 0
+        self._step = None
+        if sc.compile_mode is not None:
+            zeros = torch.zeros(sc.batch, dtype=torch.int64, device=self.device)
+            self._step = _compiled(
+                functools.partial(serve_step, cfg=cfg),
+                (params, {"tokens": zeros, "pos": zeros, "cache": self.cache}),
+                sc, self.device)
 
     def submit(self, request_id: int, prompt: list[int]):
         self.queue.append((request_id, prompt))
@@ -167,9 +188,15 @@ class ServingEngine:
             if slot is not None and slot["fed"] < len(slot["prompt"]):
                 feed[i] = slot["prompt"][slot["fed"]]   # teacher-force prompt
                 slot["fed"] += 1
-        out = serve_step(self.params, {"tokens": torch.from_numpy(feed).to(self.device),
-                                       "pos": self.pos, "cache": self.cache}, self.cfg)
-        self.pos = out["pos"]
+        tokens = torch.from_numpy(feed).to(self.device)
+        if self._step is None:
+            out = serve_step(self.params, {"tokens": tokens, "pos": self.pos,
+                                           "cache": self.cache}, self.cfg)
+        else:
+            pos = torch.full((self.sc.batch,), self.pos, dtype=torch.int64)
+            out = self._step(self.params, {"tokens": tokens, "pos": pos,
+                                           "cache": self.cache})
+        self.pos += 1
         nxt = out["tokens"].cpu().numpy()
         active = 0
         for i, slot in enumerate(self.slots):
@@ -566,7 +593,6 @@ class PagedServingEngine:
 
     def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
                  eos_id: int = 1, clock=time.monotonic):
-        _check_compile_mode(sc)
         if cfg.family == "encdec":
             raise ValueError("paged serving covers decoder-only families")
         if sc.paged_attention not in ("gather", "native"):
@@ -654,15 +680,24 @@ class PagedServingEngine:
     # -- the tick per (chunk width, view) bucket ---------------------------
     def _get_step(self, n_steps: int, v_blocks: int):
         """The callable `_tick_inner` runs on a tick state for this bucket,
-        made once per engine.  On the CPU: `paged_tick`, eager.  On a CUDA
-        device: a `CapturedTick`, captured here on first use (on the
-        calling thread); a failed capture raises TickGraphError."""
+        made once per engine.  With `compile_mode`: `paged_tick` traced on
+        this bucket's shapes and compiled in that mode.  Else on the CPU:
+        `paged_tick`, eager; on a CUDA device: a `CapturedTick`, captured
+        here on first use (on the calling thread); a failed capture raises
+        TickGraphError."""
         key = (n_steps, v_blocks)
         fn = self._steps.get(key)
         if fn is not None:
             return fn
         sc = self.sc
-        if self.device.type == "cuda":
+        if sc.compile_mode is not None:
+            tick = functools.partial(paged_tick, cfg=self.cfg, block_size=sc.block_size,
+                                     n_steps=n_steps, mode=sc.paged_attention)
+            compiled = _compiled(tick, (self.params, self._example_state(n_steps, v_blocks)),
+                                 sc, self.device)
+            fn = functools.partial(compiled, self.params)
+            fn.app = compiled.app
+        elif self.device.type == "cuda":
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             fn = CapturedTick(self.params, self.cfg, self.kp, self.vp, self.aux,
@@ -675,6 +710,18 @@ class PagedServingEngine:
                                    mode=sc.paged_attention)
         self._steps[key] = fn
         return fn
+
+    def _example_state(self, n_steps: int, v_blocks: int) -> dict:
+        """A tick state of one bucket's shapes on the engine's device (the
+        trace's example), over the engine's own pools and state buffers."""
+        b, dev = self.sc.batch, self.device
+        i64 = dict(dtype=torch.int64, device=dev)
+        st = {"tokens": torch.zeros((b, n_steps), **i64), "n_tok": torch.zeros(b, **i64),
+              "pos": torch.zeros(b, **i64), **self.aux}
+        if self.has_kv:
+            st.update(tables=torch.zeros((b, v_blocks), dtype=torch.int32, device=dev),
+                      kp=self.kp, vp=self.vp)
+        return st
 
     def graph_stats(self) -> dict:
         """The captured ticks: graphs, replays, seconds spent capturing

@@ -1,5 +1,5 @@
-from .step import (TrainConfig, chunked_softmax_xent, loss_fn, make_train_state,
-                   make_train_step)
+from .step import (TrainConfig, chunked_softmax_xent, compile_train_step, loss_fn,
+                   make_train_state, make_train_step)
 
-__all__ = ["TrainConfig", "chunked_softmax_xent", "loss_fn", "make_train_state",
-           "make_train_step"]
+__all__ = ["TrainConfig", "chunked_softmax_xent", "compile_train_step", "loss_fn",
+           "make_train_state", "make_train_step"]

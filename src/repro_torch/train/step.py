@@ -7,8 +7,9 @@ Gradients come from `torch.autograd.grad` over the parameter tree's leaves
 parameter and optimizer trees and leaves its inputs untouched.  The MLP
 blocks run the fused kernels in both directions (kernels/ops.py); the
 cross entropy's matmul stays `torch.matmul`, as the reference computes it
-outside any Pallas kernel.  `compile_train_step` waits for the capture
-front-end (ROADMAP A4).
+outside any Pallas kernel.  `compile_train_step` traces the same step
+through the capture front-end (core/trace.py) and compiles it through the
+dataflow pass pipeline.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from ..models import get_model
+from ..core.compiler import compile as _compile
+from ..models import atoms, get_model
 from ..optim import Optimizer, clip_by_global_norm
 from ..tree import flatten, tree_map, unflatten_like
 
@@ -141,3 +143,37 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer,
         return {"params": new_params, "opt": new_opt}, {"loss": loss, "grad_norm": gnorm}
 
     return step
+
+
+def compile_train_step(cfg: ArchConfig, opt: Optimizer,
+                       tc: TrainConfig = TrainConfig(), *,
+                       state, batch, compile_mode: str = "kitsune",
+                       donate_state: bool = True, **compile_kwargs):
+    """The full training step -- forward, backward, loss, optimizer update --
+    compiled through the dataflow pipeline.
+
+    Traces `make_train_step(cfg, opt, tc)` on the example (state, batch)
+    under `models.atoms.dataflow_training()`, so the MLP / SwiGLU blocks
+    survive capture as atomic pairs in BOTH directions and the
+    `lower_kernels` pass binds them to the kernels (`fused_mlp_fwd` /
+    `fused_mlp_swiglu_fwd` forward, `fused_mlp_bwd` /
+    `fused_mlp_swiglu_bwd` backward -- the Fig 2(c) multicast, executable,
+    not plan-only); under remat the recomputed forward is a node of its
+    own.  Attention stays single-node with its flash-style recompute
+    backward on the plain path.
+
+    Returns a TracedApp: `app(state, batch) -> (state, metrics)`, the raw
+    step's contract.  With `donate_state` (default) the state argument's
+    storage is DONATED: each new parameter and optimizer moment is written
+    into its old tensor as soon as nothing reads the old one, so feed each
+    call the previous call's output state, not a retained copy.
+
+    With `tc.microbatches > 1` the accumulation loop unrolls into
+    structurally identical per-microbatch subgraphs, which the `dedupe`
+    pass keys to shared executables.  The serving analogue is
+    `ServeConfig(compile_mode=...)`."""
+    step_fn = make_train_step(cfg, opt, tc)
+    donate = (0,) if donate_state else ()
+    with atoms.dataflow_training():
+        return _compile(step_fn, (state, batch), mode=compile_mode,
+                        donate_argnums=donate, **compile_kwargs)

@@ -977,3 +977,138 @@ def test_card_training_never_calls_plain(cuda, monkeypatch):
     assert after["fused_mlp_swiglu_bwd"] - before["fused_mlp_swiglu_bwd"] == n
     assert after["fused_mlp_swiglu"] - before["fused_mlp_swiglu"] == 2 * n   # + remat
     assert np.isfinite(losses).all()
+
+
+# ---------------------------------------------------------------------------
+# the kernels as torch.library ops, and the capture front-end on the card
+# ---------------------------------------------------------------------------
+
+def _op_cases(cuda, dtype):
+    from repro_torch.kernels import ops
+    x, w1, wu, w2, dy = tensors(cuda, 21, dtype, (200, 64), (64, 512), (64, 512),
+                                (512, 96), (200, 96), fan_in=True)
+    xs = tensors(cuda, 22, dtype, (8, 64))[0]
+    q, k, v = tensors(cuda, 23, dtype, (2, 4, 128, 64), (2, 2, 128, 64), (2, 2, 128, 64))
+    qd = tensors(cuda, 24, dtype, (4, 8, 1, 128))[0]
+    kd, vd = tensors(cuda, 25, dtype, (4, 2, 300, 128), (4, 2, 300, 128))
+    valid = torch.tensor([1, 77, 300, 150], dtype=torch.int32, device=cuda)
+    kp, vp = tensors(cuda, 26, dtype, (40 * 16, 2, 128), (40 * 16, 2, 128))
+    tables = torch.arange(1, 33, dtype=torch.int32, device=cuda).reshape(4, 8)
+    parts = tensors(cuda, 27, "float32", (6, 200, 96))[0]
+    return [
+        (ops.fused_mlp_fwd_op, (x, w1, w2, "gelu"), lambda: K.fused_mlp_fwd(x, w1, w2, act="gelu")),
+        (ops.fused_mlp_fwd_op, (xs, w1, w2, "relu"), lambda: K.fused_mlp_fwd(xs, w1, w2, act="relu")),
+        (ops.fused_mlp_swiglu_fwd_op, (x, w1, wu, w2, "silu"),
+         lambda: K.fused_mlp_swiglu_fwd(x, w1, wu, w2, act="silu")),
+        (ops.fused_mlp_bwd_op, (x, w1, w2, dy, "gelu"),
+         lambda: K.fused_mlp_bwd(x, w1, w2, dy, act="gelu")),
+        (ops.fused_mlp_swiglu_bwd_op, (x, w1, wu, w2, dy, "silu"),
+         lambda: K.fused_mlp_swiglu_bwd(x, w1, wu, w2, dy, act="silu")),
+        (ops.flash_attention_op, (q, k, v, True, None),
+         lambda: K.flash_attention(q, k, v, causal=True)),
+        (ops.flash_decode_op, (qd, kd, vd, valid, None),
+         lambda: K.flash_decode(qd, kd, vd, valid_len=valid)),
+        (ops.flash_decode_op, (qd, kd, vd, None, 200),
+         lambda: K.flash_decode(qd, kd, vd, valid_len=200)),
+        (ops.paged_flash_decode_op, (qd, kp, vp, tables, valid.clamp(max=128), None, 16, None),
+         lambda: K.paged_flash_decode(qd, kp, vp, tables, valid_len=valid.clamp(max=128),
+                                      block_size=16)),
+        (ops.queue_reduce_op, (parts, "sum"), lambda: K.queue_reduce(parts, op="sum")),
+    ]
+
+
+def _flat(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ops_equal_ctypes_launch_bitwise(cuda, dtype):
+    """Each custom op against its wrapper's ctypes launch on the same
+    inputs: bitwise equal, and each op launches its kernel once."""
+    for op, args, raw in _op_cases(cuda, dtype):
+        before = K.launch_counts()
+        got = op(*args)
+        moved = {n: c - before[n] for n, c in K.launch_counts().items() if c != before[n]}
+        want = raw()
+        torch.cuda.synchronize()
+        for g, w in zip(_flat(got), _flat(want)):
+            assert torch.equal(g, w), op
+        assert moved, op
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_op_fake_rules_match_real_outputs(cuda, dtype):
+    """A capture sees only the fake rules: shape, dtype and stride of
+    every output as the real op gives them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    for op, args, _ in _op_cases(cuda, dtype):
+        real = _flat(op(*args))
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            fake = _flat(op(*args))
+        for f, r in zip(fake, real):
+            assert (f.shape, f.dtype, f.stride(), f.device) == \
+                (r.shape, r.dtype, r.stride(), r.device), op
+
+
+def test_compiled_train_step_launches_hinted_kernels(cuda):
+    """compile_train_step on the reduced (f32) gemma3 on the card: the
+    kitsune step launches B2 twice a layer (remat) and B7 once, and three
+    steps equal the eager step's within 2e-4."""
+    from repro_torch.train import compile_train_step
+    cfg = get_config("gemma3-1b").reduced()
+    opt = adamw(1e-3)
+    state = make_train_state(cfg, opt, seed=0, device="cpu")
+    state = {"params": to_device(state["params"], cuda),
+             "opt": opt.init(to_device(state["params"], cuda))}
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12))).to(cuda)}
+    tc = TrainConfig(xent_chunk=8)
+    eager = make_train_step(cfg, opt, tc)
+    clone = lambda tree: torch.utils._pytree.tree_map(lambda t: t.clone(), tree)   # noqa: E731
+    app = compile_train_step(cfg, opt, tc, state=clone(state), batch=batch)
+    s, es = clone(state), clone(state)
+    for _ in range(3):
+        before = K.launch_counts()
+        s, m = app(s, batch)
+        after = K.launch_counts()
+        es, em = eager(es, batch)
+        assert after["fused_mlp_swiglu"] - before["fused_mlp_swiglu"] == 2 * cfg.n_layers
+        assert after["fused_mlp_swiglu_bwd"] - before["fused_mlp_swiglu_bwd"] == cfg.n_layers
+        np.testing.assert_allclose(m["loss"].item(), em["loss"].item(), rtol=1e-4)
+    for (_, a), (_, b) in zip(flatten(s), flatten(es)):
+        close(a, b, 2e-4)
+
+
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "hymba-1.5b"])
+def test_engines_compile_mode_on_card(cuda, arch):
+    """Both engines with compile_mode="kitsune" on the card give the
+    eager engines' tokens, and the traced paged tick launches the paged
+    decode kernel."""
+    from repro_torch.serve import ServingEngine
+    cfg, params, eager = _card_engine(cuda, arch)
+    _, want = _serve(eager)
+    _, _, traced = _card_engine(cuda, arch, compile_mode="kitsune")
+    before = K.launch_counts()
+    _, got = _serve(traced)
+    assert got == want
+    if arch == "phi3-medium-14b":
+        assert K.launch_counts()["paged_flash_decode"] > before["paged_flash_decode"]
+
+    def legacy(mode):
+        eng = ServingEngine(cfg, params, ServeConfig(max_len=16, batch=2, compile_mode=mode),
+                            eos_id=-1)
+        for rid, p in list(SERVE_PROMPTS.items())[:3]:
+            eng.submit(rid, list(p))
+        return eng.run_until_done(max_ticks=60)
+    assert legacy("kitsune") == legacy(None)
+
+
+def test_tick_graph_captures_the_ops(cuda):
+    """With the kernels registered as ops, the paged tick still captures
+    into a CUDA graph, and the capture recorded the ops' kernels."""
+    _, _, eng = _card_engine(cuda)
+    _serve(eng)
+    ticks = [t for t in eng._steps.values() if isinstance(t, CapturedTick)]
+    assert ticks and all(t.replays > 0 for t in ticks)
+    launched = set().union(*(t.launches for t in ticks))
+    assert {"fused_mlp_swiglu", "paged_flash_decode"} <= launched

@@ -249,8 +249,8 @@ def test_unported_parts_refuse():
     """Every family is ported now: the ones this test once saw refused
     build, forward and decode; what the port still refuses is the
     encoder-decoder in the paged engine (a ValueError, as in the
-    reference) and a tick through the compiler's executors (the capture
-    front-end, ROADMAP A4)."""
+    reference).  A tick through the compiler's executors
+    (`compile_mode`) is ported: tests/test_torch_trace.py holds it."""
     for name in ("grok-1-314b", "xlstm-350m", "hymba-1.5b", "pixtral-12b"):
         cfg = get_config(name).reduced()
         m = get_model(cfg)
@@ -265,10 +265,6 @@ def test_unported_parts_refuse():
     assert sorted(cache) == ["k", "v", "xk", "xv"]
     with pytest.raises(ValueError, match="decoder-only"):
         PagedServingEngine(whisper, {}, ServeConfig(max_len=8, batch=1))
-    _, _, cfg, params = models("phi3-medium-14b")
-    with pytest.raises(NotImplementedError, match="capture front-end"):
-        PagedServingEngine(cfg, params, ServeConfig(max_len=8, batch=1,
-                                                    compile_mode="kitsune"))
 
 
 def test_configs_equal_reference():
