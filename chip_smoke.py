@@ -27,12 +27,17 @@ Phases, each failing the run on any error (no phase's exception is caught):
      of 128, vocab 128256, seq 2048, batch 4, its 2 layers + LM head, bf16
      weights from a seed; hkv=hq because the graph models GQA without
      materializing it) through `repro_torch.compile` in bsp, vertical and
-     kitsune modes, twice each: every mode is held to an f32 run of the
-     same graph and weights (MODEL_TOL), the second run must build nothing,
-     and each kitsune run must launch fused_mlp_swiglu and flash_attention
-     exactly twice;
+     kitsune modes, each three times captured (the first run builds the
+     programs and captures the plan as one CUDA graph, the others replay
+     it; the second replay is the timed one) and once as the uncaptured
+     walk (`CompiledApp.uncaptured()`): the replay
+     must be bitwise the walk, every mode is held to an f32 run of the
+     same graph and weights (MODEL_TOL), no run after the first may build
+     anything, every run launches alike, and each kitsune run must launch
+     fused_mlp_swiglu and flash_attention exactly twice;
   5. nerf, dlrm, mgn and graphcast at their published sizes, kitsune
-     against bsp, with fused_mlp launched once per lowered site;
+     against bsp, captured and uncaptured as in 4, with fused_mlp launched
+     once per lowered site;
   6. a split-reduction graph, x (2048, 1024, 256) bf16 -> x*x -> sum over
      axis 0, kitsune (queue_reduce) against bsp;
   7. serving: phi3-medium-14b at full width and depth (40 layers, bf16
@@ -68,10 +73,10 @@ Phases, each failing the run on any error (no phase's exception is caught):
      alike on the card; the training launcher runs gemma3-1b for 4 steps in
      a subprocess and saves its checkpoint;
   9. the model families beyond dense, each model in its own scope, bf16
-     weights from a seed: (a) hymba-1.5b at full width and depth (32
-     layers, attention + Mamba heads, 1.59 B parameters) behind the paged
+     weights from a seed: (a) hymba-1.5b at full width, its depth cut to 16
+     of its 32 layers (attention + Mamba heads) behind the paged
      engine with per-slot SSM state, phase 7's 16 requests through 8 slots,
-     every tick a replay: 32 paged_flash_decode and 32 small-M
+     every tick a replay: 16 paged_flash_decode and 16 small-M
      fused_mlp_swiglu launches per decode step, gather == native, request
      0 alone == in the batch, every bucket's replay == eager `paged_tick`
      (pages and SSM state included), prefix caching off by the engine's
@@ -94,21 +99,37 @@ Phases, each failing the run on any error (no phase's exception is caught):
      parameters within twice the eager run's own spread over three
      reorderings of its sums (phase 3's bf16 dW rule over the trajectory,
      `hold_train_run`), each kitsune step launching fused_mlp_swiglu 52 and
-     fused_mlp_swiglu_bwd 26 times, then 2 bsp steps; trace and pass
-     seconds, ms a step of kitsune, bsp and eager, the kitsune run's peak
-     memory; (b) the same for whisper-small (8 x 1500 frames, 448 tokens),
-     fused_mlp 36 and fused_mlp_bwd 24 a step; (c) the traced zoo forward
-     of gemma3-1b at full width (2 x 1024) in kitsune mode, bitwise the raw
-     forward here, fused_mlp_swiglu 26 times; (d) the paged and the legacy
-     engine with compile_mode="kitsune" against compile_mode=None on
-     phi3-medium-14b at full width cut to 4 layers (a 16-step prefill tick
-     of 40 layers would trace ~50k nodes): the same tokens, the paged tick
-     launching paged_flash_decode and fused_mlp_swiglu, the legacy one
-     flash_decode; (e) a traced `paged_decode_atom` at phase 7's decode
-     shape, lowered to paged_flash_decode, against its plain version.
+     fused_mlp_swiglu_bwd 26 times, every step after the first a replay
+     of the plan captured after it; then one more step from one state, both
+     captured and as the uncaptured walk, bitwise alike, and a profiled
+     replay (device time by kernel, idle share); then the same trace
+     compiled in bsp mode (`with_mode`, no second trace), 2 bsp steps
+     captured and 1 uncaptured; trace and pass seconds, capture seconds and
+     graph pool bytes, ms a step of kitsune and bsp (captured and
+     uncaptured) and eager, the kitsune run's peak memory; (b) the same
+     for whisper-small (8 x 1500 frames, 448 tokens), fused_mlp 36 and
+     fused_mlp_bwd 24 a step; (c) the traced zoo forward of gemma3-1b at
+     full width (2 x 1024) in kitsune mode, its replay bitwise the
+     uncaptured walk and the raw forward, fused_mlp_swiglu 26 times; (d)
+     the paged and the legacy engine with compile_mode="kitsune" against
+     compile_mode=None on phi3-medium-14b at full width cut to 2 layers (a
+     16-step prefill tick of 40 layers would trace ~50k nodes): the same
+     tokens, the paged tick launching paged_flash_decode and
+     fused_mlp_swiglu, the legacy one flash_decode, each bucket's captured
+     plan of the paged tick bitwise its uncaptured walk, trace and compile
+     seconds apart from capture and run seconds; (e) a traced
+     `paged_decode_atom` at phase 7's decode shape, lowered to
+     paged_flash_decode, against its plain version;
+ 11. the legacy engine's tick through `cached_jit`: phi3-medium-14b at full
+     width and depth (40 layers, batch 8), 8 prompts of 48 tokens decoded
+     to a 160-position cache, every tick eager and then every tick after
+     the first a replay of one captured graph: bitwise the same tokens, 40
+     flash_decode and 40 small-M fused_mlp_swiglu launches a tick; ms a
+     tick, capture seconds, graph pool bytes, and three profiled ticks of
+     each for the device's idle share.
 The launch counters are zeroed just before phase 4 and read just after
 phase 6 (the compiler's main path), and zeroed and read around each engine
-run of phases 7, 9 and 10 (the serving paths), each full-width run of
+run of phases 7, 9, 10 and 11 (the serving paths), each full-width run of
 phases 8 and 10 (the training paths), phase 9's whisper decode steps and
 phase 10's traced forward and atom.  The second-to-last line is the
 per-kernel JSON summary: one row per kernel and main-path shape, its
@@ -172,6 +193,8 @@ from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.serve import (AsyncServingEngine, CapturedTick,  # noqa: E402
                                PagedKVExecutor, PagedServingEngine, ServeConfig,
                                ServingEngine, paged_tick)
+from repro_torch.serve.engine import serve_step  # noqa: E402
+from repro_torch.core.cudagraph import graph_stats  # noqa: E402
 
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s, H100 SXM
 HBM = 3.35e12                                           # B/s
@@ -290,6 +313,9 @@ HYMBA, MAVERICK, XLSTM, WHISPER = ("hymba-1.5b", "llama4-maverick-400b-a17b", "x
 # maverick's depth cut to one layer group: its dense layer and its MoE layer
 # (moe_period 2); the whole model (~800 GB in bf16) fits no single card
 MAVERICK_LAYERS = 2
+# hymba's depth cut to half of its 32 layers (every layer is alike: attention
+# heads beside an SSM) to keep the whole run near its earlier length
+HYMBA_LAYERS = 16
 MAVERICK_REQUESTS = 8
 XLSTM_CONFIG = dict(SERVE_CONFIG, batch=4)
 XLSTM_REQUESTS = 8
@@ -910,37 +936,60 @@ def f32(tree: dict) -> dict:
 
 
 def run_modes(graph, feeds, params, modes, label):
-    """Compile and run `graph` in each mode twice; return outputs and
-    per-run launch deltas, asserting the second run builds nothing, and
-    hold every mode's outputs to an f32 bsp run (see MODEL_TOL)."""
+    """Compile and run `graph` in each mode three times captured (the
+    first run builds and captures the plan, the others replay it; the
+    first replay of a graph also uploads it) and once as the uncaptured
+    walk (`CompiledApp.uncaptured()`); return the replays' outputs and
+    per-run launch deltas, asserting that no run after the first builds
+    anything, that every run launches alike and that the replay is bitwise
+    the walk, and hold every mode's outputs to an f32 bsp run (see
+    MODEL_TOL).  Each mode's app, and with it its graph, is dropped before
+    the next mode is captured."""
     outs, deltas = {}, {}
-    ref = repro_torch.compile(graph, mode="bsp").run(f32(feeds), f32(params)).outputs
+    ref = repro_torch.compile(graph, mode="bsp", capture=False).run(f32(feeds),
+                                                                    f32(params)).outputs
     for mode in modes:
         t0 = time.perf_counter()
         app = repro_torch.compile(graph, mode=mode)
         t_compile = time.perf_counter() - t0
-        for i in range(2):
-            before_builds = repro_torch.lowering_count()
-            before = K.launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rep = app.run(feeds, params)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            after = K.launch_counts()
-            builds = repro_torch.lowering_count() - before_builds
-            delta = {k: after[k] - before[k] for k in after}
-            print(f"{label} {mode} run {i}: {wall * 1e3:.1f} ms wall, "
-                  f"{rep.n_programs} programs, boundary bytes "
-                  f"{rep.bytes_accessed:.6g}, builds {builds}, "
-                  f"launches {delta}" + (f", compile passes {t_compile * 1e3:.1f} ms"
-                                         if i == 0 else ""), flush=True)
-            if i == 1 and builds:
-                raise AssertionError(f"{label} {mode}: second run built {builds} programs")
-            if i == 1 and delta != deltas[mode]:
-                raise AssertionError(f"{label} {mode}: launches differ across runs")
-            deltas[mode] = delta
-        outs[mode] = rep.outputs
+        runs = {}
+        for form, run_app in (("captured", app), ("uncaptured", app.uncaptured())):
+            for i in range(3 if form == "captured" else 1):
+                before_builds = repro_torch.lowering_count()
+                before = K.launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rep = run_app.run(feeds, params)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                after = K.launch_counts()
+                builds = repro_torch.lowering_count() - before_builds
+                delta = {k: after[k] - before[k] for k in after}
+                print(f"{label} {mode} {form} run {i}: {wall * 1e3:.1f} ms wall"
+                      f"{' (capture ' + format(rep.capture_s, '.2f') + ' s)' if rep.capture_s else ''}"
+                      f", {rep.n_programs} programs, boundary bytes "
+                      f"{rep.bytes_accessed:.6g}, builds {builds}, replayed {rep.replayed}, "
+                      f"launches {delta}" + (f", compile passes {t_compile * 1e3:.1f} ms"
+                                             if i == 0 and form == "captured" else ""),
+                      flush=True)
+                if (i or form == "uncaptured") and builds:
+                    raise AssertionError(f"{label} {mode} {form} run {i}: built {builds} "
+                                         f"programs")
+                if rep.replayed != (form == "captured" and i > 0):
+                    raise AssertionError(f"{label} {mode} {form} run {i}: replayed "
+                                         f"{rep.replayed}")
+                if mode in deltas and delta != deltas[mode]:
+                    raise AssertionError(f"{label} {mode}: launches differ across runs")
+                deltas[mode] = delta
+            runs[form] = rep.outputs
+        stats = app.capture_stats()
+        print(f"{label} {mode}: graphs {stats['graphs']}, replays {stats['replays']}, graph "
+              f"pool {stats['pool_bytes'] / 1e6:.1f} MB", flush=True)
+        same = {k: torch.equal(runs["captured"][k], runs["uncaptured"][k]) for k in ref}
+        if not all(same.values()):
+            raise AssertionError(f"{label} {mode}: replay differs from the walk: {same}")
+        print(f"{label} {mode}: the replay is bitwise the uncaptured walk", flush=True)
+        outs[mode] = runs["captured"]
         if mode == "kitsune":
             planned = {}
             for pl in app.lowering.pipelines.values():
@@ -951,6 +1000,8 @@ def run_modes(graph, feeds, params, modes, label):
                 if delta[kern] < n or (kern != "queue_reduce" and delta[kern] != n):
                     raise AssertionError(f"{label}: {kern} launched {delta[kern]} "
                                          f"times for {n} lowered sites")
+        del app, run_app, runs
+        free()
     for k, want in ref.items():
         bsp_err = rel_err(outs["bsp"][k], want)
         for mode in modes:
@@ -1076,8 +1127,9 @@ def check_graphs(label, eng) -> dict:
     st = eng.stats()
     g = st["graphs"]
     print(f"serve {label} graphs: {g['graphs']} captured (buckets {sorted(eng._steps)}), "
-          f"{g['replays']} replays for {st['ticks']} ticks, {g['capture_s']:.2f} s capturing "
-          f"(warm-up included), graph pool {g['pool_bytes'] / 1e6:.1f} MB", flush=True)
+          f"{g['replays']} replays for {st['ticks']} ticks, {g['warm_up_s']:.2f} s warming up "
+          f"and {g['capture_s']:.2f} s capturing, graph pool {g['pool_bytes'] / 1e6:.1f} MB",
+          flush=True)
     if (g["replays"] != st["ticks"] or g["graphs"] == 0
             or not all(isinstance(f, CapturedTick) for f in eng._steps.values())):
         raise AssertionError(f"serve {label}: not every tick replayed a graph: {g}, "
@@ -1170,32 +1222,41 @@ def profile_decode_ticks(cfg, params, eng) -> None:
                                     mode=mode)["tokens_next"].cpu(),
         "replayed": lambda: replay(state)["tokens_next"].cpu()}
     for form, tick in forms.items():
-        def ticks(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                tick()
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) / n
+        profile_ticks(f"{cfg.name} {mode} {form} decode tick (1 step, {eng.sc.batch} slots)",
+                      tick)
 
-        ticks(1)
-        wall = ticks(3)
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            ticks(3)
-        # kernels only: a CPU op's self device time repeats its kernels' times
-        rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        busy_ms = sum(r[2] for r in rows) / 3e3
-        if not rows:
-            raise AssertionError(f"profile {mode} {form}: the trace holds no kernel")
-        print(f"profile {cfg.name} {mode} {form} decode tick (1 step, {eng.sc.batch} slots): "
-              f"{1e3 * wall:.2f} ms wall, {busy_ms:.2f} ms of kernels, device idle "
-              f"{100 * (1 - busy_ms / (1e3 * wall)):.1f} %", flush=True)
-        for key, count, us in sorted(rows, key=lambda r: -r[2])[:10]:
-            print(f"  {us / 3e3:8.3f} ms/tick {count // 3:5d} calls/tick  {key[:90]}",
-                  flush=True)
+
+def profile_ticks(label, tick, n: int = 3) -> tuple[float, float]:
+    """`tick()` (which ends in a host read) once to warm, `n` times for the
+    wall clock, `n` times under torch.profiler: prints ms a tick, ms of
+    kernels a tick, the device's idle share and the top kernels; returns
+    (wall ms, kernel ms) a tick."""
+    def ticks(k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            tick()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / k
+
+    ticks(1)
+    wall = ticks(n)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ticks(n)
+    # kernels only: a CPU op's self device time repeats its kernels' times
+    rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_ms = sum(r[2] for r in rows) / (1e3 * n)
+    if not rows:
+        raise AssertionError(f"profile {label}: the trace holds no kernel")
+    print(f"profile {label}: {1e3 * wall:.2f} ms wall, {busy_ms:.2f} ms of kernels, device "
+          f"idle {100 * (1 - busy_ms / (1e3 * wall)):.1f} %", flush=True)
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:10]:
+        print(f"  {us / (1e3 * n):8.3f} ms/tick {count // n:5d} calls/tick  {key[:90]}",
+              flush=True)
+    return 1e3 * wall, busy_ms
 
 
 def reduced_card_equals_cpu(cfg) -> None:
@@ -1263,9 +1324,10 @@ def phase_serving() -> dict[str, dict[str, int]]:
         raise AssertionError(f"native tick moves more KV bytes than gather: {traffic}")
     if not eng.stats()["prefix_cache"]["hits"]:
         raise AssertionError("no prefix-cache hit in the native run")
-    capture_s = eng.stats()["graphs"]["capture_s"]
+    g = eng.stats()["graphs"]
+    capture_s = g["warm_up_s"] + g["capture_s"]
     print(f"decode step: {1e3 * wall / steps:.2f} ms measured (host clock, whole ticks "
-          f"over decode steps, {capture_s:.2f} s of capture included; "
+          f"over decode steps, {capture_s:.2f} s of warm-up and capture included; "
           f"{1e3 * (wall - capture_s) / steps:.2f} ms without it) against a weight-read "
           f"bound of {1e3 * step_bytes / HBM:.2f} ms ({step_bytes / 1e9:.2f} GB / 3.35 TB/s)",
           flush=True)
@@ -1369,11 +1431,13 @@ def alloc_calls() -> dict[str, int]:
 def train_steps(label, state, step_fn, batches, want):
     """Run `step_fn` over `batches` (counters zeroed by the caller before
     the run); each step must launch exactly `want` of the kernels named
-    there.  Returns (state, losses, seconds per step)."""
+    there, and no step after the first may build a program
+    (`lowering_count()`).  Returns (state, losses, seconds per step)."""
     losses, secs = [], []
     for i, b in enumerate(batches):
         before = K.launch_counts()
         mem = alloc_calls()
+        builds = repro_torch.lowering_count()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step_fn(state, b)
@@ -1382,13 +1446,14 @@ def train_steps(label, state, step_fn, batches, want):
         secs.append(time.perf_counter() - t0)
         delta = {k: n - before[k] for k, n in K.launch_counts().items()}
         mem = {k: n - mem[k] for k, n in alloc_calls().items()}
+        builds = repro_torch.lowering_count() - builds
         print(f"train {label} step {i}: loss {loss:.5f}, grad norm {m['grad_norm'].item():.4f}, "
               f"{1e3 * secs[-1]:.1f} ms, launches { {k: n for k, n in delta.items() if n} }, "
-              f"allocator {mem}", flush=True)
+              f"allocator {mem}, builds {builds}", flush=True)
         bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
-        if bad or not math.isfinite(loss):
+        if bad or not math.isfinite(loss) or (i and builds):
             raise AssertionError(f"train {label} step {i}: loss {loss}, launches "
-                                 f"(got, want) {bad}")
+                                 f"(got, want) {bad}, builds {builds}")
         losses.append(loss)
     return state, losses, secs
 
@@ -1608,9 +1673,11 @@ def describe(label, cfg, params, t0) -> int:
 
 def decode_step_ms(label, eng, wall, step_bytes) -> None:
     steps = eng.stats()["decode_steps"]
-    capture_s = eng.stats()["graphs"]["capture_s"]
+    g = eng.stats()["graphs"]
+    capture_s = g["warm_up_s"] + g["capture_s"]
     print(f"{label} decode step: {1e3 * wall / steps:.2f} ms measured (host clock, whole "
-          f"ticks over {steps} decode steps, {capture_s:.2f} s of capture included; "
+          f"ticks over {steps} decode steps, {capture_s:.2f} s of warm-up and capture "
+          f"included; "
           f"{1e3 * (wall - capture_s) / steps:.2f} ms without it) against a weight-read "
           f"bound of {1e3 * step_bytes / HBM:.3f} ms ({step_bytes / 1e9:.2f} GB / 3.35 TB/s)",
           flush=True)
@@ -1640,12 +1707,13 @@ class EagerCardEngine(PagedServingEngine):
 
 
 def phase_hymba() -> dict[str, dict[str, int]]:
-    """9a: hymba-1.5b at full width and depth behind the paged engine."""
+    """9a: hymba-1.5b at full width, its depth cut to HYMBA_LAYERS, behind
+    the paged engine."""
     t0 = time.perf_counter()
-    cfg = get_config(HYMBA)
+    cfg = dataclasses.replace(get_config(HYMBA), n_layers=HYMBA_LAYERS)
     params = get_model(cfg).init(seed=0, device="cuda")
     torch.cuda.synchronize()
-    step_bytes = describe(HYMBA, cfg, params, t0)
+    step_bytes = describe(f"{HYMBA} ({HYMBA_LAYERS} layers)", cfg, params, t0)
     prompts = serve_prompts(cfg.vocab)
     runs = {}
     native, eng, launches, wall = serve_run(cfg, params, prompts, "hymba native")
@@ -1873,7 +1941,7 @@ def phase_families() -> dict[str, dict[str, int]]:
 # 10d: phi3-medium-14b at full width, its depth cut: a tick traces every
 # decode step of every layer (a 16-step prefill tick of 40 layers is ~50k
 # nodes), so each engine holds TRACED_SERVE_LAYERS layers
-TRACED_SERVE_LAYERS = 4
+TRACED_SERVE_LAYERS = 2
 TRACED_SERVE_CONFIG = dict(SERVE_CONFIG, num_blocks=128)
 TRACED_SERVE_REQUESTS = 8
 # 10c: the traced zoo forward's batch (its logits are (2, 1024, 262144) bf16)
@@ -1946,7 +2014,8 @@ def phase_traced_train(name, batch, seq, want) -> dict[str, int]:
     steps against 3 eager `make_train_step` steps from the same weights and
     batches (`hold_train_run`, against the eager run's own spread over
     three reorderings of its sums), each kitsune step launching
-    `want`; then 2 bsp steps.  Prints
+    `want`; then the same trace compiled for bsp, 2 steps captured and 1
+    uncaptured.  Prints
     the trace and pass seconds, ms a step of each mode and the peak memory
     of the kitsune run.  Returns the kitsune run's launches."""
     cfg = get_config(name)
@@ -1984,19 +2053,58 @@ def phase_traced_train(name, batch, seq, want) -> dict[str, int]:
     hold_train_run(name, state, losses, eager_state, eager_losses, spread)
     del eager_state
     free()
-    bsp, bsp_trace_s, bsp_pass_s = compiled_train_step(name, cfg, opt, tc, state, batches[0],
-                                                       "bsp")
+    walk_s = captured_equals_walk(name, app, state, batches[:1], want)
+    box = [state]
+
+    def step():
+        box[0], m = app(box[0], batches[0])
+        m["loss"].item()
+    profile_ticks(f"traced {name} kitsune captured step", step, n=1)
+    state = box[0]
+    stats = app.capture_stats()
+    t0 = time.perf_counter()
+    bsp = app.with_mode("bsp")      # the same trace, its passes run for bsp
+    bsp_pass_s = time.perf_counter() - t0
+    del app
+    free()
     plain = {k: 0 for k in want}
-    state, _, bsp_s = train_steps(f"{name} bsp", state, bsp, batches[:2], plain)
-    print(f"traced {name}: ms a step (steps 2-3; bsp step 2) kitsune "
-          f"{1e3 * sum(kit_s[1:]) / 2:.1f} (first {1e3 * kit_s[0]:.1f}, its programs built), "
-          f"bsp {1e3 * bsp_s[1]:.1f}, eager make_train_step {1e3 * sum(eager_s[1:]) / 2:.1f}; "
-          f"trace {trace_s:.1f} s + passes {pass_s:.1f} s (bsp {bsp_trace_s:.1f} + "
-          f"{bsp_pass_s:.1f}); depth not cut ({cfg.n_layers} layers); kitsune peak allocated "
-          f"{peak / 1e9:.2f} GB", flush=True)
-    del app, bsp, state
+    state, _, bsp_s = train_steps(f"{name} bsp captured", state, bsp, batches[:2], plain)
+    state, _, bsp_walk_s = train_steps(f"{name} bsp uncaptured", state, bsp.uncaptured(),
+                                       batches[:1], plain)
+    print(f"traced {name}: ms a step (steps 2-3; bsp captured step 2, uncaptured step 1) "
+          f"kitsune captured "
+          f"{1e3 * sum(kit_s[1:]) / 2:.1f} (first {1e3 * kit_s[0]:.1f}: its programs built, "
+          f"then the plan captured in {stats['capture_s']:.2f} s, graph pool "
+          f"{stats['pool_bytes'] / 1e9:.2f} GB), kitsune uncaptured {1e3 * walk_s:.1f}, bsp "
+          f"captured {1e3 * bsp_s[1]:.1f}, bsp uncaptured {1e3 * bsp_walk_s[0]:.1f}, eager "
+          f"make_train_step {1e3 * sum(eager_s[1:]) / 2:.1f}; trace {trace_s:.1f} s + passes "
+          f"{pass_s:.1f} s (bsp: the same trace, passes {bsp_pass_s:.1f} s); depth not cut "
+          f"({cfg.n_layers} layers); kitsune peak allocated {peak / 1e9:.2f} GB", flush=True)
+    del bsp, state
     free()
     return launches
+
+
+def captured_equals_walk(label, app, state, batches, want) -> float:
+    """`batches` through the captured plan (replays) and through its
+    uncaptured walk from copies of one state: every step's state and loss
+    bitwise alike, each launching `want`.  Returns the walk's last step's
+    seconds."""
+    walk_state = clone_tree(state)
+    walk = app.uncaptured()
+    for i, b in enumerate(batches):
+        state, (loss,), _ = train_steps(f"{label} kitsune captured", state, app, [b], want)
+        walk_state, (walk_loss,), secs = train_steps(f"{label} kitsune uncaptured",
+                                                     walk_state, walk, [b], want)
+        same = loss == walk_loss and all(
+            torch.equal(a, w) for a, w in zip(leaves(state), leaves(walk_state)))
+        if not same:
+            raise AssertionError(f"traced {label} step {i}: the replay differs from the "
+                                 f"uncaptured walk (loss {loss} against {walk_loss})")
+    print(f"traced {label}: {len(batches)} replayed steps bitwise the uncaptured walk's "
+          f"(state and loss)", flush=True)
+    del walk_state, walk
+    return secs[0]
 
 
 def phase_traced_zoo() -> dict[str, int]:
@@ -2017,20 +2125,55 @@ def phase_traced_zoo() -> dict[str, int]:
     wall = time.perf_counter() - t0
     launches = K.launch_counts()
     err, rel = check("traced zoo gemma3-1b forward", got, want, torch.bfloat16)
+    walk = app.uncaptured()
+    walk(*zf.example_inputs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walked = walk(*zf.example_inputs)
+    torch.cuda.synchronize()
+    walk_wall = time.perf_counter() - t0
+    if not torch.equal(got, walked):
+        raise AssertionError("traced zoo gemma3-1b forward: the replay differs from the walk")
     print(f"traced zoo gemma3-1b forward ({ZOO_BATCH} x {ZOO_SEQ}, {len(app.graph.nodes)} nodes, "
-          f"traced and compiled in {compile_s:.1f} s): kitsune {1e3 * wall:.1f} ms, logits "
+          f"traced and compiled in {compile_s:.1f} s): kitsune captured {1e3 * wall:.1f} ms "
+          f"(bitwise the uncaptured walk, {1e3 * walk_wall:.1f} ms), logits "
           f"max |err| {err:.3g}, relative {rel:.3g} against the raw forward; launches "
           f"{ {k: n for k, n in launches.items() if n} }", flush=True)
     expect_launches("traced zoo", launches, {"fused_mlp_swiglu": zf.cfg.n_layers})
-    del app, zf, got, want
+    del app, walk, zf, got, want, walked
     free()
     return launches
+
+
+def compiled_tick_equals_walk(cfg, params, eng) -> None:
+    """One replay of each bucket's captured plan of `eng`'s compiled tick
+    on the engine's pools against that plan's uncaptured walk on copies of
+    them: tokens, positions, logits and every page but the null page bit
+    for bit."""
+    bs = eng.sc.block_size
+    for (n_steps, v_blocks), step in sorted(eng._steps.items()):
+        state = tick_state(cfg, eng, n_steps, seed=n_steps)
+        copies = state_copies(eng)
+        feed = {k: state[k].to("cuda") for k in ("tokens", "n_tok", "pos", "tables")}
+        want = step.app.uncaptured()(params, copies, feed)
+        got = step(state)
+        torch.cuda.synchronize()
+        same = {k: torch.equal(got[k], want[k]) for k in ("tokens_next", "pos", "logits")}
+        same["pages"] = (torch.equal(eng.kp[bs:], copies["kp"][bs:])
+                         and torch.equal(eng.vp[bs:], copies["vp"][bs:]))
+        print(f"traced serve paged: replayed plan ({n_steps} steps, {v_blocks} blocks) against "
+              f"its uncaptured walk: {same}", flush=True)
+        if not all(same.values()):
+            raise AssertionError(f"compiled tick ({n_steps}, {v_blocks}): the replay differs "
+                                 f"from the walk: {same}")
+        del copies
 
 
 def phase_traced_serve() -> dict[str, dict[str, int]]:
     """10d: both engines with compile_mode="kitsune" against
     compile_mode=None on phi3-medium-14b at full width, depth cut to
-    TRACED_SERVE_LAYERS: the same tokens."""
+    TRACED_SERVE_LAYERS: the same tokens; each bucket's captured plan of
+    the paged engine bitwise its uncaptured walk."""
     cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=TRACED_SERVE_LAYERS)
     params = get_model(cfg).init(seed=0, device="cuda")
     prompts = dict(list(serve_prompts(cfg.vocab).items())[:TRACED_SERVE_REQUESTS])
@@ -2059,13 +2202,26 @@ def phase_traced_serve() -> dict[str, dict[str, int]]:
             launches = K.launch_counts()
             out[mode] = done
             ticks = eng.ticks if engine == "paged" else eng.pos
-            traces = len(eng._steps) if engine == "paged" else 1
+            if engine == "paged":
+                compiled = [fn.app for fn in eng._steps.values() if hasattr(fn, "app")]
+            else:
+                compiled = [eng._step.app] if mode else []
+            graphs = eng.graph_stats()
+            passes_s = sum(r.seconds for a in compiled for r in a.pass_records)
             print(f"traced serve {engine} compile_mode={mode}: {len(done)} requests, "
-                  f"{sum(len(v) for v in done.values())} tokens, {ticks} ticks in {wall:.2f} s "
-                  f"({traces if mode else 0} traced tick programs, traces included); launches "
-                  f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+                  f"{sum(len(v) for v in done.values())} tokens, {ticks} ticks in {wall:.2f} s, "
+                  f"of which {passes_s:.2f} s tracing and compiling {len(compiled)} tick "
+                  f"programs and {graphs['capture_s']:.2f} s capturing {graphs['graphs']} "
+                  f"graphs after {graphs['warm_up_s']:.2f} s of warm-ups (a compiled plan's "
+                  f"warm-up is its first tick) ({graphs['replays']} replays, graph pools "
+                  f"{graphs['pool_bytes'] / 1e6:.1f} MB): "
+                  f"{wall - passes_s - graphs['warm_up_s'] - graphs['capture_s']:.2f} s in "
+                  f"the other ticks; launches { {k: n for k, n in launches.items() if n} }",
+                  flush=True)
             if mode is not None:
                 runs[f"traced_serve_{engine}"] = launches
+                if engine == "paged":
+                    compiled_tick_equals_walk(cfg, params, eng)
             del eng
             free()
         if out[None] != out["kitsune"]:
@@ -2150,6 +2306,100 @@ def phase_traced() -> dict[str, dict[str, int]]:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the legacy engine's tick through cached_jit
+# ---------------------------------------------------------------------------
+
+# phi3-medium-14b at full width and depth behind the legacy engine: 8
+# prompts of phase 7 cut to 48 tokens, fed one token a tick, then decoded to
+# the end of a 160-position cache
+LEGACY_CONFIG = dict(max_len=160, batch=8)
+LEGACY_PROMPT = 48
+
+
+class EagerLegacyEngine(ServingEngine):
+    """The legacy engine with every tick run eagerly on the card, no graph:
+    the oracle its cached_jit tick is held to."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self._step = lambda params, cache, feed: serve_step(params, {**feed, "cache": cache},
+                                                            self.cfg)
+
+    def graph_stats(self) -> dict:
+        return graph_stats(())
+
+
+def legacy_engine(cls, cfg, params, prompts):
+    eng = cls(cfg, params, ServeConfig(**LEGACY_CONFIG), eos_id=-1)
+    for rid, p in prompts.items():
+        eng.submit(rid, p)
+    return eng
+
+
+def phase_legacy_tick() -> dict[str, dict[str, int]]:
+    """11: phi3-medium-14b at full width and depth behind the legacy engine,
+    every tick eager (`EagerLegacyEngine`) and then through cached_jit (one
+    graph, every later tick a replay): bitwise the same tokens, 40
+    flash_decode and 40 small-M fused_mlp_swiglu launches a tick in both;
+    ms a tick, capture seconds and graph pool bytes; three ticks of each
+    profiled for the device's idle share."""
+    t0 = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    params = get_model(cfg).init(seed=0, device="cuda")
+    describe(f"legacy {SERVE_ARCH}", cfg, params, t0)
+    prompts = {rid: p[:LEGACY_PROMPT] for rid, p in
+               list(serve_prompts(cfg.vocab).items())[:LEGACY_CONFIG["batch"]]}
+    runs, out, ms = {}, {}, {}
+    for form, cls in (("eager", EagerLegacyEngine), ("cached_jit", ServingEngine)):
+        eng = legacy_engine(cls, cfg, params, prompts)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out[form] = eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        launches["fused_mlp_swiglu_small_m"] = K.launches_by_form("fused_mlp_swiglu").get(
+            "small_m", 0)
+        g = eng.graph_stats()
+        ticks = eng.pos
+        ms[form] = 1e3 * (wall - g["warm_up_s"] - g["capture_s"]) / (ticks - g["graphs"])
+        print(f"legacy {form}: {len(out[form])} requests, "
+              f"{sum(len(v) for v in out[form].values())} tokens, {ticks} ticks in {wall:.2f} s: "
+              f"{1e3 * wall / ticks:.2f} ms a tick ({ms[form]:.2f} without the first tick's "
+              f"warm-up and capture, {g['warm_up_s']:.2f} + {g['capture_s']:.2f} s); graphs "
+              f"{g['graphs']}, replays "
+              f"{g['replays']}, graph pool {g['pool_bytes'] / 1e6:.1f} MB; launches "
+              f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+        want = {"flash_decode": cfg.n_layers * ticks, "fused_mlp_swiglu": cfg.n_layers * ticks,
+                "fused_mlp_swiglu_small_m": cfg.n_layers * ticks, "paged_flash_decode": 0}
+        if any(launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"legacy {form}: launched {launches}, want {want}")
+        if form == "cached_jit" and (g["graphs"] != 1 or g["replays"] != ticks - 1):
+            raise AssertionError(f"legacy cached_jit: {g} over {ticks} ticks: not every tick "
+                                 f"after the first replayed the one graph")
+        runs[f"legacy_{form}"] = launches
+        del eng
+        free()
+        # three decode ticks of a fresh engine, all slots past their prompts
+        eng = legacy_engine(cls, cfg, params, {rid: p[:4] for rid, p in prompts.items()})
+        for _ in range(6):
+            eng.tick()
+        profile_ticks(f"legacy {SERVE_ARCH} {form} tick ({eng.sc.batch} slots, 40 layers)",
+                      eng.tick)
+        del eng
+        free()
+    if out["eager"] != out["cached_jit"]:
+        diff = [rid for rid in out["eager"] if out["eager"][rid] != out["cached_jit"].get(rid)]
+        raise AssertionError(f"legacy: cached_jit tokens differ from eager for requests {diff}")
+    print(f"legacy: cached_jit tokens bitwise equal to eager; {ms['eager']:.2f} -> "
+          f"{ms['cached_jit']:.2f} ms a tick", flush=True)
+    del params
+    free()
+    return {"legacy_phi3": runs["legacy_cached_jit"], "legacy_phi3_eager": runs["legacy_eager"]}
+
+
 def to_device(tree: dict, device) -> dict:
     return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
@@ -2195,6 +2445,9 @@ def main() -> int:
     paths.update(train_paths)
     paths.update(phase_families())
     paths.update(phase_traced())
+    t0 = time.perf_counter()
+    paths.update(phase_legacy_tick())
+    print(f"phase 11 wall time {time.perf_counter() - t0:.1f} s", flush=True)
     for path, counts in paths.items():
         print(f"launches, {path} run: { {k: n for k, n in counts.items() if n} }", flush=True)
 

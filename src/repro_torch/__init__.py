@@ -12,15 +12,16 @@ Front door:
     app = repro_torch.compile(fn, example_inputs)   # any PyTorch callable
     outputs = app(*example_inputs)
 """
-from .api import (CompiledApp, CompilerOptions, Graph, Node, PassManager,
-                  TensorSpec, TracedApp, atomic, atomic_vjp, compile,
+from .api import (CachedFunction, CompiledApp, CompilerOptions, Graph, Node,
+                  PassManager, TensorSpec, TracedApp, atomic, atomic_vjp,
+                  cached_jit, compile,
                   graph_fingerprint, init_params, lowering_count,
                   params_from_numpy, structural_fingerprint, trace)
 
 __all__ = [
     "compile", "CompilerOptions", "CompiledApp", "TracedApp", "PassManager",
     "trace", "atomic", "atomic_vjp",
-    "init_params", "params_from_numpy", "lowering_count",
+    "cached_jit", "CachedFunction", "init_params", "params_from_numpy", "lowering_count",
     "Graph", "Node", "TensorSpec", "graph_fingerprint",
     "structural_fingerprint",
 ]

@@ -5,6 +5,7 @@ The paper's SS5 flow is exposed as ONE front door (compiler.py):
     app = repro_torch.compile(graph, CompilerOptions(mode=...))  # passes
     app.run(feeds, params)                                       # cached
     app = repro_torch.compile(fn, example_inputs)   # traced (trace.py)
+    step = cached_jit(fn, key=...)                  # any callable, cached
 
 with the stages runnable as named passes through PassManager:
 
@@ -28,15 +29,18 @@ from .costmodel import (A100, H100, HwSpec, evaluate, cost_bsp, cost_vertical,
                         cost_kitsune, cost_kernel_site)
 from .executor import (GraphExecutor, ExecutorBackend, BSPBackend,
                        VerticalBackend, KitsuneBackend, make_backend,
-                       ExecutionReport, ExecutionPlan, init_params,
-                       params_from_numpy, executable_cache,
+                       ExecutionReport, ExecutionPlan, ExecutableCache,
+                       init_params, params_from_numpy, executable_cache,
                        clear_executable_cache, lowering_count)
 from .lower import (KernelMatch, LoweringPlan, PipelineLowering, Verdict,
                     lower_pipeline, lower_pipelines)
 from .trace import (AtomicSpec, TracedFunction, atomic, atomic_vjp,
                     attention_flops, trace)
 from .compiler import (CompilerOptions, CompiledApp, CompileState,
-                       PassManager, PassRecord, TracedApp, compile)
+                       PassManager, PassRecord, TracedApp, cached_jit,
+                       CachedFunction, compile)
+from .cudagraph import (CapturedGraph, GraphCaptureError, GraphFunction,
+                        capture_stream)
 
 __all__ = [
     "Graph", "Node", "TensorSpec", "MXU", "VPU", "graph_fingerprint",
@@ -51,12 +55,13 @@ __all__ = [
     "cost_kitsune", "cost_kernel_site",
     "GraphExecutor", "ExecutorBackend", "BSPBackend", "VerticalBackend",
     "KitsuneBackend", "make_backend", "ExecutionReport", "ExecutionPlan",
-    "init_params", "params_from_numpy", "executable_cache",
+    "ExecutableCache", "init_params", "params_from_numpy", "executable_cache",
     "clear_executable_cache", "lowering_count",
     "KernelMatch", "LoweringPlan", "PipelineLowering", "Verdict",
     "lower_pipeline", "lower_pipelines",
     "CompilerOptions", "CompiledApp", "CompileState", "PassManager",
-    "PassRecord", "TracedApp", "compile",
+    "PassRecord", "TracedApp", "cached_jit", "CachedFunction", "compile",
+    "CapturedGraph", "GraphCaptureError", "GraphFunction", "capture_stream",
     "AtomicSpec", "TracedFunction", "atomic", "atomic_vjp",
     "attention_flops", "trace",
 ]

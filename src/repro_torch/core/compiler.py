@@ -29,11 +29,17 @@ Pieces:
 
 Callables: `repro_torch.compile(fn, example_inputs)` traces `fn` first
 (core/trace.py; tracing is pass 0 of the pipeline) and returns a TracedApp
-that is itself callable like `fn`.  The reference's `cached_jit` has no
-counterpart yet: it comes with `torch.compile` of the eager paths.
+that is itself callable like `fn`.  `cached_jit(fn, key=...)` binds any
+callable to the same executable cache without tracing it.
+
+On the card a compiled artifact's executable is a CUDA graph
+(core/cudagraph.py): each plan of a CompiledApp, and each build of a
+`cached_jit` function, is captured after its first run and replayed by
+every later call.
 """
 from __future__ import annotations
 
+import copy
 import time
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable
@@ -43,7 +49,9 @@ from torch.utils import _pytree as pytree
 
 from .balance import BalanceResult, balance as _balance_pipeline
 from .costmodel import H100, GraphCost, HwSpec, evaluate
-from .executor import Engine, ExecutionReport, init_params, make_backend
+from .cudagraph import GraphFunction, graph_stats
+from .executor import (Engine, ExecutionReport, _plan_key, cuda_device,
+                       executable_cache, init_params, make_backend)
 from .graph import Graph, graph_fingerprint
 from .lower import POLICIES, LoweringPlan, lower_pipelines
 from .trace import TracedFunction, donate_outputs, trace as trace_fn
@@ -85,6 +93,11 @@ class CompilerOptions:
                          "auto" (compile-time microbenchmark) is not ported.
     dump_ir              hook called as dump_ir(pass_name, state) after every
                          pass -- the introspection point for IR dumps
+    capture              on the card, capture each plan as one CUDA graph
+                         after its first run and replay it (default); False
+                         walks the plan program by program on every run,
+                         as on the CPU (the bitwise oracle of a capture,
+                         and bsp as the paper's eager baseline)
     """
     mode: str = "kitsune"
     tile_bytes: int = DEFAULT_TILE_BYTES
@@ -96,6 +109,7 @@ class CompilerOptions:
     disable: tuple[str, ...] = ()
     lowering_policy: str = "always"
     dump_ir: Callable[[str, "CompileState"], None] | None = None
+    capture: bool = True
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -125,8 +139,8 @@ class CompilerOptions:
         return self.hw if self.hw is not None else H100
 
     def cache_key(self) -> tuple:
-        """Hashable identity for the program cache (hooks excluded: they
-        observe compilation but cannot change the produced programs)."""
+        """Hashable identity for the program cache (hooks and `capture`
+        excluded: neither changes the produced programs)."""
         return (self.mode, self.tile_bytes, self.split_reduction_min,
                 self.patterns, self.min_sf_size, tuple(sorted(self.disabled)),
                 self.lowering_policy)
@@ -396,7 +410,8 @@ class CompiledApp:
     graph+options) reuse the same built programs."""
 
     def __init__(self, graph: Graph, options: CompilerOptions,
-                 state: CompileState, pass_records: list[PassRecord]):
+                 state: CompileState, pass_records: list[PassRecord],
+                 inplace_feeds: frozenset[str] = frozenset()):
         self.graph = graph
         self.options = options
         self.state = state
@@ -421,18 +436,48 @@ class CompiledApp:
             exec_graph = graph
             sf_members = []
             lowering = None
-        backend = make_backend(options.mode, exec_graph, sf_members,
-                               lowering)
-        struct_keys = (state.dedupe.struct_keys
-                       if state.dedupe is not None else None)
-        self._engine = Engine(backend,
-                              (self.fingerprint, options.cache_key()),
-                              struct_keys=struct_keys)
+        self._backend = make_backend(options.mode, exec_graph, sf_members,
+                                     lowering)
+        self._struct_keys = (state.dedupe.struct_keys
+                             if state.dedupe is not None else None)
+        self.inplace_feeds = frozenset(inplace_feeds)
+        self._engine = self._make_engine(options.capture)
+
+    def _make_engine(self, capture: bool) -> Engine:
+        return Engine(self._backend, (self.fingerprint, self.options.cache_key()),
+                      struct_keys=self._struct_keys, capture=capture,
+                      inplace_feeds=self.inplace_feeds)
 
     # -- execution --------------------------------------------------------
     def run(self, feeds: dict[str, torch.Tensor], params: dict | None = None,
             ) -> ExecutionReport:
         return self._engine.run(feeds, params or {})
+
+    def uncaptured(self) -> "CompiledApp":
+        """This artifact as `CompilerOptions(capture=False)` compiles it:
+        the same passes and programs (shared through the cache), every run
+        a walk of the plan, without compiling or tracing again."""
+        other = copy.copy(self)
+        other.options = replace(self.options, capture=False)
+        other._engine = other._make_engine(False)
+        return other
+
+    def with_mode(self, mode: str) -> "CompiledApp":
+        """This artifact's graph compiled in `mode`, its other options
+        kept: the passes run again, a traced callable is not traced again
+        (the trace does not depend on the mode)."""
+        options = replace(self.options, mode=mode)
+        state, records = _run_passes(self.graph, options, PassManager())
+        return self._recompiled(options, state, records)
+
+    def _recompiled(self, options, state, records) -> "CompiledApp":
+        return CompiledApp(self.graph, options, state, records, self.inplace_feeds)
+
+    def capture_stats(self) -> dict[str, float]:
+        """The captured plans: graphs, replays, the seconds of their warm-ups
+        (each plan's first run) and of their captures apart, and the bytes
+        their graph pools hold (core/cudagraph.py `graph_stats`)."""
+        return self._engine.capture_stats()
 
     def init_params(self, seed: int = 0, dtype=torch.float32,
                     device="cuda", scale: float = 0.02) -> dict[str, Any]:
@@ -454,9 +499,13 @@ class CompiledApp:
                            "and eager on the CPU",
                "kitsune": "one callable per sf-node launching the Hopper "
                           "kernels (plain versions on the CPU)"}[mode]
+        cap = ("the card: each plan captured after its first run as one CUDA "
+               "graph and replayed" if self.options.capture else
+               "the card as on the CPU: every run walks the plan (capture=False)")
         lines = [f"CompiledApp({self.graph.name}, mode={mode}, "
                  f"fingerprint={self.fingerprint})",
                  f"  executes as {how}",
+                 f"  on {cap}",
                  f"  lowering policy {self.options.lowering_policy} (the "
                  f"'auto' microbenchmark policy and block-size autotuning "
                  f"are not ported)"]
@@ -498,6 +547,11 @@ class CompiledApp:
                 for op, why in low.fallbacks.items():
                     lines.append(f"    fallback {op}: {why}")
         lines.extend(self._describe_donation())
+        st = self._engine.capture_stats() if self._engine._plans else None
+        if st and st["graphs"]:
+            lines.append(f"  captured {st['graphs']} plans: {st['replays']} replays, "
+                         f"{st['capture_s']:.3f} s capturing, graph pools "
+                         f"{st['pool_bytes'] / 1e6:.1f} MB")
         return "\n".join(lines)
 
     def _describe_donation(self) -> list[str]:
@@ -529,17 +583,31 @@ class TracedApp(CompiledApp):
     `donate_outputs`): as with `jax.jit`'s donation, those inputs are
     CONSUMED by a call -- they hold the new values afterwards -- so feed
     each call the previous call's outputs.  A donated input that shares its
-    storage with another input is copied first and so left alone."""
+    storage with another input is copied first and so left alone.
+
+    On the card the consts, the donated feeds and the `inplace` feeds
+    (arguments the caller keeps alive at fixed addresses: weights, an
+    engine's cache) are read in place by the captured plan; the other
+    feeds are copied into the graph's own buffers (core/executor.py
+    `Engine`)."""
 
     def __init__(self, traced: TracedFunction, options: CompilerOptions,
                  state: CompileState, pass_records: list[PassRecord],
                  donate_feeds: frozenset[str] = frozenset(),
-                 donation: list[tuple[str, str]] | None = None):
+                 donation: list[tuple[str, str]] | None = None,
+                 inplace: frozenset[str] = frozenset()):
         self.traced = traced
         self.donate_feeds = donate_feeds
         self.donation = list(donation or [])
         self._donated = tuple(d for d, _ in self.donation)
-        super().__init__(traced.graph, options, state, pass_records)
+        self._inplace = inplace
+        super().__init__(traced.graph, options, state, pass_records,
+                         frozenset(traced.consts) | donate_feeds | inplace)
+
+    def _recompiled(self, options, state, records) -> "TracedApp":
+        # the trace's record stays first: the new artifact runs that trace
+        return TracedApp(self.traced, options, state, self.pass_records[:1] + records,
+                         self.donate_feeds, self.donation, self._inplace)
 
     def __call__(self, *args):
         report = self.run(self.traced.feeds(*args))
@@ -549,22 +617,26 @@ class TracedApp(CompiledApp):
             ) -> ExecutionReport:
         full = dict(self.traced.consts)
         full.update(feeds)
-        if self._donated:
-            self._unalias(full)
+        inplace = self._unalias(full) if self._donated else None
         with torch.no_grad():
-            return super().run(full, params)
+            return self._engine.run(full, params or {}, inplace=inplace)
 
-    def _unalias(self, feeds: dict) -> None:
+    def _unalias(self, feeds: dict) -> frozenset[str] | None:
         """Copy each donated feed that shares its storage with another feed:
-        writing it in place would change the other."""
+        writing it in place would change the other.  Returns the in-place
+        feeds of this call (the copies are not), None if nothing was
+        copied."""
         owners: dict[int, int] = {}
         for t in feeds.values():
             ptr = t.untyped_storage().data_ptr()
             owners[ptr] = owners.get(ptr, 0) + 1
+        copied = set()
         for d in self._donated:
             t = feeds[d]
             if owners[t.untyped_storage().data_ptr()] > 1:
                 feeds[d] = t.clone()
+                copied.add(d)
+        return self.inplace_feeds - copied if copied else None
 
     def init_params(self, seed: int = 0, dtype=torch.float32, device="cuda",
                     scale: float = 0.02) -> dict:
@@ -598,6 +670,7 @@ def compile(graph: Graph | Callable, *args,
             pass_manager: PassManager | None = None,
             donate_argnums: tuple[int, ...] = (),
             donate_feeds: tuple[str, ...] = (),
+            inplace_argnums: tuple[int, ...] = (),
             **option_overrides) -> CompiledApp:
     """Compile an operator graph OR any PyTorch callable.
 
@@ -613,7 +686,12 @@ def compile(graph: Graph | Callable, *args,
     whose storage the app may reuse for its outputs -- the training step
     donates its (state,) argument, so parameters and optimizer moments are
     written in place instead of doubling resident memory; `donate_feeds`
-    names input feeds (`arg<i>`) directly.  Only those inputs are donated."""
+    names input feeds (`arg<i>`) directly.  Only those inputs are donated.
+    `inplace_argnums` marks arguments the caller keeps alive at fixed
+    addresses (weights, an engine's cache): on the card the captured plan
+    reads them in place instead of copying them into its own buffers, and
+    a call that moves them captures anew (the reference has no counterpart:
+    XLA has no addresses)."""
     for a in args:
         if isinstance(a, CompilerOptions):
             if options is not None:
@@ -632,8 +710,9 @@ def compile(graph: Graph | Callable, *args,
         if example_inputs is not None:
             raise TypeError("example_inputs is only valid when compiling a "
                             "callable")
-        if donate_argnums or donate_feeds:
-            raise TypeError("donation is only valid when compiling a callable")
+        if donate_argnums or donate_feeds or inplace_argnums:
+            raise TypeError("donation and inplace_argnums are only valid when "
+                            "compiling a callable")
         state, records = _run_passes(graph, options, pm)
         return CompiledApp(graph, options, state, records)
     if not callable(graph):
@@ -645,21 +724,9 @@ def compile(graph: Graph | Callable, *args,
     example_inputs = tuple(example_inputs)
     t0 = time.perf_counter()
     traced = trace_fn(graph, *example_inputs)
-    donate = set(donate_feeds)
-    if donate_argnums:
-        # argument positions -> the traced input names their flattened
-        # leaves occupy (in_names is leaf-ordered)
-        spans, start = [], 0
-        for a in example_inputs:
-            n = len(pytree.tree_leaves(a))
-            spans.append((start, start + n))
-            start += n
-        for i in donate_argnums:
-            if not 0 <= i < len(spans):
-                raise ValueError(f"donate_argnums {i} out of range for "
-                                 f"{len(spans)} example inputs")
-            lo, hi = spans[i]
-            donate.update(traced.in_names[lo:hi])
+    donate = set(donate_feeds) | _arg_names(traced, example_inputs, donate_argnums,
+                                            "donate_argnums")
+    inplace = _arg_names(traced, example_inputs, inplace_argnums, "inplace_argnums")
     unknown = donate - set(traced.in_names)
     if unknown:
         raise ValueError(f"donate_feeds {sorted(unknown)} are not inputs")
@@ -670,4 +737,102 @@ def compile(graph: Graph | Callable, *args,
                      f"{len(donation)} donated outputs")
     state, records = _run_passes(traced.graph, options, pm)
     return TracedApp(traced, options, state, [rec] + records,
-                     frozenset(donate), donation)
+                     frozenset(donate), donation, frozenset(inplace))
+
+
+def _arg_names(traced: TracedFunction, example_inputs: tuple,
+               argnums: tuple[int, ...], what: str) -> set[str]:
+    """Argument positions -> the traced input names their flattened leaves
+    occupy (in_names is leaf-ordered)."""
+    spans, start = [], 0
+    for a in example_inputs:
+        n = len(pytree.tree_leaves(a))
+        spans.append((start, start + n))
+        start += n
+    names: set[str] = set()
+    for i in argnums:
+        if not 0 <= i < len(spans):
+            raise ValueError(f"{what} {i} out of range for {len(spans)} example inputs")
+        lo, hi = spans[i]
+        names.update(traced.in_names[lo:hi])
+    return names
+
+
+# ---------------------------------------------------------------------------
+# cached_jit: the executable cache for any callable
+# ---------------------------------------------------------------------------
+
+class CachedFunction:
+    """A callable bound to the executable cache (the reference's
+    `cached_jit`).
+
+    The first call per argument signature builds, counted by
+    `lowering_count()`; every later call -- including one from another
+    instance constructed with the same `key` -- reuses the build.  On the
+    CPU the build is `fn` itself, run eagerly.  On the card it is a CUDA
+    graph (core/cudagraph.py `GraphFunction`), captured right after the
+    first call, which runs eagerly on the capture stream as its warm-up.
+    Tensor leaves of `donate_argnums` and `inplace_argnums` arguments are
+    read in place, and their addresses are part of the signature: moving
+    them builds anew.  Every other tensor leaf is copied into a buffer the
+    graph owns (not when the call passes that buffer itself), so the graph
+    never writes into a caller's tensor the caller did not hand over; an
+    output that is not an in-place leaf is cloned before it is returned.
+    Non-tensor arguments are part of the signature by value.
+
+    A graph keyed by addresses serves only the caller whose tensors sit
+    there: `graphs()` are the ones this instance called, and `release()`
+    drops them from the cache (a later call builds again), so that an owner
+    of those tensors -- a serving engine -- frees its graphs and their
+    pools when it goes."""
+
+    def __init__(self, fn: Callable, key: tuple, donate_argnums: tuple[int, ...] = (),
+                 inplace_argnums: tuple[int, ...] = ()):
+        self._fn = fn
+        self._key = ("cached_jit",) + tuple(key)
+        self._inplace = frozenset(donate_argnums) | frozenset(inplace_argnums)
+        self._graph_keys: dict[tuple, None] = {}
+
+    def graphs(self) -> list[GraphFunction]:
+        """The cached graphs this instance's calls on the card used."""
+        cache = executable_cache()
+        return [g for g in map(cache.get, self._graph_keys) if g is not None]
+
+    def graph_stats(self) -> dict[str, float]:
+        """`graphs()` summed by core/cudagraph.py `graph_stats`."""
+        return graph_stats(g.captured for g in self.graphs())
+
+    def release(self) -> None:
+        """Drop the graphs this instance's calls on the card used."""
+        cache = executable_cache()
+        for key in self._graph_keys:
+            cache.discard(key)
+        self._graph_keys.clear()
+
+    def __call__(self, *args):
+        device = cuda_device(args)
+        key = self._key + tuple(_plan_key(a, device is not None and i in self._inplace)
+                                for i, a in enumerate(args))
+        cache = executable_cache()
+        if device is None:
+            return cache.get_or_build(key, lambda: self._fn)(*args)
+        self._graph_keys[key] = None
+        flat, tree = pytree.tree_flatten(args)
+        first = []
+
+        def build() -> GraphFunction:
+            mask = [i in self._inplace for i, a in enumerate(args)
+                    for _ in pytree.tree_leaves(a)]
+            fn = self._fn
+            gf = GraphFunction(lambda *leaves: fn(*pytree.tree_unflatten(list(leaves), tree)),
+                               flat, mask, device, what=f"cached_jit {self._key[1:]}")
+            first.append(gf.take_first())
+            return gf
+
+        exe = cache.get_or_build(key, build)
+        return first[0] if first else exe(flat)
+
+
+def cached_jit(fn: Callable, *, key: tuple, donate_argnums: tuple[int, ...] = (),
+               inplace_argnums: tuple[int, ...] = ()) -> CachedFunction:
+    return CachedFunction(fn, key, donate_argnums, inplace_argnums)

@@ -49,7 +49,9 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
 
+from .cudagraph import GraphCaptureError, GraphFunction, graph_stats
 from .graph import Graph, Node, graph_fingerprint, subgraph_interface
 from .patterns import Selection, select_subgraphs
 
@@ -141,8 +143,8 @@ def _eval_node(n: Node, inputs: list[torch.Tensor], p: dict | None) -> torch.Ten
         # executor; the kernel path agrees only because lowering requires
         # sq == skv (the flash kernel's causal mask is start-aligned)
         q, k, v = inputs
-        scale = 1.0 / torch.sqrt(torch.tensor(float(q.shape[-1]),
-                                              dtype=q.dtype, device=q.device))
+        scale = 1.0 / torch.sqrt(torch.full((), float(q.shape[-1]),
+                                            dtype=q.dtype, device=q.device))
         logits = torch.einsum("bhsd,bhtd->bhst", q, k) * scale
         if n.attrs.get("causal", True):
             s, t = logits.shape[-2], logits.shape[-1]
@@ -203,35 +205,104 @@ def _note_lowering() -> None:
 
 class ExecutableCache:
     """Shape-keyed store of built programs.  One process-wide instance backs
-    every CompiledApp/GraphExecutor; `get_or_build` counts a build on every
-    miss, and holds a lock for the whole check-build-insert so at most one
-    build per key ever happens."""
+    every CompiledApp/GraphExecutor and `cached_jit`; `get_or_build` counts
+    a build on every miss, and at most one build per key ever happens.
 
-    def __init__(self):
+    Unlike the reference's, the lock is not held while a program builds: a
+    build on the card warms up and captures a CUDA graph, which takes
+    seconds and the capture lock (core/cudagraph.py).  A miss marks its key
+    in flight, builds outside the lock and inserts; another thread asking
+    for that key waits for the build, while hits and builds of other keys
+    go on.  A build that raises leaves nothing behind, and the next caller
+    builds again.
+
+    `capacity` optionally bounds the store with LRU eviction (a hit moves
+    its key to the recent end; `evictions` in `stats()`); the default None
+    leaves it unbounded.  An evicted or discarded `cached_jit` graph
+    (core/cudagraph.py) is freed with its graph memory pool once no caller
+    holds it, and a later call builds it anew.  Live ExecutionPlans keep
+    the programs they bound until the Engine drops them."""
+
+    def __init__(self, capacity: int | None = None):
         self._store: OrderedDict[Any, Any] = OrderedDict()
         self._lock = threading.RLock()
+        self._building: dict[Any, tuple[int, threading.Event]] = {}
+        self.capacity = capacity
         self.hits = 0
         self.misses = 0
+        self.evictions = 0
 
     def __len__(self):
         with self._lock:
             return len(self._store)
+
+    def __contains__(self, key):
+        with self._lock:
+            return key in self._store
+
+    def get(self, key):
+        """Passive lookup (introspection, tests): no LRU touch, no counters."""
+        with self._lock:
+            return self._store.get(key)
 
     def keys(self):
         with self._lock:
             return list(self._store)
 
     def get_or_build(self, key, build: Callable[[], Any]):
-        with self._lock:
-            hit = self._store.get(key)
-            if hit is not None:
-                self.hits += 1
-                return hit
-            self.misses += 1
+        me = threading.get_ident()
+        while True:
+            with self._lock:
+                hit = self._store.get(key)
+                if hit is not None:
+                    self.hits += 1
+                    self._store.move_to_end(key)
+                    return hit
+                flight = self._building.get(key)
+                if flight is None:
+                    self.misses += 1
+                    done = threading.Event()
+                    self._building[key] = (me, done)
+                    break
+            owner, waiting = flight
+            if owner == me:
+                raise RuntimeError(f"building {key!r} asks for its own build")
+            waiting.wait()
+        try:
             val = build()
-            _note_lowering()
-            self._store[key] = val
+            with self._lock:
+                _note_lowering()
+                self._store[key] = val
+                self._evict()
             return val
+        finally:
+            with self._lock:
+                del self._building[key]
+            done.set()
+
+    def discard(self, key) -> None:
+        """Drop `key`'s build, if any (no eviction counted)."""
+        with self._lock:
+            val = self._store.pop(key, None)
+        del val          # freed here, outside the lock
+
+    def set_capacity(self, capacity: int | None) -> None:
+        with self._lock:
+            self.capacity = capacity
+            self._evict()
+
+    def _evict(self) -> None:
+        if self.capacity is None:
+            return
+        while len(self._store) > max(self.capacity, 1):
+            self._store.popitem(last=False)
+            self.evictions += 1
+
+    def stats(self) -> dict[str, int]:
+        with self._lock:
+            return {"size": len(self._store), "hits": self.hits,
+                    "misses": self.misses, "evictions": self.evictions,
+                    "capacity": self.capacity}
 
     def clear(self):
         with self._lock:
@@ -357,14 +428,18 @@ def _sf_program(g: Graph, name: str, members: list[str],
 
     def fn(feed: dict[str, torch.Tensor], params: dict) -> dict:
         vals = dict(feed)
-        for is_kernel, item, dead in steps:
-            if is_kernel:
-                vals[item.out] = item.call(vals, params)
-            else:
-                ins = [vals[i] for i in item.inputs]
-                vals[item.name] = _eval_node(item, ins, params.get(item.name))
-            for nm in dead:
-                del vals[nm]
+        try:
+            for is_kernel, item, dead in steps:
+                if is_kernel:
+                    vals[item.out] = item.call(vals, params)
+                else:
+                    ins = [vals[i] for i in item.inputs]
+                    vals[item.name] = _eval_node(item, ins, params.get(item.name))
+                for nm in dead:
+                    del vals[nm]
+        except Exception as exc:
+            exc.add_note(f"at node {item.out if is_kernel else item.name}")
+            raise
         return {m: vals[m] for m in exports}
 
     return Program(name, need, pkeys, fn, outs=exports)
@@ -507,19 +582,34 @@ class ExecutionReport:
     # path programs are PREBOUND, so hits == n_programs by definition.
     cache_hits: int = 0
     cache_misses: int = 0      # programs built fresh this call
+    replayed: bool = False     # the call replayed the plan's CUDA graph
+    capture_s: float = 0.0     # seconds this call spent capturing it
 
 
-def _plan_key(obj) -> tuple:
+def _plan_key(obj, addresses: bool = False) -> tuple:
     """Cheap shape/dtype/device key over (nested dicts of) tensors -- ONE
     of these per run() call selects the ExecutionPlan.  Dict items are
-    sorted so key ORDER never splits plans."""
+    sorted so key ORDER never splits plans.  With `addresses`, a CUDA
+    tensor's key adds its address and strides: a captured graph reads and
+    writes its in-place leaves there (core/cudagraph.py)."""
     if isinstance(obj, dict):
-        return tuple((k, _plan_key(v)) for k, v in sorted(obj.items()))
+        return tuple((k, _plan_key(v, addresses)) for k, v in sorted(obj.items()))
     if isinstance(obj, (list, tuple)):
-        return (len(obj),) + tuple(_plan_key(v) for v in obj)
+        return (len(obj),) + tuple(_plan_key(v, addresses) for v in obj)
     if isinstance(obj, torch.Tensor):
+        if addresses and obj.is_cuda:
+            return (tuple(obj.shape), obj.dtype, obj.device, obj.data_ptr(), obj.stride())
         return (tuple(obj.shape), obj.dtype, obj.device)
     return (type(obj).__name__, repr(obj))
+
+
+def cuda_device(*trees) -> torch.device | None:
+    """The device of the first CUDA tensor in `trees`, or None."""
+    for tree in trees:
+        for t in pytree.tree_leaves(tree):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                return t.device
+    return None
 
 
 @dataclass
@@ -576,9 +666,10 @@ def _compile_step(st) -> Callable:
 class _BoundStep:
     """A _StepSpec bound to its built program for one shape signature.
     Programs with no params are called WITHOUT the params dict."""
-    __slots__ = ("exe", "in_slots", "out_slots", "pkeys", "release")
+    __slots__ = ("name", "exe", "in_slots", "out_slots", "pkeys", "release")
 
     def __init__(self, spec: _StepSpec, exe: _Executable, pkeys: tuple[str, ...]):
+        self.name = spec.prog.name
         self.exe = exe
         self.in_slots = spec.in_slots
         self.out_slots = spec.out_slots
@@ -590,14 +681,27 @@ class ExecutionPlan:
     """Everything `run()` needs for one (feed, param) shape signature:
     prebound programs, slot wiring, and precomputed traffic totals.
     `steps` keeps the bound step objects for introspection; `fns` are the
-    specialized closures the hot loop actually runs."""
-    __slots__ = ("steps", "fns", "bytes_accessed", "n_programs")
+    specialized closures the hot loop actually runs.  On the card `graph`
+    is the plan captured as one CUDA graph (a GraphFunction over the
+    feeds), which every later run replays instead of walking `fns`."""
+    __slots__ = ("steps", "fns", "bytes_accessed", "n_programs", "graph")
 
     def __init__(self, steps, bytes_accessed, n_programs):
         self.steps = steps
         self.fns = tuple(_compile_step(st) for st in steps)
         self.bytes_accessed = bytes_accessed
         self.n_programs = n_programs
+        self.graph = None
+
+
+class _Refused:
+    """A plan whose capture failed: every later run raises, none walks."""
+
+    def __init__(self, exc: GraphCaptureError):
+        self.exc = exc
+
+    def __call__(self, leaves):
+        raise GraphCaptureError(str(self.exc)) from self.exc
 
 
 class Engine:
@@ -610,7 +714,22 @@ class Engine:
     ExecutionPlan -- feed/param names resolved to integer slots, cache keys
     built once, programs bound directly, intermediates in a flat buffer
     list released after their last reader.  Steady-state `run()` is a loop
-    over prebound programs."""
+    over prebound programs.
+
+    On the card, with `capture` (the default), that first run is also the
+    warm-up of the plan's capture: right after it the whole plan is
+    captured as ONE CUDA graph (core/cudagraph.py), and every later run
+    with that key is one replay -- the counterpart of the reference's
+    jitted programs.  The params and the `inplace_feeds` are read in place,
+    so their addresses are part of the plan key; every other feed is copied
+    into the graph's own buffer, and outputs that alias no in-place feed
+    are cloned out of the graph's pool.  Each captured plan keeps a graph
+    pool of its working set, so a caller that moves an in-place feed on
+    every call captures on every call (up to MAX_PLANS pools): keep them
+    where they are, as a donated state is.  A failed capture raises
+    GraphCaptureError, on that run and every later run with its key; no run
+    falls back to the walk.  With `capture=False` every run walks the plan,
+    as on the CPU."""
 
     # plans an engine keeps live; beyond this the least-recent shape's plan
     # is dropped and rebuilt from the cache on next use
@@ -618,7 +737,8 @@ class Engine:
 
     def __init__(self, backend: ExecutorBackend, engine_key: tuple,
                  cache: ExecutableCache | None = None,
-                 struct_keys: dict[str, str] | None = None):
+                 struct_keys: dict[str, str] | None = None, *,
+                 capture: bool = True, inplace_feeds: Iterable[str] = ()):
         self.backend = backend
         self.graph = backend.graph
         self.programs = backend.plan()
@@ -630,6 +750,8 @@ class Engine:
         self.struct_keys = dict(struct_keys or {})
         self.engine_key = (engine_key,) + backend.key()
         self.cache = cache if cache is not None else _CACHE
+        self.capture = capture
+        self.inplace_feeds = frozenset(inplace_feeds)
         self._plans: OrderedDict[tuple, ExecutionPlan] = OrderedDict()
         self._build_skeleton()
 
@@ -682,31 +804,93 @@ class Engine:
             buf[s] = feeds[name]
         return buf
 
+    def _key(self, feeds: dict, params: dict, inplace: frozenset) -> tuple:
+        if not self.capture:
+            return (_plan_key(feeds), _plan_key(params))
+        return (tuple((k, _plan_key(v, k in inplace)) for k, v in sorted(feeds.items())),
+                _plan_key(params, True))
+
     # -- execution ---------------------------------------------------------
     def run(self, feeds: dict[str, torch.Tensor], params: dict,
-            measure: bool = True) -> ExecutionReport:
+            measure: bool = True, inplace: frozenset[str] | None = None,
+            ) -> ExecutionReport:
         """Execute via the per-shape ExecutionPlan.  The first call per
         shape signature builds the plan (building each program at most once
-        per shape, via the process-wide cache); later calls replay the
-        prebound programs.  measure=False only zeroes the traffic/program
-        accounting."""
-        key = (_plan_key(feeds), _plan_key(params))
+        per shape, via the process-wide cache) and, on the card, captures
+        it; later calls replay the graph or walk the prebound programs.
+        `inplace` overrides the engine's in-place feeds for this call.
+        measure=False only zeroes the traffic/program accounting."""
+        inplace = self.inplace_feeds if inplace is None else inplace
+        key = self._key(feeds, params, inplace)
         plan = self._plans.get(key)
         if plan is None:
-            return self._build_and_run(key, feeds, params, measure)
+            return self._build_and_run(key, feeds, params, measure, inplace)
         self._plans.move_to_end(key)
-        buf = self._feed_buffer(feeds)
-        for step in plan.fns:
-            step(buf, params)
-        outs = {name: buf[s] for name, s in self._run_out_slots}
+        if plan.graph is not None:
+            vals = plan.graph([feeds[name] for _, name in self._feed_slots])
+            outs = {name: v for (name, _), v in zip(self._run_out_slots, vals)}
+        else:
+            buf = self._feed_buffer(feeds)
+            for step in plan.fns:
+                step(buf, params)
+            outs = {name: buf[s] for name, s in self._run_out_slots}
+        replayed = plan.graph is not None
         if not measure:
-            return ExecutionReport(outs, 0.0, 0, 0.0, plan.n_programs, 0)
+            return ExecutionReport(outs, 0.0, 0, 0.0, plan.n_programs, 0, replayed)
         return ExecutionReport(outs, plan.bytes_accessed, plan.n_programs,
-                               0.0, plan.n_programs, 0)
+                               0.0, plan.n_programs, 0, replayed)
 
-    def _build_and_run(self, key: tuple, feeds: dict, params: dict,
-                       measure: bool) -> ExecutionReport:
-        """First call per shape signature: execute while binding the plan."""
+    def _build_and_run(self, key: tuple, feeds: dict, params: dict, measure: bool,
+                       inplace: frozenset) -> ExecutionReport:
+        """First call per plan key: bind the plan while running it, and on
+        the card capture it right after, that run being the warm-up."""
+        device = cuda_device(feeds, params) if self.capture else None
+        if device is None:
+            return self._bind_and_run(key, feeds, params, measure)
+        buf = self._feed_buffer(feeds)
+        what = f"{self.graph.name} ({self.backend.mode}, {len(self.programs)} programs)"
+        try:
+            gf = GraphFunction(functools.partial(self._walk, key, params),
+                               [buf[s] for s, _ in self._feed_slots],
+                               [name in inplace for _, name in self._feed_slots], device,
+                               what=what, warm_up=lambda: self._bind_and_run(
+                                   key, feeds, params, measure))
+        except GraphCaptureError as exc:
+            if key in self._plans:
+                self._plans[key].graph = _Refused(exc)
+            raise
+        self._plans[key].graph = gf
+        report = gf.take_first()
+        report.capture_s = gf.captured.capture_s
+        return report
+
+    def _walk(self, key: tuple, params: dict, *vals) -> list:
+        """The plan of `key` on feeds `vals` (in feed-slot order): the body a
+        capture records.  An error names the program it came from."""
+        plan = self._plans[key]
+        buf: list[Any] = [None] * self._n_slots
+        for (s, _), v in zip(self._feed_slots, vals):
+            buf[s] = v
+        for st, step in zip(plan.steps, plan.fns):
+            try:
+                step(buf, params)
+            except Exception as exc:
+                name = st.name if type(st) is _BoundStep else st.node.name
+                exc.add_note(f"in program {name}")
+                raise
+        return [buf[s] for _, s in self._run_out_slots]
+
+    def capture_stats(self) -> dict[str, float]:
+        """The engine's captured plans, summed by core/cudagraph.py
+        `graph_stats`: graphs, replays, the seconds of the warm-ups (each
+        plan's first, building run) and of the captures apart, and the
+        bytes their pools hold."""
+        return graph_stats(p.graph.captured for p in self._plans.values()
+                           if isinstance(p.graph, GraphFunction))
+
+    def _bind_and_run(self, key: tuple, feeds: dict, params: dict,
+                      measure: bool) -> ExecutionReport:
+        """Execute while binding the plan."""
         buf = self._feed_buffer(feeds)
         bound: list[Any] = []
         total_bytes = 0.0

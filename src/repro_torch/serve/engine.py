@@ -24,10 +24,12 @@ counterpart of the reference's one compiled program per bucket): the host
 copies the tick's tokens, positions and block tables into the graph's
 input buffers, replays it, and reads the sampled tokens back.  There is no
 eager tick on the card.  On the CPU the same tick runs eagerly, as the
-tests drive it.  The legacy engine stays eager everywhere.  With
-`ServeConfig.compile_mode`, either engine's tick is instead traced
+tests drive it.  The legacy engine's tick goes through `cached_jit`, as
+the reference's does: a replayed CUDA graph on the card, eager on the CPU.
+With `ServeConfig.compile_mode`, either engine's tick is instead traced
 (core/trace.py) and run on that compiler mode's executor, the kernels
-reached through the lowering pass.  The batch shape
+reached through the lowering pass, each plan a replayed CUDA graph on the
+card (core/executor.py).  The batch shape
 never changes, so every op of a step sees the same shapes each tick, and
 each slot's outputs depend only on its own tokens: a refilled slot is
 bitwise equal to serving its request alone, and the two KV data paths
@@ -46,9 +48,10 @@ legacy engine and `models.encdec`.
 from __future__ import annotations
 
 import functools
-import gc
 import threading
 import time
+import warnings
+import weakref
 from collections import deque
 from dataclasses import dataclass
 
@@ -56,9 +59,10 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
-from ..core.compiler import compile as compile_fn
+from ..core.compiler import cached_jit, compile as compile_fn
 from ..core.costmodel import paged_decode_traffic
-from ..kernels import add_launches, launch_delta, launch_state, restore_launches
+from ..core.cudagraph import CapturedGraph, GraphCaptureError, graph_stats
+from ..core.executor import executable_cache
 from ..kernels.ref import paged_rows
 from ..models import check_decode, get_model
 from ..models import lm
@@ -77,6 +81,12 @@ class ServeConfig:
     # through the capture front-end and run on that executor
     # (`repro_torch.compile`), one trace per tick shape.
     compile_mode: str | None = None
+    # Optional LRU bound for the PROCESS-WIDE executable cache
+    # (`executable_cache()`), which engines of every shape and config share:
+    # evicted builds (cached_jit graphs, with their graph pools) are built
+    # again on next use.  None leaves whatever bound is in force; the knob
+    # is global and last-setter-wins, so set it from one place.
+    cache_capacity: int | None = None
     # -- paged engine knobs -------------------------------------------------
     block_size: int = 8            # token positions per KV page
     prefill_chunk: int = 8         # max prompt tokens one slot feeds per tick
@@ -111,17 +121,39 @@ def _device_of(params: dict) -> torch.device:
     return params["embed"].device
 
 
-def _compiled(fn, example: tuple, sc: ServeConfig, device: torch.device):
-    """`fn` traced on `example` and compiled in `sc.compile_mode`, as a
-    callable of the same arguments that moves host tensors to `device`
-    (the engines build their tick inputs on the host).  The tick writes its
-    cache in place: the trace functionalizes those writes and the compiled
-    graph's trailing copies put them into the engine's buffers."""
-    app = compile_fn(fn, example, mode=sc.compile_mode)
+def _apply_cache_capacity(sc: ServeConfig) -> None:
+    """Apply ServeConfig.cache_capacity to the process-wide executable cache,
+    warning when it would SHRINK a larger capacity some other engine set:
+    the knob is global, and evicting a co-tenant's builds silently is what
+    should be loud."""
+    if sc.cache_capacity is None:
+        return
+    cache = executable_cache()
+    cur = cache.stats()["capacity"]
+    if cur is not None and sc.cache_capacity < cur:
+        warnings.warn(
+            f"ServeConfig.cache_capacity={sc.cache_capacity} shrinks the "
+            f"process-wide executable cache from capacity {cur}; other "
+            "engines in this process share that cache and may rebuild "
+            "evicted shapes", stacklevel=3)
+    cache.set_capacity(sc.cache_capacity)
 
-    def step(params, state):
-        return app(params, {k: v.to(device) if torch.is_tensor(v) else v
-                            for k, v in state.items()})
+
+def _compiled(fn, example: tuple, sc: ServeConfig, device: torch.device):
+    """`fn(params, state, feed)` traced on `example` and compiled in
+    `sc.compile_mode`, as a callable of the same arguments that moves the
+    host tensors of `feed` to `device` (the engines build their tick inputs
+    on the host).  The params are read in place and the state (caches,
+    pools, recurrent state) is donated, so the captured plan keeps both
+    where they are; the per-tick feed is copied into its buffers.  The tick
+    writes its state in place: the trace functionalizes those writes and
+    the compiled graph's trailing copies put them into the engine's
+    buffers."""
+    app = compile_fn(fn, example, mode=sc.compile_mode, inplace_argnums=(0,),
+                     donate_argnums=(1,))
+
+    def step(params, state, feed):
+        return app(params, state, {k: v.to(device) for k, v in feed.items()})
     step.app = app
     return step
 
@@ -129,12 +161,18 @@ def _compiled(fn, example: tuple, sc: ServeConfig, device: torch.device):
 def serve_step(params, state, cfg: ArchConfig):
     """One decode tick for the whole batch (legacy contiguous engine).
 
-    state = {"tokens": (B,), "pos": int, "cache": {...}}; the cache is
-    updated in place.  Returns the sampled next tokens and the logits."""
+    state = {"tokens": (B,), "pos": (B,) or int, "cache": {...}}; the cache
+    is updated in place.  Returns the sampled next tokens and the logits."""
     logits, cache = get_model(cfg).decode_step(params, state["tokens"],
                                                state["pos"], state["cache"])
     return {"tokens": logits.argmax(dim=-1), "pos": state["pos"] + 1,
             "cache": cache, "logits": logits}
+
+
+def _legacy_tick(params, cache, feed, cfg: ArchConfig):
+    """`serve_step` with the cache apart from the per-tick tokens and
+    position, so that a compiled tick keeps the cache in place."""
+    return serve_step(params, {**feed, "cache": cache}, cfg)
 
 
 class ServingEngine:
@@ -144,11 +182,15 @@ class ServingEngine:
     the paged engine's per-slot clock fixes that).  With batch=1 it is the
     per-request ground truth.
 
-    Its tick runs eagerly on every device, the card included, with the
-    position a Python int (ROADMAP A7).  With `ServeConfig.compile_mode`
-    the tick is traced once and runs on the compiler's executor, the
-    counterpart of the reference's compiled tick: the position then enters
-    as a (B,) device tensor, so that one trace serves every tick."""
+    Its tick goes through `cached_jit` keyed ("serve_step", config, batch,
+    max_len), as the reference's does: on the card one CUDA graph per
+    engine (the weights and the cache are read in place, at their
+    addresses), replayed every tick and dropped from the executable cache,
+    with its graph pool, when the engine is collected; on the CPU eager, one
+    build for every engine of the key.  The tokens and the
+    position, a (B,) int64 tensor, are the per-tick feed.  With
+    `ServeConfig.compile_mode` the tick is traced once and runs on the
+    compiler's executor instead."""
 
     def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
                  eos_id: int = 1):
@@ -163,13 +205,27 @@ class ServingEngine:
         self.cache = get_model(cfg).init_cache(sc.batch, sc.max_len, device=self.device)
         self.tokens = np.zeros(sc.batch, np.int64)
         self.pos = 0
-        self._step = None
+        _apply_cache_capacity(sc)
+        tick = functools.partial(_legacy_tick, cfg=cfg)
         if sc.compile_mode is not None:
             zeros = torch.zeros(sc.batch, dtype=torch.int64, device=self.device)
-            self._step = _compiled(
-                functools.partial(serve_step, cfg=cfg),
-                (params, {"tokens": zeros, "pos": zeros, "cache": self.cache}),
-                sc, self.device)
+            self._step = _compiled(tick, (params, self.cache, {"tokens": zeros, "pos": zeros}),
+                                   sc, self.device)
+        else:
+            self._step = cached_jit(tick, key=("serve_step", cfg.name, sc.batch, sc.max_len),
+                                    inplace_argnums=(0, 1))
+            # on the card the graph reads this engine's cache at its address
+            # and serves no other engine: it goes, with its pool, when the
+            # engine does
+            weakref.finalize(self, self._step.release)
+
+    def graph_stats(self) -> dict:
+        """The tick's captured graphs (core/cudagraph.py `graph_stats`):
+        the cached_jit graph of this engine's weights and cache, or with
+        `compile_mode` the compiled tick's captured plans."""
+        if self.sc.compile_mode is not None:
+            return self._step.app.capture_stats()
+        return self._step.graph_stats()
 
     def submit(self, request_id: int, prompt: list[int]):
         self.queue.append((request_id, prompt))
@@ -188,14 +244,11 @@ class ServingEngine:
             if slot is not None and slot["fed"] < len(slot["prompt"]):
                 feed[i] = slot["prompt"][slot["fed"]]   # teacher-force prompt
                 slot["fed"] += 1
-        tokens = torch.from_numpy(feed).to(self.device)
-        if self._step is None:
-            out = serve_step(self.params, {"tokens": tokens, "pos": self.pos,
-                                           "cache": self.cache}, self.cfg)
-        else:
-            pos = torch.full((self.sc.batch,), self.pos, dtype=torch.int64)
-            out = self._step(self.params, {"tokens": tokens, "pos": pos,
-                                           "cache": self.cache})
+        out = self._step(self.params, self.cache, {
+            "tokens": torch.from_numpy(feed).to(self.device),
+            "pos": torch.full((self.sc.batch,), self.pos, dtype=torch.int64,
+                              device=self.device)})
+        self.cache = out["cache"]
         self.pos += 1
         nxt = out["tokens"].cpu().numpy()
         active = 0
@@ -369,53 +422,48 @@ def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
     return {**out, "kp": kp, "vp": vp}
 
 
+# the tick state the engine keeps on the card between ticks: the page pools
+# and the recurrent state, updated in place; the rest is the per-tick feed
+_TICK_STATE = frozenset(("kp", "vp", *_AUX_BATCH_AXIS))
+
+
+def _split_tick(params, held: dict, feed: dict, **kw):
+    """`paged_tick` with the state the engine keeps (`_TICK_STATE`) apart
+    from the per-tick tokens, n_tok, positions and tables."""
+    return paged_tick(params, {**feed, **held}, **kw)
+
+
 class TickGraphError(EngineError):
     """Capturing or replaying a tick's CUDA graph failed.  The device's
     fault, not a request's: `PagedServingEngine.tick` blames no request,
     degrades the engine and raises it, and nothing retries eagerly."""
 
 
-_capture_lock = threading.Lock()
-
-
-@functools.cache
-def _capture_stream(device: torch.device) -> torch.cuda.Stream:
-    """The stream every tick on `device` warms up and is captured on, one
-    for the process: cuBLAS keeps a workspace for each stream it has run
-    on, which a stream per engine would leave behind per engine."""
-    return torch.cuda.Stream(device)
-
-
 class CapturedTick:
-    """One (n_steps, v_blocks) bucket of `paged_tick` as a CUDA graph.
+    """One (n_steps, v_blocks) bucket of `paged_tick` as a CUDA graph
+    (core/cudagraph.py `CapturedGraph`, in the engine's one graph pool).
 
     Owns static input buffers -- tokens (B, n_steps), n_tok (B,), pos (B,)
     int64 and tables (B, v_blocks) int32 (none without KV) -- and uses the
     engine's page pools and recurrent-state buffers (`aux`) in place: the
     graph updates them as the eager tick does, and the engine's refill
     reset writes into the same buffers before a replay, on the same stream.
-    The warm-up run (on the device's capture stream, where the capture
-    happens too, so cuBLAS has its workspace there) and the capture both
-    see n_tok = 0 in every slot, so every KV row they write is the null
-    page's row 0 and every slot's recurrent state is written back as it
-    was: capturing between two live ticks leaves every slot's pages and
-    state bitwise as they were.
-    The capture mode is "thread_local": the async engine captures on its
-    tick thread while the caller's threads keep running, and a runtime call
-    there must not invalidate the capture.  Captures in one process take
-    turns (`_capture_lock`) on the device's one capture stream.
+    The warm-up run and the capture both see n_tok = 0 in every slot, so
+    every KV row they write is the null page's row 0 and every slot's
+    recurrent state is written back as it was: capturing between two live
+    ticks leaves every slot's pages and state bitwise as they were, and
+    neither the warm-up nor the capture counts as a tick's launches.
 
     Calling it copies the host tensors of a tick state into the buffers,
     replays the graph on the current stream and returns its outputs
     ("tokens_next", "pos" and "logits"; the logits are a copy, since the
-    next replay overwrites the graph's own buffer).  The launch counters do
-    not move in a replay: each call adds what the capture launched."""
+    next replay overwrites the graph's own buffer).  Each replay adds what
+    the capture launched to the launch counters."""
 
     def __init__(self, params, cfg: ArchConfig, kp: torch.Tensor | None,
                  vp: torch.Tensor | None, aux: dict, *, batch: int, block_size: int,
                  n_steps: int, v_blocks: int, mode: str, pool):
         dev = params["embed"].device
-        stream = _capture_stream(dev)
         i64 = dict(dtype=torch.int64, device=dev)
         self.state = {"tokens": torch.zeros((batch, n_steps), **i64),
                       "n_tok": torch.zeros(batch, **i64), "pos": torch.zeros(batch, **i64),
@@ -427,49 +475,18 @@ class CapturedTick:
             self.inputs += ("tables",)
         tick = functools.partial(paged_tick, params, self.state, cfg, block_size=block_size,
                                  n_steps=n_steps, mode=mode)
-        t0 = time.perf_counter()
-        with _capture_lock:
-            out = self._capture(tick, stream, pool, f"{n_steps} steps, {v_blocks} blocks")
-        self.capture_s = time.perf_counter() - t0
-        self.out = {k: out[k] for k in ("tokens_next", "pos", "logits")}
-        self.replays = 0
-
-    def _capture(self, tick, stream: torch.cuda.Stream, pool, what: str) -> dict:
-        """Warm `tick` up on `stream`, capture it there into self.graph and
-        return its outputs; sets self.launches and leaves the counters as
-        they were."""
-        dev = stream.device
-        counts = launch_state()
         try:
-            stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                tick()
-            torch.cuda.current_stream(dev).wait_stream(stream)
-            self.graph = torch.cuda.CUDAGraph()
-            at_capture = launch_state()
-            # a graph the collector frees on this thread mid-capture (a
-            # dropped engine's, say) destroys an executable graph, which
-            # invalidates the capture: collect first, and not during it
-            gc.collect()
-            collecting = gc.isenabled()
-            gc.disable()
-            try:
-                # the outer context puts the caller's stream back even when
-                # the capture's own exit raises
-                with torch.cuda.stream(stream), torch.cuda.graph(
-                        self.graph, pool=pool, stream=stream,
-                        capture_error_mode="thread_local"):
-                    out = tick()
-            finally:
-                if collecting:
-                    gc.enable()
-            self.launches = launch_delta(at_capture, launch_state())
-        except Exception as exc:
-            raise TickGraphError(f"capturing the tick ({what}) failed: "
-                                 f"{type(exc).__name__}: {exc}", site="tick.graph") from exc
-        finally:
-            restore_launches(counts)     # neither the warm-up nor the capture is a tick
-        return out
+            self.graph = CapturedGraph(tick, dev, what=f"the tick ({n_steps} steps, "
+                                       f"{v_blocks} blocks)", pool=pool, count_warm_up=False)
+        except GraphCaptureError as exc:
+            raise TickGraphError(str(exc), site="tick.graph") from exc
+        self.graph.first = None
+        self.out = {k: self.graph.out[k] for k in ("tokens_next", "pos", "logits")}
+        self.launches = self.graph.launches
+
+    @property
+    def replays(self) -> int:
+        return self.graph.replays
 
     def __call__(self, state: dict) -> dict:
         try:
@@ -479,8 +496,6 @@ class CapturedTick:
         except Exception as exc:
             raise TickGraphError(f"replaying the tick failed: {type(exc).__name__}: {exc}",
                                  site="tick.graph") from exc
-        self.replays += 1
-        add_launches(self.launches)
         return {**self.out, "logits": self.out["logits"].clone()}
 
 
@@ -599,6 +614,7 @@ class PagedServingEngine:
             raise ValueError("paged_attention must be 'gather' or 'native', "
                              f"got {sc.paged_attention!r}")
         check_decode(cfg)                # refuses what the port cannot decode
+        _apply_cache_capacity(sc)
         self.cfg = cfg
         self.params = params
         self.sc = sc
@@ -691,11 +707,17 @@ class PagedServingEngine:
             return fn
         sc = self.sc
         if sc.compile_mode is not None:
-            tick = functools.partial(paged_tick, cfg=self.cfg, block_size=sc.block_size,
+            tick = functools.partial(_split_tick, cfg=self.cfg, block_size=sc.block_size,
                                      n_steps=n_steps, mode=sc.paged_attention)
-            compiled = _compiled(tick, (self.params, self._example_state(n_steps, v_blocks)),
+            example = self._example_state(n_steps, v_blocks)
+            held = [k for k in example if k in _TICK_STATE]
+            compiled = _compiled(tick, (self.params, {k: example[k] for k in held},
+                                        {k: v for k, v in example.items() if k not in held}),
                                  sc, self.device)
-            fn = functools.partial(compiled, self.params)
+
+            def fn(state):
+                return compiled(self.params, {k: state[k] for k in held},
+                                {k: v for k, v in state.items() if k not in held})
             fn.app = compiled.app
         elif self.device.type == "cuda":
             if self._graph_pool is None:
@@ -724,16 +746,18 @@ class PagedServingEngine:
         return st
 
     def graph_stats(self) -> dict:
-        """The captured ticks: graphs, replays, seconds spent capturing
-        (warm-up included) and the bytes the shared graph pool holds on the
-        card (the allocator's segments of that pool)."""
-        graphs = [g for g in self._steps.values() if isinstance(g, CapturedTick)]
-        pool_bytes = 0
-        if self._graph_pool is not None:
-            pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                             if tuple(seg["segment_pool_id"]) == tuple(self._graph_pool))
-        return {"graphs": len(graphs), "replays": sum(g.replays for g in graphs),
-                "capture_s": sum(g.capture_s for g in graphs), "pool_bytes": pool_bytes}
+        """The captured ticks, summed by core/cudagraph.py `graph_stats`:
+        graphs, replays, the seconds of the warm-ups and of the captures
+        apart, and the bytes their graph pools hold on the card -- the
+        CapturedTicks' shared pool, and with `compile_mode` the captured
+        plans of each bucket's compiled tick."""
+        stats = graph_stats(g.graph for g in self._steps.values()
+                            if isinstance(g, CapturedTick))
+        for fn in self._steps.values():
+            if hasattr(fn, "app"):
+                for k, v in fn.app.capture_stats().items():
+                    stats[k] += v
+        return stats
 
     # -- request lifecycle -------------------------------------------------
     def submit(self, prompt: list[int], rid: int | None = None,

@@ -1112,3 +1112,211 @@ def test_tick_graph_captures_the_ops(cuda):
     assert ticks and all(t.replays > 0 for t in ticks)
     launched = set().union(*(t.launches for t in ticks))
     assert {"fused_mlp_swiglu", "paged_flash_decode"} <= launched
+
+
+# ---------------------------------------------------------------------------
+# the executable cache on the card: captured plans and cached_jit graphs
+# ---------------------------------------------------------------------------
+
+def _train_case(cuda, arch, dtype, batch=4, seq=32):
+    """The reduced config in `dtype` on the card: (cfg, optimizer, state,
+    batch); 4 x 32 tokens put the MLP blocks' forward in its tiled form."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    opt = adamw(1e-3)
+    state = make_train_state(cfg, opt, seed=0, device=cuda)
+    rng = np.random.default_rng(1)
+    data = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq))).to(cuda)}
+    if cfg.family == "encdec":
+        data["frame_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, seq, cfg.d_model), dtype=np.float32)).to(cuda)
+    return cfg, opt, state, data
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("arch", ["gemma3-1b", "whisper-small"])
+def test_captured_train_step_bitwise_uncaptured(cuda, arch, dtype):
+    """compile_train_step on the card: every step after the first replays
+    the captured plan, builds nothing and launches what the walk launches,
+    and three captured steps equal three uncaptured steps
+    (`CompilerOptions(capture=False)`) bit for bit, state and metrics."""
+    from repro_torch.train import compile_train_step
+    cfg, opt, state, data = _train_case(cuda, arch, dtype)
+    clone = lambda tree: torch.utils._pytree.tree_map(lambda t: t.clone(), tree)   # noqa: E731
+    app = compile_train_step(cfg, opt, TrainConfig(xent_chunk=8), state=clone(state),
+                             batch=data)
+    walk = app.uncaptured()
+    s, w = clone(state), clone(state)
+    for i in range(3):
+        builds = repro_torch.lowering_count()
+        before = K.launch_counts()
+        s, m = app(s, data)
+        mid = K.launch_counts()
+        w, mw = walk(w, data)
+        after = K.launch_counts()
+        if i:
+            assert repro_torch.lowering_count() == builds
+        assert {k: mid[k] - before[k] for k in mid} == {k: after[k] - mid[k] for k in mid}
+        for (path, a), (_, b) in zip(flatten({"s": s, "m": m}), flatten({"s": w, "m": mw})):
+            assert torch.equal(a, b), (i, path)
+    st = app.capture_stats()
+    assert st["graphs"] == 1 and st["replays"] == 2 and st["pool_bytes"] > 0
+    assert walk.capture_stats()["graphs"] == 0
+    assert "captured 1 plans" in app.describe()
+
+
+def test_captured_paged_compile_tick_bitwise_uncaptured(cuda):
+    """The paged engine's compile_mode tick: a replay of a bucket's
+    captured plan on the engine's pools equals that plan's uncaptured walk
+    on copies of them -- tokens, positions, logits and every page but the
+    null page."""
+    cfg, params, eng = _card_engine(cuda, compile_mode="kitsune")
+    _serve(eng)
+    for (c, v), step in sorted(eng._steps.items()):
+        state = _tick_state(eng, cfg, c, seed=c)
+        held = {"kp": eng.kp.clone(), "vp": eng.vp.clone()}
+        feed = {k: t.to(cuda) for k, t in state.items()}
+        want = step.app.uncaptured()(params, held, feed)
+        replays = step.app.capture_stats()["replays"]
+        got = step({**state, "kp": eng.kp, "vp": eng.vp})
+        assert step.app.capture_stats()["replays"] == replays + 1
+        for key in ("tokens_next", "pos", "logits"):
+            assert torch.equal(got[key], want[key]), (c, key)
+        assert torch.equal(_pages(eng.kp, eng), _pages(held["kp"], eng))
+        assert torch.equal(_pages(eng.vp, eng), _pages(held["vp"], eng))
+
+
+def test_cached_jit_on_card(cuda):
+    """cached_jit's graph: a second call builds nothing and replays; a
+    returned output survives the next call; an in-place argument moved to
+    another address builds anew and the graph never writes the old one;
+    a copied argument is never written."""
+    from repro_torch import cached_jit
+
+    def step(buf, x):
+        buf.add_(x)
+        return {"y": buf * 2.0, "buf": buf}
+
+    f = cached_jit(step, key=("test_cached_jit_on_card",), inplace_argnums=(0,))
+    buf = torch.zeros(64, device=cuda)
+    x1, x2 = (torch.full((64,), v, device=cuda) for v in (1.0, 2.0))
+    before = repro_torch.lowering_count()
+    out1 = f(buf, x1)                                 # builds: eager on the capture stream
+    assert repro_torch.lowering_count() == before + 1
+    out2 = f(buf, x2)                                 # replays
+    assert repro_torch.lowering_count() == before + 1
+    torch.cuda.synchronize()
+    assert torch.all(out1["y"] == 2.0) and torch.all(out2["y"] == 6.0)
+    assert out2["buf"] is buf and torch.all(buf == 3.0)
+    assert torch.all(x2 == 2.0)
+    moved = torch.zeros(64, device=cuda)
+    out3 = f(moved, x1)
+    assert repro_torch.lowering_count() == before + 2
+    out4 = f(moved, x1)
+    torch.cuda.synchronize()
+    assert torch.all(buf == 3.0), "the graph wrote the in-place tensor it no longer owns"
+    assert torch.all(moved == 2.0) and torch.all(out3["y"] == 2.0) and torch.all(out4["y"] == 4.0)
+    assert torch.all(out2["y"] == 6.0)
+
+
+def test_host_sync_in_a_plan_raises_and_never_walks(cuda, monkeypatch):
+    """A node that syncs the host fails the plan's capture with
+    GraphCaptureError naming its program; the next run raises again
+    without running any program; random ops on the device work after the
+    failed capture."""
+    from repro_torch.core import GraphCaptureError
+    from repro_torch.core import executor as ex
+    calls = []
+
+    def syncing_relu(x):
+        calls.append(1)
+        return torch.relu(x) + 0.0 * x.sum().item()
+
+    monkeypatch.setitem(ex._EW_FNS, "relu", syncing_relu)
+    graph, feeds = apps.tiny_instances(cuda)["dlrm"]
+    params = repro_torch.init_params(graph, seed=0, device=cuda)
+    app = repro_torch.compile(graph, mode="bsp")
+    relus = [n.name for n in graph.topo() if n.attrs.get("fn") == "relu"]
+    with pytest.raises(GraphCaptureError, match=f"in program ({'|'.join(relus)})"):
+        app.run(feeds, params)
+    n = len(calls)
+    with pytest.raises(GraphCaptureError):
+        app.run(feeds, params)
+    assert len(calls) == n, "a failed plan ran eagerly"
+    assert torch.randn(8, device=cuda).isfinite().all()   # the device's generator works
+
+
+def test_evicted_graph_frees_its_pool(cuda):
+    """A cached_jit graph evicted from a bounded executable cache gives its
+    graph memory pool back to the card."""
+    import gc
+    from repro_torch import cached_jit
+    from repro_torch.core.cudagraph import pool_bytes
+    from repro_torch.core.executor import executable_cache
+    cache = executable_cache()
+    cap = cache.stats()["capacity"]
+    x = torch.randn(4096, 4096, device=cuda)
+    f = cached_jit(lambda x: (x @ x).relu().sum(), key=("test_evicted_graph_frees_its_pool",))
+    f(x)
+    key = next(k for k in cache.keys() if k[:2] == ("cached_jit", "test_evicted_graph_frees_its_pool"))
+    pool = cache.get(key).pool
+    assert pool_bytes(pool) >= 64 << 20
+    g = cached_jit(lambda y: y + 1.0, key=("test_evicted_graph_frees_its_pool", "other"))
+    g(x[0])
+    try:
+        cache.set_capacity(1)                 # keeps only g's graph, the most recent
+        assert key not in cache and cache.stats()["evictions"] >= 1
+        gc.collect()
+        torch.cuda.empty_cache()
+        assert pool_bytes(pool) == 0
+    finally:
+        cache.set_capacity(cap)
+
+
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "gemma3-1b"])
+def test_legacy_engine_replays_its_tick(cuda, arch):
+    """The legacy engine on the card ticks through cached_jit: one graph,
+    every tick after the first a replay, the CPU engine's tokens."""
+    from repro_torch.core.executor import executable_cache
+    from repro_torch.serve import ServingEngine
+    cfg = get_config(arch).reduced()
+    cpu_params = get_model(cfg).init(0, "cpu")
+    outs = {}
+    for dev, p in (("cpu", cpu_params), ("cuda", to_device(cpu_params, cuda))):
+        eng = ServingEngine(cfg, p, ServeConfig(max_len=16, batch=2), eos_id=-1)
+        for rid, prompt in list(SERVE_PROMPTS.items())[:3]:
+            eng.submit(rid, list(prompt))
+        before, keys = repro_torch.lowering_count(), set(executable_cache().keys())
+        outs[dev] = eng.run_until_done(max_ticks=60)
+        if dev == "cuda":
+            assert repro_torch.lowering_count() == before + 1
+            new = [k for k in executable_cache().keys() if k not in keys]
+            assert len(new) == 1 and new[0][:5] == ("cached_jit", "serve_step", cfg.name, 2, 16)
+            assert executable_cache().get(new[0]).replays == eng.pos - 1
+    assert outs["cpu"] == outs["cuda"]
+
+
+def test_dropped_legacy_engine_frees_its_graph(cuda):
+    """The legacy engine's cached_jit graph reads that engine's cache at its
+    address: it serves no other engine, and it leaves the executable cache,
+    its pool going back to the card, when the engine is collected."""
+    import gc
+    from repro_torch.core.cudagraph import pool_bytes
+    from repro_torch.core.executor import executable_cache
+    from repro_torch.serve import ServingEngine
+    cfg = get_config("gemma3-1b").reduced()
+    params = get_model(cfg).init(0, cuda)
+    eng = ServingEngine(cfg, params, ServeConfig(max_len=16, batch=2), eos_id=-1)
+    eng.submit(0, [3, 4, 5])
+    eng.run_until_done(max_ticks=20)
+    st = eng.graph_stats()
+    assert st["graphs"] == 1 and st["replays"] == eng.pos - 1 and st["pool_bytes"] > 0
+    assert st["warm_up_s"] > 0 and st["capture_s"] > 0
+    (graph,) = eng._step.graphs()
+    key = next(k for k in executable_cache().keys() if executable_cache().get(k) is graph)
+    pool = graph.pool
+    del graph, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert key not in executable_cache()
+    assert pool_bytes(pool) == 0

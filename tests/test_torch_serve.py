@@ -39,7 +39,8 @@ from repro.serve import ServeConfig as JServeConfig
 from repro.serve import ServingEngine as JServingEngine
 
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.core.executor import params_from_numpy
+from repro_torch.core.executor import (executable_cache, lowering_count,
+                                       params_from_numpy)
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import get_model, lm
 from repro_torch.serve import (AsyncServingEngine, BlockPool, EngineError,
@@ -191,9 +192,12 @@ def test_async_engine_matches_sync(arch):
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_legacy_engine_equals_reference_solo_oracle(arch):
     """Each request served alone through the legacy engine, in both
-    packages; the paged engine's refilled slots equal it too."""
+    packages; the paged engine's refilled slots equal it too.  The port's
+    tick goes through `cached_jit`, as the reference's does: one build
+    serves every engine of the config."""
     jcfg, jparams, cfg, params = models(arch)
     got, want = {}, {}
+    before = lowering_count()
     for rid, p in PROMPTS.items():
         for cls, sc_cls, c, pp, out in ((ServingEngine, ServeConfig, cfg, params, got),
                                         (JServingEngine, JServeConfig, jcfg, jparams, want)):
@@ -202,6 +206,9 @@ def test_legacy_engine_equals_reference_solo_oracle(arch):
             out.update(eng.run_until_done())
     assert got == want
     assert reference_run(arch, "refill") == got
+    assert lowering_count() - before <= 1
+    assert any(k[:5] == ("cached_jit", "serve_step", cfg.name, 1, MAX_LEN)
+               for k in executable_cache().keys())
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)

@@ -156,6 +156,23 @@ def test_bsp_mode_same_numerics():
         close(a, b, 5e-4)
 
 
+@pytest.mark.parametrize("first,then", [("kitsune", "bsp"), ("bsp", "kitsune")])
+def test_with_mode_equals_a_fresh_compile(first, then):
+    """`with_mode` compiles the same trace in another mode: its step is
+    bitwise the step of a fresh `compile_train_step` in that mode."""
+    cfg, state, batch, *_ = case("gemma3-1b", seed=8)
+    app = compile_train_step(cfg, adamw(1e-3), _TC, state=state, batch=batch,
+                             compile_mode=first, donate_state=False)
+    other = app.with_mode(then)
+    fresh = compile_train_step(cfg, adamw(1e-3), _TC, state=state, batch=batch,
+                               compile_mode=then, donate_state=False)
+    assert other.traced is app.traced and other.options.mode == then
+    assert [r.name for r in other.pass_records] == [r.name for r in fresh.pass_records]
+    (s, m), (fs, fm) = other(state, batch), fresh(state, batch)
+    assert torch.equal(m["loss"], fm["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(leaves(s), leaves(fs)))
+
+
 def test_second_step_builds_nothing():
     cfg, state, batch, *_ = case("qwen1.5-32b", seed=4)
     app = compile_train_step(cfg, adamw(1e-3), _TC, state=state, batch=batch)
