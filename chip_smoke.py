@@ -34,7 +34,9 @@ Phases, each failing the run on any error (no phase's exception is caught):
      must be bitwise the walk, every mode is held to an f32 run of the
      same graph and weights (MODEL_TOL), no run after the first may build
      anything, every run launches alike, and each kitsune run must launch
-     fused_mlp_swiglu and flash_attention exactly twice;
+     fused_mlp_swiglu and flash_attention exactly twice; phases 4-6 and
+     10 lower every site (lowering_policy="always"), since they count each
+     site's launches;
   5. nerf, dlrm, mgn and graphcast at their published sizes, kitsune
      against bsp, captured and uncaptured as in 4, with fused_mlp launched
      once per lowered site;
@@ -73,10 +75,10 @@ Phases, each failing the run on any error (no phase's exception is caught):
      alike on the card; the training launcher runs gemma3-1b for 4 steps in
      a subprocess and saves its checkpoint;
   9. the model families beyond dense, each model in its own scope, bf16
-     weights from a seed: (a) hymba-1.5b at full width, its depth cut to 16
+     weights from a seed: (a) hymba-1.5b at full width, its depth cut to 8
      of its 32 layers (attention + Mamba heads) behind the paged
      engine with per-slot SSM state, phase 7's 16 requests through 8 slots,
-     every tick a replay: 16 paged_flash_decode and 16 small-M
+     every tick a replay: 8 paged_flash_decode and 8 small-M
      fused_mlp_swiglu launches per decode step, gather == native, request
      0 alone == in the batch, every bucket's replay == eager `paged_tick`
      (pages and SSM state included), prefix caching off by the engine's
@@ -119,19 +121,38 @@ Phases, each failing the run on any error (no phase's exception is caught):
      plan of the paged tick bitwise its uncaptured walk, trace and compile
      seconds apart from capture and run seconds; (e) a traced
      `paged_decode_atom` at phase 7's decode shape, lowered to
-     paged_flash_decode, against its plain version;
+     paged_flash_decode, against its plain version; 10a, 10b and 10d
+     also print the verdicts the default policy ("auto") gives their
+     apps' sites (the pipelined graph lowered again, nothing traced
+     again);
  11. the legacy engine's tick through `cached_jit`: phi3-medium-14b at full
      width and depth (40 layers, batch 8), 8 prompts of 48 tokens decoded
      to a 160-position cache, every tick eager and then every tick after
      the first a replay of one captured graph: bitwise the same tokens, 40
      flash_decode and 40 small-M fused_mlp_swiglu launches a tick; ms a
      tick, capture seconds, graph pool bytes, and three profiled ticks of
-     each for the device's idle share.
+     each for the device's idle share;
+ 12. the compiler's default lowering policy ("auto"): (a) the Llama3-8B
+     app and (b) nerf, dlrm, mgn, graphcast and the split-reduction graph
+     at phases 4-6's sizes compiled in kitsune mode under "auto" -- every
+     site's tier ("cost" or "measured"), decision, estimated and measured
+     microseconds and tuned tile, the compile's seconds for verdicts and
+     for tiles apart, a second compile that must hit the verdict and tune
+     caches at every site, three captured runs held to the same app under
+     "always" within MODEL_TOL, ms a run of each; (c) B4 and B8 traced at
+     phase 7's decode shape and compiled under "auto": the tuned block_s
+     and its time, every candidate of the grid timed with a cold L2 beside
+     it, the compiled site held to the plain version; (d) the five tiny
+     instances (f32) likewise, where every measured verdict must follow
+     its own numbers.  After phases 4-6, `calibrate(H100, ...)` is fitted
+     to phases 4-5's timed bsp replays (flops, boundary bytes, programs,
+     seconds) and printed.
 The launch counters are zeroed just before phase 4 and read just after
 phase 6 (the compiler's main path), and zeroed and read around each engine
 run of phases 7, 9, 10 and 11 (the serving paths), each full-width run of
 phases 8 and 10 (the training paths), phase 9's whisper decode steps and
-phase 10's traced forward and atom.  The second-to-last line is the
+phase 10's traced forward and atom, and around each of phase 12's runs
+under "auto".  The second-to-last line is the
 per-kernel JSON summary: one row per kernel and main-path shape, its
 `launches` taken from the run of the path that row belongs to (for the
 whisper rows of fused_mlp and fused_mlp_bwd, only that run's launches at
@@ -195,6 +216,11 @@ from repro_torch.serve import (AsyncServingEngine, CapturedTick,  # noqa: E402
                                ServingEngine, paged_tick)
 from repro_torch.serve.engine import serve_step  # noqa: E402
 from repro_torch.core.cudagraph import graph_stats  # noqa: E402
+from repro_torch.core import H100, calibrate  # noqa: E402
+from repro_torch.core.executor import verdict_cache  # noqa: E402
+from repro_torch.core.compiler import _pipelined_members  # noqa: E402
+from repro_torch.core.lower import MEASURE_MARGIN, lower_pipelines, target_for  # noqa: E402
+from repro_torch.kernels.flash_attention import decode_tile_candidates  # noqa: E402
 
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s, H100 SXM
 HBM = 3.35e12                                           # B/s
@@ -313,9 +339,10 @@ HYMBA, MAVERICK, XLSTM, WHISPER = ("hymba-1.5b", "llama4-maverick-400b-a17b", "x
 # maverick's depth cut to one layer group: its dense layer and its MoE layer
 # (moe_period 2); the whole model (~800 GB in bf16) fits no single card
 MAVERICK_LAYERS = 2
-# hymba's depth cut to half of its 32 layers (every layer is alike: attention
-# heads beside an SSM) to keep the whole run near its earlier length
-HYMBA_LAYERS = 16
+# hymba's depth cut to a quarter of its 32 layers (every layer is alike:
+# attention heads beside an SSM) to keep the whole run near its earlier
+# length (16 until phase 12 came)
+HYMBA_LAYERS = 8
 MAVERICK_REQUESTS = 8
 XLSTM_CONFIG = dict(SERVE_CONFIG, batch=4)
 XLSTM_REQUESTS = 8
@@ -935,7 +962,7 @@ def f32(tree: dict) -> dict:
             (v.float() if v.is_floating_point() else v) for k, v in tree.items()}
 
 
-def run_modes(graph, feeds, params, modes, label):
+def run_modes(graph, feeds, params, modes, label, samples=None):
     """Compile and run `graph` in each mode three times captured (the
     first run builds and captures the plan, the others replay it; the
     first replay of a graph also uploads it) and once as the uncaptured
@@ -944,13 +971,16 @@ def run_modes(graph, feeds, params, modes, label):
     anything, that every run launches alike and that the replay is bitwise
     the walk, and hold every mode's outputs to an f32 bsp run (see
     MODEL_TOL).  Each mode's app, and with it its graph, is dropped before
-    the next mode is captured."""
+    the next mode is captured.  The compiles lower every kitsune site
+    (lowering_policy="always"): these phases count each site's launches;
+    phase 12 runs the default policy.  `samples` collects the bsp mode's
+    timed replay as calibrate's (flops, bytes, programs, seconds)."""
     outs, deltas = {}, {}
     ref = repro_torch.compile(graph, mode="bsp", capture=False).run(f32(feeds),
                                                                     f32(params)).outputs
     for mode in modes:
         t0 = time.perf_counter()
-        app = repro_torch.compile(graph, mode=mode)
+        app = repro_torch.compile(graph, mode=mode, lowering_policy="always")
         t_compile = time.perf_counter() - t0
         runs = {}
         for form, run_app in (("captured", app), ("uncaptured", app.uncaptured())):
@@ -981,6 +1011,9 @@ def run_modes(graph, feeds, params, modes, label):
                 if mode in deltas and delta != deltas[mode]:
                     raise AssertionError(f"{label} {mode}: launches differ across runs")
                 deltas[mode] = delta
+                if samples is not None and mode == "bsp" and form == "captured" and i == 2:
+                    samples.append((graph.total_flops(), rep.bytes_accessed, rep.n_programs,
+                                    wall))
             runs[form] = rep.outputs
         stats = app.capture_stats()
         print(f"{label} {mode}: graphs {stats['graphs']}, replays {stats['replays']}, graph "
@@ -1017,21 +1050,30 @@ def run_modes(graph, feeds, params, modes, label):
     return outs, deltas
 
 
-def phase_llama():
-    graph = apps.llama3_8b(hkv=32)                   # published widths, 2 layers
+def llama_case():
+    """Phase 4's graph (published widths, 2 layers), bf16 weights and ids
+    from seeds."""
+    graph = apps.llama3_8b(hkv=32)
     params = repro_torch.init_params(graph, seed=0, dtype=torch.bfloat16, device="cuda")
-    n_params = sum(t.numel() for p in params.values() for t in p.values())
     gen = torch.Generator(device="cuda").manual_seed(1)
     feeds = {"ids": torch.randint(0, 128256, (4, 2048), generator=gen, device="cuda")}
+    return graph, params, feeds
+
+
+def phase_llama(samples):
+    graph, params, feeds = llama_case()
+    n_params = sum(t.numel() for p in params.values() for t in p.values())
     print(f"llama3_8b: {n_params / 1e9:.3f} B parameters in bf16", flush=True)
-    _, deltas = run_modes(graph, feeds, params, ("bsp", "kitsune", "vertical"), "llama3_8b")
+    _, deltas = run_modes(graph, feeds, params, ("bsp", "kitsune", "vertical"), "llama3_8b",
+                          samples)
     k = deltas["kitsune"]
     if k["fused_mlp_swiglu"] != 2 or k["flash_attention"] != 2:
         raise AssertionError(f"llama3_8b kitsune launches {k}: want "
                              f"fused_mlp_swiglu x2, flash_attention x2")
 
 
-def phase_apps():
+def app_cases() -> dict:
+    """Phase 5's feeds at the apps' published sizes, from a numpy seed."""
     rng = np.random.default_rng(2)
 
     def feats(*shape):
@@ -1041,25 +1083,30 @@ def phase_apps():
     def ids(high, *shape):
         return torch.from_numpy(rng.integers(0, high, shape)).to("cuda")
 
-    cases = {
+    return {
         "nerf": ({"pts": feats(524288, 60), "view": feats(524288, 24)}),
         "dlrm": ({"dense_x": feats(8192, 13), "sparse_ids": ids(1_000_000, 8192, 8)}),
         "mgn": ({"nodes": feats(32768, 128), "edges": feats(98304, 128),
                  "edge_idx": ids(32768, 98304)}),
         "graphcast": ({"x": feats(40962, 256), "mesh_idx": ids(40962, 40962)}),
     }
-    for name, feeds in cases.items():
+
+
+def phase_apps(samples):
+    for name, feeds in app_cases().items():
         graph = apps.APPS[name]()
         params = repro_torch.init_params(graph, seed=0, dtype=torch.bfloat16,
                                          device="cuda")
-        _, deltas = run_modes(graph, feeds, params, ("bsp", "kitsune"), name)
+        _, deltas = run_modes(graph, feeds, params, ("bsp", "kitsune"), name, samples)
         if not deltas["kitsune"]["fused_mlp"]:
             raise AssertionError(f"{name}: fused_mlp never launched")
         del params
         torch.cuda.empty_cache()
 
 
-def phase_split_reduction():
+def split_reduction_case():
+    """Phase 6's graph, x (2048, 1024, 256) bf16 -> x*x -> sum over axis 0,
+    and its feed from a seed."""
     g = repro_torch.Graph("split_reduction")
     g.input("x", (2048, 1024, 256), "bfloat16")
     g.elementwise("sq", ["x", "x"], "mul")
@@ -1067,7 +1114,12 @@ def phase_split_reduction():
     g.output("y", "batch_sum")
     gen = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn(2048, 1024, 256, generator=gen, device="cuda").to(torch.bfloat16)
-    _, deltas = run_modes(g, {"x": x}, {}, ("bsp", "kitsune"), "split_reduction")
+    return g, {"x": x}
+
+
+def phase_split_reduction():
+    g, feeds = split_reduction_case()
+    _, deltas = run_modes(g, feeds, {}, ("bsp", "kitsune"), "split_reduction")
     if not deltas["kitsune"]["queue_reduce"]:
         raise AssertionError("split_reduction: queue_reduce never launched")
 
@@ -1952,11 +2004,40 @@ def clone_tree(tree):
     return torch.utils._pytree.tree_map(lambda t: t.clone(), tree)
 
 
-def compiled_train_step(label, cfg, opt, tc, state, batch, mode):
-    """`compile_train_step` in `mode`, timed; returns (app, trace s, passes s)."""
+def auto_verdicts(label, app) -> None:
+    """The verdicts the default policy ("auto") gives a compiled app's
+    sites on this card: its pipelined graph lowered again under "auto"
+    (nothing traced again, launches uncounted); prints the tiers, the
+    declined sites and the seconds of verdicts and tiles."""
     t0 = time.perf_counter()
-    app = compile_train_step(cfg, opt, tc, state=state, batch=batch, compile_mode=mode)
+    plan = lower_pipelines(app.pipelined.graph, _pipelined_members(app.pipelined),
+                           policy="auto", hw=app.options.resolved_hw(),
+                           target=target_for(app.state.device, app.options.capture))
+    rows = [r for r in plan.verdict_table() if r["executable"]]
+    tiers: dict[str, int] = {}
+    for r in rows:
+        tier = f"{r['kernel']} {r['source']} -> {r['decision']}"
+        tiers[tier] = tiers.get(tier, 0) + 1
+    measured = list(dict.fromkeys(
+        (r["kernel"], round(r["meas_kernel_us"], 2), round(r["meas_closure_us"], 2),
+         tuple(sorted((r["tile"] or {}).items())))
+        for r in rows if r["source"] == "measured"))
+    tiled = list(dict.fromkeys((r["kernel"], tuple(sorted(r["tile"].items())))
+                               for r in rows if r["tile"]))
+    print(f"{label} under auto: {len(rows)} sites {tiers}; measured, each distinct (kernel "
+          f"us, closure us, tile) {measured}; tiles, each distinct {tiled}; verdicts {plan.verdict_s:.3f} s, tiles "
+          f"{plan.tune_s:.3f} s, {time.perf_counter() - t0:.2f} s in all", flush=True)
+
+
+def compiled_train_step(label, cfg, opt, tc, state, batch, mode):
+    """`compile_train_step` in `mode`, timed; returns (app, trace s, passes s).
+    A kitsune step's sites also get the default policy's verdicts printed."""
+    t0 = time.perf_counter()
+    app = compile_train_step(cfg, opt, tc, state=state, batch=batch, compile_mode=mode,
+                             lowering_policy="always")
     total = time.perf_counter() - t0
+    if mode == "kitsune":
+        auto_verdicts(f"traced {label}", app)
     trace_s = app.pass_records[0].seconds
     low = app.lowering.summary() if app.lowering is not None else "no kernel lowering"
     print(f"traced {label} {mode}: trace {trace_s:.1f} s ({len(app.graph.nodes)} nodes, "
@@ -2114,7 +2195,8 @@ def phase_traced_zoo() -> dict[str, int]:
     with torch.no_grad():
         want = zf.fn(*zf.example_inputs)
     t0 = time.perf_counter()
-    app = repro_torch.compile(zf.fn, zf.example_inputs, mode="kitsune")
+    app = repro_torch.compile(zf.fn, zf.example_inputs, mode="kitsune",
+                              lowering_policy="always")
     compile_s = time.perf_counter() - t0
     app(*zf.example_inputs)
     torch.cuda.synchronize()
@@ -2181,10 +2263,11 @@ def phase_traced_serve() -> dict[str, dict[str, int]]:
     for engine in ("paged", "legacy"):
         out = {}
         for mode in (None, "kitsune"):
-            sc = ServeConfig(**{**TRACED_SERVE_CONFIG, "compile_mode": mode})
+            sc = ServeConfig(**{**TRACED_SERVE_CONFIG, "compile_mode": mode,
+                                "lowering_policy": "always"})
             if engine == "legacy":
                 sc = ServeConfig(max_len=160, batch=TRACED_SERVE_CONFIG["batch"],
-                                 compile_mode=mode)
+                                 compile_mode=mode, lowering_policy="always")
             t0 = time.perf_counter()
             if engine == "paged":
                 eng = PagedServingEngine(cfg, params, sc, eos_id=-1)
@@ -2208,6 +2291,8 @@ def phase_traced_serve() -> dict[str, dict[str, int]]:
                 compiled = [eng._step.app] if mode else []
             graphs = eng.graph_stats()
             passes_s = sum(r.seconds for a in compiled for r in a.pass_records)
+            for a in compiled:
+                auto_verdicts(f"traced serve {engine} tick", a)
             print(f"traced serve {engine} compile_mode={mode}: {len(done)} requests, "
                   f"{sum(len(v) for v in done.values())} tokens, {ticks} ticks in {wall:.2f} s, "
                   f"of which {passes_s:.2f} s tracing and compiling {len(compiled)} tick "
@@ -2258,7 +2343,8 @@ def phase_traced_paged_atom() -> dict[str, int]:
         """Decode attention, then phi3's output projection."""
         return atom(q, kp, vp, tables, valid).reshape(b, hq * d) @ wo
 
-    app = repro_torch.compile(site, (q, kp, vp, tables, valid), mode="kitsune")
+    app = repro_torch.compile(site, (q, kp, vp, tables, valid), mode="kitsune",
+                              lowering_policy="always")
     matches = [m for pl in app.lowering.pipelines.values() for m in pl.matches]
     K.reset_launch_counts()
     got = app(q, kp, vp, tables, valid)
@@ -2400,6 +2486,199 @@ def phase_legacy_tick() -> dict[str, dict[str, int]]:
     return {"legacy_phi3": runs["legacy_cached_jit"], "legacy_phi3_eager": runs["legacy_eager"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the default lowering policy ("auto")
+# ---------------------------------------------------------------------------
+
+# phase 7's decode shape: the B4 / B8 sites whose tiles phase 12 tunes
+DECODE_B, DECODE_HQ, DECODE_HKV, DECODE_S, DECODE_D, DECODE_BS = 8, 40, 10, 512, 128, 16
+
+
+def cache_stats() -> tuple[dict, dict]:
+    return verdict_cache().stats(), K.tune_cache().stats()
+
+
+def verdict_rows(label, app) -> list[dict]:
+    """Print each executable site's verdict (tier, decision, estimated and
+    measured microseconds, tile) and fail unless every site has a tier of
+    "auto" and every measured verdict follows its own numbers."""
+    rows = [r for r in app.lowering_verdicts() if r["executable"]]
+    for r in rows:
+        meas = (f", measured kernel {r['meas_kernel_us']:.2f} us vs closure "
+                f"{r['meas_closure_us']:.2f} us" if r["source"] == "measured" else "")
+        note = f" ({r['note']})" if r["note"] else ""
+        print(f"{label} site {r['pipeline']} {r['kernel']} at {r['out']}: {r['source']} -> "
+              f"{r['decision']}, est kernel {r['est_kernel_us']:.2f} us vs closure "
+              f"{r['est_closure_us']:.2f} us{meas}, tile {r['tile']}{note}", flush=True)
+        if r["source"] not in ("cost", "measured"):
+            raise AssertionError(f"{label}: {r['kernel']} has no verdict of auto's tiers")
+        if r["source"] == "measured":
+            want = ("lowered" if r["meas_kernel_us"] * MEASURE_MARGIN <= r["meas_closure_us"]
+                    else "declined")
+            if r["decision"] != want:
+                raise AssertionError(f"{label}: {r['kernel']} {r['decision']}, its numbers "
+                                     f"say {want}")
+    return rows
+
+
+def compile_auto(label, graph, example_inputs=None):
+    """Compile in kitsune mode under the default policy ("auto"): print the
+    compile's seconds, the verdicts' and the tiles' apart, and every site's
+    verdict; compile again and fail unless every site hits both caches."""
+    v0, t0s = cache_stats()
+    args = () if example_inputs is None else (example_inputs,)
+    t0 = time.perf_counter()
+    app = repro_torch.compile(graph, *args, mode="kitsune")
+    compile_s = time.perf_counter() - t0
+    v1, t1s = cache_stats()
+    low = app.lowering
+    print(f"{label} auto: compile {compile_s:.2f} s, verdicts {low.verdict_s:.3f} s, "
+          f"tiles {low.tune_s:.3f} s; verdicts decided {v1['misses'] - v0['misses']}, "
+          f"tiles chosen {t1s['misses'] - t0s['misses']}", flush=True)
+    rows = verdict_rows(label, app)
+    again = repro_torch.compile(graph, *args, mode="kitsune")
+    v2, t2s = cache_stats()
+    n, n_tiles = len(rows), sum(1 for r in rows if r["tile"] is not None)
+    if (v2["misses"], t2s["misses"]) != (v1["misses"], t1s["misses"]) or \
+            v2["hits"] - v1["hits"] != n or t2s["hits"] - t1s["hits"] != n_tiles:
+        raise AssertionError(f"{label}: a second compile missed a cache: verdicts "
+                             f"{v1} -> {v2}, tiles {t1s} -> {t2s}, {n} sites, "
+                             f"{n_tiles} tiled")
+    print(f"{label} auto: a second compile hit both caches at all {n} sites "
+          f"({again.lowering.verdict_s:.4f} s verdicts, {again.lowering.tune_s:.4f} s tiles)",
+          flush=True)
+    return app
+
+
+def timed_runs(run, n: int = 3):
+    """n runs, each ending in a sync; (the last run's output, its seconds,
+    the launches each run made, counted from zero around the run)."""
+    counts = {}
+    for _ in range(n):
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+    return out, wall, counts
+
+
+def auto_against_always(label, graph, feeds, params, launches: dict) -> None:
+    """12a/b: the app compiled under "auto" (verdicts, tiles, a second
+    compile all hits) and under "always", each run three times captured
+    (the last replay timed), outputs held to each other within MODEL_TOL;
+    the auto runs' launches (each counted from zero) go into `launches`."""
+    app = compile_auto(label, graph)
+    out, wall, counts = timed_runs(lambda: app.run(feeds, params).outputs)
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+    auto_out = {k: v.clone() for k, v in out.items()}
+    del app, out
+    free()
+    forced = repro_torch.compile(graph, mode="kitsune", lowering_policy="always")
+    want, wall_always, _ = timed_runs(lambda: forced.run(feeds, params).outputs)
+    for k in want:
+        err = rel_err(auto_out[k], want[k])
+        print(f"{label} [{k}] auto vs always: rel err {err:.3e}", flush=True)
+        if err > MODEL_TOL:
+            raise AssertionError(f"{label} [{k}]: auto differs from always by {err:.3e}")
+    print(f"{label}: auto {wall * 1e3:.2f} ms, always {wall_always * 1e3:.2f} ms a run "
+          f"(replayed, host clock)", flush=True)
+    del forced, want, auto_out
+    free()
+
+
+def tuned_decode_tiles(launches: dict) -> None:
+    """12c: B4 and B8 traced at phase 7's decode shape (bf16, ragged valid
+    lengths) and compiled under "auto": the tile the autotuner chose and
+    its time, every candidate of the grid timed as phase 3 times the
+    kernels (cold L2) beside it, and the compiled site held to the plain
+    version."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    b, hq, hkv, s_len, d, bs = (DECODE_B, DECODE_HQ, DECODE_HKV, DECODE_S, DECODE_D,
+                                DECODE_BS)
+    q = randn(gen, b, hq, 1, d, dtype=torch.bfloat16)
+    k, v = (randn(gen, b, hkv, s_len, d, dtype=torch.bfloat16) for _ in range(2))
+    valid = torch.randint(1, s_len + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    v_blocks = s_len // bs
+    rows = (b * v_blocks + 1) * bs
+    kp, vp = (randn(gen, rows, hkv, d, dtype=torch.bfloat16) for _ in range(2))
+    tables = (1 + torch.randperm(b * v_blocks, generator=gen, device="cuda")).to(
+        torch.int32).reshape(b, v_blocks)
+    atom = paged_decode_atom(bs)
+    cases = {
+        "flash_decode": (lambda q, k, v, n: K.decode_attention(q, k, v, valid_len=n) * 2.0,
+                         (q, k, v, valid), decode_tile_candidates(s_len),
+                         lambda c: K.flash_decode(q, k, v, valid_len=valid, block_s=c),
+                         flash_decode_plain(q, k, v, valid_len=valid) * 2.0),
+        "paged_flash_decode": (lambda *a: atom(*a) * 2.0, (q, kp, vp, tables, valid),
+                               decode_tile_candidates(s_len, page_size=bs),
+                               lambda c: K.paged_flash_decode(q, kp, vp, tables,
+                                                              valid_len=valid,
+                                                              block_size=bs, block_s=c),
+                               paged_flash_decode_plain(q, kp, vp, tables, valid_len=valid,
+                                                        block_size=bs) * 2.0),
+    }
+    for name, (fn, inputs, grid, launch, want) in cases.items():
+        app = compile_auto(f"tuned {name}", fn, inputs)
+        (km,) = [m for p in app.lowering.pipelines.values() for m in p.matches
+                 if m.kernel == name]
+        got, _, counts = timed_runs(lambda: app(*inputs), n=2)
+        for kern, n in counts.items():
+            launches[kern] = launches.get(kern, 0) + n
+        err, rel = check(f"tuned {name}", got, want, torch.bfloat16)
+        times = {c["block_s"]: cuda_ms(lambda c=c: launch(c["block_s"]), 20, cold=True)
+                 for c in grid}
+        print(f"tuned {name}: winner block_s {km.tile.get('block_s')} at "
+              f"{km.tile.get('us', float('nan')):.2f} us (replayed, warm), verdict "
+              f"{km.verdict.source} -> {km.verdict.decision}; grid (cold L2, ms) "
+              f"{ {c: round(t, 5) for c, t in times.items()} }; max |err| {err:.3g}, "
+              f"relative {rel:.3g} against the plain version", flush=True)
+        del app
+
+
+def tiny_instances_auto(launches: dict) -> None:
+    """12d: the five tiny instances (f32) on the card under "auto": sites
+    inside the band are measured here, as replays of captured candidates
+    timed with CUDA events; outputs held to "always" within MODEL_TOL."""
+    for name, (graph, feeds) in apps.tiny_instances("cuda", seed=6).items():
+        params = repro_torch.init_params(graph, 0, device="cuda", scale=1.0)
+        for leaves in params.values():
+            if "w" in leaves:
+                leaves["w"] /= leaves["w"].shape[0] ** 0.5
+        auto_against_always(f"tiny {name}", graph, feeds, params, launches)
+
+
+def phase_auto() -> dict[str, dict[str, int]]:
+    """Phase 12; returns its runs' launches, per kernel."""
+    t_phase = time.perf_counter()
+    free()
+    full: dict[str, int] = {}
+    graph, params, feeds = llama_case()
+    auto_against_always("llama3_8b", graph, feeds, params, full)
+    del params, feeds
+    free()
+    for name, feeds in app_cases().items():
+        graph = apps.APPS[name]()
+        params = repro_torch.init_params(graph, seed=0, dtype=torch.bfloat16, device="cuda")
+        auto_against_always(name, graph, feeds, params, full)
+        del params, feeds
+        free()
+    graph, feeds = split_reduction_case()
+    auto_against_always("split_reduction", graph, feeds, {}, full)
+    del feeds
+    free()
+    print(f"phase 12a/b: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    tiles: dict[str, int] = {}
+    tuned_decode_tiles(tiles)
+    tiny: dict[str, int] = {}
+    tiny_instances_auto(tiny)
+    print(f"phase 12 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"auto_apps": full, "auto_decode_tiles": tiles, "auto_tiny": tiny}
+
+
 def to_device(tree: dict, device) -> dict:
     return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
@@ -2428,8 +2707,9 @@ def main() -> int:
     rows = phase_kernels()
 
     K.reset_launch_counts()
-    phase_llama()
-    phase_apps()
+    samples = []
+    phase_llama(samples)
+    phase_apps(samples)
     phase_split_reduction()
     compiler_path = K.launch_counts()
     missing = [k for k in ("fused_mlp", "fused_mlp_swiglu", "flash_attention",
@@ -2437,6 +2717,10 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the compiler's main path: {missing}")
     print(f"launches on the compiler's main path (phases 4-6): {compiler_path}", flush=True)
+    fit = calibrate(H100, samples)
+    print(f"calibrate(H100) on phases 4-5's bsp replays {[tuple(f'{x:.4g}' for x in t) for t in samples]} "
+          f"(flops, bytes, programs, s): eff {fit.eff:.4g}, launch_s {fit.launch_s:.4g} "
+          f"({fit.name})", flush=True)
     torch.cuda.empty_cache()
 
     paths = {"compiler": compiler_path, **phase_serving()}
@@ -2448,6 +2732,7 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(phase_legacy_tick())
     print(f"phase 11 wall time {time.perf_counter() - t0:.1f} s", flush=True)
+    paths.update(phase_auto())
     for path, counts in paths.items():
         print(f"launches, {path} run: { {k: n for k, n in counts.items() if n} }", flush=True)
 
@@ -2469,7 +2754,8 @@ def main() -> int:
         summary.append({"name": case, "kernel": kern, "route": "cuda", "source": source,
                         "replaces": replaces, "path": path, "shape": row.get("shape", shape),
                         "launches": launches(path, kern, *n_rows),
-                        "launches_by_run": {p: c[kern] for p, c in paths.items() if c[kern]},
+                        "launches_by_run": {p: c[kern] for p, c in paths.items()
+                                            if c.get(kern)},
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -26,12 +26,15 @@ from .pipeline import (design_pipeline, split_reductions, plan_queues,
                        PipelinedGraph, Pipeline, Stage, QueueSpec)
 from .balance import solve_allocation, balance, BalanceResult
 from .costmodel import (A100, H100, HwSpec, evaluate, cost_bsp, cost_vertical,
-                        cost_kitsune, cost_kernel_site)
+                        cost_kitsune, cost_kernel_site, calibrate, roofline,
+                        RooflineTerms, utilization_quadrants,
+                        PEAK_FLOPS_PER_CHIP, HBM_BW_PER_CHIP, NVLINK_BW_PER_LINK)
 from .executor import (GraphExecutor, ExecutorBackend, BSPBackend,
                        VerticalBackend, KitsuneBackend, make_backend,
                        ExecutionReport, ExecutionPlan, ExecutableCache,
                        init_params, params_from_numpy, executable_cache,
-                       clear_executable_cache, lowering_count)
+                       clear_executable_cache, lowering_count,
+                       verdict_cache, clear_verdict_cache)
 from .lower import (KernelMatch, LoweringPlan, PipelineLowering, Verdict,
                     lower_pipeline, lower_pipelines)
 from .trace import (AtomicSpec, TracedFunction, atomic, atomic_vjp,
@@ -52,11 +55,14 @@ __all__ = [
     "PipelinedGraph", "Pipeline", "Stage", "QueueSpec",
     "solve_allocation", "balance", "BalanceResult",
     "A100", "H100", "HwSpec", "evaluate", "cost_bsp", "cost_vertical",
-    "cost_kitsune", "cost_kernel_site",
+    "cost_kitsune", "cost_kernel_site", "calibrate", "roofline",
+    "RooflineTerms", "utilization_quadrants", "PEAK_FLOPS_PER_CHIP",
+    "HBM_BW_PER_CHIP", "NVLINK_BW_PER_LINK",
     "GraphExecutor", "ExecutorBackend", "BSPBackend", "VerticalBackend",
     "KitsuneBackend", "make_backend", "ExecutionReport", "ExecutionPlan",
     "ExecutableCache", "init_params", "params_from_numpy", "executable_cache",
     "clear_executable_cache", "lowering_count",
+    "verdict_cache", "clear_verdict_cache",
     "KernelMatch", "LoweringPlan", "PipelineLowering", "Verdict",
     "lower_pipeline", "lower_pipelines",
     "CompilerOptions", "CompiledApp", "CompileState", "PassManager",

@@ -20,7 +20,10 @@ Pieces:
     downstream passes).  `lower_kernels` (core/lower.py) pattern-matches the
     pipelined sf-node stages onto the hand-written Hopper kernels (fused MLP
     / SwiGLU, flash attention, queue_reduce), with per-op fallback reasons
-    surfaced by `CompiledApp.describe()`.
+    surfaced by `CompiledApp.describe()`; under the default "auto" policy
+    each match carries a profitability verdict (a roofline estimate, then
+    a microbenchmark on the compile's device) and, on the card, a tuned
+    tile.
   * CompiledApp -- the compiled artifact: selection + pipelined IR + balance
     results + an executor Engine whose programs live in the process-wide
     cache keyed by (graph fingerprint, feed shapes, options), so repeated
@@ -53,7 +56,7 @@ from .cudagraph import GraphFunction, graph_stats
 from .executor import (Engine, ExecutionReport, _plan_key, cuda_device,
                        executable_cache, init_params, make_backend)
 from .graph import Graph, graph_fingerprint
-from .lower import POLICIES, LoweringPlan, lower_pipelines
+from .lower import POLICIES, LoweringPlan, lower_pipelines, target_for
 from .trace import TracedFunction, donate_outputs, trace as trace_fn
 from .patterns import PATTERN_LIBRARY, Selection, select_subgraphs
 from .pipeline import (DEFAULT_TILE_BYTES, SPLIT_REDUCTION_MIN, DedupeInfo,
@@ -82,15 +85,18 @@ class CompilerOptions:
     patterns             subset of PATTERN_LIBRARY names to match (None=all)
     min_sf_size          smallest op count an sf-node may have
     balance              run the ILP load-balancing pass (Algorithm 2)
-    hw                   HwSpec the balance pass, the "cost" policy and
-                         estimate() default to (None: H100)
+    hw                   HwSpec the balance pass, the lowering verdicts'
+                         estimates and estimate() default to (None: H100)
     disable              pass names to skip (each falls back to its identity
                          form; e.g. disabling `epilogue_fuse` yields one
                          stage per op)
     lowering_policy      profitability gate on kernel matches (core/lower.py):
-                         "always" (default) lowers every match, "cost"
-                         decides by roofline estimate.  The reference's
-                         "auto" (compile-time microbenchmark) is not ported.
+                         "auto" (default) -- roofline estimate, then a
+                         compile-time microbenchmark on the compile's device
+                         inside the uncertainty band (verdicts cached
+                         process-wide), tiles tuned on the card; "cost" --
+                         the estimate alone; "always" -- every match lowers
+                         at the default tiles
     dump_ir              hook called as dump_ir(pass_name, state) after every
                          pass -- the introspection point for IR dumps
     capture              on the card, capture each plan as one CUDA graph
@@ -107,7 +113,7 @@ class CompilerOptions:
     balance: bool = True
     hw: HwSpec | None = None
     disable: tuple[str, ...] = ()
-    lowering_policy: str = "always"
+    lowering_policy: str = "auto"
     dump_ir: Callable[[str, "CompileState"], None] | None = None
     capture: bool = True
 
@@ -140,7 +146,9 @@ class CompilerOptions:
 
     def cache_key(self) -> tuple:
         """Hashable identity for the program cache (hooks and `capture`
-        excluded: neither changes the produced programs)."""
+        excluded: neither changes the produced programs; the lowering
+        plan's own signature -- verdicts and tiles -- is part of the
+        kitsune backend's key)."""
         return (self.mode, self.tile_bytes, self.split_reduction_min,
                 self.patterns, self.min_sf_size, tuple(sorted(self.disabled)),
                 self.lowering_policy)
@@ -148,8 +156,10 @@ class CompilerOptions:
 
 @dataclass
 class CompileState:
-    """Mutable state threaded through the pass pipeline."""
+    """Mutable state threaded through the pass pipeline.  `device` is the
+    device the compile will run on, where the lowering measures."""
     graph: Graph
+    device: torch.device | None = None
     selection: Selection | None = None
     work_graph: Graph | None = None                 # post split-reduction
     members_of: dict[str, list[str]] | None = None  # sf name -> members
@@ -278,7 +288,8 @@ def _pass_lower_kernels(state: CompileState, opts: CompilerOptions) -> str:
         return f"skipped: kernels only execute in kitsune mode ({opts.mode})"
     state.lowering = lower_pipelines(pg.graph, _pipelined_members(pg),
                                      hw=opts.resolved_hw(),
-                                     policy=opts.lowering_policy)
+                                     policy=opts.lowering_policy,
+                                     target=target_for(state.device, opts.capture))
     return state.lowering.summary()
 
 
@@ -467,7 +478,8 @@ class CompiledApp:
         kept: the passes run again, a traced callable is not traced again
         (the trace does not depend on the mode)."""
         options = replace(self.options, mode=mode)
-        state, records = _run_passes(self.graph, options, PassManager())
+        state, records = _run_passes(self.graph, options, PassManager(),
+                                     self.state.device)
         return self._recompiled(options, state, records)
 
     def _recompiled(self, options, state, records) -> "CompiledApp":
@@ -506,9 +518,7 @@ class CompiledApp:
                  f"fingerprint={self.fingerprint})",
                  f"  executes as {how}",
                  f"  on {cap}",
-                 f"  lowering policy {self.options.lowering_policy} (the "
-                 f"'auto' microbenchmark policy and block-size autotuning "
-                 f"are not ported)"]
+                 f"  lowering policy {self.options.lowering_policy}"]
         for r in self.pass_records:
             flag = " [disabled]" if r.disabled else ""
             lines.append(f"  pass {r.name:<16} {r.seconds * 1e3:8.2f} ms"
@@ -656,9 +666,9 @@ class TracedApp(CompiledApp):
                 f"{len(self.traced.consts)} consts)")
 
 
-def _run_passes(graph: Graph, options: CompilerOptions,
-                pm: PassManager) -> tuple[CompileState, list[PassRecord]]:
-    state = CompileState(graph)
+def _run_passes(graph: Graph, options: CompilerOptions, pm: PassManager,
+                device=None) -> tuple[CompileState, list[PassRecord]]:
+    state = CompileState(graph, device=device)
     records = pm.run(state, options)
     _ensure_pipelined(state, options)
     return state, records
@@ -691,7 +701,11 @@ def compile(graph: Graph | Callable, *args,
     addresses (weights, an engine's cache): on the card the captured plan
     reads them in place instead of copying them into its own buffers, and
     a call that moves them captures anew (the reference has no counterpart:
-    XLA has no addresses)."""
+    XLA has no addresses).
+
+    The lowering's verdicts and tiles are measured on the device the
+    compile will run on: a callable's example inputs' device; for a graph,
+    the card when one is present, as the port's entry points default."""
     for a in args:
         if isinstance(a, CompilerOptions):
             if options is not None:
@@ -735,9 +749,18 @@ def compile(graph: Graph | Callable, *args,
                      f"{len(traced.graph.nodes)} nodes, "
                      f"{len(traced.consts)} consts, "
                      f"{len(donation)} donated outputs")
-    state, records = _run_passes(traced.graph, options, pm)
+    state, records = _run_passes(traced.graph, options, pm,
+                                 _example_device(example_inputs))
     return TracedApp(traced, options, state, [rec] + records,
                      frozenset(donate), donation, frozenset(inplace))
+
+
+def _example_device(example_inputs: tuple) -> torch.device:
+    """The device of a callable's example inputs (their first tensor's)."""
+    for leaf in pytree.tree_leaves(example_inputs):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    return torch.device("cpu")
 
 
 def _arg_names(traced: TracedFunction, example_inputs: tuple,

@@ -6,9 +6,15 @@ term for allocation, and Speedup(a_i)=1/u for operands arriving from on-chip
 queues instead of DRAM.  One implementation serves
 
   * BSP / vertical-fusion / Kitsune execution-time estimates (paper Figs 10-14),
-  * the "cost" lowering policy's per-site verdicts (lower.py),
+  * the lowering verdicts' estimate tier (lower.py),
   * the balance pass's allocations (balance.py),
-  * the serving engine's per-tick KV traffic (`paged_decode_traffic`).
+  * the hardware-sensitivity study (`HwSpec.scaled`: the paper's 2x
+    compute / 2x L2-bandwidth experiment),
+  * the utilization-quadrant breakdown (paper Figs 3 / 13),
+  * the (compute, memory, collective) roofline terms of one card,
+  * the serving engine's per-tick KV traffic (`paged_decode_traffic`),
+
+and `calibrate` fits its two free constants to measured wall-clock.
 
 Two hardware specs ship: A100-class constants, which the model was
 validated against (the paper's evaluation card), and H100 SXM constants,
@@ -16,7 +22,9 @@ the card this package runs on and its default.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
+
+import numpy as np
 
 from .graph import MXU, VPU, Graph, Node
 from .pipeline import Pipeline, PipelinedGraph
@@ -37,6 +45,15 @@ class HwSpec:
     # produces the paper's 'Both Low' quadrant (Fig 3): tiny ops (DLRM's MLPs) are latency-bound under BSP.
     # Calibrated so subgraph speedups land in the paper's Fig-10 band.
     launch_s: float = 1.2e-6
+
+    def scaled(self, *, compute: float = 1.0, onchip: float = 1.0,
+               dram: float = 1.0) -> "HwSpec":
+        """Sensitivity-study variants (paper SS6: 2x compute, 2x L2 BW, DRAM fixed)."""
+        return replace(self, name=f"{self.name}[c{compute}x,l{onchip}x,d{dram}x]",
+                       matrix_flops=self.matrix_flops * compute,
+                       vector_flops=self.vector_flops * compute,
+                       onchip_bw=self.onchip_bw * onchip,
+                       dram_bw=self.dram_bw * dram)
 
 
 # A100-class (paper's evaluation vehicle): 108 SMs, 312 TF/s bf16 TC,
@@ -69,6 +86,16 @@ def op_time_bsp(g: Graph, n: Node, hw: HwSpec) -> float:
     t_compute = n.flops / (_peak(n.resource, hw) * hw.eff)
     t_mem = op_bytes_bsp(g, n) / hw.dram_bw
     return max(t_compute, t_mem, hw.launch_s)
+
+
+def op_utilization(g: Graph, n: Node, hw: HwSpec) -> tuple[float, float]:
+    """(compute_util, dram_util) under BSP -- drives the Fig 3/13 quadrants."""
+    t = op_time_bsp(g, n, hw)
+    if t == 0.0:
+        return 0.0, 0.0
+    t_c = n.flops / (_peak(n.resource, hw) * hw.eff)
+    t_m = op_bytes_bsp(g, n) / hw.dram_bw
+    return t_c / t, t_m / t  # latency-bound ops report low on both
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +279,114 @@ def evaluate(pg: PipelinedGraph, hw: HwSpec, mode: str) -> GraphCost:
         t_sub += c.time
         dram += c.dram_bytes
     return GraphCost(mode, t_out + t_sub, dram, sub_times, t_out)
+
+
+def utilization_quadrants(pg: PipelinedGraph, hw: HwSpec, mode: str,
+                          low: float = 0.33) -> dict[str, float]:
+    """Fraction of runtime in the four (SM util x DRAM util) quadrants
+    (paper Figs 3 and 13)."""
+    g = pg.graph
+    quad = {"both_low": 0.0, "low_sm": 0.0, "low_dram": 0.0, "neither_low": 0.0}
+    covered = {o.name for p in pg.pipelines for s in p.stages for o in s.ops}
+
+    def add(t: float, cu: float, du: float):
+        if cu < low and du < low:
+            quad["both_low"] += t
+        elif cu < low:
+            quad["low_sm"] += t
+        elif du < low:
+            quad["low_dram"] += t
+        else:
+            quad["neither_low"] += t
+
+    for n in g.topo():
+        if n.is_free or (mode == "kitsune" and n.name in covered):
+            continue
+        cu, du = op_utilization(g, n, hw)
+        add(op_time_bsp(g, n, hw), cu, du)
+    if mode == "kitsune":
+        for p in pg.pipelines:
+            c = cost_kitsune(g, p, hw)
+            flops = sum(s.flops for s in p.stages)
+            cu = flops / (hw.matrix_flops * hw.eff) / c.time if c.time else 0.0
+            du = c.dram_bytes / hw.dram_bw / c.time if c.time else 0.0
+            add(c.time, min(cu, 1.0), min(du, 1.0))
+    total = sum(quad.values()) or 1.0
+    return {k: v / total for k, v in quad.items()}
+
+
+def calibrate(hw: HwSpec, samples) -> HwSpec:
+    """Fit `eff` and `launch_s` to MEASURED wall-clock so the roofline
+    estimates stop disagreeing with the card.
+
+    `samples` is an iterable of (flops, dram_bytes, n_launches, measured_s)
+    tuples -- e.g. one per measured app run.  We model
+
+        measured ~= a * t_roof + b * n_launches,
+        t_roof   =  max(flops / matrix_flops, dram_bytes / dram_bw),
+
+    solve the least squares for (a, b), and read eff = 1/a (clamped to
+    (0, 1]) and launch_s = b (clamped to [0, 10 ms]).  Fitted to CPU
+    wall-clock it yields a tiny eff: the model then predicts host time."""
+    rows, y = [], []
+    for flops, dram_bytes, n_launches, measured_s in samples:
+        t_roof = max(flops / hw.matrix_flops, dram_bytes / hw.dram_bw)
+        rows.append([t_roof, float(max(n_launches, 1))])
+        y.append(measured_s)
+    if not rows:
+        return hw
+    coef, *_ = np.linalg.lstsq(np.asarray(rows, dtype=np.float64),
+                               np.asarray(y, dtype=np.float64), rcond=None)
+    a, b = float(coef[0]), float(coef[1])
+    eff = min(max(1.0 / max(a, 1.0), 1e-6), 1.0) if a > 0 else hw.eff
+    launch_s = min(max(b, 0.0), 1e-2)
+    return replace(hw, name=f"{hw.name}[calibrated]", eff=eff, launch_s=launch_s)
+
+
+# ---------------------------------------------------------------------------
+# Roofline terms of one card
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RooflineTerms:
+    compute_s: float
+    memory_s: float
+    collective_s: float
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+
+# One H100 SXM (NVIDIA data sheet, dense bf16): tensor-core peak and HBM3
+# bandwidth; NVLink 4 has 18 links of 25 GB/s each way per card.
+PEAK_FLOPS_PER_CHIP = H100.matrix_flops
+HBM_BW_PER_CHIP = H100.dram_bw
+NVLINK_BW_PER_LINK = 25e9
+NVLINK_LINKS_PER_CHIP = 18
+
+
+def roofline(flops_per_chip: float, bytes_per_chip: float,
+             collective_bytes_per_chip: float,
+             links: int = NVLINK_LINKS_PER_CHIP, *,
+             peak_flops: float = PEAK_FLOPS_PER_CHIP,
+             hbm_bw: float = HBM_BW_PER_CHIP,
+             link_bw: float = NVLINK_BW_PER_LINK) -> RooflineTerms:
+    """Three roofline terms in seconds per step for one card: its FLOPs
+    over the peak, its HBM bytes over the bandwidth, and the bytes it sends
+    in collectives over `links` links of `link_bw` each.  Inputs are
+    per-card quantities; the defaults are the H100's."""
+    return RooflineTerms(
+        compute_s=flops_per_chip / peak_flops,
+        memory_s=bytes_per_chip / hbm_bw,
+        collective_s=collective_bytes_per_chip / (link_bw * links),
+    )
 
 
 def paged_decode_traffic(*, batch: int, v_blocks: int, block_size: int,

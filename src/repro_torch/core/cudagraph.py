@@ -45,6 +45,14 @@ class GraphCaptureError(RuntimeError):
 _capture_lock = threading.RLock()
 
 
+def capture_lock() -> threading.RLock:
+    """The lock every capture in the process takes (re-entrant).  A caller
+    that must keep other captures out for longer -- the lowering pass
+    timing its candidates' replays -- holds it, and takes it before any
+    lock of its own."""
+    return _capture_lock
+
+
 @functools.cache
 def capture_stream(device: torch.device) -> torch.cuda.Stream:
     """The stream every capture on `device` warms up and is captured on,

@@ -320,6 +320,68 @@ def clear_executable_cache() -> None:
     _CACHE.clear()
 
 
+class VerdictCache:
+    """Process-wide store of kernel-lowering profitability verdicts
+    (core/lower.py), living beside the executable cache so that repeat
+    compiles of the same (kernel pattern, shape, dtype, hw, device) site
+    pay neither the roofline estimate nor the microbenchmark again.
+
+    Deliberately NOT an ExecutableCache: a miss there counts a build in
+    `lowering_count()`, and verdicts are compile-time decisions, not built
+    programs.  Its lock is never held while a verdict is decided."""
+
+    def __init__(self):
+        self._store: dict[Any, Any] = {}
+        self._lock = threading.RLock()
+        self.hits = 0
+        self.misses = 0
+
+    def __len__(self):
+        with self._lock:
+            return len(self._store)
+
+    def __contains__(self, key):
+        with self._lock:
+            return key in self._store
+
+    def get(self, key):
+        with self._lock:
+            v = self._store.get(key)
+            if v is None:
+                self.misses += 1
+            else:
+                self.hits += 1
+            return v
+
+    def put(self, key, verdict) -> None:
+        with self._lock:
+            self._store[key] = verdict
+
+    def keys(self):
+        with self._lock:
+            return list(self._store)
+
+    def stats(self) -> dict[str, int]:
+        with self._lock:
+            return {"size": len(self._store), "hits": self.hits,
+                    "misses": self.misses}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._store.clear()
+
+
+_VERDICTS = VerdictCache()
+
+
+def verdict_cache() -> VerdictCache:
+    return _VERDICTS
+
+
+def clear_verdict_cache() -> None:
+    _VERDICTS.clear()
+
+
 # ---------------------------------------------------------------------------
 # Programs and backends
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@ plain versions and launch counters.
 
 Each wrapper is also a `torch.library` custom op (kernels/ops.py,
 `torch.ops.repro_torch.*`), which is how the models and the capture
-front-end reach it.
+front-end reach it.  `KernelConfig` holds the launches' run-time knobs;
+`autotune`, `time_fn` and `tune_cache` (kernels/autotune.py) search them.
 
 `launch_counts()` reads, and `reset_launch_counts()` zeroes, the per-kernel
 counters: each wrapper adds one where it launches its CUDA kernel and
@@ -20,8 +21,9 @@ it afterwards (a capture is not a launch), and adds the capture's
 from .flash_attention import combine_partials, flash_attention, flash_decode
 from .fused_mlp import (fused_mlp_bwd, fused_mlp_fwd, fused_mlp_swiglu_bwd,
                         fused_mlp_swiglu_fwd)
-from .ops import (attention, decode_attention, mlp, mlp_bwd, mlp_swiglu,
-                  mlp_swiglu_bwd, paged_decode_attention, reduce)
+from .ops import (KernelConfig, attention, decode_attention, mlp, mlp_bwd,
+                  mlp_swiglu, mlp_swiglu_bwd, paged_decode_attention, reduce)
+from .autotune import autotune, time_fn, tune_cache
 from .paged_attention import paged_flash_decode
 from .queue_reduce import queue_reduce
 

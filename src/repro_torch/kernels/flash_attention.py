@@ -130,6 +130,34 @@ def page_block_s(s_len: int, page_size: int, block_s: int | None) -> int:
     return want
 
 
+def tile_candidates(sq: int, skv: int) -> list[dict]:
+    """Autotune grid of flash_attention: its tiles (128 query rows, 128
+    keys a stage, two consumer warpgroups) are fixed in the source, so a
+    grid of one, the default."""
+    return [{}]
+
+
+def decode_tile_candidates(s_len: int, page_size: int | None = None) -> list[dict]:
+    """Autotune grid of the decode kernels' split-K chunk (`block_s`), the
+    default first.  flash_decode over s_len keys: chunks of 64, 128 and
+    256 keys, a chunk no longer than s_len (the default, min(256, s_len),
+    is the longest).  paged_flash_decode (`page_size` given, s_len a whole
+    number of pages): 1, 2, 4, ... pages a chunk up to DECODE_MAX_BLOCK_S
+    rows, each dividing s_len, so that `page_block_s` keeps it as it is,
+    and its default `page_block_s(s_len, page_size, None)`."""
+    if page_size is None:
+        default = min(DECODE_MAX_BLOCK_S, s_len)
+        sizes = [default] + [b for b in (64, 128, 256) if b < default]
+    else:
+        default = page_block_s(s_len, page_size, None)
+        sizes, pages = [default], 1
+        while pages * page_size <= DECODE_MAX_BLOCK_S:
+            if s_len % (pages * page_size) == 0:
+                sizes.append(pages * page_size)
+            pages *= 2
+    return [{"block_s": b} for b in dict.fromkeys(sizes)]
+
+
 def combine_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
                      axis: int = 1) -> torch.Tensor:
     """Merge split-softmax partials: the queue_reduce 'final' stage, in

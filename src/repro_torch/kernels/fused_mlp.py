@@ -84,6 +84,69 @@ fused_mlp_swiglu_bwd_plain = ref.mlp_swiglu_bwd_ref
 F32_BWD_BLOCK_H = 128
 F32_BWD_BLOCK_M = 128
 
+# The float32 kernels' shared memory, as their sources lay it out
+# (csrc/fused_mlp.cu `MlpSmem<float>`, csrc/fused_mlp_bwd.cu
+# `BwdSmem<float>`), against the 227 KB a block may use: a tile whose
+# layout does not fit is no legal launch, so no grid holds it.
+_SMEM_MAX = 232448
+_F32_PAD = 4                     # Pad<float>: 16 bytes of padding per row
+
+
+def _align128(nbytes: int) -> int:
+    return -(-nbytes // 128) * 128
+
+
+def f32_fwd_smem(block_h: int, gated: bool) -> int:
+    """Bytes of shared memory the f32 forward takes at hidden chunk
+    block_h: the 64-row hidden chunk, then 3 staging slots of (X tile
+    64 x 32, W tile 32 x 128[, Wu tile]) or the f32 epilogue tile."""
+    xb = _align128(64 * (32 + _F32_PAD) * 4)
+    wb = _align128(32 * (128 + _F32_PAD) * 4)
+    staging = 3 * (xb + wb + (wb if gated else 0))
+    return _align128(64 * (block_h + _F32_PAD) * 4) + max(
+        staging, _align128(64 * (128 + 4) * 4))
+
+
+def f32_bwd_smem(rows: int, cols: int, gated: bool, dw: bool) -> int:
+    """Bytes of shared memory the f32 backward takes: the dX kernel's
+    (rows 64, cols = its hidden chunk, one chunk per hidden operand) or
+    the dW kernel's (rows = its row slice, cols 64, t beside them), then 2
+    staging slots or the f32 epilogue tile."""
+    chunks = (3 if gated else 2) if dw else (2 if gated else 1)
+    ring = chunks * _align128(rows * (cols + _F32_PAD) * 4)
+    a = _align128(max(64 * (32 + _F32_PAD), 32 * (128 + _F32_PAD)) * 4)
+    b = _align128(max(32 * (128 + _F32_PAD), 128 * (32 + _F32_PAD)) * 4)
+    staging = 2 * (a + b + (b if gated else 0))
+    return ring + max(staging, _align128(128 * (64 + 4) * 4))
+
+
+def tile_candidates(m: int, hdim: int, dtype: str, *, gated: bool,
+                    backward: bool = False) -> list[dict]:
+    """Autotune grid of a fused-MLP site with m rows, hidden width hdim and
+    dtype ("float32", "bfloat16", ...): every candidate a launch the
+    wrapper takes, the default first.  Only the float32 forms take a tile
+    at run time: the forward's hidden chunk (a multiple of 128 up to
+    F32_BLOCK_H, above SMALL_M rows) and the backward's dX hidden chunk
+    (multiples of 128 up to 256) and dW row slice (multiples of 64 up to
+    256), each where its shared memory fits.  The bf16 forms' and the
+    small-M form's geometry is fixed by the widths in the source: a grid
+    of one, the default."""
+    h128, m64 = -(-hdim // 128) * 128, -(-m // 64) * 64
+    if dtype != "float32" or (not backward and m <= SMALL_M):
+        return [{}]
+    if not backward:
+        default = min(F32_BLOCK_H, h128)
+        return [{"f32_block_h": bh} for bh in
+                dict.fromkeys([default, *range(128, F32_BLOCK_H + 1, 128)])
+                if bh <= h128 and f32_fwd_smem(bh, gated) <= _SMEM_MAX]
+    default_h = min(F32_BWD_BLOCK_H, h128)
+    hs = [bh for bh in dict.fromkeys([default_h, 128, 256])
+          if bh <= h128 and f32_bwd_smem(64, bh, gated, dw=False) <= _SMEM_MAX]
+    ms = [bm for bm in dict.fromkeys([F32_BWD_BLOCK_M, 64, 128, 192, 256])
+          if (bm <= m64 or bm == F32_BWD_BLOCK_M)
+          and f32_bwd_smem(bm, 64, gated, dw=True) <= _SMEM_MAX]
+    return [{"f32_bwd_block_h": bh, "f32_bwd_block_m": bm} for bh in hs for bm in ms]
+
 @functools.cache
 def _kernel():
     v, i = ctypes.c_void_p, ctypes.c_int
@@ -262,11 +325,11 @@ def forward_in_form(form: str, x, w1, wu, w2, act: str, fold: bool = True):
     return _launch(what, x, w1, wu, w2, act, form, fold)[0]
 
 
-def _launch_f32(x, w1, wu, w2, act: str, code: int, dims):
-    """The SIMT kernel (float32): hidden chunks of F32_BLOCK_H, one f32
-    partial each."""
+def _launch_f32(x, w1, wu, w2, act: str, code: int, dims, block_h: int = F32_BLOCK_H):
+    """The SIMT kernel (float32): hidden chunks of block_h (a multiple of
+    128, cut to the hidden width), one f32 partial each."""
     m, d_in, hdim, d_out = dims
-    bh = min(F32_BLOCK_H, -(-hdim // 128) * 128)
+    bh = min(block_h, -(-hdim // 128) * 128)
     n_split = -(-hdim // bh)
     if n_split == 1:
         out = torch.empty((m, d_out), dtype=x.dtype, device=x.device)
@@ -308,7 +371,7 @@ def _launch_tiled(x, w1, wu, w2, act: str, dims, fold: bool = True):
 
 
 def _launch(what: str, x, w1, wu, w2, act: str, form: str | None = None,
-            fold: bool = True):
+            fold: bool = True, f32_block_h: int = F32_BLOCK_H):
     """(y, the form that computed it)."""
     code, dims = _check(what, x, w1, wu, w2, act)
     form = form or fwd_form(dims[0])
@@ -319,7 +382,7 @@ def _launch(what: str, x, w1, wu, w2, act: str, form: str | None = None,
     if x.dtype == torch.float32:
         if not fold:
             raise ValueError("fold=False is the small-M and bfloat16 tiled forms'")
-        return _launch_f32(x, w1, wu, w2, act, code, dims), "tiled"
+        return _launch_f32(x, w1, wu, w2, act, code, dims, f32_block_h), "tiled"
     return _launch_tiled(x, w1, wu, w2, act, dims, fold), "tiled"
 
 
@@ -333,24 +396,26 @@ def _count_fwd(fn, form: str, x) -> None:
 
 
 def fused_mlp_fwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
-                  act: str = "gelu") -> torch.Tensor:
-    """act(x @ w1) @ w2 for 2-D x, the hidden tensor kept on chip."""
+                  act: str = "gelu", f32_block_h: int = F32_BLOCK_H) -> torch.Tensor:
+    """act(x @ w1) @ w2 for 2-D x, the hidden tensor kept on chip.
+    f32_block_h: the float32 tiled form's hidden chunk (`tile_candidates`)."""
     _build.refuse_capture("fused_mlp_fwd", x)
     if x.device.type == "cpu":
         return fused_mlp_fwd_plain(x, w1, w2, act)
-    y, form = _launch("fused_mlp", x, w1, None, w2, act)
+    y, form = _launch("fused_mlp", x, w1, None, w2, act, f32_block_h=f32_block_h)
     _count_fwd(fused_mlp_fwd, form, x)
     return y
 
 
 def fused_mlp_swiglu_fwd(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-                         wd: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+                         wd: torch.Tensor, *, act: str = "silu",
+                         f32_block_h: int = F32_BLOCK_H) -> torch.Tensor:
     """(act(x @ wg) * (x @ wu)) @ wd -- SwiGLU with act=silu; the builder
     graphs' plain gate*up form lowers here with act=identity."""
     _build.refuse_capture("fused_mlp_swiglu_fwd", x)
     if x.device.type == "cpu":
         return fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, act)
-    y, form = _launch("fused_mlp_swiglu", x, wg, wu, wd, act)
+    y, form = _launch("fused_mlp_swiglu", x, wg, wu, wd, act, f32_block_h=f32_block_h)
     _count_fwd(fused_mlp_swiglu_fwd, form, x)
     return y
 
@@ -408,17 +473,21 @@ def bwd_bf16(x, w1, wu, w2, dy, act: str, parts: int = 3):
     return tuple(t.contiguous() for t in (dx, *dw_in, dw2))
 
 
-def _launch_bwd(what: str, x, w1, wu, w2, dy, act: str):
-    """(dx, dw1[, dwu], dw2): both backward kernels, then the folds."""
+def _launch_bwd(what: str, x, w1, wu, w2, dy, act: str,
+                block_h: int = F32_BWD_BLOCK_H, block_m: int = F32_BWD_BLOCK_M):
+    """(dx, dw1[, dwu], dw2): both backward kernels, then the folds.
+    block_h / block_m: the float32 dX kernel's hidden chunk (a multiple of
+    128, cut to the hidden width) and the dW kernel's row slice (a
+    multiple of 64)."""
     code, (m, d_in, hdim, d_out) = _check(what, x, w1, wu, w2, act, dy)
     if x.dtype == torch.bfloat16:
         return bwd_bf16(x, w1, wu, w2, dy, act)
     # float32: the WMMA kernels
     gated = wu is not None
     dev, f32 = x.device, torch.float32
-    bh = min(F32_BWD_BLOCK_H, -(-hdim // 128) * 128)
+    bh = min(block_h, -(-hdim // 128) * 128)
     n_split = -(-hdim // bh)
-    n_ms = -(-m // F32_BWD_BLOCK_M)
+    n_ms = -(-m // block_m)
     dx = torch.empty((n_split, m, d_in), dtype=f32, device=dev)
     p1 = torch.empty((n_ms, d_in, hdim), dtype=f32, device=dev)
     pu = torch.empty((n_ms, d_in, hdim), dtype=f32, device=dev) if gated else None
@@ -433,7 +502,7 @@ def _launch_bwd(what: str, x, w1, wu, w2, dy, act: str):
         k_dw(x.data_ptr(), w1.data_ptr(), wu_ptr, w2.data_ptr(), dy.data_ptr(),
              p1.data_ptr(), None if pu is None else pu.data_ptr(), p2.data_ptr(),
              m, d_in, hdim, d_out, code, int(gated), ACT_CODES[act],
-             F32_BWD_BLOCK_M, stream)
+             block_m, stream)
     dx = queue_reduce(dx, op="sum", out_dtype=x.dtype)
     dws = [queue_reduce(p1, op="sum", out_dtype=w1.dtype)]
     if gated:
@@ -451,26 +520,31 @@ def _count_bwd(fn, x) -> None:
 
 
 def fused_mlp_bwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-                  dy: torch.Tensor, *, act: str = "gelu"):
+                  dy: torch.Tensor, *, act: str = "gelu",
+                  f32_block_h: int = F32_BWD_BLOCK_H, f32_block_m: int = F32_BWD_BLOCK_M):
     """(dx, dw1, dw2) of act(x @ w1) @ w2 for 2-D x and dy: the recomputed
-    hidden tile feeds the dX GEMM and both dW GEMMs (Fig 2c)."""
+    hidden tile feeds the dX GEMM and both dW GEMMs (Fig 2c).  The f32_*
+    knobs are the float32 kernels' tiles (`tile_candidates`)."""
     _build.refuse_capture("fused_mlp_bwd", x)
     if x.device.type == "cpu":
         return fused_mlp_bwd_plain(x, w1, w2, dy, act)
-    out = _launch_bwd("fused_mlp_bwd", x, w1, None, w2, dy, act)
+    out = _launch_bwd("fused_mlp_bwd", x, w1, None, w2, dy, act, f32_block_h, f32_block_m)
     _count_bwd(fused_mlp_bwd, x)
     return out
 
 
 def fused_mlp_swiglu_bwd(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-                         wd: torch.Tensor, dy: torch.Tensor, *, act: str = "silu"):
+                         wd: torch.Tensor, dy: torch.Tensor, *, act: str = "silu",
+                         f32_block_h: int = F32_BWD_BLOCK_H,
+                         f32_block_m: int = F32_BWD_BLOCK_M):
     """(dx, dwg, dwu, dwd) of (act(x @ wg) * (x @ wu)) @ wd: the gated
     multicast, one recomputed (t, dg, du) tile set per row slice feeding all
     three weight-gradient GEMMs."""
     _build.refuse_capture("fused_mlp_swiglu_bwd", x)
     if x.device.type == "cpu":
         return fused_mlp_swiglu_bwd_plain(x, wg, wu, wd, dy, act)
-    out = _launch_bwd("fused_mlp_swiglu_bwd", x, wg, wu, wd, dy, act)
+    out = _launch_bwd("fused_mlp_swiglu_bwd", x, wg, wu, wd, dy, act, f32_block_h,
+                      f32_block_m)
     _count_bwd(fused_mlp_swiglu_bwd, x)
     return out
 

@@ -23,19 +23,25 @@ node runs when it is not lowered.  So in a captured graph a kernel is
 reached only through the lowering pass, and the bsp and vertical modes
 stay op-by-op baselines.
 
-Tile sizes follow from dtype and shape inside each wrapper; the reference's
-`KernelConfig` knobs come back with the block-size autotuner.
+`KernelConfig` holds the launches' run-time knobs, which the public
+functions take as `cfg` and the ops as trailing int arguments with the
+same defaults: a traced node records the tile its call asked for, and the
+lowering pass's autotuner (kernels/autotune.py) searches them.  The
+default config launches exactly what the wrappers launch on their own.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.library import custom_op
 
-from .flash_attention import (flash_attention, flash_attention_plain,
-                              flash_decode, flash_decode_plain)
-from .fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_fwd,
+from .flash_attention import (DECODE_MAX_BLOCK_S, flash_attention,
+                              flash_attention_plain, flash_decode,
+                              flash_decode_plain)
+from .fused_mlp import (F32_BLOCK_H, F32_BWD_BLOCK_H, F32_BWD_BLOCK_M,
+                        fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_fwd,
                         fused_mlp_fwd_plain, fused_mlp_swiglu_bwd,
                         fused_mlp_swiglu_bwd_plain, fused_mlp_swiglu_fwd,
                         fused_mlp_swiglu_fwd_plain)
@@ -44,73 +50,102 @@ from .queue_reduce import queue_reduce, queue_reduce_plain
 
 Tensor = torch.Tensor
 
+
+@dataclass(frozen=True)
+class KernelConfig:
+    """The Hopper launches' run-time knobs (each kernel module's
+    `tile_candidates` lists the values its launch takes) and whether the
+    lowering pass searches them.  Every default is the wrappers' own, so
+    `KernelConfig()` launches bitwise what an untuned call launches.  A
+    knob a kernel's source fixes (the bf16 forms' geometry, B3's and B5's
+    tiles) is not here."""
+    block_s: int = DECODE_MAX_BLOCK_S   # B4 / B8 split-K chunk (keys; B8: whole pages)
+    f32_block_h: int = F32_BLOCK_H      # B1 / B2 float32 tiled form: hidden chunk
+    f32_bwd_block_h: int = F32_BWD_BLOCK_H  # B6 / B7 float32: dX hidden chunk
+    f32_bwd_block_m: int = F32_BWD_BLOCK_M  # B6 / B7 float32: dW row slice
+    autotune: bool = False              # search tile_candidates grids at lower time
+
+
+_DEFAULT = KernelConfig()
+
 # ---------------------------------------------------------------------------
 # the ops
 # ---------------------------------------------------------------------------
 
 
 @custom_op("repro_torch::fused_mlp_fwd", mutates_args=())
-def fused_mlp_fwd_op(x: Tensor, w1: Tensor, w2: Tensor, act: str) -> Tensor:
+def fused_mlp_fwd_op(x: Tensor, w1: Tensor, w2: Tensor, act: str,
+                     f32_block_h: int = F32_BLOCK_H) -> Tensor:
     """B1: act(x @ w1) @ w2 for 2-D x."""
-    return fused_mlp_fwd(x, w1, w2, act=act)
+    return fused_mlp_fwd(x, w1, w2, act=act, f32_block_h=f32_block_h)
 
 
 @fused_mlp_fwd_op.register_fake
-def _(x, w1, w2, act):
+def _(x, w1, w2, act, f32_block_h=F32_BLOCK_H):
     return x.new_empty((x.shape[0], w2.shape[1]))
 
 
 @custom_op("repro_torch::fused_mlp_swiglu_fwd", mutates_args=())
 def fused_mlp_swiglu_fwd_op(x: Tensor, wg: Tensor, wu: Tensor, wd: Tensor,
-                            act: str) -> Tensor:
+                            act: str, f32_block_h: int = F32_BLOCK_H) -> Tensor:
     """B2: (act(x @ wg) * (x @ wu)) @ wd for 2-D x."""
-    return fused_mlp_swiglu_fwd(x, wg, wu, wd, act=act)
+    return fused_mlp_swiglu_fwd(x, wg, wu, wd, act=act, f32_block_h=f32_block_h)
 
 
 @fused_mlp_swiglu_fwd_op.register_fake
-def _(x, wg, wu, wd, act):
+def _(x, wg, wu, wd, act, f32_block_h=F32_BLOCK_H):
     return x.new_empty((x.shape[0], wd.shape[1]))
 
 
 @custom_op("repro_torch::fused_mlp_bwd", mutates_args=())
-def fused_mlp_bwd_op(x: Tensor, w1: Tensor, w2: Tensor, dy: Tensor,
-                     act: str) -> tuple[Tensor, Tensor, Tensor]:
+def fused_mlp_bwd_op(x: Tensor, w1: Tensor, w2: Tensor, dy: Tensor, act: str,
+                     f32_block_h: int = F32_BWD_BLOCK_H,
+                     f32_block_m: int = F32_BWD_BLOCK_M) -> tuple[Tensor, Tensor, Tensor]:
     """B6: (dx, dw1, dw2) of act(x @ w1) @ w2 for 2-D x and dy."""
-    return fused_mlp_bwd(x, w1, w2, dy, act=act)
+    return fused_mlp_bwd(x, w1, w2, dy, act=act, f32_block_h=f32_block_h,
+                         f32_block_m=f32_block_m)
 
 
 @fused_mlp_bwd_op.register_fake
-def _(x, w1, w2, dy, act):
+def _(x, w1, w2, dy, act, f32_block_h=F32_BWD_BLOCK_H, f32_block_m=F32_BWD_BLOCK_M):
     return torch.empty_like(x), torch.empty_like(w1), torch.empty_like(w2)
 
 
 @custom_op("repro_torch::fused_mlp_swiglu_bwd", mutates_args=())
 def fused_mlp_swiglu_bwd_op(x: Tensor, wg: Tensor, wu: Tensor, wd: Tensor,
-                            dy: Tensor, act: str
+                            dy: Tensor, act: str, f32_block_h: int = F32_BWD_BLOCK_H,
+                            f32_block_m: int = F32_BWD_BLOCK_M
                             ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """B7: (dx, dwg, dwu, dwd) of the gated MLP for 2-D x and dy."""
-    return fused_mlp_swiglu_bwd(x, wg, wu, wd, dy, act=act)
+    return fused_mlp_swiglu_bwd(x, wg, wu, wd, dy, act=act, f32_block_h=f32_block_h,
+                                f32_block_m=f32_block_m)
 
 
 @fused_mlp_swiglu_bwd_op.register_fake
-def _(x, wg, wu, wd, dy, act):
+def _(x, wg, wu, wd, dy, act, f32_block_h=F32_BWD_BLOCK_H, f32_block_m=F32_BWD_BLOCK_M):
     return (torch.empty_like(x), torch.empty_like(wg), torch.empty_like(wu),
             torch.empty_like(wd))
 
 
 def _save_operands(ctx, inputs, output):
-    *tensors, act = inputs
-    ctx.act = act
+    """The MLP forwards' autograd context: the tensors (never the hidden
+    tensor) and the activation, and how many non-tensor arguments (the
+    activation, the tile knobs) get no gradient.  The forward's tile is not
+    the backward's, which runs its own defaults."""
+    tensors = [t for t in inputs if isinstance(t, Tensor)]
+    ctx.act = inputs[len(tensors)]
+    ctx.n_static = len(inputs) - len(tensors)
     ctx.save_for_backward(*tensors)
 
 
 def _mlp_backward(ctx, dy):
-    return (*fused_mlp_bwd_op(*ctx.saved_tensors, dy.contiguous(), ctx.act), None)
+    return (*fused_mlp_bwd_op(*ctx.saved_tensors, dy.contiguous(), ctx.act),
+            *[None] * ctx.n_static)
 
 
 def _swiglu_backward(ctx, dy):
     return (*fused_mlp_swiglu_bwd_op(*ctx.saved_tensors, dy.contiguous(), ctx.act),
-            None)
+            *[None] * ctx.n_static)
 
 
 fused_mlp_fwd_op.register_autograd(_mlp_backward, setup_context=_save_operands)
@@ -144,29 +179,32 @@ def _valid_len(valid: Optional[Tensor], valid_int: Optional[int]):
 
 @custom_op("repro_torch::flash_decode", mutates_args=())
 def flash_decode_op(q: Tensor, k: Tensor, v: Tensor, valid: Optional[Tensor],
-                    valid_int: Optional[int]) -> Tensor:
+                    valid_int: Optional[int],
+                    block_s: int = DECODE_MAX_BLOCK_S) -> Tensor:
     """B4: split-K decode attention, q (B, Hq, 1, D), k/v (B, Hkv, S, D)."""
-    return flash_decode(q, k, v, valid_len=_valid_len(valid, valid_int))
+    return flash_decode(q, k, v, valid_len=_valid_len(valid, valid_int), block_s=block_s)
 
 
 @flash_decode_op.register_fake
-def _(q, k, v, valid, valid_int):
+def _(q, k, v, valid, valid_int, block_s=DECODE_MAX_BLOCK_S):
     return torch.empty_like(q)
 
 
 @custom_op("repro_torch::paged_flash_decode", mutates_args=())
 def paged_flash_decode_op(q: Tensor, kp: Tensor, vp: Tensor, tables: Tensor,
                           valid: Optional[Tensor], valid_int: Optional[int],
-                          block_size: int, layer: Optional[list[int]]) -> Tensor:
+                          block_size: int, layer: Optional[list[int]],
+                          block_s: int = DECODE_MAX_BLOCK_S) -> Tensor:
     """B8: decode attention through per-slot block tables."""
     return paged_flash_decode(q, kp, vp, tables,
                               valid_len=_valid_len(valid, valid_int),
                               block_size=block_size,
-                              layer=None if layer is None else tuple(layer))
+                              layer=None if layer is None else tuple(layer),
+                              block_s=block_s)
 
 
 @paged_flash_decode_op.register_fake
-def _(q, kp, vp, tables, valid, valid_int, block_size, layer):
+def _(q, kp, vp, tables, valid, valid_int, block_size, layer, block_s=DECODE_MAX_BLOCK_S):
     return torch.empty_like(q)
 
 
@@ -219,19 +257,22 @@ def mlp_flops(n_in: int, n_out: int, bwd: bool = False) -> Callable:
     return flops
 
 
-def _paged_flops(q, kp, vp, tables, valid, valid_int, block_size, layer) -> float:
+def _paged_flops(q, kp, vp, tables, valid, valid_int, block_size, layer, *_) -> float:
     b, hq, _, d = q.shape
     return 4.0 * b * hq * tables.shape[1] * block_size * d
 
 
-def _plain_decode(q, k, v, valid, valid_int):
-    return flash_decode_plain(q, k, v, valid_len=_valid_len(valid, valid_int))
+def _plain_decode(q, k, v, valid, valid_int, block_s=DECODE_MAX_BLOCK_S):
+    return flash_decode_plain(q, k, v, valid_len=_valid_len(valid, valid_int),
+                              block_s=block_s)
 
 
-def _plain_paged(q, kp, vp, tables, valid, valid_int, block_size, layer):
+def _plain_paged(q, kp, vp, tables, valid, valid_int, block_size, layer,
+                 block_s=DECODE_MAX_BLOCK_S):
     return paged_flash_decode_plain(
         q, kp, vp, tables, valid_len=_valid_len(valid, valid_int),
-        block_size=block_size, layer=None if layer is None else tuple(layer))
+        block_size=block_size, layer=None if layer is None else tuple(layer),
+        block_s=block_s)
 
 
 def _valid_hint(valid, valid_int) -> tuple:
@@ -239,29 +280,57 @@ def _valid_hint(valid, valid_int) -> tuple:
     return () if valid is not None else (("valid_int", valid_int),)
 
 
-def _paged_hint(q, kp, vp, tables, valid, valid_int, block_size, layer):
+def _knob_hint(**knobs) -> tuple:
+    """The KernelConfig knobs a call asked for other than the defaults: the
+    traced node's tile, which the lowered call replays unless it is tuned
+    (an untuned node's hint is the same as before the knobs existed)."""
+    return tuple((name, int(v)) for name, v in knobs.items()
+                 if v != getattr(_DEFAULT, name))
+
+
+def _paged_hint(q, kp, vp, tables, valid, valid_int, block_size, layer,
+                block_s=DECODE_MAX_BLOCK_S):
     hint = ("paged_decode", ("block_size", int(block_size)))
     if layer is not None:
         hint += (("layer", tuple(int(i) for i in layer)),)
-    return hint + _valid_hint(valid, valid_int)
+    return hint + _valid_hint(valid, valid_int) + _knob_hint(block_s=block_s)
+
+
+def _fwd_hint(family: str, n_w: int):
+    def hint(x, *rest):
+        act, *knobs = rest[n_w:]
+        return (family, ("act", act)) + _knob_hint(
+            **dict(zip(("f32_block_h",), knobs)))
+    return hint
+
+
+def _bwd_hint(family: str, n_w: int):
+    def hint(x, *rest):
+        act, *knobs = rest[n_w + 1:]
+        return (family, ("act", act)) + _knob_hint(
+            **dict(zip(("f32_bwd_block_h", "f32_bwd_block_m"), knobs)))
+    return hint
+
+
+def _mlp_plain(plain: Callable, n_tensors: int) -> Callable:
+    """An MLP op's plain version over the op's arguments (its tile knobs,
+    which change no value, dropped)."""
+    return lambda *args: plain(*args[:n_tensors + 1])
 
 
 OP_SPECS: dict[str, OpSpec] = {
     "repro_torch::fused_mlp_fwd": OpSpec(
-        "matmul", mlp_flops(1, 1), lambda x, w1, w2, act: ("mlp_fwd", ("act", act)),
-        lambda x, w1, w2, act: fused_mlp_fwd_plain(x, w1, w2, act)),
+        "matmul", mlp_flops(1, 1), _fwd_hint("mlp_fwd", 2),
+        _mlp_plain(fused_mlp_fwd_plain, 3)),
     "repro_torch::fused_mlp_swiglu_fwd": OpSpec(
-        "matmul", mlp_flops(2, 1),
-        lambda x, wg, wu, wd, act: ("swiglu_fwd", ("act", act)),
-        lambda x, wg, wu, wd, act: fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, act)),
+        "matmul", mlp_flops(2, 1), _fwd_hint("swiglu_fwd", 3),
+        _mlp_plain(fused_mlp_swiglu_fwd_plain, 4)),
     "repro_torch::fused_mlp_bwd": OpSpec(
-        "matmul", mlp_flops(3, 2, bwd=True),
-        lambda x, w1, w2, dy, act: ("mlp_bwd", ("act", act)),
-        lambda x, w1, w2, dy, act: fused_mlp_bwd_plain(x, w1, w2, dy, act)),
+        "matmul", mlp_flops(3, 2, bwd=True), _bwd_hint("mlp_bwd", 2),
+        _mlp_plain(fused_mlp_bwd_plain, 4)),
     "repro_torch::fused_mlp_swiglu_bwd": OpSpec(
-        "matmul", mlp_flops(6, 2, bwd=True),
-        lambda x, wg, wu, wd, dy, act: ("swiglu_bwd", ("act", act)),
-        lambda x, wg, wu, wd, dy, act: fused_mlp_swiglu_bwd_plain(x, wg, wu, wd, dy, act)),
+        "matmul", mlp_flops(6, 2, bwd=True), _bwd_hint("swiglu_bwd", 3),
+        _mlp_plain(fused_mlp_swiglu_bwd_plain, 5)),
     # B3 stays opaque, as the reference's attention atomics do: no traced
     # path reaches it (the models' training attention is chunked torch ops)
     "repro_torch::flash_attention": OpSpec(
@@ -270,7 +339,8 @@ OP_SPECS: dict[str, OpSpec] = {
             q, k, v, causal=causal, window=window)),
     "repro_torch::flash_decode": OpSpec(
         "attention", lambda q, k, v, *_: attention_flops([q, k], []),
-        lambda q, k, v, valid, valid_int: ("decode",) + _valid_hint(valid, valid_int),
+        lambda q, k, v, valid, valid_int, block_s=DECODE_MAX_BLOCK_S:
+            ("decode",) + _valid_hint(valid, valid_int) + _knob_hint(block_s=block_s),
         _plain_decode),
     "repro_torch::paged_flash_decode": OpSpec(
         "attention", _paged_flops, _paged_hint, _plain_paged),
@@ -284,57 +354,69 @@ OP_SPECS: dict[str, OpSpec] = {
 # public functions
 # ---------------------------------------------------------------------------
 
-def mlp(x: Tensor, w1: Tensor, w2: Tensor, *, act: str = "gelu") -> Tensor:
+def mlp(x: Tensor, w1: Tensor, w2: Tensor, *, act: str = "gelu",
+        cfg: KernelConfig = _DEFAULT) -> Tensor:
     """act(x @ w1) @ w2; x may have leading batch dims.  Differentiable:
     the backward is B6."""
     lead = x.shape[:-1]
-    y = fused_mlp_fwd_op(x.reshape(-1, x.shape[-1]), w1, w2, act)
+    y = fused_mlp_fwd_op(x.reshape(-1, x.shape[-1]), w1, w2, act, cfg.f32_block_h)
     return y.reshape(*lead, w2.shape[1])
 
 
-def mlp_swiglu(x: Tensor, wg, wu, wd, *, act: str = "silu") -> Tensor:
+def mlp_swiglu(x: Tensor, wg, wu, wd, *, act: str = "silu",
+               cfg: KernelConfig = _DEFAULT) -> Tensor:
     """(act(x @ wg) * (x @ wu)) @ wd; x may have leading batch dims.
     Differentiable: the backward is B7."""
     lead = x.shape[:-1]
-    y = fused_mlp_swiglu_fwd_op(x.reshape(-1, x.shape[-1]), wg, wu, wd, act)
+    y = fused_mlp_swiglu_fwd_op(x.reshape(-1, x.shape[-1]), wg, wu, wd, act,
+                                cfg.f32_block_h)
     return y.reshape(*lead, wd.shape[1])
 
 
-def mlp_bwd(x: Tensor, w1: Tensor, w2: Tensor, dy: Tensor, *, act: str = "gelu"):
+def mlp_bwd(x: Tensor, w1: Tensor, w2: Tensor, dy: Tensor, *, act: str = "gelu",
+            cfg: KernelConfig = _DEFAULT):
     """(dx, dw1, dw2) of act(x @ w1) @ w2; x/dy may have leading batch dims."""
     dx, dw1, dw2 = fused_mlp_bwd_op(x.reshape(-1, x.shape[-1]), w1, w2,
-                                    dy.reshape(-1, dy.shape[-1]), act)
+                                    dy.reshape(-1, dy.shape[-1]), act,
+                                    cfg.f32_bwd_block_h, cfg.f32_bwd_block_m)
     return dx.reshape(x.shape), dw1, dw2
 
 
-def mlp_swiglu_bwd(x: Tensor, wg, wu, wd, dy: Tensor, *, act: str = "silu"):
+def mlp_swiglu_bwd(x: Tensor, wg, wu, wd, dy: Tensor, *, act: str = "silu",
+                   cfg: KernelConfig = _DEFAULT):
     """(dx, dwg, dwu, dwd) of (act(x @ wg) * (x @ wu)) @ wd; x/dy may have
     leading batch dims."""
     dx, dwg, dwu, dwd = fused_mlp_swiglu_bwd_op(
-        x.reshape(-1, x.shape[-1]), wg, wu, wd, dy.reshape(-1, dy.shape[-1]), act)
+        x.reshape(-1, x.shape[-1]), wg, wu, wd, dy.reshape(-1, dy.shape[-1]), act,
+        cfg.f32_bwd_block_h, cfg.f32_bwd_block_m)
     return dx.reshape(x.shape), dwg, dwu, dwd
 
 
-def attention(q, k, v, *, causal: bool = True,
-              window: int | None = None) -> Tensor:
+def attention(q, k, v, *, causal: bool = True, window: int | None = None,
+              cfg: KernelConfig = _DEFAULT) -> Tensor:
+    """B3's tiles are fixed in its source: `cfg` changes nothing here."""
     return flash_attention_op(q, k, v, causal, window)
 
 
-def decode_attention(q, k, v, *, valid_len=None) -> Tensor:
-    """Single-token attention, q (B, Hq, 1, D) against k/v (B, Hkv, S, D)."""
-    return flash_decode_op(q, k, v, *_valid_arg(valid_len))
+def decode_attention(q, k, v, *, valid_len=None, cfg: KernelConfig = _DEFAULT) -> Tensor:
+    """Single-token attention, q (B, Hq, 1, D) against k/v (B, Hkv, S, D),
+    in chunks of cfg.block_s keys."""
+    return flash_decode_op(q, k, v, *_valid_arg(valid_len), cfg.block_s)
 
 
 def paged_decode_attention(q, kp, vp, tables, *, valid_len, block_size: int,
-                           layer=None) -> Tensor:
+                           layer=None, cfg: KernelConfig = _DEFAULT) -> Tensor:
     """Decode attention straight out of the flat page pools (no dense-view
     gather): kp/vp (P, Hkv, D) or (P, G, A, Hkv, D) + layer=(g, a), tables
-    (B, V), valid_len (B,)."""
+    (B, V), valid_len (B,); chunks of cfg.block_s rows, aligned to whole
+    pages (`page_block_s`)."""
     return paged_flash_decode_op(q, kp, vp, tables, *_valid_arg(valid_len),
                                  int(block_size),
-                                 None if layer is None else [int(i) for i in layer])
+                                 None if layer is None else [int(i) for i in layer],
+                                 cfg.block_s)
 
 
-def reduce(x: Tensor, *, op: str = "sum") -> Tensor:
-    """Reduce axis 0 of (N, R, C)."""
+def reduce(x: Tensor, *, op: str = "sum", cfg: KernelConfig = _DEFAULT) -> Tensor:
+    """Reduce axis 0 of (N, R, C).  B5's geometry is fixed in its source:
+    `cfg` changes nothing here."""
     return queue_reduce_op(x, op)

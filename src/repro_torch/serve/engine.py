@@ -81,6 +81,11 @@ class ServeConfig:
     # through the capture front-end and run on that executor
     # (`repro_torch.compile`), one trace per tick shape.
     compile_mode: str | None = None
+    # The compiled tick's lowering policy (`CompilerOptions.lowering_policy`,
+    # used only with `compile_mode`): "auto" weighs each kernel site and
+    # tunes its tile on the card, "always" lowers every site at the default
+    # tiles, as the eager tick launches them.
+    lowering_policy: str = "auto"
     # Optional LRU bound for the PROCESS-WIDE executable cache
     # (`executable_cache()`), which engines of every shape and config share:
     # evicted builds (cached_jit graphs, with their graph pools) are built
@@ -150,7 +155,7 @@ def _compiled(fn, example: tuple, sc: ServeConfig, device: torch.device):
     the compiled graph's trailing copies put them into the engine's
     buffers."""
     app = compile_fn(fn, example, mode=sc.compile_mode, inplace_argnums=(0,),
-                     donate_argnums=(1,))
+                     donate_argnums=(1,), lowering_policy=sc.lowering_policy)
 
     def step(params, state, feed):
         return app(params, state, {k: v.to(device) for k, v in feed.items()})

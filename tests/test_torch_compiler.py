@@ -147,23 +147,39 @@ def test_non_kitsune_modes_skip_lowering_and_match_dedupe(mode):
 
 def test_port_defaults():
     opts = repro_torch.CompilerOptions()
-    assert opts.lowering_policy == "always" and opts.resolved_hw() is H100
+    # "auto" is the default, as the reference's is
+    assert opts.lowering_policy == "auto" and opts.resolved_hw() is H100
+    assert (opts.lowering_policy
+            == repro.CompilerOptions().lowering_policy)
     assert (H100.n_units, H100.matrix_flops, H100.vector_flops,
             H100.dram_bw, H100.onchip_capacity) == (132, 989e12, 67e12,
                                                     3.35e12, 50e6)
+    for policy in ("always", "cost", "auto"):
+        assert repro_torch.CompilerOptions(lowering_policy=policy).lowering_policy == policy
     with pytest.raises(ValueError, match="lowering_policy"):
-        repro_torch.CompilerOptions(lowering_policy="auto")
+        repro_torch.CompilerOptions(lowering_policy="sometimes")
     # a callable compiles through the capture front-end, given example inputs
     with pytest.raises(TypeError, match="example_inputs"):
         repro_torch.compile(lambda x: x)
 
 
 def test_describe_names_the_execution_and_unported_parts():
+    """describe() names how each mode executes and, under "auto", each
+    verdict's tier and numbers; nothing of the lowering is left unported."""
     g = tapps.llama3_8b(**TINY["llama_tok_tiny"]["kw"])
-    text = repro_torch.compile(g, mode="kitsune").describe()
+    text = repro_torch.compile(g, mode="kitsune", lowering_policy="always").describe()
     assert "lowered flash_decode[skv=4]: attn_0 -> attn_0" in text
     assert "fallback attn_0" not in text
-    assert "'auto' microbenchmark policy" in text
+    assert "not ported" not in text
+    app = repro_torch.compile(g, mode="kitsune")
+    text = app.describe()
+    assert "lowering policy auto" in text and "measured) in" in text
+    (row,) = [r for r in app.lowering_verdicts() if r["kernel"] == "flash_decode"]
+    word = "accepted" if row["decision"] == "lowered" else "declined"
+    assert (f"lowered flash_decode[skv=4] [{word}: measured kernel "
+            f"{row['meas_kernel_us']:.1f}us vs closure {row['meas_closure_us']:.1f}us]"
+            in text)
+    assert "not ported" not in text
     text = repro_torch.compile(g, mode="vertical").describe()
     assert "torch.compile'd on CUDA" in text
 

@@ -3,7 +3,11 @@ kitsune mode of the tiny challenge apps against bsp with the lowered
 sites' launches counted, and the paged engine's captured tick (CUDA graphs)
 against eager `paged_tick`, under the reference's fault scenarios and for
 the recurrent families (hymba's SSM state, xlstm's page-less engine); MoE
-routing under capture; whisper decode on the card against the CPU.  All
+routing under capture; whisper decode on the card against the CPU; the
+default lowering policy's measured verdicts (CUDA-event times, declined
+sites launching nothing, no graph pool left behind, both caches hit on a
+second compile) and every tile candidate's launch against its plain
+version.  All
 tests carry the `gpu` marker and skip where no CUDA device is present; this
 file imports neither jax nor the reference package, so it also runs where
 only PyTorch is installed:
@@ -22,7 +26,8 @@ import repro_torch
 from repro_torch import apps
 from repro_torch import kernels as K
 from repro_torch.configs import get_config
-from repro_torch.kernels.flash_attention import (flash_attention_plain,
+from repro_torch.kernels.flash_attention import (decode_tile_candidates,
+                                                 flash_attention_plain,
                                                  flash_decode_plain,
                                                  page_block_s)
 from repro_torch.kernels import fused_mlp as FM
@@ -329,7 +334,7 @@ def test_kitsune_on_card_launches_kernels(cuda, name):
         if "w" in leaves:
             leaves["w"] /= leaves["w"].shape[0] ** 0.5
     want = repro_torch.compile(graph, mode="bsp").run(feeds, params).outputs
-    app = repro_torch.compile(graph, mode="kitsune")
+    app = repro_torch.compile(graph, mode="kitsune", lowering_policy="always")
     before = K.launch_counts()
     got = app.run(feeds, params).outputs
     after = K.launch_counts()
@@ -1065,7 +1070,8 @@ def test_compiled_train_step_launches_hinted_kernels(cuda):
     tc = TrainConfig(xent_chunk=8)
     eager = make_train_step(cfg, opt, tc)
     clone = lambda tree: torch.utils._pytree.tree_map(lambda t: t.clone(), tree)   # noqa: E731
-    app = compile_train_step(cfg, opt, tc, state=clone(state), batch=batch)
+    app = compile_train_step(cfg, opt, tc, state=clone(state), batch=batch,
+                             lowering_policy="always")
     s, es = clone(state), clone(state)
     for _ in range(3):
         before = K.launch_counts()
@@ -1087,7 +1093,8 @@ def test_engines_compile_mode_on_card(cuda, arch):
     from repro_torch.serve import ServingEngine
     cfg, params, eager = _card_engine(cuda, arch)
     _, want = _serve(eager)
-    _, _, traced = _card_engine(cuda, arch, compile_mode="kitsune")
+    _, _, traced = _card_engine(cuda, arch, compile_mode="kitsune",
+                                lowering_policy="always")
     before = K.launch_counts()
     _, got = _serve(traced)
     assert got == want
@@ -1095,7 +1102,8 @@ def test_engines_compile_mode_on_card(cuda, arch):
         assert K.launch_counts()["paged_flash_decode"] > before["paged_flash_decode"]
 
     def legacy(mode):
-        eng = ServingEngine(cfg, params, ServeConfig(max_len=16, batch=2, compile_mode=mode),
+        eng = ServingEngine(cfg, params, ServeConfig(max_len=16, batch=2, compile_mode=mode,
+                                                     lowering_policy="always"),
                             eos_id=-1)
         for rid, p in list(SERVE_PROMPTS.items())[:3]:
             eng.submit(rid, list(p))
@@ -1320,3 +1328,205 @@ def test_dropped_legacy_engine_frees_its_graph(cuda):
     torch.cuda.empty_cache()
     assert key not in executable_cache()
     assert pool_bytes(pool) == 0
+
+
+# ---------------------------------------------------------------------------
+# the default lowering policy on the card: verdicts and tuned tiles
+# ---------------------------------------------------------------------------
+
+def _mlp_graph(name, m=16, d=32, h=64, dtype="float32"):
+    g = repro_torch.Graph(name)
+    g.input("x", (m, d), dtype)
+    g.linear("fc1", "x", h)
+    g.elementwise("act", ["fc1"], "gelu")
+    g.linear("fc2", "act", d)
+    g.output("y", "fc2")
+    return g
+
+
+@pytest.fixture
+def scratch_verdicts():
+    """Empty verdict and tune caches for the test, the process's entries
+    back after it."""
+    from repro_torch.core.executor import verdict_cache
+    caches = (verdict_cache(), K.tune_cache())
+    saved = [dict(c._store) for c in caches]
+    for c in caches:
+        c.clear()
+    yield caches
+    for c, store in zip(caches, saved):
+        c.clear()
+        c._store.update(store)
+
+
+def test_measured_verdict_on_card_carries_cuda_event_times(cuda, scratch_verdicts,
+                                                           monkeypatch):
+    """A tiny site's estimates tie inside the band, so "auto" measures it
+    on the card: both candidates captured and their replays timed with
+    CUDA events, the decision following its own numbers, and no launch of
+    the measurement counted."""
+    from repro_torch.core import lower as lower_mod
+    events, event = [], torch.cuda.Event
+
+    def counting(*a, **kw):
+        events.append(event(*a, **kw))
+        return events[-1]
+
+    monkeypatch.setattr(torch.cuda, "Event", counting)
+    before = K.launch_counts()
+    app = repro_torch.compile(_mlp_graph("card_measured"), mode="kitsune")
+    assert K.launch_counts() == before
+    (row,) = [r for r in app.lowering_verdicts() if r["executable"]]
+    assert row["source"] == "measured" and row["meas_kernel_us"] > 0
+    assert row["meas_closure_us"] > 0
+    assert len(events) >= 4 * lower_mod.MEASURE_REPS
+    assert (row["decision"] == "lowered") == (
+        row["meas_kernel_us"] * lower_mod.MEASURE_MARGIN <= row["meas_closure_us"])
+    assert f"measured kernel {row['meas_kernel_us']:.1f}us" in app.describe()
+
+
+def test_declined_site_launches_no_kernel(cuda, scratch_verdicts, monkeypatch):
+    """Every site declined (stubbed measurements): the run launches no
+    kernel and equals bsp."""
+    from repro_torch.core import lower as lower_mod
+    monkeypatch.setattr(lower_mod, "_measure_site", lambda *_: (1.0, 1e-6))
+    graph, feeds = apps.tiny_instances(cuda, seed=6)["nerf"]
+    params = repro_torch.init_params(graph, 0, device=cuda, scale=1.0)
+    for leaves in params.values():
+        if "w" in leaves:
+            leaves["w"] /= leaves["w"].shape[0] ** 0.5
+    app = repro_torch.compile(graph, mode="kitsune")
+    assert all(not m.accepted for p in app.lowering.pipelines.values() for m in p.matches
+               if m.executable)
+    before = K.launch_counts()
+    got = app.run(feeds, params).outputs
+    assert K.launch_counts() == before
+    want = repro_torch.compile(graph, mode="bsp").run(feeds, params).outputs
+    for k in want:
+        close(got[k], want[k], 2e-3)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_every_tile_candidate_launches_and_equals_plain(cuda, dtype):
+    """Each candidate of each grid is a launch its wrapper takes: the f32
+    MLP forms' chunks and slices, the decode chunks of B4 and B8 at phi3's
+    decode shape, each against the plain version at the same tile."""
+    tol = TOL[dtype]
+    for m, d, h, o in ((200, 64, 600, 96), (300, 128, 1100, 64)):
+        x, w1, wu, w2, dy = tensors(cuda, 9, dtype, (m, d), (d, h), (d, h), (h, o), (m, o),
+                                    fan_in=True)
+        for gated in (False, True):
+            for c in FM.tile_candidates(m, h, dtype, gated=gated):
+                kw = {"f32_block_h": c["f32_block_h"]} if c else {}
+                got = (K.fused_mlp_swiglu_fwd(x, w1, wu, w2, act="silu", **kw) if gated
+                       else K.fused_mlp_fwd(x, w1, w2, act="gelu", **kw))
+                want = (fused_mlp_swiglu_fwd_plain(x, w1, wu, w2, "silu") if gated
+                        else fused_mlp_fwd_plain(x, w1, w2, "gelu"))
+                close(got, want, tol)
+            for c in FM.tile_candidates(m, h, dtype, gated=gated, backward=True):
+                kw = ({"f32_block_h": c["f32_bwd_block_h"], "f32_block_m": c["f32_bwd_block_m"]}
+                      if c else {})
+                if gated:
+                    got = K.fused_mlp_swiglu_bwd(x, w1, wu, w2, dy, act="silu", **kw)
+                    want = fused_mlp_swiglu_bwd_plain(x, w1, wu, w2, dy, "silu")
+                else:
+                    got = K.fused_mlp_bwd(x, w1, w2, dy, act="gelu", **kw)
+                    want = fused_mlp_bwd_plain(x, w1, w2, dy, "gelu")
+                if dtype == "float32":
+                    for g_, w_ in zip(got, want):
+                        close(g_, w_, tol)
+                else:   # bf16 dW: the relative-norm bound (ROADMAP C)
+                    close(got[0], want[0], tol)
+                    for g_, w_ in zip(got[1:], want[1:]):
+                        assert (g_.float() - w_.float()).norm() <= 1e-2 * w_.float().norm()
+    b, hq, hkv, s_len, d, bs = 8, 40, 10, 512, 128, 16
+    q, k, v = tensors(cuda, 10, dtype, (b, hq, 1, d), (b, hkv, s_len, d), (b, hkv, s_len, d))
+    valid = torch.randint(1, s_len + 1, (b,), generator=torch.Generator().manual_seed(3)
+                          ).to(cuda, torch.int32)
+    for c in decode_tile_candidates(s_len):
+        close(K.flash_decode(q, k, v, valid_len=valid, block_s=c["block_s"]),
+              flash_decode_plain(q, k, v, valid_len=valid, block_s=c["block_s"]), tol)
+    v_blocks = s_len // bs
+    rows = (b * v_blocks + 1) * bs
+    kp, vp = tensors(cuda, 11, dtype, (rows, hkv, d), (rows, hkv, d))
+    tables = (1 + torch.randperm(b * v_blocks, generator=torch.Generator().manual_seed(4))
+              ).to(cuda, torch.int32).reshape(b, v_blocks)
+    for c in decode_tile_candidates(s_len, page_size=bs):
+        close(K.paged_flash_decode(q, kp, vp, tables, valid_len=valid, block_size=bs,
+                                   block_s=c["block_s"]),
+              paged_flash_decode_plain(q, kp, vp, tables, valid_len=valid, block_size=bs,
+                                       block_s=c["block_s"]), tol)
+
+
+def test_tuned_decode_sites_equal_their_plain_versions(cuda, scratch_verdicts):
+    """B4 and B8 traced at phi3's decode shape and compiled under "auto":
+    the tile is searched on the card, the winner is one of the grid's, and
+    the compiled site equals the plain version at the bf16 limits."""
+    from repro_torch.models.atoms import paged_decode_atom
+    b, hq, hkv, s_len, d, bs = 8, 40, 10, 512, 128, 16
+    q, k, v = tensors(cuda, 12, "bfloat16", (b, hq, 1, d), (b, hkv, s_len, d),
+                      (b, hkv, s_len, d))
+    valid = torch.randint(1, s_len + 1, (b,), generator=torch.Generator().manual_seed(5)
+                          ).to(cuda, torch.int32)
+    dense = repro_torch.compile(lambda q, k, v, n: K.decode_attention(q, k, v, valid_len=n) * 2.0,
+                                (q, k, v, valid), mode="kitsune")
+    (km,) = [m for p in dense.lowering.pipelines.values() for m in p.matches]
+    grid = [c["block_s"] for c in decode_tile_candidates(s_len)]
+    assert km.kernel == "flash_decode" and km.meta["block_s"] in grid and km.tile["us"] > 0
+    close(dense(q, k, v, valid), flash_decode_plain(q, k, v, valid_len=valid) * 2.0, 2e-2)
+    v_blocks = s_len // bs
+    rows = (b * v_blocks + 1) * bs
+    kp, vp = tensors(cuda, 13, "bfloat16", (rows, hkv, d), (rows, hkv, d))
+    tables = (1 + torch.randperm(b * v_blocks, generator=torch.Generator().manual_seed(6))
+              ).to(cuda, torch.int32).reshape(b, v_blocks)
+    atom = paged_decode_atom(bs)
+    paged = repro_torch.compile(lambda *a: atom(*a) * 2.0, (q, kp, vp, tables, valid),
+                                mode="kitsune")
+    (km,) = [m for p in paged.lowering.pipelines.values() for m in p.matches]
+    grid = [c["block_s"] for c in
+            decode_tile_candidates(s_len, page_size=bs)]
+    assert km.kernel == "paged_flash_decode" and km.meta["block_s"] in grid
+    close(paged(q, kp, vp, tables, valid),
+          paged_flash_decode_plain(q, kp, vp, tables, valid_len=valid, block_size=bs) * 2.0,
+          2e-2)
+
+
+def test_measurement_leaves_no_pool_behind(cuda, monkeypatch):
+    """The measurement's captured candidates are freed, their graph pools
+    given back to the card, before the compile returns."""
+    import gc
+    from repro_torch.core import lower as lower_mod
+    from repro_torch.core.cudagraph import pool_bytes
+    pools = []
+    capture = lower_mod._capture
+
+    def recording(*a, **kw):
+        g = capture(*a, **kw)
+        pools.append(g.pool)
+        return g
+
+    monkeypatch.setattr(lower_mod, "_capture", recording)
+    g = _mlp_graph("card_pools", m=512, d=256, h=1024)
+    (km,) = lower_mod.lower_pipelines(g, {"sf0": ["fc1", "act", "fc2"]}).pipelines[
+        "sf0"].matches
+    t_k, t_c = lower_mod._measure_site(g, km, lower_mod.target_for(cuda))
+    assert t_k > 0 and t_c > 0 and len(pools) == 2
+    gc.collect()
+    assert pool_bytes(*pools) == 0
+
+
+def test_second_compile_adds_no_verdict_and_no_tune_miss(cuda, scratch_verdicts):
+    """A second compile of the same tiny apps on the card hits both caches
+    at every site: no verdict decided, no tile searched."""
+    vc, tc = scratch_verdicts
+    for name, (graph, _) in apps.tiny_instances(cuda).items():
+        repro_torch.compile(graph, mode="kitsune")
+    v0, t0 = vc.stats(), tc.stats()
+    assert v0["size"] > 0 and t0["size"] > 0
+    for name, (graph, _) in apps.tiny_instances(cuda).items():
+        app = repro_torch.compile(graph, mode="kitsune")
+        assert all(m.tile is not None for p in app.lowering.pipelines.values()
+                   for m in p.matches if m.executable), name
+    v1, t1 = vc.stats(), tc.stats()
+    assert (v1["size"], v1["misses"]) == (v0["size"], v0["misses"]) and v1["hits"] > v0["hits"]
+    assert (t1["size"], t1["misses"]) == (t0["size"], t0["misses"]) and t1["hits"] > t0["hits"]

@@ -137,7 +137,8 @@ def test_remat_recompute_is_a_lowered_node():
     recompute in the backward): both are kernel nodes."""
     cfg, state, batch, *_ = case("gemma3-1b")
     app = compile_train_step(cfg, adamw(1e-3), TrainConfig(remat=True, xent_chunk=8),
-                             state=state, batch=batch, donate_state=False)
+                             state=state, batch=batch, donate_state=False,
+                             lowering_policy="always")
     kern = _matches(app)
     assert len(kern["fused_mlp_swiglu"]) == 2 * cfg.n_layers
     assert len(kern["fused_mlp_swiglu_bwd"]) == cfg.n_layers
@@ -301,7 +302,7 @@ def test_attention_atom_backward_matches_autograd(causal, hq, hkv, sq, skv, wind
 def test_describe_shows_executable_backward():
     cfg, state, batch, *_ = case("whisper-small", seed=8)
     app = compile_train_step(cfg, adamw(1e-3), _TC, state=state, batch=batch,
-                             donate_state=False)
+                             donate_state=False, lowering_policy="always")
     text = app.describe()
     assert "lowered fused_mlp_bwd" in text
     for line in text.splitlines():
