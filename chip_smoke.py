@@ -22,7 +22,10 @@ Phases, each failing the run on any error (no phase's exception is caught):
      the decode kernels at phase 9's shapes (B2's small-M form at hymba's
      and maverick's FFN widths and B1's at whisper's, with their folds; B8
      and B4 at 5 query heads per kv head, D 64 and 128; B4 at whisper's
-     cache);
+     cache); and B4 and B8 reading float8 e4m3 K/V beside a bf16 q (the
+     float8 KV cache) at phase 7's shape, B4 at S = 4096, both at hymba's
+     G = 5, D = 64, each held to its e4m3 plain version, with the K/V cast
+     to bf16 plus SDPA as the yardstick;
   4. the Llama3-8B challenge app at full width (d=4096, ff=14336, 32 heads
      of 128, vocab 128256, seq 2048, batch 4, its 2 layers + LM head, bf16
      weights from a seed; hkv=hq because the graph models GQA without
@@ -58,6 +61,19 @@ Phases, each failing the run on any error (no phase's exception is caught):
      launcher builds it) must equal its tokens in the batch, and the
      reduced config (f32) must serve the same tokens on the card (captured)
      as on the CPU (eager); a one-step tick is profiled eager and replayed;
+     then the same weights with kv_cache_dtype="float8_e4m3fn" (e4m3 page
+     pools), the engines given the block_s kernels/autotune.py picks for
+     B8 over e4m3 pools (`kernels=`, printed beside the bf16 pick): the
+     native tick must launch paged_flash_decode in its e4m3 form 40 times a
+     decode step, the gather run flash_decode's e4m3 form with bitwise the
+     same tokens, each bucket's replay must equal eager paged_tick (pools
+     compared through their bytes), request 0 alone on profiled pools must
+     equal its tokens in the batch with at least 1.9x the bf16 run's
+     default capacity, the first tick's logits must lie within the
+     reference's float8 bound (0.15 max|logits| + 0.5) of the bf16 run's,
+     and the KV bytes a tick must be half; the reduced config with a float8
+     cache, teacher-forced through the replayed tick, must give the CPU's
+     logits within MODEL_TOL;
   8. training (phase 3 also holds the backward kernels and each autograd
      Function's gradients): gemma3-1b at full width and depth (26 layers,
      1.00 B bf16 parameters from a seed, AdamW, remat, 4 x 2048 tokens) takes
@@ -119,7 +135,9 @@ Phases, each failing the run on any error (no phase's exception is caught):
      tokens, the paged tick launching paged_flash_decode and
      fused_mlp_swiglu, the legacy one flash_decode, each bucket's captured
      plan of the paged tick bitwise its uncaptured walk, trace and compile
-     seconds apart from capture and run seconds; (e) a traced
+     seconds apart from capture and run seconds; and the paged engine again
+     with a float8 cache, its traced tick launching paged_flash_decode's
+     e4m3 form; (e) a traced
      `paged_decode_atom` at phase 7's decode shape, lowered to
      paged_flash_decode, against its plain version; 10a, 10b and 10d
      also print the verdicts the default policy ("auto") gives their
@@ -131,7 +149,9 @@ Phases, each failing the run on any error (no phase's exception is caught):
      the first a replay of one captured graph: bitwise the same tokens, 40
      flash_decode and 40 small-M fused_mlp_swiglu launches a tick; ms a
      tick, capture seconds, graph pool bytes, and three profiled ticks of
-     each for the device's idle share;
+     each for the device's idle share; then the same with a float8 KV
+     cache, eager and through cached_jit, bitwise alike, flash_decode's
+     e4m3 form 40 times a tick;
  12. the compiler's default lowering policy ("auto"): (a) the Llama3-8B
      app and (b) nerf, dlrm, mgn, graphcast and the split-reduction graph
      at phases 4-6's sizes compiled in kitsune mode under "auto" -- every
@@ -163,6 +183,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import itertools
 import json
 import math
 import os
@@ -187,7 +208,7 @@ import torch.nn.functional as F  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch import apps  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import KernelConfig, _build  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -205,7 +226,7 @@ from repro_torch.kernels.fused_mlp import (F32_BLOCK_H, SMALL_M,  # noqa: E402
 from repro_torch.kernels.ref import DACTS  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_flash_decode_plain  # noqa: E402
 from repro_torch.kernels.queue_reduce import queue_reduce_plain, sequential_fold  # noqa: E402
-from repro_torch.kernels.ref import paged_rows  # noqa: E402
+from repro_torch.kernels.ref import paged_rows, to_e4m3  # noqa: E402
 from repro_torch.models import encdec, get_model, zoo  # noqa: E402
 from repro_torch.models import atoms as model_atoms  # noqa: E402
 from repro_torch.models import lm as model_lm  # noqa: E402
@@ -320,6 +341,12 @@ SUMMARY = {
                                  "whisper-small decoder"),
     "flash_decode_whisper": ("flash_decode", "whisper_decode",
                              "q (8, 12, 1, 64), k/v (8, 12, 448, 64), valid 16, G = 1"),
+    # phase 7's float8 KV cache run
+    "flash_decode_e4m3": ("flash_decode", "serve_fp8_gather",
+                          "q (8, 40, 1, 128) bf16, k/v (8, 10, 512, 128) e4m3, ragged valid"),
+    "paged_flash_decode_e4m3": ("paged_flash_decode", "serve_fp8_native",
+                                "q (8, 40, 1, 128) bf16, pools (8208, 40, 1, 10, 128) e4m3, "
+                                "tables (8, 32)"),
 }
 # phase 7: phi3-medium-14b behind the paged engine
 SERVE_ARCH = "phi3-medium-14b"
@@ -328,7 +355,9 @@ SERVE_CONFIG = dict(max_len=512, batch=8, block_size=16, prefill_chunk=16,
 SERVE_REQUESTS = 16
 # phase-3 cases timed with a cold L2 (cuda_ms): the decode kernels, whose
 # inputs would otherwise stay cached between timed calls
-COLD_CASES = {"flash_decode", "flash_decode_s4096", "paged_flash_decode",
+E4M3_CASES = {"flash_decode_e4m3", "flash_decode_e4m3_s4096", "flash_decode_hymba_e4m3",
+              "paged_flash_decode_e4m3", "paged_flash_decode_hymba_e4m3"}
+COLD_CASES = E4M3_CASES | {"flash_decode", "flash_decode_s4096", "paged_flash_decode",
               "fused_mlp_swiglu_decode", "fused_mlp_swiglu_hymba", "fused_mlp_swiglu_maverick",
               "fused_mlp_whisper_decode", "paged_flash_decode_hymba",
               "paged_flash_decode_maverick", "flash_decode_hymba", "flash_decode_maverick",
@@ -360,10 +389,10 @@ def ptxas_entries(log: str) -> list[str]:
             mangled, spill = ln.split("'")[1], ""
             m = re.search(r"([a-z_]+_(?:kernel|wgmma))I(.*?)EEv", mangled)
             if m:
-                codes = {"f": "f32", "Lb1E": "true", "Lb0E": "false"}
+                codes = {"f": "f32", "Lb1E": "true", "Lb0E": "false", "13__nv_fp8_e4m3": "e4m3"}
                 args = [codes.get(t, "bf16" if "bfloat16" in t or t.startswith("S") else t[2:-1])
-                        for t in re.findall(r"13__nv_bfloat16|S\d*_|f|Lb[01]E|Li\d+E",
-                                            m.group(2))]
+                        for t in re.findall(r"13__nv_fp8_e4m3|13__nv_bfloat16|S\d*_|f|Lb[01]E"
+                                            r"|Li\d+E", m.group(2))]
                 name = f"{m.group(1)}<{','.join(args)}>"
             else:
                 plain = re.search(r"\d+([a-z_]+_(?:kernel|wgmma))E", mangled)
@@ -778,6 +807,84 @@ def decode_cases(gen, dtype):
                     shape=f"({n_part}, {B}, {D}) f32 -> ({B}, {D}) {str(dtype)[6:]}")
 
 
+E4M3 = torch.float8_e4m3fn
+E4M3_YARDSTICK = "K/V .to(bfloat16) + scaled_dot_product_attention"
+
+
+def e4m3_cases(gen):
+    """B4 and B8 reading e4m3 K/V beside a bf16 q (the float8 KV cache):
+    at phase 7's decode shape (8 slots, 40 query / 10 kv heads of 128, S =
+    512, ragged), at S = 4096, and at hymba-1.5b's (25 / 5 heads of 64, G =
+    5), each held to its e4m3 plain version.  K/V are drawn in f32 and cast
+    as the cache is written (`to_e4m3`).  Bounds count 1-byte K/V rows of
+    the valid lengths.  No PyTorch call takes e4m3 K/V: the yardstick is the
+    rows cast to bf16 plus SDPA, timed as one (the paged rows gathered
+    through the tables first)."""
+    rng = np.random.default_rng(15)
+    B = SERVE_CONFIG["batch"]
+    bs, n_blocks = SERVE_CONFIG["block_size"], SERVE_CONFIG["num_blocks"]
+    v_blocks = SERVE_CONFIG["max_len"] // bs
+    phi3, hymba = get_config(SERVE_ARCH), get_config(HYMBA)
+    for name, cfg, s_len in (("flash_decode_e4m3", phi3, 512),
+                             ("flash_decode_e4m3_s4096", phi3, 4096),
+                             ("flash_decode_hymba_e4m3", hymba, 512)):
+        HQ, HKV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = randn(gen, B, HQ, 1, HD, dtype=torch.bfloat16)
+        k, v = (to_e4m3(randn(gen, B, HKV, s_len, HD, dtype=torch.float32)) for _ in range(2))
+        valid = torch.from_numpy(rng.integers(1, s_len + 1, B).astype(np.int32)).to("cuda")
+        mask = (torch.arange(s_len, device="cuda")[None, :] < valid[:, None])[:, None, None, :]
+        rows = int(valid.sum())
+        yield (name,
+               lambda: K.flash_decode(q, k, v, valid_len=valid),
+               lambda: flash_decode_plain(q, k, v, valid_len=valid),
+               lambda: F.scaled_dot_product_attention(q, k.to(torch.bfloat16),
+                                                      v.to(torch.bfloat16), attn_mask=mask,
+                                                      enable_gqa=True),
+               4.0 * rows * HQ * HD, 2 * nbytes(q) + 2 * rows * HKV * HD,
+               None, {"library": E4M3_YARDSTICK})
+        del q, k, v
+    for name, cfg, n_g in (("paged_flash_decode_e4m3", phi3, phi3.n_layers),
+                           ("paged_flash_decode_hymba_e4m3", hymba, 32)):
+        HQ, HKV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        pool = ((n_blocks + 1) * bs, n_g, 1, HKV, HD)
+        kp, vp = (to_e4m3(randn(gen, *pool, dtype=torch.bfloat16)) for _ in range(2))
+        q = randn(gen, B, HQ, 1, HD, dtype=torch.bfloat16)
+        valid_np = rng.integers(1, v_blocks * bs + 1, B)
+        tables_np = rng.permutation(np.arange(1, n_blocks + 1))[:B * v_blocks].reshape(
+            B, v_blocks)
+        tables_np[np.arange(v_blocks)[None, :] >= -(-valid_np // bs)[:, None]] = 0
+        tables = torch.from_numpy(tables_np.astype(np.int32)).to("cuda")
+        valid = torch.from_numpy(valid_np.astype(np.int32)).to("cuda")
+        layer = (n_g - 1, 0)
+        got = K.paged_flash_decode(q, kp, vp, tables, valid_len=valid, block_size=bs, layer=layer)
+        rows_idx = paged_rows(tables, bs)
+        ck = kp[rows_idx, layer[0], layer[1]].transpose(1, 2).contiguous()
+        cv = vp[rows_idx, layer[0], layer[1]].transpose(1, 2).contiguous()
+        if not torch.equal(got, K.flash_decode(q, ck, cv, valid_len=valid, block_s=256)):
+            raise AssertionError(f"{name} differs from gather + flash_decode at the same "
+                                 f"chunk size")
+        print(f"{name} bitwise equal to gather + flash_decode", flush=True)
+        del ck, cv
+        mask = (torch.arange(v_blocks * bs, device="cuda")[None, :]
+                < valid[:, None])[:, None, None, :]
+        rows = int(valid.sum())
+
+        def yardstick():
+            ck = kp[rows_idx, layer[0], layer[1]].transpose(1, 2).to(torch.bfloat16)
+            cv = vp[rows_idx, layer[0], layer[1]].transpose(1, 2).to(torch.bfloat16)
+            return F.scaled_dot_product_attention(q, ck, cv, attn_mask=mask, enable_gqa=True)
+        yield (name,
+               lambda: K.paged_flash_decode(q, kp, vp, tables, valid_len=valid,
+                                            block_size=bs, layer=layer),
+               lambda: paged_flash_decode_plain(q, kp, vp, tables, valid_len=valid,
+                                                block_size=bs, layer=layer),
+               yardstick,
+               4.0 * rows * HQ * HD,
+               2 * nbytes(q) + 2 * rows * HKV * HD + nbytes(tables, valid),
+               None, {"library": "pool rows gathered through the tables, " + E4M3_YARDSTICK})
+        del kp, vp, q
+
+
 def family_cases(gen, dtype):
     """Phase 9's kernels at the shapes its models give them, 8 slots: B2's
     small-M form at hymba-1.5b's FFN (1600 -> 5504 -> 1600; 1600 is no
@@ -891,7 +998,10 @@ def phase_kernels() -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator(device="cuda").manual_seed(3)
         reps = 5 if dtype == torch.bfloat16 else 2
-        for name, kern, plain, lib, flops, nb, *rest in kernel_cases(gen, dtype):
+        cases = kernel_cases(gen, dtype)
+        if dtype == torch.bfloat16:
+            cases = itertools.chain(cases, e4m3_cases(gen))
+        for name, kern, plain, lib, flops, nb, *rest in cases:
             reorder = rest[0] if rest else None
             extra = rest[1] if len(rest) > 1 else {}
             floors = reorder() if reorder and dtype == torch.bfloat16 else None
@@ -901,7 +1011,8 @@ def phase_kernels() -> dict:
             t_op, t_by = flops / PEAK[dtype], nb / HBM
             if name.startswith("queue_reduce"):
                 t_op = flops / PEAK[torch.float32]   # f32 adds, no tensor cores
-            row = {"name": name, "dtype": str(dtype).split(".")[-1],
+            row = {"name": name, "dtype": str(dtype).split(".")[-1]
+                   + (" q, float8_e4m3fn K/V" if name in E4M3_CASES else ""),
                    "max_abs_err": err, "tol": TOL[dtype], "rel_err": rel,
                    "rel_tol": REL_TOL[dtype],
                    "ms": cuda_ms(kern, reps, cold), "plain_ms": cuda_ms(plain, reps, cold),
@@ -1141,21 +1252,29 @@ def serve_prompts(vocab: int) -> dict[int, list[int]]:
     return prompts
 
 
-def serve_run(cfg, params, prompts, label, base=SERVE_CONFIG, **overrides):
+def serve_run(cfg, params, prompts, label, base=SERVE_CONFIG, kernels=KernelConfig(),
+              **overrides):
     """Serve `prompts` to completion with the launch counters zeroed just
-    before and read just after; returns (tokens, engine, launches, seconds)."""
+    before and read just after; returns (tokens, engine, launches, seconds).
+    The engine keeps its first tick's logits as `first_logits` (f32, host),
+    and `launches` counts the decode kernels' float8 K/V launches apart
+    ("<kernel>_e4m3")."""
     sc = ServeConfig(**{**base, **overrides})
-    eng = PagedServingEngine(cfg, params, sc, eos_id=-1)
+    eng = PagedServingEngine(cfg, params, sc, eos_id=-1, kernels=kernels)
     for rid, p in prompts.items():
         eng.submit(p, rid=rid)
     torch.cuda.synchronize()
     K.reset_launch_counts()
     t0 = time.perf_counter()
+    eng.tick()
+    eng.first_logits = eng.last_logits.float().cpu()
     done = eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.launch_counts()
     launches["fused_mlp_swiglu_small_m"] = K.launches_by_form("fused_mlp_swiglu").get("small_m", 0)
+    for kern in ("flash_decode", "paged_flash_decode"):
+        launches[f"{kern}_e4m3"] = K.launches_by_dtype(kern).get("float8_e4m3fn", 0)
     st = eng.stats()
     steps = st["decode_steps"]
     print(f"serve {label}: {len(done)} requests, {st['tokens_out']} tokens, "
@@ -1217,6 +1336,17 @@ def state_copies(eng) -> dict:
     return out
 
 
+def kv_tag(cfg) -> str:
+    """The tag of a line about a config with a float8 KV cache."""
+    return " fp8" if cfg.kv_cache_dtype == "float8_e4m3fn" else ""
+
+
+def same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of two tensors of one dtype, through their bytes
+    (torch.equal takes no float8 tensor)."""
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
 def captured_equals_eager(cfg, params, eng) -> None:
     """One replay of each of `eng`'s graphs against eager `paged_tick` on
     copies of the pools and the recurrent state: tokens, positions, logits,
@@ -1229,60 +1359,63 @@ def captured_equals_eager(cfg, params, eng) -> None:
         copies = state_copies(eng)
         dev = {k: t.to("cuda") for k, t in state.items()}
         want = paged_tick(params, {**dev, **copies}, cfg, block_size=bs,
-                          n_steps=n_steps, mode=mode)
+                          n_steps=n_steps, mode=mode, kernels=eng.kernels)
         got = step(state)
         torch.cuda.synchronize()
         same = {k: torch.equal(got[k], want[k]) for k in ("tokens_next", "pos", "logits")}
         if eng.has_kv:
-            same["pages"] = (torch.equal(eng.kp[bs:], copies["kp"][bs:])
-                             and torch.equal(eng.vp[bs:], copies["vp"][bs:]))
+            same["pages"] = same_bytes(eng.kp[bs:], copies["kp"][bs:]) and same_bytes(
+                eng.vp[bs:], copies["vp"][bs:])
         for name in eng.aux:
             same[name] = torch.equal(eng.aux[name], copies[name])
-        print(f"serve {mode}: replayed tick ({n_steps} steps, {v_blocks} blocks) against eager "
-              f"paged_tick: {same}", flush=True)
+        print(f"serve{kv_tag(cfg)} {mode}: replayed tick ({n_steps} steps, {v_blocks} blocks) "
+              f"against eager paged_tick: {same}", flush=True)
         if not all(same.values()):
             raise AssertionError(f"captured {mode} tick ({n_steps}, {v_blocks}) differs "
                                  f"from eager: {same}")
         ms = {}
         for form, tick in (("eager", lambda: paged_tick(params, {**dev, **copies}, cfg,
                                                        block_size=bs, n_steps=n_steps,
-                                                       mode=mode)["tokens_next"].cpu()),
+                                                       mode=mode, kernels=eng.kernels
+                                                       )["tokens_next"].cpu()),
                            ("replayed", lambda: step(state)["tokens_next"].cpu())):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(3):
                 tick()
             ms[form] = 1e3 * (time.perf_counter() - t0) / 3
-        print(f"serve {mode}: tick of {n_steps} steps, host clock (mean of 3): eager "
-              f"{ms['eager']:.2f} ms, replayed {ms['replayed']:.2f} ms", flush=True)
+        print(f"serve{kv_tag(cfg)} {mode}: tick of {n_steps} steps, host clock (mean of 3): "
+              f"eager {ms['eager']:.2f} ms, replayed {ms['replayed']:.2f} ms", flush=True)
         del copies
 
 
-def profile_decode_ticks(cfg, params, eng) -> None:
+def profile_decode_ticks(cfg, params, eng, share=None) -> None:
     """Three one-step ticks with all 8 slots decoding at ragged contexts
     (64-191 tokens, pages drawn from `eng`'s pools) under torch.profiler,
     eager `paged_tick` and then a replay of `eng`'s captured graph (host
     copies in and the sampled tokens out included, as the engine ticks):
     device time per kernel and the device's idle share of the tick, whose
-    wall time is taken again without the profiler."""
+    wall time is taken again without the profiler.  `share`: kernel-name
+    substrings whose share of the device time is printed."""
     mode, bs = eng.sc.paged_attention, eng.sc.block_size
     state = tick_state(cfg, eng, 1, seed=13)
     dev = {**{k: t.to("cuda") for k, t in state.items()}, **state_copies(eng)}
     replay = eng._get_step(1, eng.max_blocks if eng.has_kv else 0)
     forms = {
-        "eager": lambda: paged_tick(params, dev, cfg, block_size=bs, n_steps=1,
-                                    mode=mode)["tokens_next"].cpu(),
+        "eager": lambda: paged_tick(params, dev, cfg, block_size=bs, n_steps=1, mode=mode,
+                                    kernels=eng.kernels)["tokens_next"].cpu(),
         "replayed": lambda: replay(state)["tokens_next"].cpu()}
     for form, tick in forms.items():
-        profile_ticks(f"{cfg.name} {mode} {form} decode tick (1 step, {eng.sc.batch} slots)",
-                      tick)
+        profile_ticks(f"{cfg.name}{kv_tag(cfg)} {mode} {form} decode tick (1 step, "
+                      f"{eng.sc.batch} slots)", tick, share=share)
 
 
-def profile_ticks(label, tick, n: int = 3) -> tuple[float, float]:
+def profile_ticks(label, tick, n: int = 3, share=None) -> tuple[float, float]:
     """`tick()` (which ends in a host read) once to warm, `n` times for the
     wall clock, `n` times under torch.profiler: prints ms a tick, ms of
-    kernels a tick, the device's idle share and the top kernels; returns
-    (wall ms, kernel ms) a tick."""
+    kernels a tick, the device's idle share and the top kernels, and the
+    share of the kernel time taken by the kernels whose names hold one of
+    `share`; returns (wall ms, kernel ms) a tick."""
     def ticks(k):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1308,6 +1441,10 @@ def profile_ticks(label, tick, n: int = 3) -> tuple[float, float]:
     for key, count, us in sorted(rows, key=lambda r: -r[2])[:10]:
         print(f"  {us / (1e3 * n):8.3f} ms/tick {count // n:5d} calls/tick  {key[:90]}",
               flush=True)
+    if share:
+        part = sum(r[2] for r in rows if any(s in r[0] for s in share)) / (1e3 * n)
+        print(f"profile {label}: kernels {share} {part:.3f} ms/tick, "
+              f"{100 * part / busy_ms:.1f} % of the kernel time", flush=True)
     return 1e3 * wall, busy_ms
 
 
@@ -1384,6 +1521,8 @@ def phase_serving() -> dict[str, dict[str, int]]:
           f"bound of {1e3 * step_bytes / HBM:.2f} ms ({step_bytes / 1e9:.2f} GB / 3.35 TB/s)",
           flush=True)
     runs["serve_native"] = launches
+    bf16 = {"first_logits": eng.first_logits, "traffic": traffic, "step_ms": 1e3 * wall / steps,
+            "tokens": native}
     captured_equals_eager(cfg, params, eng)
     profile_decode_ticks(cfg, params, eng)
     del eng
@@ -1437,13 +1576,185 @@ def phase_serving() -> dict[str, dict[str, int]]:
           f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB", flush=True)
     print("serve: request 0 alone equals its tokens in the full batch", flush=True)
     runs["serve_solo"] = launches
-    del params, eng
+    bf16["capacity"] = (eng.pool.num_blocks, nbytes(eng.kp, eng.vp))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 7 bf16 runs: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    runs.update(phase_serving_fp8(cfg, params, prompts, bf16))
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
     reduced_card_equals_cpu(cfg)
+    reduced_fp8_card_equals_cpu(cfg)
     print(f"phase 7 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
     return runs
+
+
+def tuned_block_s(cfg, kv_dtype) -> dict:
+    """The split-K chunk kernels/autotune.py picks for B8 over
+    `decode_tile_candidates` at phase 7's decode shape (8 slots, phi3's 40
+    query / 10 kv heads of 128 in its 40-layer pools, 32 pages of 16 a slot,
+    valid lengths 32-192 as the run's contexts have them), with pools of
+    `kv_dtype`: {"block_s": winner, "us": its time}."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    b, bs = SERVE_CONFIG["batch"], SERVE_CONFIG["block_size"]
+    v_blocks = SERVE_CONFIG["max_len"] // bs
+    pool = ((SERVE_CONFIG["num_blocks"] + 1) * bs, cfg.n_layers, 1, cfg.n_kv_heads,
+            cfg.head_dim)
+    kp, vp = (randn(gen, *pool, dtype=torch.bfloat16) for _ in range(2))
+    if kv_dtype == E4M3:
+        kp, vp = to_e4m3(kp), to_e4m3(vp)
+    q = randn(gen, b, cfg.n_heads, 1, cfg.head_dim, dtype=torch.bfloat16)
+    tables = (1 + torch.randperm(b * v_blocks, generator=gen, device="cuda")).to(
+        torch.int32).reshape(b, v_blocks)
+    valid = torch.randint(32, 193, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    layer = (cfg.n_layers - 1, 0)
+
+    def build(cand):
+        return lambda q: K.paged_flash_decode(q, kp, vp, tables, valid_len=valid, block_size=bs,
+                                              layer=layer, block_s=cand["block_s"])
+    choice = K.autotune(("phase 7 paged_flash_decode", str(kv_dtype)),
+                        decode_tile_candidates(v_blocks * bs, page_size=bs), build, (q,))
+    del kp, vp
+    torch.cuda.empty_cache()
+    return choice
+
+
+def phase_serving_fp8(cfg, params, prompts, bf16: dict) -> dict[str, dict[str, int]]:
+    """Phase 7's float8 KV cache run on the same phi3-medium-14b weights
+    (kv_cache_dtype="float8_e4m3fn", full width and depth, phase 7's
+    ServeConfig and prompts), its engines given B8's tuned block_s for e4m3
+    pools (`kernels=`): native (40 e4m3 paged_flash_decode launches a
+    decode step), gather (bitwise its tokens, flash_decode in e4m3), one
+    replay per bucket against eager paged_tick (pools compared through
+    their bytes), request 0 alone on pools sized by the profiling pass
+    (about twice the bf16 capacity), the first tick's logits within the
+    reference's own float8 bound of the bf16 run's, half the KV bytes a
+    tick, and a profiled one-step tick."""
+    t0 = time.perf_counter()
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="float8_e4m3fn")
+    tiles = {str(dt): tuned_block_s(cfg, dt) for dt in (E4M3, torch.bfloat16)}
+    print(f"serve fp8: kernels/autotune.py's B8 block_s at phase 7's decode shape: "
+          f"e4m3 pools {tiles[str(E4M3)]}, bf16 pools {tiles[str(torch.bfloat16)]}", flush=True)
+    kernels = KernelConfig(block_s=tiles[str(E4M3)]["block_s"])
+    runs = {}
+    native, eng, launches, wall = serve_run(cfg8, params, prompts, "fp8 native",
+                                            kernels=kernels)
+    steps = eng.stats()["decode_steps"]
+    n = cfg.n_layers * steps
+    want = {"paged_flash_decode": n, "paged_flash_decode_e4m3": n, "fused_mlp_swiglu": n,
+            "fused_mlp_swiglu_small_m": n, "flash_decode": 0}
+    if eng.kp.dtype != E4M3 or any(launches[k] != c for k, c in want.items()):
+        raise AssertionError(f"fp8 native run: pools {eng.kp.dtype}, launched {launches}, "
+                             f"want {want}")
+    traffic = eng.stats()["kv_traffic"]
+    ratio = {k: bf16["traffic"][k] / traffic[k]
+             for k in ("native_bytes_per_tick", "gather_bytes_per_tick")}
+    print(f"serve fp8: KV bytes a tick, native {traffic['native_bytes_per_tick']:.0f} and gather "
+          f"{traffic['gather_bytes_per_tick']:.0f}, against bf16's "
+          f"{bf16['traffic']['native_bytes_per_tick']:.0f} and "
+          f"{bf16['traffic']['gather_bytes_per_tick']:.0f}: bf16 / fp8 {ratio}", flush=True)
+    if any(r != 2.0 for r in ratio.values()):
+        raise AssertionError(f"fp8 KV bytes a tick are not half the bf16 run's: {ratio}")
+    err = (eng.first_logits - bf16["first_logits"]).abs().max().item()
+    bound = 0.15 * bf16["first_logits"].abs().max().item() + 0.5
+    print(f"serve fp8: first tick's logits against the bf16 run's: max |diff| {err:.4g} "
+          f"(the reference's float8 bound 0.15 max|logits| + 0.5 = {bound:.4g}); "
+          f"{sum(native[rid] == bf16['tokens'][rid] for rid in native)} of "
+          f"{len(native)} requests with the bf16 run's tokens", flush=True)
+    if not err <= bound:
+        raise AssertionError(f"fp8 first-tick logits off the bf16 run's by {err} > {bound}")
+    g = eng.stats()["graphs"]
+    capture_s = g["warm_up_s"] + g["capture_s"]
+    print(f"fp8 decode step: {1e3 * wall / steps:.2f} ms measured (host clock, whole ticks "
+          f"over decode steps, {capture_s:.2f} s of warm-up and capture included; "
+          f"{1e3 * (wall - capture_s) / steps:.2f} ms without it) against bf16's "
+          f"{bf16['step_ms']:.2f} ms", flush=True)
+    runs["serve_fp8_native"] = launches
+    captured_equals_eager(cfg8, params, eng)
+    profile_decode_ticks(cfg8, params, eng, share=["paged_decode_kernel", "decode_combine"])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gather, eng, launches, _ = serve_run(cfg8, params, prompts, "fp8 gather", kernels=kernels,
+                                         paged_attention="gather")
+    want = {"flash_decode": n, "flash_decode_e4m3": n, "fused_mlp_swiglu": n,
+            "paged_flash_decode": 0}
+    if eng.stats()["decode_steps"] != steps or any(launches[k] != c for k, c in want.items()):
+        raise AssertionError(f"fp8 gather run launched {launches}, want {want}")
+    if gather != native:
+        diff = [rid for rid in native if native[rid] != gather.get(rid)]
+        raise AssertionError(f"fp8 gather tokens differ from native for requests {diff}")
+    print("serve fp8: gather tokens bitwise equal to native", flush=True)
+    runs["serve_fp8_gather"] = launches
+    captured_equals_eager(cfg8, params, eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    solo, eng, launches, _ = serve_run(cfg8, params, {0: prompts[0]}, "fp8 solo",
+                                       kernels=kernels, num_blocks=None)
+    if solo[0] != native[0]:
+        raise AssertionError(f"fp8: request 0 alone {solo[0]} != in the batch {native[0]}")
+    blocks, kv_bytes = eng.pool.num_blocks, nbytes(eng.kp, eng.vp)
+    print(f"serve fp8 solo: default capacity {blocks} blocks ({kv_bytes / 1e9:.2f} GB of e4m3 "
+          f"KV pools) against bf16's {bf16['capacity'][0]} blocks "
+          f"({bf16['capacity'][1] / 1e9:.2f} GB): {blocks / bf16['capacity'][0]:.3f}x; "
+          f"request 0 alone equals its tokens in the batch", flush=True)
+    if blocks < 1.9 * bf16["capacity"][0]:
+        raise AssertionError(f"fp8 default capacity {blocks} blocks < 1.9 x bf16's "
+                             f"{bf16['capacity'][0]}")
+    runs["serve_fp8_solo"] = launches
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 7 fp8 runs: {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs
+
+
+def reduced_fp8_card_equals_cpu(cfg) -> None:
+    """The reduced config (f32) with a float8 cache, the same weights on the
+    card and the CPU, teacher-forced through the paged engine's one-step
+    tick over fixed tokens (a replayed graph on the card, eager paged_tick
+    on the CPU), so that no sampled token can send the two apart: 24 steps
+    of 4 slots, the logits within MODEL_TOL (relative) and B8 launched in
+    its e4m3 form at every layer and step."""
+    small = dataclasses.replace(cfg.reduced(), kv_cache_dtype="float8_e4m3fn")
+    cpu_params = get_model(small).init(seed=0, device="cpu")
+    toks = np.random.default_rng(14).integers(2, small.vocab, (4, 24))
+    sc = ServeConfig(max_len=64, batch=4, block_size=8, prefill_chunk=8, num_blocks=48)
+    logits = {}
+    for dev, p in (("cpu", cpu_params), ("cuda", to_device(cpu_params, "cuda"))):
+        eng = PagedServingEngine(small, p, sc, eos_id=-1)
+        step = eng._get_step(1, eng.max_blocks)
+        v = eng.max_blocks
+        tables = torch.from_numpy(
+            (1 + np.arange(4 * v).reshape(4, v) % eng.pool.num_blocks).astype(np.int32))
+        before = K.launches_by_dtype("paged_flash_decode").get("float8_e4m3fn", 0)
+        out = []
+        for t in range(toks.shape[1]):
+            state = {"tokens": torch.from_numpy(toks[:, t:t + 1]),
+                     "n_tok": torch.ones(4, dtype=torch.int64),
+                     "pos": torch.full((4,), t, dtype=torch.int64), "tables": tables,
+                     "kp": eng.kp, "vp": eng.vp, **eng.aux}
+            out.append(step(state)["logits"].float().cpu())
+        logits[dev] = torch.stack(out)
+        if dev == "cuda":
+            e4m3 = K.launches_by_dtype("paged_flash_decode").get("float8_e4m3fn", 0) - before
+            if not isinstance(step, CapturedTick) or e4m3 != small.n_layers * toks.shape[1]:
+                raise AssertionError(f"{small.name} fp8: {type(step).__name__}, {e4m3} e4m3 "
+                                     f"paged_flash_decode launches")
+    err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    rel = rel_err(logits["cuda"], logits["cpu"])
+    print(f"serve {small.name} fp8 cache: {toks.shape[1]} teacher-forced steps of 4 slots, "
+          f"card (replayed) vs CPU logits max |diff| {err:.3g}, relative {rel:.3g} (limit "
+          f"{MODEL_TOL})", flush=True)
+    if rel > MODEL_TOL:
+        raise AssertionError(f"{small.name} fp8: card and CPU logits disagree ({rel:.3g})")
 
 # ---------------------------------------------------------------------------
 # phase 8: training
@@ -1887,13 +2198,13 @@ def phase_xlstm() -> dict[str, dict[str, int]]:
 def plain_decode_kernels():
     """The model layers' decode attention and MLP run their kernels' plain
     versions (the chunk math in torch ops) while the block is open."""
-    def mlp(x, w1, w2, *, act):
+    def mlp(x, w1, w2, *, act, cfg=KernelConfig()):
         y = fused_mlp_fwd_plain(x.reshape(-1, x.shape[-1]), w1, w2, act)
         return y.reshape(*x.shape[:-1], w2.shape[1])
 
     saved = model_layers.k_decode, model_layers.k_mlp
-    model_layers.k_decode = lambda q, k, v, valid_len=None: flash_decode_plain(
-        q, k, v, valid_len=valid_len)
+    model_layers.k_decode = lambda q, k, v, valid_len=None, cfg=KernelConfig(): (
+        flash_decode_plain(q, k, v, valid_len=valid_len, block_s=cfg.block_s))
     model_layers.k_mlp = mlp
     try:
         yield
@@ -2241,9 +2552,9 @@ def compiled_tick_equals_walk(cfg, params, eng) -> None:
         got = step(state)
         torch.cuda.synchronize()
         same = {k: torch.equal(got[k], want[k]) for k in ("tokens_next", "pos", "logits")}
-        same["pages"] = (torch.equal(eng.kp[bs:], copies["kp"][bs:])
-                         and torch.equal(eng.vp[bs:], copies["vp"][bs:]))
-        print(f"traced serve paged: replayed plan ({n_steps} steps, {v_blocks} blocks) against "
+        same["pages"] = (same_bytes(eng.kp[bs:], copies["kp"][bs:])
+                         and same_bytes(eng.vp[bs:], copies["vp"][bs:]))
+        print(f"traced serve {eng.cfg.kv_cache_dtype} paged: replayed plan ({n_steps} steps, {v_blocks} blocks) against "
               f"its uncaptured walk: {same}", flush=True)
         if not all(same.values()):
             raise AssertionError(f"compiled tick ({n_steps}, {v_blocks}): the replay differs "
@@ -2255,13 +2566,17 @@ def phase_traced_serve() -> dict[str, dict[str, int]]:
     """10d: both engines with compile_mode="kitsune" against
     compile_mode=None on phi3-medium-14b at full width, depth cut to
     TRACED_SERVE_LAYERS: the same tokens; each bucket's captured plan of
-    the paged engine bitwise its uncaptured walk."""
-    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=TRACED_SERVE_LAYERS)
-    params = get_model(cfg).init(seed=0, device="cuda")
-    prompts = dict(list(serve_prompts(cfg.vocab).items())[:TRACED_SERVE_REQUESTS])
+    the paged engine bitwise its uncaptured walk; and the paged engine
+    again with a float8 cache ("paged_fp8": e4m3 pools, B8 in its e4m3
+    form)."""
+    base = dataclasses.replace(get_config(SERVE_ARCH), n_layers=TRACED_SERVE_LAYERS)
+    params = get_model(base).init(seed=0, device="cuda")
+    prompts = dict(list(serve_prompts(base.vocab).items())[:TRACED_SERVE_REQUESTS])
     runs = {}
-    for engine in ("paged", "legacy"):
+    for engine in ("paged", "legacy", "paged_fp8"):
         out = {}
+        cfg = (dataclasses.replace(base, kv_cache_dtype="float8_e4m3fn")
+               if engine == "paged_fp8" else base)
         for mode in (None, "kitsune"):
             sc = ServeConfig(**{**TRACED_SERVE_CONFIG, "compile_mode": mode,
                                 "lowering_policy": "always"})
@@ -2269,7 +2584,7 @@ def phase_traced_serve() -> dict[str, dict[str, int]]:
                 sc = ServeConfig(max_len=160, batch=TRACED_SERVE_CONFIG["batch"],
                                  compile_mode=mode, lowering_policy="always")
             t0 = time.perf_counter()
-            if engine == "paged":
+            if engine != "legacy":
                 eng = PagedServingEngine(cfg, params, sc, eos_id=-1)
                 for rid, p in prompts.items():
                     eng.submit(p, rid=rid)
@@ -2283,9 +2598,11 @@ def phase_traced_serve() -> dict[str, dict[str, int]]:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = K.launch_counts()
+            launches["paged_flash_decode_e4m3"] = K.launches_by_dtype(
+                "paged_flash_decode").get("float8_e4m3fn", 0)
             out[mode] = done
-            ticks = eng.ticks if engine == "paged" else eng.pos
-            if engine == "paged":
+            ticks = eng.pos if engine == "legacy" else eng.ticks
+            if engine != "legacy":
                 compiled = [fn.app for fn in eng._steps.values() if hasattr(fn, "app")]
             else:
                 compiled = [eng._step.app] if mode else []
@@ -2305,7 +2622,7 @@ def phase_traced_serve() -> dict[str, dict[str, int]]:
                   flush=True)
             if mode is not None:
                 runs[f"traced_serve_{engine}"] = launches
-                if engine == "paged":
+                if engine != "legacy":
                     compiled_tick_equals_walk(cfg, params, eng)
             del eng
             free()
@@ -2316,7 +2633,10 @@ def phase_traced_serve() -> dict[str, dict[str, int]]:
               f"({cfg.n_layers} of phi3-medium-14b's 40 layers)", flush=True)
     want = {"paged_flash_decode": 1, "fused_mlp_swiglu": 1}
     missing = [k for k in want if not runs["traced_serve_paged"][k]]
-    if missing or not runs["traced_serve_legacy"]["flash_decode"]:
+    fp8 = runs["traced_serve_paged_fp8"]
+    if (missing or not runs["traced_serve_legacy"]["flash_decode"]
+            or not fp8["paged_flash_decode"]
+            or fp8["paged_flash_decode_e4m3"] != fp8["paged_flash_decode"]):
         raise AssertionError(f"traced serve: kernels never launched: {missing} {runs}")
     del params
     free()
@@ -2481,9 +2801,43 @@ def phase_legacy_tick() -> dict[str, dict[str, int]]:
         raise AssertionError(f"legacy: cached_jit tokens differ from eager for requests {diff}")
     print(f"legacy: cached_jit tokens bitwise equal to eager; {ms['eager']:.2f} -> "
           f"{ms['cached_jit']:.2f} ms a tick", flush=True)
+    runs.update(legacy_fp8(cfg, params, prompts))
     del params
     free()
-    return {"legacy_phi3": runs["legacy_cached_jit"], "legacy_phi3_eager": runs["legacy_eager"]}
+    return {"legacy_phi3": runs["legacy_cached_jit"], "legacy_phi3_eager": runs["legacy_eager"],
+            "legacy_phi3_fp8": runs["legacy_fp8"]}
+
+
+def legacy_fp8(cfg, params, prompts) -> dict[str, dict[str, int]]:
+    """11, float8 KV cache: the same weights and prompts with
+    kv_cache_dtype="float8_e4m3fn" through the legacy engine, eager and
+    through cached_jit: bitwise the same tokens, flash_decode's e4m3 form
+    40 times a tick."""
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="float8_e4m3fn")
+    out, runs = {}, {}
+    for form, cls in (("eager", EagerLegacyEngine), ("cached_jit", ServingEngine)):
+        eng = legacy_engine(cls, cfg8, params, prompts)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out[form] = eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = cfg.n_layers * eng.pos
+        e4m3 = K.launches_by_dtype("flash_decode").get("float8_e4m3fn", 0)
+        print(f"legacy fp8 {form}: {eng.pos} ticks in {wall:.2f} s ({1e3 * wall / eng.pos:.2f} ms "
+              f"a tick, the first tick's warm-up and capture included); cache "
+              f"{eng.cache['k'].dtype}; flash_decode e4m3 launches {e4m3}", flush=True)
+        if eng.cache["k"].dtype != E4M3 or e4m3 != n or K.launch_counts()["flash_decode"] != n:
+            raise AssertionError(f"legacy fp8 {form}: {e4m3} e4m3 flash_decode launches of "
+                                 f"{K.launch_counts()['flash_decode']}, want {n}")
+        runs[f"legacy_fp8{'_eager' if form == 'eager' else ''}"] = K.launch_counts()
+        del eng
+        free()
+    if out["eager"] != out["cached_jit"]:
+        raise AssertionError("legacy fp8: cached_jit tokens differ from eager")
+    print("legacy fp8: cached_jit tokens bitwise equal to eager", flush=True)
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2759,7 +3113,8 @@ def main() -> int:
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                        **{k: row[k] for k in ("dx_ms", "dw_ms", "partial_bytes") if k in row}})
+                        **{k: row[k] for k in ("dx_ms", "dw_ms", "partial_bytes", "library")
+                           if k in row}})
     print(card)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

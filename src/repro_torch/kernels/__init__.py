@@ -11,7 +11,9 @@ counters: each wrapper adds one where it launches its CUDA kernel and
 nowhere else, so a run can show which kernels its path went through.
 `launches_by_rows(name)` splits a backward kernel's count by the rows of
 its input, `launches_by_form(name)` a forward kernel's by the form that
-served it ("small_m" or "tiled", `fused_mlp.fwd_form`).
+served it ("small_m" or "tiled", `fused_mlp.fwd_form`),
+`launches_by_dtype(name)` a decode kernel's by its K/V dtype ("bfloat16",
+"float32" or "float8_e4m3fn").
 
 The counters are Python increments, so a CUDA graph replay moves none of
 them: the serving engine takes `launch_state()` around a capture, restores
@@ -39,6 +41,12 @@ KERNELS = {
 }
 
 
+# the counters that split a kernel's launches: by its input rows (the
+# backward kernels), by the form that served it (the MLP forwards), by its
+# K/V dtype (the decode kernels)
+SPLITS = ("launches_by_rows", "launches_by_form", "launches_by_dtype")
+
+
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
@@ -51,38 +59,41 @@ def launches_by_form(name: str) -> dict[str, int]:
     return dict(KERNELS[name].launches_by_form)
 
 
+def launches_by_dtype(name: str) -> dict[str, int]:
+    return dict(KERNELS[name].launches_by_dtype)
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-        if hasattr(fn, "launches_by_rows"):
-            fn.launches_by_rows = {}
-        if hasattr(fn, "launches_by_form"):
-            fn.launches_by_form = {}
+        for attr in SPLITS:
+            if hasattr(fn, attr):
+                setattr(fn, attr, {})
 
 
-def launch_state() -> dict[str, tuple[int, dict, dict]]:
-    """Every counter of every kernel: {name: (launches, by rows, by form)}."""
-    return {name: (fn.launches, dict(getattr(fn, "launches_by_rows", {})),
-                   dict(getattr(fn, "launches_by_form", {})))
+def launch_state() -> dict[str, tuple]:
+    """Every counter of every kernel: {name: (launches, by rows, by form,
+    by dtype)}."""
+    return {name: (fn.launches, *(dict(getattr(fn, attr, {})) for attr in SPLITS))
             for name, fn in KERNELS.items()}
 
 
-def launch_delta(before: dict, after: dict) -> dict[str, tuple[int, dict, dict]]:
+def launch_delta(before: dict, after: dict) -> dict[str, tuple]:
     """What the counters moved from `before` to `after` (launch_state()s),
     for the kernels that moved."""
     def sub(a: dict, b: dict) -> dict:
         return {k: n - b.get(k, 0) for k, n in a.items() if n != b.get(k, 0)}
-    return {name: (a[0] - before[name][0], sub(a[1], before[name][1]),
-                   sub(a[2], before[name][2]))
+    return {name: (a[0] - before[name][0],
+                   *(sub(x, y) for x, y in zip(a[1:], before[name][1:])))
             for name, a in after.items() if a[0] != before[name][0]}
 
 
 def add_launches(delta: dict) -> None:
     """Count one more run of what `delta` (a launch_delta) launched."""
-    for name, (n, rows, forms) in delta.items():
+    for name, (n, *parts) in delta.items():
         fn = KERNELS[name]
         fn.launches += n
-        for attr, part in (("launches_by_rows", rows), ("launches_by_form", forms)):
+        for attr, part in zip(SPLITS, parts):
             for k, m in part.items():
                 counts = getattr(fn, attr)
                 counts[k] = counts.get(k, 0) + m
@@ -90,10 +101,9 @@ def add_launches(delta: dict) -> None:
 
 def restore_launches(state: dict) -> None:
     """Set every counter back to `state` (a launch_state())."""
-    for name, (n, rows, forms) in state.items():
+    for name, (n, *parts) in state.items():
         fn = KERNELS[name]
         fn.launches = n
-        if hasattr(fn, "launches_by_rows"):
-            fn.launches_by_rows = dict(rows)
-        if hasattr(fn, "launches_by_form"):
-            fn.launches_by_form = dict(forms)
+        for attr, part in zip(SPLITS, parts):
+            if hasattr(fn, attr):
+                setattr(fn, attr, dict(part))

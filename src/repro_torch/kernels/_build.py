@@ -133,26 +133,38 @@ def kernel_function(name: str, symbol: str,
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the decode kernels' K/V may be stored in float8 e4m3 beside a float32 or
+# bfloat16 q: the code of such a pair is q's code + 2 (csrc/common.cuh
+# DecodeDType)
+KV8 = torch.float8_e4m3fn
+KV8_CODE_OFFSET = 2
 
 
-def cuda_operands(what: str, *tensors: torch.Tensor) -> int:
+def cuda_operands(what: str, *tensors: torch.Tensor, kv: tuple = ()) -> int:
     """Check that kernel `what` can take these operands -- all on one CUDA
     device, one dtype (float32 or bfloat16), contiguous -- and return the
-    dtype's code for the C entry point.  Raises ValueError otherwise."""
+    dtype's code for the C entry point.  `kv`, the decode kernels' K/V
+    operands, share one dtype of their own: the other operands', or
+    float8_e4m3fn, which adds KV8_CODE_OFFSET to the code.  Raises
+    ValueError otherwise."""
     first = tensors[0]
-    for t in tensors:
+    for t in tensors + kv:
         if t.device != first.device or t.device.type != "cuda":
             raise ValueError(f"{what}: operands must share one CUDA device, "
-                             f"got {[str(u.device) for u in tensors]}")
-        if t.dtype != first.dtype:
-            raise ValueError(f"{what}: operands must share one dtype, "
-                             f"got {[u.dtype for u in tensors]}")
+                             f"got {[str(u.device) for u in tensors + kv]}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: operands must be contiguous")
+    for group in (tensors, kv):
+        if any(t.dtype != group[0].dtype for t in group):
+            raise ValueError(f"{what}: operands must share one dtype, "
+                             f"got {[u.dtype for u in group]}")
     if first.dtype not in DTYPE_CODES:
         raise ValueError(f"{what}: dtype {first.dtype} not supported "
                          f"(float32 or bfloat16)")
-    return DTYPE_CODES[first.dtype]
+    if kv and kv[0].dtype not in (first.dtype, KV8):
+        raise ValueError(f"{what}: K/V dtype {kv[0].dtype} not supported beside "
+                         f"{first.dtype} (the same, or {KV8})")
+    return DTYPE_CODES[first.dtype] + (KV8_CODE_OFFSET if kv and kv[0].dtype == KV8 else 0)
 
 
 _PROXY = torch._C._TorchDispatchModeKey.PROXY

@@ -1,10 +1,12 @@
 // Shared device helpers for the repro_torch Hopper kernels (sm_90a).
 //
 // Every kernel takes float32 or bfloat16 operands and accumulates in
-// float32.  bf16 products run on the tensor cores through WMMA 16x16x16
-// tiles; float32 products run on the SIMT cores through FMA, because the
-// tensor cores offer only TF32 for float32 operands and TF32 keeps about
-// three decimal digits -- the float32 contract is 2e-4.
+// float32; the decode kernels also read K/V stored as float8 e4m3 beside a
+// float32 or bfloat16 q (DecodeDType).  bf16 products run on the tensor
+// cores through WMMA 16x16x16 tiles; float32 products run on the SIMT
+// cores through FMA, because the tensor cores offer only TF32 for float32
+// operands and TF32 keeps about three decimal digits -- the float32
+// contract is 2e-4.
 //
 // Host entry points are plain C functions (bound with ctypes): every pointer
 // and the stream arrive as void*, and each function returns
@@ -12,6 +14,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <math.h>
@@ -22,6 +26,9 @@
 namespace kt {
 
 enum DType { F32 = 0, BF16 = 1 };
+// The decode kernels' (q, K/V) operand pairs: q's DType, plus 2 where K/V
+// are stored as float8 e4m3 (kernels/_build.py cuda_operands).
+enum DecodeDType { DEC_F32 = 0, DEC_BF16 = 1, DEC_F32_E4M3 = 2, DEC_BF16_E4M3 = 3 };
 enum Act { ACT_IDENTITY = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3 };
 
 // Same formulas as the plain versions: gelu is the tanh approximation
@@ -265,6 +272,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(src_bytes));
 }
+// 8-byte form (cp.async.cg takes only 16 bytes; .ca also takes 4 and 8)
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, int src_bytes) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -331,18 +344,24 @@ __device__ __forceinline__ void load_tile(T* dst, int lds, const T* src, size_t 
 // paged kernel is bitwise equal to gathering the view and running the dense
 // one.  The math is the TPU kernels' `_decode_kernel_dyn`: f32 scores times
 // `scale`, positions >= the slot's valid length scored NEG_INF,
-// probabilities rounded to V's dtype before P @ V, partials (o, m, l) of
-// the chunk in f32 for `decode_combine_kernel`.  Scores are kept in log2
+// probabilities rounded to q's dtype before P @ V, partials (o, m, l) of
+// the chunk in f32 for `decode_combine_kernel`.  q is TQ (float or bf16);
+// K/V are TKV, either TQ or float8 e4m3 (the float8 KV cache), converted
+// to f32 in registers (e4m3 -> f16 is exact, a NaN byte stays NaN).  With
+// TKV == TQ, rounding P to q's dtype is the TPU kernels' rounding to V's; an
+// e4m3 V keeps P in q's dtype, not in 3 mantissa bits, as the reference's
+// models decode an e4m3 cache (`_grouped_decode`: P in f32).  Scores are kept in log2
 // units (scaled by scale * log2 e, exponentiated with fast_exp2), so the
 // partials' m is too.
 //
 // Design: warps own rows.  The chunk's rows are split into DEC_NW
 // contiguous runs, one per warp (and over several blocks, see `split`).
 // Within a warp, LPR = DP / 8 lanes share a row, each holding 8 of its D
-// values (16 bytes of bf16), so a warp works on 32 / LPR rows at once.
-// Each lane streams its pieces of its rows' K and V together through its own
-// ring of DEC_STAGES steps in shared memory (DEC_NB rows a step, 16-byte
-// cp.async copies, DEC_STAGES - 1 steps in flight while it computes one);
+// values (16 bytes of bf16, 8 of e4m3), so a warp works on 32 / LPR rows at
+// once.  Each lane streams its pieces of its rows' K and V together through
+// its own ring of DEC_STAGES steps in shared memory (DEC_NB rows a step,
+// 16-byte cp.async copies -- 8-byte ones for e4m3 --, DEC_STAGES - 1 steps
+// in flight while it computes one);
 // a lane reads back only what it copied, so there is no barrier of any kind
 // per step.  A score is the lane's 8-wide dot reduced over its LPR lanes by
 // shuffles.  Each lane group keeps an online (m, l) per query row and its
@@ -377,11 +396,12 @@ constexpr int DEC_BSMAX = 256;          // rows per split-K chunk
 constexpr int DEC_MAX_SPLIT = 8;        // blocks one chunk may be spread over
 constexpr float DEC_NEG_INF = -1e30f;
 
-// Dynamic shared memory of a decode block (element type T, query-group
+// Dynamic shared memory of a decode block (K/V element type T, query-group
 // bucket GP, head-dim bucket DP): the lanes' rings (DEC_STAGES x DEC_NB rows
-// x K and V x one 8-value piece each), and over them once the rings are
-// drained each warp's o (GP x DP f32), m, l and merge weight (GP) for the
-// final merge; then the chunk's block-table entries (paged kernel).
+// x K and V x one 8-value piece each: half the bytes for e4m3), and over
+// them once the rings are drained each warp's o (GP x DP f32), m, l and
+// merge weight (GP) for the final merge; then the chunk's block-table
+// entries (paged kernel).
 template <typename T, int GP, int DP>
 struct DecodeSmem {
   static constexpr size_t ring_bytes = size_t(DEC_STAGES) * DEC_NB * 2 * DEC_NT * 8 * sizeof(T);
@@ -394,27 +414,53 @@ struct DecodeSmem {
   static constexpr size_t total = tbl_off + DEC_BSMAX * sizeof(int);
 };
 
-// 8 consecutive values of a row (16 bytes of bf16, 32 of f32) as N 16-byte
-// words.
+// 8 consecutive values of a row as N words: 16-byte words for bf16 (one)
+// and f32 (two), one 8-byte word for e4m3.  A lane's loads stay 8 values
+// wide whatever the type, so an e4m3 row keeps bf16's lanes per row and
+// registers (16 e4m3 values a lane would double a lane's q and o registers,
+// past the register file at 8 query rows and D = 256).
 template <typename T>
 struct Piece8 {
-  static constexpr int N = 8 * sizeof(T) / 16;
-  uint4 u[N];
+  using Word = typename std::conditional<sizeof(T) == 1, uint2, uint4>::type;
+  static constexpr int N = 8 * sizeof(T) / sizeof(Word);
+  Word u[N];
   __device__ __forceinline__ void load(const T* p) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) u[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
+    for (int i = 0; i < N; ++i) u[i] = __ldg(reinterpret_cast<const Word*>(p) + i);
   }
   // word i of this thread's ring slot lies `stride` words after word i - 1
-  __device__ __forceinline__ void load_shared(const uint4* slot, int stride) {
+  __device__ __forceinline__ void load_shared(const Word* slot, int stride) {
 #pragma unroll
     for (int i = 0; i < N; ++i) u[i] = slot[i * stride];
   }
+  // copy word i of row piece p into ring word `slot + i * stride`
+  // asynchronously (src_bytes 0: zero-fill, p is any valid address)
+  __device__ __forceinline__ static void copy(Word* slot, int stride, const T* p,
+                                              const void* dummy) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const void* src = p ? static_cast<const void*>(reinterpret_cast<const Word*>(p) + i) : dummy;
+      if constexpr (sizeof(Word) == 16)
+        cp_async16(slot + i * stride, src, p ? 16 : 0);
+      else
+        cp_async8(slot + i * stride, src, p ? 8 : 0);
+    }
+  }
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int i = 0; i < N; ++i) u[i] = make_uint4(0, 0, 0, 0);
+    for (int i = 0; i < N; ++i) u[i] = Word{};
   }
   __device__ __forceinline__ void to_float(float* f) const {
-    if constexpr (sizeof(T) == 2) {
+    if constexpr (sizeof(T) == 1) {
+      // e4m3 pairs -> f16 pairs (cvt.rn.f16x2.e4m3x2: exact) -> f32
+      const __nv_fp8x2_storage_t* h = reinterpret_cast<const __nv_fp8x2_storage_t*>(&u[0]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float2 t = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(h[i], __NV_E4M3)));
+        f[2 * i] = t.x;
+        f[2 * i + 1] = t.y;
+      }
+    } else if constexpr (sizeof(T) == 2) {
       const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u[0]);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -446,21 +492,22 @@ __device__ __forceinline__ float merge_weight(float m, float mt) {
 
 // One block of DEC_NT threads computes the partials of one chunk, or of its
 // split-th share when a chunk is spread over n_split blocks.
-//   q: this kv head's G query rows (G x D, contiguous), G <= GP
-//   krow(r) / vrow(r): global address of the chunk's key / value row r, or
-//     nullptr where the row does not exist (read as zeros)
+//   q: this kv head's G query rows (G x D, contiguous, TQ), G <= GP
+//   krow(r) / vrow(r): global address of the chunk's key / value row r
+//     (TKV), or nullptr where the row does not exist (read as zeros)
 //   block_s: rows in the chunk; lim: rows of the chunk before the slot's
 //     valid length (may be <= 0 or > block_s); valid: the valid length
 //   split of n_split: the chunk's rows are spread over the n_split * DEC_NW
 //     warps of n_split blocks; this block takes split's share
 //   o (G x D), m (G), l (G): this block's partials
-template <typename T, int GP, int DP, typename KRow, typename VRow>
-__device__ void decode_chunk(unsigned char* smem, const T* __restrict__ q, int G, int D,
+template <typename TQ, typename TKV, int GP, int DP, typename KRow, typename VRow>
+__device__ void decode_chunk(unsigned char* smem, const TQ* __restrict__ q, int G, int D,
                              KRow krow, VRow vrow, int block_s, int lim, int valid, float scale,
                              int split, int n_split, float* __restrict__ o, float* __restrict__ m,
                              float* __restrict__ l) {
-  using L = DecodeSmem<T, GP, DP>;
-  constexpr int NW16 = Piece8<T>::N;  // 16-byte words per piece
+  using L = DecodeSmem<TKV, GP, DP>;
+  using Word = typename Piece8<TKV>::Word;
+  constexpr int NWK = Piece8<TKV>::N;  // ring words per K/V piece
   constexpr int LPR = DP / 8, RPW = 32 / LPR;  // lanes per row, rows per warp step
   static_assert(LPR >= 1 && LPR <= 32, "head-dim bucket");
 
@@ -483,7 +530,7 @@ __device__ void decode_chunk(unsigned char* smem, const T* __restrict__ q, int G
   float qf[GP][8];
 #pragma unroll
   for (int g = 0; g < GP; ++g) {
-    Piece8<T> pq;
+    Piece8<TQ> pq;
     if (g < G && dok)
       pq.load(q + g * D + d0);
     else
@@ -503,25 +550,21 @@ __device__ void decode_chunk(unsigned char* smem, const T* __restrict__ q, int G
   const int w0 = min((split * DEC_NW + warp) * per, rows), w1 = min(w0 + per, rows);
   const int n_steps = (w1 - w0 + RPW * DEC_NB - 1) / (RPW * DEC_NB);
   // this thread's ring: word j of (step slot st, row i, K or V) at
-  // ((st * DEC_NB + i) * 2 + kv) * NW16 + j, in units of DEC_NT words, so a
+  // ((st * DEC_NB + i) * 2 + kv) * NWK + j, in units of DEC_NT words, so a
   // warp's 32 lanes touch 32 consecutive words
-  uint4* ring = reinterpret_cast<uint4*>(smem) + threadIdx.x;
+  Word* ring = reinterpret_cast<Word*>(smem) + threadIdx.x;
   auto word = [&](int st, int i, int kv) {
-    return ring + ((st * DEC_NB + i) * 2 + kv) * NW16 * DEC_NT;
+    return ring + ((st * DEC_NB + i) * 2 + kv) * NWK * DEC_NT;
   };
   auto issue = [&](int step) {
     const int st = step % DEC_STAGES;
 #pragma unroll
     for (int i = 0; i < DEC_NB; ++i) {
       const int r = w0 + (step * DEC_NB + i) * RPW + grp;
-      const T* kp = r < w1 && dok ? krow(r) : nullptr;
-      const T* vp = r < w1 && dok ? vrow(r) : nullptr;
-#pragma unroll
-      for (int j = 0; j < NW16; ++j) {
-        const int c = d0 + j * 16 / int(sizeof(T));
-        cp_async16(word(st, i, 0) + j * DEC_NT, kp ? kp + c : q, kp ? 16 : 0);
-        cp_async16(word(st, i, 1) + j * DEC_NT, vp ? vp + c : q, vp ? 16 : 0);
-      }
+      const TKV* kp = r < w1 && dok ? krow(r) : nullptr;
+      const TKV* vp = r < w1 && dok ? vrow(r) : nullptr;
+      Piece8<TKV>::copy(word(st, i, 0), DEC_NT, kp ? kp + d0 : nullptr, q);
+      Piece8<TKV>::copy(word(st, i, 1), DEC_NT, vp ? vp + d0 : nullptr, q);
     }
   };
 #pragma unroll
@@ -537,7 +580,7 @@ __device__ void decode_chunk(unsigned char* smem, const T* __restrict__ q, int G
     float s[DEC_NB][GP];
 #pragma unroll
     for (int i = 0; i < DEC_NB; ++i) {
-      Piece8<T> kr;
+      Piece8<TKV> kr;
       kr.load_shared(word(st, i, 0), DEC_NT);
       float kf[8];
       kr.to_float(kf);
@@ -555,7 +598,7 @@ __device__ void decode_chunk(unsigned char* smem, const T* __restrict__ q, int G
     float vf[DEC_NB][8];
 #pragma unroll
     for (int i = 0; i < DEC_NB; ++i) {
-      Piece8<T> vr;
+      Piece8<TKV> vr;
       vr.load_shared(word(st, i, 1), DEC_NT);
       vr.to_float(vf[i]);
     }
@@ -576,7 +619,7 @@ __device__ void decode_chunk(unsigned char* smem, const T* __restrict__ q, int G
       for (int i = 0; i < DEC_NB; ++i) {
         const float p = fast_exp2(s[i][g] - mx);  // 0 for a row past the run
         lo[g] += p;
-        const float pr = to_f(from_f<T>(p));
+        const float pr = to_f(from_f<TQ>(p));  // rounded to q's dtype
 #pragma unroll
         for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pr, vf[i][e], acc[g][e]);
       }
@@ -703,6 +746,24 @@ cudaError_t for_each_decode_bucket(F f) {
       if (e != cudaSuccess) return e;
     }
   return cudaSuccess;
+}
+
+// Call f(TQ*, TKV*) -- null pointers naming the types -- for a DecodeDType
+// code: the decode kernels' q and K/V element types.
+template <typename F>
+cudaError_t dispatch_decode_dtypes(int code, F f) {
+  switch (code) {
+    case DEC_F32:
+      return f(static_cast<float*>(nullptr), static_cast<float*>(nullptr));
+    case DEC_BF16:
+      return f(static_cast<__nv_bfloat16*>(nullptr), static_cast<__nv_bfloat16*>(nullptr));
+    case DEC_F32_E4M3:
+      return f(static_cast<float*>(nullptr), static_cast<__nv_fp8_e4m3*>(nullptr));
+    case DEC_BF16_E4M3:
+      return f(static_cast<__nv_bfloat16*>(nullptr), static_cast<__nv_fp8_e4m3*>(nullptr));
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // Merge the partials of a decode launch (see decode_combine_kernel).

@@ -30,21 +30,22 @@ using namespace kt;
 
 namespace {
 
-template <typename T, int GP, int DP>
+template <typename TQ, typename TKV, int GP, int DP>
 __global__ void __launch_bounds__(DEC_NT)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
-                    const int* __restrict__ tables, int n_table, const int* __restrict__ valid,
-                    float* __restrict__ o, float* __restrict__ m, float* __restrict__ l, int Hkv,
-                    int G, int D, int bs, int block_s, int n_split, int plane_stride,
-                    int plane_base, long long pool_rows, float scale) {
+paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
+                    const TKV* __restrict__ vp, const int* __restrict__ tables, int n_table,
+                    const int* __restrict__ valid, float* __restrict__ o, float* __restrict__ m,
+                    float* __restrict__ l, int Hkv, int G, int D, int bs, int block_s,
+                    int n_split, int plane_stride, int plane_base, long long pool_rows,
+                    float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int bh = blockIdx.x, c = blockIdx.y / n_split, n_part = gridDim.y;
   const int b = bh / Hkv, plane = plane_base + bh % Hkv;
-  int* tbl = reinterpret_cast<int*>(smem + DecodeSmem<T, GP, DP>::tbl_off);
+  int* tbl = reinterpret_cast<int*>(smem + DecodeSmem<TKV, GP, DP>::tbl_off);
   const int ppc = block_s / bs;  // pages per chunk
   for (int p = threadIdx.x; p < ppc; p += DEC_NT) tbl[p] = tables[size_t(b) * n_table + c * ppc + p];
   __syncthreads();
-  auto row = [=](const T* pool, int r) -> const T* {
+  auto row = [=](const TKV* pool, int r) -> const TKV* {
     const long long pr = (long long)tbl[r / bs] * bs + r % bs;
     return pr >= 0 && pr < pool_rows ? pool + (size_t(pr) * plane_stride + plane) * D : nullptr;
   };
@@ -52,56 +53,59 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* 
   auto vrow = [=](int r) { return row(vp, r); };
   const int vl = valid[b], s_len = n_table * bs;
   const size_t part = size_t(bh) * n_part + blockIdx.y;
-  decode_chunk<T, GP, DP>(smem, q + size_t(bh) * G * D, G, D, krow, vrow, block_s,
-                          min(vl, s_len) - c * block_s, vl, scale, blockIdx.y % n_split, n_split,
-                          o + part * G * D, m + part * G, l + part * G);
+  decode_chunk<TQ, TKV, GP, DP>(smem, q + size_t(bh) * G * D, G, D, krow, vrow, block_s,
+                                min(vl, s_len) - c * block_s, vl, scale, blockIdx.y % n_split,
+                                n_split, o + part * G * D, m + part * G, l + part * G);
 }
 
-template <typename T>
-int launch(const void* q, const void* kp, const void* vp, const int* tables, int n_table,
-           const int* valid, float* o, float* m, float* l, void* out, int B, int Hkv, int G,
-           int D, int bs, int block_s, int n_split, int plane_stride, int plane_base,
-           long long pool_rows, float scale, cudaStream_t st) {
+template <typename TQ, typename TKV>
+cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tables, int n_table,
+                   const int* valid, float* o, float* m, float* l, void* out, int B, int Hkv,
+                   int G, int D, int bs, int block_s, int n_split, int plane_stride,
+                   int plane_base, long long pool_rows, float scale, cudaStream_t st) {
   const int n_part = n_table * bs / block_s * n_split;
   cudaError_t e = dispatch_group(G, [&](auto gp) {
     return dispatch_head_dim(D, [&](auto dp) {
       constexpr int GP = decltype(gp)::value, DP = decltype(dp)::value;
-      const int bytes = int(DecodeSmem<T, GP, DP>::total);
-      paged_decode_kernel<T, GP, DP><<<dim3(B * Hkv, n_part), DEC_NT, bytes, st>>>(
-          static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), tables,
-          n_table, valid, o, m, l, Hkv, G, D, bs, block_s, n_split, plane_stride, plane_base,
-          pool_rows, scale);
+      const int bytes = int(DecodeSmem<TKV, GP, DP>::total);
+      paged_decode_kernel<TQ, TKV, GP, DP><<<dim3(B * Hkv, n_part), DEC_NT, bytes, st>>>(
+          static_cast<const TQ*>(q), static_cast<const TKV*>(kp), static_cast<const TKV*>(vp),
+          tables, n_table, valid, o, m, l, Hkv, G, D, bs, block_s, n_split, plane_stride,
+          plane_base, pool_rows, scale);
       return cudaGetLastError();
     });
   });
-  if (e != cudaSuccess) return int(e);
-  return int(launch_decode_combine<T>(o, m, l, out, B * Hkv * G, n_part, G, D, st));
+  if (e != cudaSuccess) return e;
+  return launch_decode_combine<TQ>(o, m, l, out, B * Hkv * G, n_part, G, D, st);
 }
 
 // As flash_decode.cu's: every instantiation's shared-memory limit, on the
 // current device, set outside any launch.
-template <typename T>
+template <typename TQ, typename TKV>
 cudaError_t allow_smem() {
   return for_each_decode_bucket([](auto gp, auto dp) {
     constexpr int GP = decltype(gp)::value, DP = decltype(dp)::value;
-    return cudaFuncSetAttribute(paged_decode_kernel<T, GP, DP>,
+    return cudaFuncSetAttribute(paged_decode_kernel<TQ, TKV, GP, DP>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                int(DecodeSmem<T, GP, DP>::total));
+                                int(DecodeSmem<TKV, GP, DP>::total));
   });
 }
 
 }  // namespace
 
-// Once per (device, dtype), before the first launch there.
+// Once per (device, operand pair), before the first launch there; dtype is
+// a DecodeDType.
 extern "C" int repro_paged_decode_allow(int dtype) {
-  if (dtype == BF16) return int(allow_smem<__nv_bfloat16>());
-  if (dtype == F32) return int(allow_smem<float>());
-  return int(cudaErrorInvalidValue);
+  return int(dispatch_decode_dtypes(dtype, [](auto tq, auto tkv) {
+    return allow_smem<std::remove_pointer_t<decltype(tq)>,
+                      std::remove_pointer_t<decltype(tkv)>>();
+  }));
 }
 
 // q (B, Hkv * G, 1, D), out like q.  kp/vp: pools of pool_rows rows, each
 // row plane_stride planes of D values (G * A * Hkv for the 5-D form, Hkv for
 // the 3-D form); this site's kv head h lives in plane plane_base + h.
+// dtype (DecodeDType) names q's type and the pools' (q's, or e4m3).
 // tables (B, n_table) int32 page ids, valid (B,) int32, both on the device.
 // block_s is a multiple of bs that divides n_table * bs, at most 256;
 // n_split and o_part / m_part / l_part are as in repro_flash_decode.
@@ -121,12 +125,9 @@ extern "C" int repro_paged_decode(const void* q, const void* kp, const void* vp,
   float* o = static_cast<float*>(o_part);
   float* m = static_cast<float*>(m_part);
   float* l = static_cast<float*>(l_part);
-  if (dtype == BF16)
-    return launch<__nv_bfloat16>(q, kp, vp, tb, n_table, vl, o, m, l, out, B, Hkv, G, D, bs,
-                                 block_s, n_split, plane_stride, plane_base, pool_rows, scale,
-                                 st);
-  if (dtype == F32)
-    return launch<float>(q, kp, vp, tb, n_table, vl, o, m, l, out, B, Hkv, G, D, bs, block_s,
-                         n_split, plane_stride, plane_base, pool_rows, scale, st);
-  return int(cudaErrorInvalidValue);
+  return int(dispatch_decode_dtypes(dtype, [&](auto tq, auto tkv) {
+    return launch<std::remove_pointer_t<decltype(tq)>, std::remove_pointer_t<decltype(tkv)>>(
+        q, kp, vp, tb, n_table, vl, o, m, l, out, B, Hkv, G, D, bs, block_s, n_split,
+        plane_stride, plane_base, pool_rows, scale, st);
+  }));
 }

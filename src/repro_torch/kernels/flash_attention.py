@@ -144,7 +144,9 @@ def decode_tile_candidates(s_len: int, page_size: int | None = None) -> list[dic
     is the longest).  paged_flash_decode (`page_size` given, s_len a whole
     number of pages): 1, 2, 4, ... pages a chunk up to DECODE_MAX_BLOCK_S
     rows, each dividing s_len, so that `page_block_s` keeps it as it is,
-    and its default `page_block_s(s_len, page_size, None)`."""
+    and its default `page_block_s(s_len, page_size, None)`.  The grids
+    count rows, so they hold for e4m3 K/V as for bf16 or f32; a tuned
+    choice is keyed by the operands' dtypes (core/lower.py `_shape_sig`)."""
     if page_size is None:
         default = min(DECODE_MAX_BLOCK_S, s_len)
         sizes = [default] + [b for b in (64, 128, 256) if b < default]
@@ -200,12 +202,21 @@ def device_valid(what: str, valid_len, b: int, device) -> torch.Tensor:
     return valid_len
 
 
+def p_dtype(q, v) -> torch.dtype:
+    """The dtype the decode kernels round probabilities to before P @ V:
+    v's, which is q's, except for float8 K/V, where it stays q's (the
+    reference's models decode a float8 cache with P in f32; 3 mantissa bits
+    of each probability would be the reference's TPU kernels' rounding)."""
+    return q.dtype if v.dtype == _build.KV8 else v.dtype
+
+
 def decode_partials_plain(q, k, v, valid, block_s: int, scale: float):
     """The chunk kernel's function in torch ops: for each of the
     ceil(S / block_s) chunks (a ragged last chunk padded and masked), f32
     scores times `scale`, positions >= valid scored NEG_INF, m = max,
-    p = exp(s - m), l = sum p, o = p (rounded to v's dtype) @ v.  Returns
-    o (B*Hkv, n_s, G, D), m and l (B*Hkv, n_s, G, 1), all f32."""
+    p = exp(s - m), l = sum p, o = p (rounded to `p_dtype`) @ v.  K/V may
+    be float8_e4m3fn (read as f32).  Returns o (B*Hkv, n_s, G, D), m and l
+    (B*Hkv, n_s, G, 1), all f32."""
     b, hq, _, d = q.shape
     hkv, s_len = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -223,7 +234,7 @@ def decode_partials_plain(q, k, v, valid, block_s: int, scale: float):
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhcgs,bhcsd->bhcgd", p.to(v.dtype).float(),
+    o = torch.einsum("bhcgs,bhcsd->bhcgd", p.to(p_dtype(q, v)).float(),
                      v.reshape(b, hkv, n_s, block_s, d).float())
     return (o.reshape(b * hkv, n_s, g, d), m.reshape(b * hkv, n_s, g, 1),
             l.reshape(b * hkv, n_s, g, 1))
@@ -261,17 +272,18 @@ def decode_allowed(lib: str, device: int, code: int) -> None:
         _build.kernel_function(lib, symbol, [ctypes.c_int])(code)
 
 
-def decode_operands(what: str, q, *tensors) -> int:
-    """`_build.cuda_operands` plus the decode kernels' own limits on q
-    (B, Hq, 1, D) and 16-byte aligned operands; returns the dtype code."""
-    code = _build.cuda_operands(what, q, *tensors)
+def decode_operands(what: str, q, k, v) -> int:
+    """`_build.cuda_operands` for q (float32 or bfloat16) and K/V (q's dtype
+    or float8_e4m3fn), plus the decode kernels' own limits on q
+    (B, Hq, 1, D) and 16-byte aligned operands; returns the pair's code."""
+    code = _build.cuda_operands(what, q, kv=(k, v))
     if q.ndim != 4 or q.shape[2] != 1:
         raise ValueError(f"{what}: q must be (B, Hq, 1, D), got {tuple(q.shape)}")
     d = q.shape[3]
     if d % 8 or not 0 < d <= DECODE_MAX_HEAD_DIM:
         raise ValueError(f"{what}: head dim {d} must be a multiple of 8 and "
                          f"<= {DECODE_MAX_HEAD_DIM}")
-    if any(t.data_ptr() % 16 for t in (q, *tensors)):
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{what}: operands must be 16-byte aligned")
     return code
 
@@ -303,7 +315,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  valid_len=None, scale: float | None = None,
                  block_s: int = 256) -> torch.Tensor:
     """Decode attention: q (B, Hq, 1, D), k/v (B, Hkv, S, D), Hq a multiple
-    of Hkv (at most 8 query heads per kv head), D a multiple of 8 up to 256.
+    of Hkv (at most 8 query heads per kv head), D a multiple of 8 up to 256;
+    q float32 or bfloat16, k/v q's dtype or float8_e4m3fn (the float8 KV
+    cache, read in the kernel: no cast of K/V before the launch).
 
     The KV sequence is split into chunks of min(block_s, S) <= 256 keys,
     each emitting (o, m, l); a ragged last chunk is masked.  `valid_len`
@@ -347,7 +361,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          b, hkv, hq // hkv, s_len, d, block_s, n_split, scale, code,
                          _build.stream_of(q))
     flash_decode.launches += 1
+    count_kv_dtype(flash_decode, k)
     return out
 
 
+def count_kv_dtype(kernel, k: torch.Tensor) -> None:
+    """A decode launch's count by its K/V dtype ("bfloat16", "float32",
+    "float8_e4m3fn"): `kernels.launches_by_dtype`."""
+    name = str(k.dtype).removeprefix("torch.")
+    kernel.launches_by_dtype[name] = kernel.launches_by_dtype.get(name, 0) + 1
+
+
 flash_decode.launches = 0
+flash_decode.launches_by_dtype = {}

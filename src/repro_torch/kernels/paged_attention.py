@@ -20,7 +20,7 @@ import functools
 import torch
 
 from . import _build
-from .flash_attention import (DECODE_MAX_BLOCK_S, DECODE_MAX_GROUP,
+from .flash_attention import (DECODE_MAX_BLOCK_S, DECODE_MAX_GROUP, count_kv_dtype,
                               decode_allowed, decode_operands, decode_scratch,
                               decode_splits, device_valid, flash_decode_plain,
                               page_block_s)
@@ -63,7 +63,8 @@ def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
 
     q: (B, Hq, 1, D); kp/vp: flat page pools, either one attention site's
     rows (P, Hkv, D) or the engine's full pools (P, G, A, Hkv, D) with
-    `layer=(g, a)` selecting the site.  tables: (B, V) physical page ids per
+    `layer=(g, a)` selecting the site, in q's dtype or float8_e4m3fn (the
+    float8 KV cache, read in the kernel).  tables: (B, V) physical page ids per
     slot (page p covers pool rows [p*block_size, (p+1)*block_size)); entries
     beyond a slot's allocation point at the null page 0.  valid_len: per-slot
     (B,) position clock (or a python int); positions >= valid are masked.
@@ -122,7 +123,9 @@ def paged_flash_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                   block_s, n_split, plane_stride, plane_base, kp.shape[0], scale,
                   code, _build.stream_of(q))
     paged_flash_decode.launches += 1
+    count_kv_dtype(paged_flash_decode, kp)
     return out
 
 
 paged_flash_decode.launches = 0
+paged_flash_decode.launches_by_dtype = {}

@@ -162,6 +162,28 @@ def paged_decode_ref(q, kp, vp, tables, *, valid_len, block_size: int,
                       valid_len=valid_len, scale=scale)
 
 
+# The float8 KV cache's storage dtype, and the largest magnitude whose
+# round-to-nearest-even e4m3 is finite: 448 is the largest finite e4m3, the
+# next step (480) is the NaN encoding, and the tie at 464 goes to 448's even
+# mantissa.
+E4M3 = torch.float8_e4m3fn
+E4M3_LIMIT = 464.0
+
+
+def to_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """x cast to float8_e4m3fn byte for byte as the reference casts it
+    (`x.astype(jnp.float8_e4m3fn)`, ml_dtypes): round to nearest even, NaN
+    past +-464 and for +-inf.  torch's own cast saturates there to +-448
+    instead; the sign of a NaN may differ from the reference's."""
+    return torch.where(x.abs() > E4M3_LIMIT, torch.nan, x).to(E4M3)
+
+
+def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x cast to a KV cache's dtype: every write into a float8 cache or
+    page pool goes through `to_e4m3`."""
+    return to_e4m3(x) if dtype == E4M3 else x.to(dtype)
+
+
 REDUCE_OPS = {"sum": lambda x: x.sum(dim=0),
               "max": lambda x: x.amax(dim=0),
               "min": lambda x: x.amin(dim=0)}

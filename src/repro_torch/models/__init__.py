@@ -22,11 +22,13 @@ class Model(NamedTuple):
 
 
 def check_decode(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError unless `cfg` can decode here: every family
-    decodes, but a float8_e4m3fn KV cache is not ported (ROADMAP A5)."""
-    if cfg.kv_cache_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"{cfg.name}: a {cfg.kv_cache_dtype} KV cache is not ported (ROADMAP A5)")
+    """Raise ValueError unless `cfg` can decode here: every family decodes,
+    with a KV cache of a dtype the reference knows (`lm.KV_CACHE_DTYPES`:
+    the activation dtype's, or float8_e4m3fn; whisper keeps its activation
+    dtype whatever the config says, as the reference's does)."""
+    if cfg.kv_cache_dtype not in lm.KV_CACHE_DTYPES:
+        raise ValueError(f"{cfg.name}: kv_cache_dtype {cfg.kv_cache_dtype!r} is none of "
+                         f"{lm.KV_CACHE_DTYPES}")
 
 
 def get_model(cfg: ArchConfig) -> Model:

@@ -14,6 +14,9 @@ without remat and the decoder's layers under `torch.utils.checkpoint` when
 Decode: `init_cache` holds the decoder's self-attention K/V and the
 cross-attention K/V of the encoder states, `build_cross_cache` fills the
 latter once per request, and `decode_step` runs one token against both.
+The caches stay in the activation dtype whatever `kv_cache_dtype` says, as
+the reference's do.  `kernels` (a `KernelConfig`) reaches the MLP blocks
+and the self-attention decode kernel, as the reference's `kernels=` does.
 As in the reference, the decoder's self-attention in decode ropes q and k
 (theta 1e4) on top of the learned positions, which the full-sequence
 forward does not (the reference documents this deviation).
@@ -26,6 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..kernels import KernelConfig
 from . import layers as L
 from .lm import DTYPES, chunked_attention, unstack
 
@@ -89,31 +93,32 @@ def _positions(table: torch.Tensor, s: int) -> torch.Tensor:
     return table[None, :s]
 
 
-def encode(params: dict, frame_embeds: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def encode(params: dict, frame_embeds: torch.Tensor, cfg: ArchConfig, *,
+           kernels: KernelConfig = KernelConfig()) -> torch.Tensor:
     x = frame_embeds.to(params["embed"].dtype)
     x = x + _positions(params["pos_enc"], x.shape[1])
     for p in unstack(params["enc"]):
         x = x + _self_attn(p["attn"], L.rms_norm(x, p["ln1"]), cfg=cfg, causal=False)
-        x = x + L.mlp_block(p["mlp"], L.rms_norm(x, p["ln2"]), act="gelu")
+        x = x + L.mlp_block(p["mlp"], L.rms_norm(x, p["ln2"]), act="gelu", kernels=kernels)
     return L.rms_norm(x, params["enc_norm"])
 
 
-def _dec_block(p, x, enc, *, cfg: ArchConfig) -> torch.Tensor:
+def _dec_block(p, x, enc, *, cfg: ArchConfig, kernels: KernelConfig) -> torch.Tensor:
     x = x + _self_attn(p["attn"], L.rms_norm(x, p["ln1"]), cfg=cfg, causal=True)
     x = x + _self_attn(p["xattn"], L.rms_norm(x, p["ln_x"]), cfg=cfg, causal=False, kv=enc)
-    return x + L.mlp_block(p["mlp"], L.rms_norm(x, p["ln2"]), act="gelu")
+    return x + L.mlp_block(p["mlp"], L.rms_norm(x, p["ln2"]), act="gelu", kernels=kernels)
 
 
 def forward(params: dict, frame_embeds: torch.Tensor, tokens: torch.Tensor,
             cfg: ArchConfig, *, remat: bool = False,
-            return_hidden: bool = False) -> torch.Tensor:
+            return_hidden: bool = False, kernels: KernelConfig = KernelConfig()) -> torch.Tensor:
     """frame_embeds: (B, S_enc, D) stub; tokens: (B, S_dec) -> logits
     (B, S_dec, vocab), or the final-normed hidden states with
     `return_hidden`."""
-    enc = encode(params, frame_embeds, cfg)
+    enc = encode(params, frame_embeds, cfg, kernels=kernels)
     x = L.embed(params["embed"], tokens).to(enc.dtype)
     x = x + _positions(params["pos_dec"], x.shape[1])
-    block = functools.partial(_dec_block, cfg=cfg)
+    block = functools.partial(_dec_block, cfg=cfg, kernels=kernels)
     for p in unstack(params["dec"]):
         x = checkpoint(block, p, x, enc, use_reentrant=False) if remat else block(p, x, enc)
     x = L.rms_norm(x, params["final_norm"])
@@ -152,7 +157,8 @@ def build_cross_cache(params: dict, enc: torch.Tensor, cfg: ArchConfig, cache: d
 
 
 def decode_step(params: dict, token: torch.Tensor, pos, cache: dict,
-                cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+                cfg: ArchConfig, *, kernels: KernelConfig = KernelConfig()
+                ) -> tuple[torch.Tensor, dict]:
     """One decoder token against the self-attention cache (updated in
     place; `flash_decode` at every layer) and the fixed cross cache
     (`chunked_attention`, as the reference attends it).  token: (B,) ids;
@@ -170,11 +176,11 @@ def decode_step(params: dict, token: torch.Tensor, pos, cache: dict,
         x = x + L.attention_decode(p["attn"], L.rms_norm(x, p["ln1"]), cache["k"][i],
                                    cache["v"][i], pos, n_heads=cfg.n_heads,
                                    n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim, theta=1e4,
-                                   valid=valid)
+                                   valid=valid, kernels=kernels)
         h = L.rms_norm(x, p["ln_x"])
         q = (h @ p["xattn"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
         o = chunked_attention(q.transpose(1, 2), cache["xk"][i], cache["xv"][i], causal=False)
         x = x + o.transpose(1, 2).reshape(b, 1, cfg.q_dim) @ p["xattn"]["wo"]
-        x = x + L.mlp_block(p["mlp"], L.rms_norm(x, p["ln2"]), act="gelu")
+        x = x + L.mlp_block(p["mlp"], L.rms_norm(x, p["ln2"]), act="gelu", kernels=kernels)
     x = L.rms_norm(x, params["final_norm"])
     return (x @ params["embed"].T)[:, 0], cache

@@ -10,6 +10,13 @@ reference's weights across unchanged.  Decode updates the KV cache IN PLACE
 (the reference returns new arrays): the engines own their caches and rebind
 nothing.  The recurrent blocks return their new state; `lm.decode_step`
 writes it into the cache in place.
+
+A KV cache may be stored in float8_e4m3fn (`kv_cache_dtype`): every write
+into it goes through `kernels.ref.to_cache` (the reference's cast, NaN past
++-464), the decode kernels read it as it is, and the windowed sites read it
+as float32.  `kernels` (a `KernelConfig`) is handed to the kernel calls, as
+the reference hands its `kernels=` to its ops; the default launches what an
+untuned call launches.
 """
 from __future__ import annotations
 
@@ -18,11 +25,11 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..kernels import (decode_attention as k_decode, mlp as k_mlp,
+from ..kernels import (KernelConfig, decode_attention as k_decode, mlp as k_mlp,
                        mlp_swiglu as k_mlp_swiglu,
                        paged_decode_attention as k_paged_decode)
 from ..kernels._build import capturing
-from ..kernels.ref import paged_rows
+from ..kernels.ref import paged_rows, to_cache
 
 NEG_INF = -1e30
 
@@ -119,7 +126,7 @@ def _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta):
 def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos, *, n_heads: int, n_kv: int,
                      head_dim: int, theta: float = 1e4, window: int | None = None,
-                     valid=None) -> torch.Tensor:
+                     valid=None, kernels: KernelConfig = KernelConfig()) -> torch.Tensor:
     """Single-token decode with an in-place KV cache update.
 
     cache_k/v: (B, n_kv, S_max, D).  pos: the current position, a python
@@ -137,8 +144,8 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     else:
         positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta)
-    kc = k[:, 0].to(cache_k.dtype)                          # (B, n_kv, D)
-    vc = v[:, 0].to(cache_v.dtype)
+    kc = to_cache(k[:, 0], cache_k.dtype)                   # (B, n_kv, D)
+    vc = to_cache(v[:, 0], cache_v.dtype)
     # the write position clamps to the last row, as a dynamic slice update does
     if per_slot:
         wpos = pos.clamp(max=s_max - 1)
@@ -153,7 +160,7 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     if valid is None:
         valid = (pos + 1).to(torch.int32) if per_slot else pos + 1
     if window is None:
-        o = k_decode(qh, cache_k, cache_v, valid_len=valid)
+        o = k_decode(qh, cache_k, cache_v, valid_len=valid, cfg=kernels)
     else:
         lo = (valid - window).clamp(min=0) if per_slot else max(0, valid - window)
         o = _grouped_decode(qh, cache_k, cache_v, valid, lo, n_heads=n_heads,
@@ -165,7 +172,8 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
 def _grouped_decode(qh, ck, cv, valid, lo, *, n_heads, n_kv, head_dim, out_dtype):
     """Grouped-GQA masked-softmax decode in torch ops, for windowed sites:
     positions outside [lo, valid) score NEG_INF.  qh: (B, Hq, 1, D); ck/cv:
-    (B, Hkv, S, D); valid, lo: ints or (B,) tensors.  Returns (B, Hq, 1, D)."""
+    (B, Hkv, S, D), in any dtype (a float8 cache is read as float32);
+    valid, lo: ints or (B,) tensors.  Returns (B, Hq, 1, D)."""
     b, s_max = qh.shape[0], ck.shape[2]
     qg = qh.reshape(b, n_kv, n_heads // n_kv, head_dim)
     ki = torch.arange(s_max, device=qh.device)
@@ -184,7 +192,7 @@ def attention_decode_paged(p: dict, x: torch.Tensor, kp: torch.Tensor,
                            write_rows: torch.Tensor, *, layer: tuple[int, int],
                            block_size: int, n_heads: int, n_kv: int, head_dim: int,
                            theta: float = 1e4, window: int | None = None,
-                           valid=None) -> torch.Tensor:
+                           valid=None, kernels: KernelConfig = KernelConfig()) -> torch.Tensor:
     """Block-table-native decode: K/V live in the flat page pools the whole
     time -- no dense view, no scatter back.
 
@@ -198,14 +206,14 @@ def attention_decode_paged(p: dict, x: torch.Tensor, kp: torch.Tensor,
     b = x.shape[0]
     g_i, a_i = layer
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, pos.reshape(b, 1), theta)
-    kp[write_rows, g_i, a_i] = k[:, 0].to(kp.dtype)
-    vp[write_rows, g_i, a_i] = v[:, 0].to(vp.dtype)
+    kp[write_rows, g_i, a_i] = to_cache(k[:, 0], kp.dtype)
+    vp[write_rows, g_i, a_i] = to_cache(v[:, 0], vp.dtype)
     qh = q.transpose(1, 2)
     if valid is None:
         valid = (pos + 1).to(torch.int32)
     if window is None:
         o = k_paged_decode(qh, kp, vp, tables, valid_len=valid,
-                           block_size=block_size, layer=layer)
+                           block_size=block_size, layer=layer, cfg=kernels)
     else:
         rows = paged_rows(tables, block_size)
         ck = kp[rows, g_i, a_i].transpose(1, 2)
@@ -232,12 +240,13 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, *, groups: int,
             "w2": _normal(gen, groups, (d_ff, d_model), s_ff, dtype, device)}
 
 
-def mlp_block(p: dict, x: torch.Tensor, *, act: str = "swiglu") -> torch.Tensor:
+def mlp_block(p: dict, x: torch.Tensor, *, act: str = "swiglu",
+              kernels: KernelConfig = KernelConfig()) -> torch.Tensor:
     """The paper's Fig 2(a) pattern -> the fused MLP kernels; under autograd
     their backward is the Fig 2(c) kernels (kernels/ops.py)."""
     if act == "swiglu":
-        return k_mlp_swiglu(x, p["wg"], p["wu"], p["wd"])
-    return k_mlp(x, p["w1"], p["w2"], act=act)
+        return k_mlp_swiglu(x, p["wg"], p["wu"], p["wd"], cfg=kernels)
+    return k_mlp(x, p["w1"], p["w2"], act=act, cfg=kernels)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,16 @@ under autograd, as the reference's training attention is XLA ops outside
 any Pallas kernel; its MLP blocks run the fused kernels in both directions
 (`kernels.ops.mlp_swiglu` / `mlp`).
 
+`kernels` (a `KernelConfig`, the reference's `kernels=`) reaches every
+kernel call of the forward, decode and prefill: the MLP blocks and the
+decode attention sites; its default launches what an untuned call does.
+
+The KV cache is stored in the activation dtype, or in float8_e4m3fn where
+`cfg.kv_cache_dtype` says so (half the bytes; the reference's capacity
+lever): decode and prefill write it through `kernels.ref.to_cache`, the
+reference's cast, and the decode kernels read it as it is.  Recurrent
+state stays float32 either way.
+
 Decode writes the cache in place.  The recurrent entries (hymba's `ssm`,
 xlstm's `mC`/`mn`/`mm` and `sc`/`sn`/`sm`) take the new state only in the
 slots `state_mask` selects, the paged engine's active slots.
@@ -34,12 +44,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..kernels import KernelConfig
+from ..kernels.ref import E4M3, to_cache
 from . import layers as L
 
 HUGE_WINDOW = 1 << 30
 NEG_INF = -1e30
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# what a config's `kv_cache_dtype` may say: the activation dtype's cache,
+# or float8_e4m3fn
+KV_CACHE_DTYPES = ("bfloat16", "float8_e4m3fn")
 
 
 def _sub_kinds(cfg: ArchConfig) -> list[str]:
@@ -200,7 +215,8 @@ def _attn(p, x, *, cfg: ArchConfig, positions, theta, window) -> torch.Tensor:
 
 
 def _apply_sub(p, kind: str, x, *, cfg: ArchConfig, positions, window, theta,
-               moe_groups: int = 64, moe_cf: float = 1.25) -> torch.Tensor:
+               moe_groups: int = 64, moe_cf: float = 1.25,
+               kernels: KernelConfig = KernelConfig()) -> torch.Tensor:
     """One sub-layer.  dense / moe / hybrid: pre-norm attention (hymba adds
     the Mamba branch on the same input and averages the two), then the
     pre-norm MLP or MoE block; mlstm / slstm: the pre-norm recurrent block."""
@@ -217,7 +233,7 @@ def _apply_sub(p, kind: str, x, *, cfg: ArchConfig, positions, window, theta,
             return x + L.moe_block(p["moe"], h2, n_experts=cfg.n_experts, top_k=cfg.top_k,
                                    act=_mlp_act(cfg), capacity_factor=moe_cf,
                                    num_groups=moe_groups)
-        return x + L.mlp_block(p["mlp"], h2, act=_mlp_act(cfg))
+        return x + L.mlp_block(p["mlp"], h2, act=_mlp_act(cfg), kernels=kernels)
     if kind == "mlstm":
         return x + L.mlstm_block(p["mlstm"], L.rms_norm(x, p["ln1"]), n_heads=cfg.n_heads)
     if kind == "slstm":
@@ -244,7 +260,7 @@ def _embed_inputs(params, tokens, cfg: ArchConfig, patch_embeds) -> torch.Tensor
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             remat: bool = False, return_hidden: bool = False,
             patch_embeds: torch.Tensor | None = None, moe_groups: int = 64,
-            moe_cf: float = 1.25) -> torch.Tensor:
+            moe_cf: float = 1.25, kernels: KernelConfig = KernelConfig()) -> torch.Tensor:
     """tokens: (B, S_txt) ids -> logits (B, S, vocab), or with
     `return_hidden` the final-normed hidden states (B, S, D) for the chunked
     cross entropy (train/step.py), which never materializes (B, S, V).
@@ -258,7 +274,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     for g, p in enumerate(unstack(params["blocks"])):
         fn = functools.partial(_apply_group, cfg=cfg, positions=positions,
                                windows=sched["window"][g], thetas=sched["theta"][g],
-                               moe_groups=moe_groups, moe_cf=moe_cf)
+                               moe_groups=moe_groups, moe_cf=moe_cf, kernels=kernels)
         x = checkpoint(fn, p, x, use_reentrant=False) if remat else fn(p, x)
     x = L.rms_norm(x, params["final_norm"])
     if return_hidden:
@@ -296,18 +312,16 @@ def unstack(tree: dict) -> list[dict]:
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> dict:
     """Zeros in the reference's layout: the KV cache "k"/"v" (groups,
-    attention sites per group, batch, Hkv, max_len, D) where the family
-    attends, and float32 recurrent state where it recurs -- hymba's "ssm"
+    attention sites per group, batch, Hkv, max_len, D) in `dtype` (by
+    default, as the reference picks it: e4m3 where `kv_cache_dtype` asks
+    for it, else the activation dtype) where the family attends, and float32 recurrent state
+    where it recurs -- hymba's "ssm"
     (groups, batch, 2 d_model, ssm_state); xlstm's mLSTM "mC" (groups,
     mLSTM sites, batch, H, hd, hd), "mn" (..., H, hd), "mm" (..., H) and
     sLSTM "sc", "sn", "sm" (groups, sLSTM sites, batch, d_model), the
     stabilisers "mm" / "sm" at -1e30.  xlstm has no "k"/"v"."""
-    if cfg.kv_cache_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"{cfg.name}: a {cfg.kv_cache_dtype} KV cache is not ported; it comes with "
-            f"an e4m3 read in flash_decode and paged_flash_decode (ROADMAP A5)")
     if dtype is None:
-        dtype = DTYPES[cfg.dtype]
+        dtype = E4M3 if cfg.kv_cache_dtype == "float8_e4m3fn" else DTYPES[cfg.dtype]
     groups, kinds = _n_groups(cfg), _sub_kinds(cfg)
     f32 = dict(dtype=torch.float32, device=device)
     cache: dict = {}
@@ -342,6 +356,7 @@ def _store(dst: torch.Tensor, new: torch.Tensor, mask: torch.Tensor | None) -> N
 
 def decode_step(params: dict, token: torch.Tensor, pos, cache: dict,
                 cfg: ArchConfig, *, moe_cf: float = 1.25,
+                kernels: KernelConfig = KernelConfig(),
                 block_tables: torch.Tensor | None = None,
                 block_size: int | None = None,
                 kv_write_rows: torch.Tensor | None = None,
@@ -373,7 +388,8 @@ def decode_step(params: dict, token: torch.Tensor, pos, cache: dict,
                 win = sched["window"][g][i]
                 kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
                           theta=sched["theta"][g][i],
-                          window=None if win >= HUGE_WINDOW else win, valid=valid)
+                          window=None if win >= HUGE_WINDOW else win, valid=valid,
+                          kernels=kernels)
                 h = L.rms_norm(x, p["ln1"])
                 if paged:
                     a = L.attention_decode_paged(p["attn"], h, cache["kp"], cache["vp"],
@@ -395,7 +411,7 @@ def decode_step(params: dict, token: torch.Tensor, pos, cache: dict,
                     f = L.moe_block(p["moe"], h2, n_experts=cfg.n_experts, top_k=cfg.top_k,
                                     act=_mlp_act(cfg), capacity_factor=moe_cf, num_groups=1)
                 else:
-                    f = L.mlp_block(p["mlp"], h2, act=_mlp_act(cfg))
+                    f = L.mlp_block(p["mlp"], h2, act=_mlp_act(cfg), kernels=kernels)
                 x = x + f
             elif kind == "mlstm":
                 names = ("mC", "mn", "mm")
@@ -419,8 +435,8 @@ def decode_step(params: dict, token: torch.Tensor, pos, cache: dict,
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
-            max_len: int | None = None, patch_embeds: torch.Tensor | None = None
-            ) -> tuple[torch.Tensor, dict]:
+            max_len: int | None = None, patch_embeds: torch.Tensor | None = None,
+            kernels: KernelConfig = KernelConfig()) -> tuple[torch.Tensor, dict]:
     """The full-sequence forward, and a cache for decode on the same device:
     the attention cache from the prefix's K/V, re-projected layer by layer
     in one more pass (its MoE layers routed in 8 groups, as the reference's
@@ -431,7 +447,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     sequence, vision tokens included; the reference's pass ropes the text
     positions only and fails on patch embeddings (ROADMAP C, deliberate
     differences)."""
-    logits = forward(params, tokens, cfg, patch_embeds=patch_embeds)
+    logits = forward(params, tokens, cfg, patch_embeds=patch_embeds, kernels=kernels)
     x = _embed_inputs(params, tokens, cfg, patch_embeds)
     b, s, _ = x.shape
     max_len = max_len or (s + 128)
@@ -449,10 +465,10 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
                 _, k, v = L._project_qkv(p["attn"], L.rms_norm(x, p["ln1"]), cfg.n_heads,
                                          cfg.n_kv_heads, cfg.head_dim, positions,
                                          sched["theta"][g][i])
-                cache["k"][g, attn_i, :, :, :s] = k.transpose(1, 2)
-                cache["v"][g, attn_i, :, :, :s] = v.transpose(1, 2)
+                cache["k"][g, attn_i, :, :, :s] = to_cache(k.transpose(1, 2), cache["k"].dtype)
+                cache["v"][g, attn_i, :, :, :s] = to_cache(v.transpose(1, 2), cache["v"].dtype)
                 attn_i += 1
             x = _apply_sub(p, kind, x, cfg=cfg, positions=positions,
                            window=sched["window"][g][i], theta=sched["theta"][g][i],
-                           moe_groups=8, moe_cf=1.25)
+                           moe_groups=8, moe_cf=1.25, kernels=kernels)
     return logits, cache

@@ -37,6 +37,14 @@ bitwise equal to serving its request alone, and the two KV data paths
 are the exception the reference shares: capacity routing couples the
 slots of a step, ROADMAP C.)
 
+Every engine takes `kernels` (a `KernelConfig`, the reference's `kernels=`):
+the tile its ticks' kernel calls launch (the decode kernels' `block_s`),
+threaded through `serve_step` / `paged_tick` into the model.  A config's
+`kv_cache_dtype="float8_e4m3fn"` stores the cache and the page pools in
+e4m3 (half the bytes a page, so about twice the pages for one budget),
+written through the reference's cast and read as e4m3 by the decode
+kernels.
+
 Recurrent families carry per-slot state beside the pages -- hymba's SSM
 state, xlstm's mLSTM and sLSTM state, keyed as `models.lm.init_cache` keys
 them -- which each decode step advances only in its active slots, and which
@@ -63,6 +71,7 @@ from ..core.compiler import cached_jit, compile as compile_fn
 from ..core.costmodel import paged_decode_traffic
 from ..core.cudagraph import CapturedGraph, GraphCaptureError, graph_stats
 from ..core.executor import executable_cache
+from ..kernels import KernelConfig
 from ..kernels.ref import paged_rows
 from ..models import check_decode, get_model
 from ..models import lm
@@ -163,21 +172,22 @@ def _compiled(fn, example: tuple, sc: ServeConfig, device: torch.device):
     return step
 
 
-def serve_step(params, state, cfg: ArchConfig):
+def serve_step(params, state, cfg: ArchConfig, kernels: KernelConfig = KernelConfig()):
     """One decode tick for the whole batch (legacy contiguous engine).
 
     state = {"tokens": (B,), "pos": (B,) or int, "cache": {...}}; the cache
     is updated in place.  Returns the sampled next tokens and the logits."""
     logits, cache = get_model(cfg).decode_step(params, state["tokens"],
-                                               state["pos"], state["cache"])
+                                               state["pos"], state["cache"],
+                                               kernels=kernels)
     return {"tokens": logits.argmax(dim=-1), "pos": state["pos"] + 1,
             "cache": cache, "logits": logits}
 
 
-def _legacy_tick(params, cache, feed, cfg: ArchConfig):
+def _legacy_tick(params, cache, feed, cfg: ArchConfig, kernels: KernelConfig):
     """`serve_step` with the cache apart from the per-tick tokens and
     position, so that a compiled tick keeps the cache in place."""
-    return serve_step(params, {**feed, "cache": cache}, cfg)
+    return serve_step(params, {**feed, "cache": cache}, cfg, kernels)
 
 
 class ServingEngine:
@@ -188,7 +198,9 @@ class ServingEngine:
     per-request ground truth.
 
     Its tick goes through `cached_jit` keyed ("serve_step", config, batch,
-    max_len), as the reference's does: on the card one CUDA graph per
+    max_len, repr(kernels)) as the reference's is, and by the KV cache
+    dtype besides, so that a bfloat16 and a float8 engine of one config
+    never share a build: on the card one CUDA graph per
     engine (the weights and the cache are read in place, at their
     addresses), replayed every tick and dropped from the executable cache,
     with its graph pool, when the engine is collected; on the CPU eager, one
@@ -198,7 +210,8 @@ class ServingEngine:
     compiler's executor instead."""
 
     def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
-                 eos_id: int = 1):
+                 eos_id: int = 1, kernels: KernelConfig = KernelConfig()):
+        check_decode(cfg)
         self.cfg = cfg
         self.params = params
         self.sc = sc
@@ -211,13 +224,14 @@ class ServingEngine:
         self.tokens = np.zeros(sc.batch, np.int64)
         self.pos = 0
         _apply_cache_capacity(sc)
-        tick = functools.partial(_legacy_tick, cfg=cfg)
+        tick = functools.partial(_legacy_tick, cfg=cfg, kernels=kernels)
         if sc.compile_mode is not None:
             zeros = torch.zeros(sc.batch, dtype=torch.int64, device=self.device)
             self._step = _compiled(tick, (params, self.cache, {"tokens": zeros, "pos": zeros}),
                                    sc, self.device)
         else:
-            self._step = cached_jit(tick, key=("serve_step", cfg.name, sc.batch, sc.max_len),
+            self._step = cached_jit(tick, key=("serve_step", cfg.name, sc.batch, sc.max_len,
+                                               repr(kernels), cfg.kv_cache_dtype),
                                     inplace_argnums=(0, 1))
             # on the card the graph reads this engine's cache at its address
             # and serves no other engine: it goes, with its pool, when the
@@ -343,7 +357,7 @@ def aux_state(cfg: ArchConfig, batch: int, device) -> dict:
 
 
 def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
-               n_steps: int, mode: str = "gather"):
+               n_steps: int, mode: str = "gather", kernels: KernelConfig = KernelConfig()):
     """One serving tick over paged KV: `n_steps` decode steps with per-slot
     activity masks (chunked prefill and decode mixed in one tick).
 
@@ -362,7 +376,7 @@ def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
       tables (B, V) int32        physical page id per logical block
       kp/vp  (P, G, A, Hkv, D)   flat page pools (P = (num_blocks+1) * bs;
                                  page 0 is the reserved null page), updated
-                                 in place
+                                 in place; the activation dtype or e4m3
       + recurrent entries (ssm/mC/...) keyed as in lm.init_cache, updated
         in place in the active slots only
     A family with no KV (xlstm) has no tables and pools.
@@ -402,9 +416,11 @@ def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
             write_rows = torch.where(active, phys * bs + pos % bs, torch.zeros_like(pos))
             lg, _ = model.decode_step(params, tokens[:, j], pos, cache,
                                       block_tables=tables, block_size=bs,
-                                      kv_write_rows=write_rows, state_mask=active)
+                                      kv_write_rows=write_rows, state_mask=active,
+                                      kernels=kernels)
         else:
-            lg, _ = model.decode_step(params, tokens[:, j], pos, cache, state_mask=active)
+            lg, _ = model.decode_step(params, tokens[:, j], pos, cache, state_mask=active,
+                                      kernels=kernels)
         logits = lg if logits is None else torch.where(active[:, None], lg, logits)
         pos = torch.where(active, pos + 1, pos)
 
@@ -467,7 +483,8 @@ class CapturedTick:
 
     def __init__(self, params, cfg: ArchConfig, kp: torch.Tensor | None,
                  vp: torch.Tensor | None, aux: dict, *, batch: int, block_size: int,
-                 n_steps: int, v_blocks: int, mode: str, pool):
+                 n_steps: int, v_blocks: int, mode: str, pool,
+                 kernels: KernelConfig = KernelConfig()):
         dev = params["embed"].device
         i64 = dict(dtype=torch.int64, device=dev)
         self.state = {"tokens": torch.zeros((batch, n_steps), **i64),
@@ -479,7 +496,7 @@ class CapturedTick:
                                                  device=dev), kp=kp, vp=vp)
             self.inputs += ("tables",)
         tick = functools.partial(paged_tick, params, self.state, cfg, block_size=block_size,
-                                 n_steps=n_steps, mode=mode)
+                                 n_steps=n_steps, mode=mode, kernels=kernels)
         try:
             self.graph = CapturedGraph(tick, dev, what=f"the tick ({n_steps} steps, "
                                        f"{v_blocks} blocks)", pool=pool, count_warm_up=False)
@@ -518,11 +535,12 @@ class PagedKVExecutor:
     MEMORY_FRACTION = 0.9
 
     def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
-                 fault: FaultInjector | None = None):
+                 fault: FaultInjector | None = None, kernels: KernelConfig = KernelConfig()):
         self.cfg = cfg
         self.params = params
         self.sc = sc
         self.fault = fault
+        self.kernels = kernels
         self.device = _device_of(params)
         self.profile_error: str | None = None
         template = lm.init_cache(cfg, 1, sc.block_size, device="meta")["k"]
@@ -530,7 +548,8 @@ class PagedKVExecutor:
         self.page_shape = (g, a, h, d)
         self.kv_dtype = template.dtype
         self.max_blocks = blocks_for(sc.max_len, sc.block_size)
-        # bytes of ONE logical block: its K page + its V page
+        # bytes of ONE logical block: its K page + its V page (1 byte an
+        # element in a float8 cache)
         self.block_bytes = 2 * sc.block_size * g * a * h * d * template.element_size()
 
     def _device_budget(self) -> int:
@@ -565,7 +584,7 @@ class PagedKVExecutor:
         held = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         paged_tick(self.params, state, self.cfg, block_size=self.sc.block_size,
-                   n_steps=1, mode=self.sc.paged_attention)
+                   n_steps=1, mode=self.sc.paged_attention, kernels=self.kernels)
         torch.cuda.synchronize(dev)
         return torch.cuda.max_memory_allocated(dev) - held
 
@@ -612,7 +631,8 @@ class PagedServingEngine:
     their KV pages to the prefix cache for later requests to reuse."""
 
     def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
-                 eos_id: int = 1, clock=time.monotonic):
+                 eos_id: int = 1, clock=time.monotonic,
+                 kernels: KernelConfig = KernelConfig()):
         if cfg.family == "encdec":
             raise ValueError("paged serving covers decoder-only families")
         if sc.paged_attention not in ("gather", "native"):
@@ -623,6 +643,7 @@ class PagedServingEngine:
         self.cfg = cfg
         self.params = params
         self.sc = sc
+        self.kernels = kernels
         self.device = _device_of(params)
         self.eos = eos_id
         self.clock = clock               # injectable for deadline tests
@@ -640,7 +661,8 @@ class PagedServingEngine:
         self.executor = self.pool = self.prefix = self.tables = None
         self.kp = self.vp = None
         if self.has_kv:
-            self.executor = PagedKVExecutor(cfg, params, sc, fault=self.injector)
+            self.executor = PagedKVExecutor(cfg, params, sc, fault=self.injector,
+                                            kernels=kernels)
             if sc.num_blocks is not None:
                 num = sc.num_blocks
             else:
@@ -713,7 +735,8 @@ class PagedServingEngine:
         sc = self.sc
         if sc.compile_mode is not None:
             tick = functools.partial(_split_tick, cfg=self.cfg, block_size=sc.block_size,
-                                     n_steps=n_steps, mode=sc.paged_attention)
+                                     n_steps=n_steps, mode=sc.paged_attention,
+                                     kernels=self.kernels)
             example = self._example_state(n_steps, v_blocks)
             held = [k for k in example if k in _TICK_STATE]
             compiled = _compiled(tick, (self.params, {k: example[k] for k in held},
@@ -730,11 +753,11 @@ class PagedServingEngine:
             fn = CapturedTick(self.params, self.cfg, self.kp, self.vp, self.aux,
                               batch=sc.batch, block_size=sc.block_size, n_steps=n_steps,
                               v_blocks=v_blocks, mode=sc.paged_attention,
-                              pool=self._graph_pool)
+                              pool=self._graph_pool, kernels=self.kernels)
         else:
             fn = functools.partial(paged_tick, self.params, cfg=self.cfg,
                                    block_size=sc.block_size, n_steps=n_steps,
-                                   mode=sc.paged_attention)
+                                   mode=sc.paged_attention, kernels=self.kernels)
         self._steps[key] = fn
         return fn
 
@@ -1232,7 +1255,8 @@ class AsyncServingEngine:
     is also a context manager.  If
     a tick raises past the engine's own isolation, the loop records it as
     the TERMINAL error, degrades the engine (failing every handle) and
-    exits; `drain()` then raises that error."""
+    exits; `drain()` then raises that error.  Keyword arguments (`eos_id`,
+    `kernels`, ...) go to the PagedServingEngine it builds."""
 
     def __init__(self, cfg: ArchConfig | None = None, params=None,
                  sc: ServeConfig | None = None, *,

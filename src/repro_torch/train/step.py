@@ -22,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.compiler import compile as _compile
+from ..kernels import KernelConfig
 from ..models import atoms, get_model
 from ..optim import Optimizer, clip_by_global_norm
 from ..tree import flatten, tree_map, unflatten_like
@@ -110,12 +111,15 @@ def value_and_grad(fn: Callable, params, *args):
 
 
 def make_train_step(cfg: ArchConfig, opt: Optimizer,
-                    tc: TrainConfig = TrainConfig()) -> Callable:
-    """Returns step(state, batch) -> (state, metrics)."""
+                    tc: TrainConfig = TrainConfig(), *,
+                    kernels: KernelConfig = KernelConfig()) -> Callable:
+    """Returns step(state, batch) -> (state, metrics).  `kernels` reaches
+    the model's kernel calls (the MLP blocks, forward and backward)."""
     model = get_model(cfg)
 
     def fwd_loss(params, batch):
-        hidden = model.forward(params, batch, remat=tc.remat, return_hidden=True)
+        hidden = model.forward(params, batch, remat=tc.remat, return_hidden=True,
+                               kernels=kernels)
         table = params.get("unembed", params["embed"])
         return chunked_softmax_xent(hidden, table, batch["tokens"], tc.z_loss,
                                     chunk=tc.xent_chunk)

@@ -23,8 +23,6 @@ comparison with the reference would route with drops, it is made against
 the reference with `_dispatch_group` replaced, in this process only, by the
 same function with its dropped entries sent nowhere (`corrected_dispatch`).
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,9 +38,8 @@ from repro.models import lm as j_lm
 
 from repro_torch.configs import get_config
 from repro_torch.core.executor import params_from_numpy
-from repro_torch.models import check_decode, encdec, get_model, lm
+from repro_torch.models import encdec, get_model, lm
 from repro_torch.models import layers as L
-from repro_torch.serve import PagedServingEngine, ServeConfig
 
 NAMES = sorted(J_ARCHS)
 LM_NAMES = [n for n in NAMES if J_ARCHS[n].family != "encdec"]
@@ -328,13 +325,3 @@ def test_remat_equals_plain(arch):
     assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(g0, g1))
     assert sum(g is not None and bool(g.abs().max() > 0) for g in g0) > len(g0) // 2
 
-
-def test_float8_kv_cache_refuses():
-    cfg = dataclasses.replace(get_config("phi3-medium-14b").reduced(),
-                              kv_cache_dtype="float8_e4m3fn")
-    for call in (lambda: check_decode(cfg),
-                 lambda: lm.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: PagedServingEngine(cfg, models("phi3-medium-14b")[3],
-                                            ServeConfig(max_len=8, batch=1))):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            call()

@@ -18,6 +18,8 @@ Tolerances: float32 2e-4, bfloat16 2e-2 (tests/test_kernels.py:25); whole
 apps 2e-3 in float32 (tests/test_lowering.py:32), with weights divided by
 sqrt(fan-in) so that every output's RMS stays well above that tolerance.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -36,7 +38,7 @@ from repro_torch.kernels.fused_mlp import (SMALL_M, fused_mlp_bwd_plain,
                                            fused_mlp_swiglu_fwd_plain, fwd_form)
 from repro_torch.kernels.paged_attention import paged_flash_decode_plain
 from repro_torch.kernels.queue_reduce import queue_reduce_plain, sequential_fold
-from repro_torch.kernels.ref import paged_rows
+from repro_torch.kernels.ref import paged_rows, to_e4m3
 from repro_torch.models import encdec, get_model
 from repro_torch.models import layers as L
 from repro_torch.optim import adamw
@@ -1530,3 +1532,141 @@ def test_second_compile_adds_no_verdict_and_no_tune_miss(cuda, scratch_verdicts)
     v1, t1 = vc.stats(), tc.stats()
     assert (v1["size"], v1["misses"]) == (v0["size"], v0["misses"]) and v1["hits"] > v0["hits"]
     assert (t1["size"], t1["misses"]) == (t0["size"], t0["misses"]) and t1["hits"] > t0["hits"]
+
+
+# ---------------------------------------------------------------------------
+# the float8 KV cache: B4 and B8 reading e4m3 K/V
+# ---------------------------------------------------------------------------
+
+E4M3 = torch.float8_e4m3fn
+
+
+def _e4m3(t):
+    return to_e4m3(t.float())
+
+
+def _close_e4m3(got, want, dtype):
+    """The q dtype's bound; in bf16 also the relative error 1e-2 (chip_smoke's
+    REL_TOL), since outputs that average many rows of V are small."""
+    close(got, want, TOL[dtype])
+    if dtype == "bfloat16":
+        g, w = got.float(), want.float()
+        assert ((g - w).norm() / w.norm()).item() <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(8, 40, 10, 512, 128),
+                                   (8, 25, 5, 512, 64),
+                                   (2, 8, 8, 300, 128),
+                                   (3, 16, 2, 200, 64),
+                                   (2, 8, 1, 4096, 128)])
+def test_flash_decode_e4m3_kernel(cuda, shape, dtype):
+    """B4 with e4m3 K/V beside a bf16 or f32 q against its plain version at
+    every block_s of its grid: G 1, 5 and 8, D 64 and 128, ragged valid
+    lengths, a ragged last chunk (S = 300, 200); launches counted by K/V
+    dtype; two calls bitwise alike."""
+    b, hq, hkv, s_len, d = shape
+    q, k, v = tensors(cuda, 11, dtype, (b, hq, 1, d), (b, hkv, s_len, d), (b, hkv, s_len, d))
+    k, v = _e4m3(k), _e4m3(v)
+    valid = torch.from_numpy(np.random.default_rng(12).integers(
+        1, s_len + 1, b).astype(np.int32)).to(cuda)
+    for cand in decode_tile_candidates(s_len):
+        block_s = cand["block_s"]
+        before = K.launches_by_dtype("flash_decode").get("float8_e4m3fn", 0)
+        got = K.flash_decode(q, k, v, valid_len=valid, block_s=block_s)
+        assert K.launches_by_dtype("flash_decode")["float8_e4m3fn"] == before + 1
+        assert got.dtype == q.dtype
+        _close_e4m3(got, flash_decode_plain(q, k, v, valid_len=valid, block_s=block_s), dtype)
+        assert torch.equal(got, K.flash_decode(q, k, v, valid_len=valid, block_s=block_s))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hq,hkv,d", [(40, 10, 128), (25, 5, 64), (8, 8, 64)])
+def test_paged_flash_decode_e4m3_kernel(cuda, dtype, hq, hkv, d):
+    """B8 with e4m3 pools, 5-D and 3-D, against its plain version at every
+    block_s of its grid, and bitwise equal to gathering the view and running
+    B4 on it at the same chunk size."""
+    q, kp, vp, tables, valid = _paged_case(cuda, dtype, hq=hq, hkv=hkv, d=d, pages=280)
+    kp, vp = _e4m3(kp), _e4m3(vp)
+    bs = 16
+    s_len = tables.shape[1] * bs
+    for site in ((0, 0), (2, 1)):
+        k3 = kp[:, site[0], site[1]].contiguous()
+        v3 = vp[:, site[0], site[1]].contiguous()
+        rows = paged_rows(tables, bs)
+        ck = k3[rows].transpose(1, 2).contiguous()
+        cv = v3[rows].transpose(1, 2).contiguous()
+        for cand in decode_tile_candidates(s_len, page_size=bs):
+            block_s = cand["block_s"]
+            before = K.launches_by_dtype("paged_flash_decode").get("float8_e4m3fn", 0)
+            got = K.paged_flash_decode(q, kp, vp, tables, valid_len=valid, block_size=bs,
+                                       layer=site, block_s=block_s)
+            assert K.launches_by_dtype("paged_flash_decode")["float8_e4m3fn"] == before + 1
+            _close_e4m3(got, paged_flash_decode_plain(q, kp, vp, tables, valid_len=valid,
+                                                      block_size=bs, layer=site,
+                                                      block_s=block_s), dtype)
+            assert torch.equal(got, K.paged_flash_decode(q, k3, v3, tables, valid_len=valid,
+                                                         block_size=bs, block_s=block_s))
+            assert torch.equal(got, K.flash_decode(q, ck, cv, valid_len=valid,
+                                                   block_s=page_block_s(s_len, bs, block_s)))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_e4m3_nan_bytes_past_valid_never_reach_the_output(cuda, dtype):
+    """NaN bytes (0x7f) in every row at or past a slot's valid length -- the
+    dense view's tail, and the null page and the freed pages a table points
+    at past its allocation -- leave both kernels' outputs bitwise as they
+    are with zeros there."""
+    b, hq, hkv, s_len, d = 4, 16, 4, 300, 128
+    q, k, v = tensors(cuda, 13, dtype, (b, hq, 1, d), (b, hkv, s_len, d), (b, hkv, s_len, d))
+    k, v = _e4m3(k), _e4m3(v)
+    valid = torch.tensor([1, 77, 256, 300], dtype=torch.int32, device=cuda)
+    past = (torch.arange(s_len, device=cuda)[None, :] >= valid[:, None])[:, None, :, None]
+
+    def fill(t, mask, byte):
+        return t.view(torch.uint8).masked_fill(mask, byte).view(E4M3)
+
+    for block_s in (64, 256):
+        want = K.flash_decode(q, fill(k, past, 0), fill(v, past, 0), valid_len=valid,
+                              block_s=block_s)
+        got = K.flash_decode(q, fill(k, past, 0x7F), fill(v, past, 0x7F), valid_len=valid,
+                             block_s=block_s)
+        assert torch.isfinite(got).all() and torch.equal(got, want)
+    q, kp, vp, tables, valid = _paged_case(cuda, dtype, b=4, pages=140)
+    bs = 16
+    kp, vp = _e4m3(kp), _e4m3(vp)
+    owned = set(tables.flatten().tolist()) - {0}
+    free = torch.tensor([p not in owned for p in range(kp.shape[0] // bs)], device=cuda)
+    bad = free.repeat_interleave(bs)
+    rows = paged_rows(tables, bs)
+    for i in range(tables.shape[0]):   # the rows of a slot's last page past its valid length
+        tail = rows[i, int(valid[i]):]
+        bad[tail[tail >= bs]] = True
+    bad = bad[:, None, None, None, None]
+    want = K.paged_flash_decode(q, fill(kp, bad, 0), fill(vp, bad, 0), tables,
+                                valid_len=valid, block_size=bs, layer=(1, 1))
+    got = K.paged_flash_decode(q, fill(kp, bad, 0x7F), fill(vp, bad, 0x7F), tables,
+                               valid_len=valid, block_size=bs, layer=(1, 1))
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+def test_reduced_fp8_engine_on_card_equals_cpu(cuda):
+    """The reduced phi3 config (f32) with a float8 cache: the paged engine on
+    the card (captured ticks, B8 reading e4m3 pools, 1 launch a layer and
+    decode step) serves the CPU engine's tokens from the same weights."""
+    cfg = dataclasses.replace(get_config("phi3-medium-14b").reduced(),
+                              kv_cache_dtype="float8_e4m3fn")
+    params = get_model(cfg).init(0, "cpu")
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", to_device(params, cuda))):
+        sc = ServeConfig(max_len=32, batch=4, num_blocks=24, prefill_chunk=3)
+        eng = PagedServingEngine(cfg, p, sc, eos_id=-1)
+        assert eng.kp.dtype == E4M3
+        for rid, pr in SERVE_PROMPTS.items():
+            eng.submit(pr, rid=rid)
+        before = K.launches_by_dtype("paged_flash_decode").get("float8_e4m3fn", 0)
+        outs[dev] = eng.run_until_done()
+        launched = K.launches_by_dtype("paged_flash_decode").get("float8_e4m3fn", 0) - before
+        if dev == "cuda":
+            assert launched == cfg.n_layers * eng.stats()["decode_steps"]
+    assert outs["cpu"] == outs["cuda"]
