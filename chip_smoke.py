@@ -166,13 +166,33 @@ Phases, each failing the run on any error (no phase's exception is caught):
      instances (f32) likewise, where every measured verdict must follow
      its own numbers.  After phases 4-6, `calibrate(H100, ...)` is fitted
      to phases 4-5's timed bsp replays (flops, boundary bytes, programs,
-     seconds) and printed.
+     seconds) and printed;
+ 13. the distributed layer at world size 1: an NCCL process group of one
+     rank (a file:// store under build/) and a (1, 1) ("data", "model")
+     DeviceMesh.  (a) gemma3-1b at full width and depth, DIST_STEPS steps
+     of `make_train_step(..., sharder=Sharder(mesh))` on DTensor
+     parameters and moments against as many NULL steps from the same
+     state and batches (2 x 1024 tokens): losses and parameters bitwise
+     (or within `hold_train_run`'s reorder bound, said which), the
+     fused_mlp_swiglu / fused_mlp_swiglu_bwd / queue_reduce launches
+     equal to the NULL run's, ms a step of each, each step's device idle
+     share (torch.profiler) and the sharded step's collectives
+     (CommDebugMode); (b) `restore_with_resharding` of (a)'s parameters
+     onto the mesh's placements, bitwise, with seconds and bytes; (c)
+     `run_pipelined` with one stage over gemma3-1b's first four MLP blocks
+     (B2 inside the layer) against the sequential call, and
+     `error_feedback_allreduce` on NCCL over a gemma3-1b gradient against
+     the plain quantize -> dequantize round trip, both bitwise; (d)
+     phi3-medium-14b at full width cut to 2 layers through the legacy
+     engine (one cached_jit graph) and the paged engine (a captured tick
+     a bucket) with `sharder=`, against the NULL engines: the same tokens,
+     the same B4 / B8 / B2 launches.  The group is destroyed at the end.
 The launch counters are zeroed just before phase 4 and read just after
 phase 6 (the compiler's main path), and zeroed and read around each engine
 run of phases 7, 9, 10 and 11 (the serving paths), each full-width run of
 phases 8 and 10 (the training paths), phase 9's whisper decode steps and
-phase 10's traced forward and atom, and around each of phase 12's runs
-under "auto".  The second-to-last line is the
+phase 10's traced forward and atom, around each of phase 12's runs
+under "auto", and around each of phase 13's runs.  The second-to-last line is the
 per-kernel JSON summary: one row per kernel and main-path shape, its
 `launches` taken from the run of the path that row belongs to (for the
 whisper rows of fused_mlp and fused_mlp_bwd, only that run's launches at
@@ -2391,14 +2411,37 @@ def hold_train_run(label, got_state, got_losses, want_state, want_losses, spread
         if err > err_limit or ratio > ratio_limit or rel > rel_limit:
             bad.append((path, err, ratio, rel, (err_limit, ratio_limit, rel_limit)))
     spread_rel = max(r for _, _, r in spread.values())
-    print(f"traced {label}: losses {got_losses} against eager {want_losses} (max relative "
+    print(f"{label}: losses {got_losses} against eager {want_losses} (max relative "
           f"difference {loss_rel:.3g}, limit 1e-3); parameters' worst relative error "
           f"{worst_rel:.3g} against the eager run, whose own spread over three "
           f"reorderings of its sums reaches {spread_rel:.3g} (limit per parameter "
           f"{FLOOR_FACTOR:g} times its spread, at least atol=rtol=2e-2 and 1e-2)", flush=True)
     if loss_rel > 1e-3 or bad:
-        raise AssertionError(f"traced {label}: losses {got_losses}, eager {want_losses}; "
+        raise AssertionError(f"{label}: losses {got_losses}, eager {want_losses}; "
                              f"parameters out of bounds (path, err, ratio, rel, limits) {bad}")
+
+
+def eager_spread(name, state, eager, batches, eager_state) -> dict[str, tuple]:
+    """The eager run's own spread (`leaf_spread` per parameter, the worst
+    of three): the same steps from `state` with their sums reordered -- the
+    batch rows reversed, and the chunked attention's online softmax over
+    chunks of 512 and of 256 keys instead of 1024."""
+    spread: dict[str, tuple[float, float, float]] = {}
+    flipped = [{k: v.flip(0) for k, v in b.items()} for b in batches]
+    for what, data, chunk in (("batch rows reversed", flipped, None),
+                              ("attention in chunks of 512 keys", batches, 512),
+                              ("attention in chunks of 256 keys", batches, 256)):
+        ctx = (model_atoms.patched(attention=functools.partial(model_lm.chunked_attention,
+                                                               chunk=chunk))
+               if chunk else contextlib.nullcontext())
+        with ctx:
+            other, _, _ = train_steps(f"{name} eager ({what})", clone_tree(state), eager,
+                                      data, {})
+        for path, vals in leaf_spread(other, eager_state).items():
+            spread[path] = tuple(max(a, b) for a, b in zip(spread.get(path, vals), vals))
+        del other
+        free()
+    return spread
 
 
 def phase_traced_train(name, batch, seq, want) -> dict[str, int]:
@@ -2419,22 +2462,7 @@ def phase_traced_train(name, batch, seq, want) -> dict[str, int]:
     eager = make_train_step(cfg, opt, tc)
     eager_state, eager_losses, eager_s = train_steps(f"{name} eager", clone_tree(state), eager,
                                                      batches, {})
-    # the eager run's own spread: the same steps with their sums reordered
-    spread: dict[str, tuple[float, float, float]] = {}
-    flipped = [{k: v.flip(0) for k, v in b.items()} for b in batches]
-    for what, data, chunk in (("batch rows reversed", flipped, None),
-                              ("attention in chunks of 512 keys", batches, 512),
-                              ("attention in chunks of 256 keys", batches, 256)):
-        ctx = (model_atoms.patched(attention=functools.partial(model_lm.chunked_attention,
-                                                               chunk=chunk))
-               if chunk else contextlib.nullcontext())
-        with ctx:
-            other, _, _ = train_steps(f"{name} eager ({what})", clone_tree(state), eager,
-                                      data, {})
-        for path, vals in leaf_spread(other, eager_state).items():
-            spread[path] = tuple(max(a, b) for a, b in zip(spread.get(path, vals), vals))
-        del other
-        free()
+    spread = eager_spread(name, state, eager, batches, eager_state)
     app, trace_s, pass_s = compiled_train_step(name, cfg, opt, tc, state, batches[0], "kitsune")
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
@@ -2442,7 +2470,7 @@ def phase_traced_train(name, batch, seq, want) -> dict[str, int]:
     state, losses, kit_s = train_steps(f"{name} kitsune", state, app, batches, want)
     launches = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    hold_train_run(name, state, losses, eager_state, eager_losses, spread)
+    hold_train_run(f"traced {name}", state, losses, eager_state, eager_losses, spread)
     del eager_state
     free()
     walk_s = captured_equals_walk(name, app, state, batches[:1], want)
@@ -3038,6 +3066,263 @@ def to_device(tree: dict, device) -> dict:
             for k, v in tree.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the distributed layer at world size 1 (NCCL, a (1, 1) mesh)
+# ---------------------------------------------------------------------------
+
+DIST_TRAIN = dict(batch=2, seq=1024)     # 13a's batch and sequence
+DIST_STEPS = 3                           # 13a's steps of each run
+DIST_SERVE_LAYERS = 2                    # 13d: phi3-medium-14b cut to 2 layers
+DIST_KERNELS = ("fused_mlp_swiglu", "fused_mlp_swiglu_bwd", "queue_reduce")
+
+
+def leaves_equal(a, b) -> list[str]:
+    """Paths whose leaves differ (DTensors compared by their full value)."""
+    from repro_torch.distributed.sharding import full_tensor
+    bb = dict(flatten(b))
+    return [p for p, t in flatten(a) if not torch.equal(full_tensor(t), full_tensor(bb[p]))]
+
+
+def dist_train(sharder) -> tuple[dict[str, dict[str, int]], dict]:
+    """13a: gemma3-1b at full width and depth, DIST_STEPS `make_train_step`
+    steps under `sharder` (DTensor parameters and moments) against as many
+    NULL steps from the same state and batches: losses and parameters
+    bitwise, or within `hold_train_run`'s reorder bound (said which); B2 /
+    B7 / B5 launches equal to the NULL run's; ms a step of each (the steps
+    after the first), each step's device idle share and the sharded step's
+    collectives (CommDebugMode).  Returns the two runs' launches and the
+    sharded state."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    cfg = get_config("gemma3-1b")
+    opt = adamw(TRAIN_LR)
+    tc = TrainConfig(remat=True, xent_chunk=512)
+    state = make_train_state(cfg, opt, seed=0, device="cuda")
+    at = train_batches(cfg, DIST_TRAIN["batch"], DIST_TRAIN["seq"])
+    batches = [at(i) for i in range(DIST_STEPS)]
+    null_step = make_train_step(cfg, opt, tc)
+    K.reset_launch_counts()
+    null_state, null_losses, null_s = train_steps("13a gemma3-1b NULL", clone_tree(state),
+                                                  null_step, batches, {})
+    null_launches = K.launch_counts()
+    t0 = time.perf_counter()
+    params = sharder.distribute(state["params"])
+    sharded = {"params": params, "opt": opt.init(params)}
+    place_s = time.perf_counter() - t0
+    step = make_train_step(cfg, opt, tc, sharder=sharder)
+    K.reset_launch_counts()
+    sharded, losses, sh_s = train_steps("13a gemma3-1b sharded", sharded, step, batches, {})
+    launches = K.launch_counts()
+    bad = {k: (launches[k], null_launches[k]) for k in DIST_KERNELS
+           if launches[k] != null_launches[k]}
+    if bad or not null_launches["fused_mlp_swiglu"] or not null_launches["fused_mlp_swiglu_bwd"]:
+        raise AssertionError(f"13a: sharded launches {launches}, NULL {null_launches}: {bad}")
+    differ = leaves_equal(sharded["params"], null_state["params"])
+    if losses == null_losses and not differ:
+        verdict = "bitwise equal"
+    else:
+        spread = eager_spread("13a gemma3-1b", state, null_step, batches, null_state)
+        plain = {"params": sharder_full(sharded["params"])}
+        hold_train_run("13a sharded gemma3-1b", plain, losses, null_state, null_losses, spread)
+        verdict = f"within the reorder bound ({len(differ)} leaves not bitwise)"
+    steady = {k: sum(v[1:]) / (len(v) - 1) for k, v in (("NULL", null_s), ("sharded", sh_s))}
+    print(f"13a gemma3-1b sharded vs NULL ({DIST_TRAIN['batch']} x {DIST_TRAIN['seq']} tokens, "
+          f"{DIST_STEPS} steps): losses {losses} vs {null_losses}, parameters {verdict}; "
+          f"launches { {k: launches[k] for k in DIST_KERNELS} } each run; ms a step (mean of "
+          f"steps 2-{DIST_STEPS}) NULL {1e3 * steady['NULL']:.1f}, sharded "
+          f"{1e3 * steady['sharded']:.1f} (x{steady['sharded'] / steady['NULL']:.3f}); first "
+          f"steps {1e3 * null_s[0]:.1f} / {1e3 * sh_s[0]:.1f}; placing the state "
+          f"{place_s:.2f} s", flush=True)
+    with CommDebugMode() as comm:
+        step(sharded, batches[0])
+    print(f"13a collectives a sharded step (CommDebugMode): total {comm.get_total_counts()}, "
+          f"{ {str(k): v for k, v in comm.get_comm_counts().items()} }", flush=True)
+    profile_train_step("13a gemma3-1b sharded", step, sharded, batches[0], steady["sharded"])
+    profile_train_step("13a gemma3-1b NULL", null_step, null_state, batches[0], steady["NULL"])
+    del null_state, state
+    free()
+    return {"dist_train_null": null_launches, "dist_train_sharded": launches}, sharded
+
+
+def sharder_full(tree):
+    from repro_torch.distributed.sharding import full_tensor
+    from repro_torch.tree import tree_map
+    return tree_map(full_tensor, tree)
+
+
+def dist_restore(sharder, params) -> None:
+    """13b: 13a's parameters saved (rank 0 writes) and restored by
+    `restore_with_resharding` onto the mesh's placements: every leaf
+    bitwise, with the seconds and bytes of each side."""
+    from repro_torch.checkpoint import Checkpointer, restore_with_resharding
+    ckpt = Path(tempfile.mkdtemp(prefix="dist_ckpt_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        Checkpointer(str(ckpt)).save(1, {"params": params})
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+        like = {"params": sharder_full(params)}
+        t0 = time.perf_counter()
+        step, out = restore_with_resharding(str(ckpt), like,
+                                            {"params": sharder.params_shardings(like["params"])})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        differ = leaves_equal(out["params"], params)
+        placed = all(hasattr(t, "placements") for t in leaves(out["params"]))
+        print(f"13b restore_with_resharding: step {step}, {len(leaves(params))} leaves, "
+              f"{size / 1e9:.3f} GB on disk, save {save_s:.2f} s, restore {restore_s:.2f} s "
+              f"({size / 1e9 / restore_s:.2f} GB/s); bitwise: {not differ}; every leaf a "
+              f"DTensor on the mesh: {placed}", flush=True)
+        if step != 1 or differ or not placed:
+            raise AssertionError(f"13b: step {step}, leaves differing {differ[:5]}, placed "
+                                 f"{placed}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def dist_pipeline_and_compression(params) -> dict[str, dict[str, int]]:
+    """13c: `run_pipelined` with one stage over gemma3-1b's first four MLP
+    blocks (B2 inside `layer_fn`) against the sequential call, and
+    `error_feedback_allreduce` on NCCL over a gemma3-1b gradient against
+    the plain quantize -> dequantize round trip: both bitwise."""
+    from repro_torch.distributed.pipeline import run_pipelined
+    from repro_torch.kernels import mlp_swiglu
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.optim import (compress_int8, decompress_int8, error_feedback_allreduce,
+                                   init_residuals)
+    from repro_torch.train.step import chunked_softmax_xent, value_and_grad
+    mlp = {k: v[:4].contiguous() for k, v in sharder_full(params)["blocks"]["sub0"]["mlp"].items()}
+
+    def layer_fn(p, x):
+        return x + mlp_swiglu(x, p["wg"], p["wu"], p["wd"])
+    g = torch.Generator(device="cuda").manual_seed(13)
+    xs = torch.randn((4, 256, mlp["wg"].shape[1]), generator=g, device="cuda").to(torch.bfloat16)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = run_pipelined(make_mesh((1,), ("stage",), "cuda"), layer_fn, mlp, xs, 1)
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    pipe_launches = K.launch_counts()
+    want = xs
+    for i in range(4):
+        want = layer_fn({k: v[i] for k, v in mlp.items()}, want)
+    if not torch.equal(got, want) or pipe_launches["fused_mlp_swiglu"] != 16:
+        raise AssertionError(f"13c pipeline: max |diff| {(got - want).abs().max().item()}, "
+                             f"launches {pipe_launches}")
+    print(f"13c run_pipelined, 1 stage x 4 layers x 4 microbatches of 256 rows: bitwise the "
+          f"sequential call, {pipe_launches['fused_mlp_swiglu']} B2 launches, {pipe_s:.3f} s",
+          flush=True)
+
+    cfg = get_config("gemma3-1b")
+    model = get_model(cfg)
+    batch = train_batches(cfg, DIST_TRAIN["batch"], DIST_TRAIN["seq"])(0)
+    full = sharder_full(params)
+
+    def loss(p, b):
+        hidden = model.forward(p, b, remat=True, return_hidden=True)
+        return chunked_softmax_xent(hidden, p["embed"], b["tokens"], 1e-4, chunk=512)
+    _, grads = value_and_grad(loss, full, batch)
+    t0 = time.perf_counter()
+    red, resid = error_feedback_allreduce(grads, init_residuals(grads))
+    torch.cuda.synchronize()
+    ef_s = time.perf_counter() - t0
+    bad = []
+    for (path, gr), (_, r), (_, s) in zip(flatten(grads), flatten(red), flatten(resid)):
+        e = gr.float()
+        local = decompress_int8(*compress_int8(e))
+        if not (torch.equal(r, local.to(gr.dtype)) and torch.equal(s, e - local)):
+            bad.append(path)
+    n = sum(t.numel() for t in leaves(grads))
+    print(f"13c error_feedback_allreduce on NCCL over a gemma3-1b gradient ({n / 1e9:.3f} B "
+          f"values, {len(leaves(grads))} leaves): reduced and residuals bitwise the plain "
+          f"round trip: {not bad}; {ef_s:.3f} s; wire bytes int8 + f32 scales "
+          f"{(n + 4 * n / 256) / 1e9:.3f} GB against f32 {4 * n / 1e9:.3f} GB", flush=True)
+    if bad:
+        raise AssertionError(f"13c compression differs at {bad[:5]}")
+    del grads, red, resid, full
+    free()
+    return {"dist_pipeline": pipe_launches}
+
+
+def dist_serve(sharder) -> dict[str, dict[str, int]]:
+    """13d: phi3-medium-14b at full width cut to DIST_SERVE_LAYERS layers,
+    the legacy engine (cached_jit: one captured graph) and the paged engine
+    (a captured tick per bucket) with `sharder=` against the NULL engines:
+    the same tokens, the same B4 / B8 / B2 launches."""
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=DIST_SERVE_LAYERS)
+    params = get_model(cfg).init(seed=0, device="cuda")
+    prompts = {rid: p[:LEGACY_PROMPT] for rid, p in
+               list(serve_prompts(cfg.vocab).items())[:LEGACY_CONFIG["batch"]]}
+    runs, out = {}, {}
+    for engine in ("legacy", "paged"):
+        for form, kw in (("null", {}), ("sharded", {"sharder": sharder})):
+            if engine == "legacy":
+                eng = ServingEngine(cfg, params, ServeConfig(**LEGACY_CONFIG), eos_id=-1, **kw)
+                for rid, p in prompts.items():
+                    eng.submit(rid, p)
+            else:
+                eng = PagedServingEngine(cfg, params, ServeConfig(
+                    max_len=LEGACY_CONFIG["max_len"], batch=LEGACY_CONFIG["batch"],
+                    num_blocks=LEGACY_CONFIG["batch"] * LEGACY_CONFIG["max_len"] // 8 + 8,
+                    max_new_tokens=32), eos_id=-1, **kw)
+                for rid, p in prompts.items():
+                    eng.submit(p, rid=rid)
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            out[engine, form] = eng.run_until_done()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = K.launch_counts()
+            g = eng.graph_stats()
+            print(f"13d {engine} {form}: {len(out[engine, form])} requests, "
+                  f"{sum(len(v) for v in out[engine, form].values())} tokens in {wall:.2f} s; "
+                  f"graphs {g['graphs']}, replays {g['replays']}; launches "
+                  f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+            runs[f"dist_serve_{engine}_{form}"] = launches
+            del eng
+            free()
+        a, b = runs[f"dist_serve_{engine}_null"], runs[f"dist_serve_{engine}_sharded"]
+        keys = ("flash_decode", "paged_flash_decode", "fused_mlp_swiglu")
+        if out[engine, "null"] != out[engine, "sharded"] or any(a[k] != b[k] for k in keys) \
+                or not (a["flash_decode"] or a["paged_flash_decode"]):
+            raise AssertionError(f"13d {engine}: tokens equal "
+                                 f"{out[engine, 'null'] == out[engine, 'sharded']}, launches "
+                                 f"NULL {a}, sharded {b}")
+        print(f"13d {engine}: sharded tokens == NULL tokens, launches equal", flush=True)
+    return runs
+
+
+def phase_distributed() -> dict[str, dict[str, int]]:
+    """13: a world-size-1 NCCL group on the card and a (1, 1) ("data",
+    "model") DeviceMesh; 13a the sharded gemma3-1b train step, 13b the
+    elastic restore, 13c the pipeline and the compressed all-reduce, 13d
+    the sharded engines.  The group is destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import Sharder
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    store = Path(tempfile.mkdtemp(prefix="dist_store_", dir=ROOT / "build"))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        sharder = Sharder(make_mesh((1, 1), ("data", "model"), "cuda"))
+        print(f"13: NCCL group (world size 1) and mesh {sharder.mesh} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        runs, params = dist_train(sharder)
+        dist_restore(sharder, sharded_params := params["params"])
+        runs.update(dist_pipeline_and_compression(sharded_params))
+        del params, sharded_params
+        free()
+        runs.update(dist_serve(sharder))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    print(f"phase 13 wall time {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3087,6 +3372,8 @@ def main() -> int:
     paths.update(phase_legacy_tick())
     print(f"phase 11 wall time {time.perf_counter() - t0:.1f} s", flush=True)
     paths.update(phase_auto())
+    free()
+    paths.update(phase_distributed())
     for path, counts in paths.items():
         print(f"launches, {path} run: { {k: n for k, n in counts.items() if n} }", flush=True)
 

@@ -1,3 +1,3 @@
-from .checkpointer import Checkpointer
+from .checkpointer import Checkpointer, restore_with_resharding
 
-__all__ = ["Checkpointer"]
+__all__ = ["Checkpointer", "restore_with_resharding"]

@@ -29,6 +29,9 @@ from .costmodel import (A100, H100, HwSpec, evaluate, cost_bsp, cost_vertical,
                         cost_kitsune, cost_kernel_site, calibrate, roofline,
                         RooflineTerms, utilization_quadrants,
                         PEAK_FLOPS_PER_CHIP, HBM_BW_PER_CHIP, NVLINK_BW_PER_LINK)
+from .queue import (queue_bandwidth, QueueLevel, L2_QUEUE_A100, L2_QUEUE_H100,
+                    NVLINK_QUEUE, spatial_pipeline, make_spatial_pipeline,
+                    ring_push)
 from .executor import (GraphExecutor, ExecutorBackend, BSPBackend,
                        VerticalBackend, KitsuneBackend, make_backend,
                        ExecutionReport, ExecutionPlan, ExecutableCache,
@@ -58,6 +61,8 @@ __all__ = [
     "cost_kitsune", "cost_kernel_site", "calibrate", "roofline",
     "RooflineTerms", "utilization_quadrants", "PEAK_FLOPS_PER_CHIP",
     "HBM_BW_PER_CHIP", "NVLINK_BW_PER_LINK",
+    "queue_bandwidth", "QueueLevel", "L2_QUEUE_A100", "L2_QUEUE_H100",
+    "NVLINK_QUEUE", "spatial_pipeline", "make_spatial_pipeline", "ring_push",
     "GraphExecutor", "ExecutorBackend", "BSPBackend", "VerticalBackend",
     "KitsuneBackend", "make_backend", "ExecutionReport", "ExecutionPlan",
     "ExecutableCache", "init_params", "params_from_numpy", "executable_cache",

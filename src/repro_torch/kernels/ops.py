@@ -220,6 +220,99 @@ def _(x, op):
 
 
 # ---------------------------------------------------------------------------
+# DTensor sharding strategies: under a Sharder (distributed/sharding.py) each
+# op runs on every rank's local shards, inside DTensor dispatch.  Each rule
+# lists, for ONE mesh dim, acceptable (output placements, input placements);
+# DTensor expands them over the mesh's dims and picks the cheapest
+# redistribution of the inputs it was given.  A non-tensor argument's entry is
+# None.  No rule gathers a tensor that its kernel could take as a shard.
+# ---------------------------------------------------------------------------
+
+def _mlp_strategies(n_w: int, bwd: bool):
+    """B1 / B2 (n_w = 2 / 3 weights) and their backward ops.  Replicated;
+    rows sharded (x, dy and dx on dim 0; the weight gradients Partial sums
+    over the row shards); Megatron tensor parallel (the first n_w - 1
+    weights on their output dim, the last on its input dim, x replicated:
+    the forward's output and the backward's dx are Partial sums over the
+    hidden shards)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    r, s0, s1, p = Replicate(), Shard(0), Shard(1), Partial()
+
+    def rule(*args):
+        n_static = len(args) - n_w - 1 - bwd
+        pad = [None] * n_static
+        if not bwd:
+            return [([r], [r] * (n_w + 1) + pad),
+                    ([s0], [s0] + [r] * n_w + pad),
+                    ([p], [r] + [s1] * (n_w - 1) + [s0] + pad)]
+        return [([r] * (n_w + 1), [r] * (n_w + 2) + pad),
+                ([s0] + [p] * n_w, [s0] + [r] * n_w + [s0] + pad),
+                ([p] + [s1] * (n_w - 1) + [s0],
+                 [r] + [s1] * (n_w - 1) + [s0] + [r] + pad)]
+    return rule
+
+
+def _attention_rule(q, k, v, causal, window):
+    """B3: batch or heads sharded (heads: q's and k/v's on the same shards,
+    so each q head meets its GQA group), or replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [([pl], [pl] * 3 + [None, None])
+            for pl in (Replicate(), Shard(0), Shard(1))]
+
+
+def _decode_rule(q, k, v, valid, valid_int, block_s=DECODE_MAX_BLOCK_S):
+    """B4: batch (q, the caches and a per-slot valid length on dim 0) or
+    heads (q's and the caches' dim 1), or replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    r, vt = Replicate(), valid is not None
+    out = [([r], [r] * 3 + ([r] if vt else [None]) + [None, None])]
+    out.append(([Shard(0)], [Shard(0)] * 3 + ([Shard(0)] if vt else [None]) + [None, None]))
+    out.append(([Shard(1)], [Shard(1)] * 3 + ([r] if vt else [None]) + [None, None]))
+    return out
+
+
+def _paged_rule(q, kp, vp, tables, valid, valid_int, block_size, layer,
+                block_s=DECODE_MAX_BLOCK_S):
+    """B8: batch (q, the tables and valid lengths on dim 0; the pools, which
+    every slot's pages share, replicated) or heads (q's dim 1, the pools'
+    head dim), or replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    r, vt = Replicate(), valid is not None
+    static = [None] * 4
+    heads = Shard(kp.ndim - 2)
+    return [([r], [r] * 4 + ([r] if vt else [None]) + static),
+            ([Shard(0)], [Shard(0), r, r, Shard(0)] + ([Shard(0)] if vt else [None]) + static),
+            ([Shard(1)], [Shard(1), heads, heads, r] + ([r] if vt else [None]) + static)]
+
+
+def _reduce_rule(x, op):
+    """B5: any placement that leaves the reduced axis 0 whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    return ([([Replicate()], [Replicate(), None])]
+            + [([Shard(d - 1)], [Shard(d), None]) for d in range(1, x.ndim)])
+
+
+def _register_sharding() -> None:
+    import torch.distributed as dist
+    if not dist.is_available():
+        return
+    from torch.distributed.tensor.experimental import register_sharding
+    rules = {fused_mlp_fwd_op: _mlp_strategies(2, False),
+             fused_mlp_swiglu_fwd_op: _mlp_strategies(3, False),
+             fused_mlp_bwd_op: _mlp_strategies(2, True),
+             fused_mlp_swiglu_bwd_op: _mlp_strategies(3, True),
+             flash_attention_op: _attention_rule,
+             flash_decode_op: _decode_rule,
+             paged_flash_decode_op: _paged_rule,
+             queue_reduce_op: _reduce_rule}
+    for op, rule in rules.items():
+        register_sharding(op._opoverload)(rule)
+
+
+_register_sharding()
+
+
+# ---------------------------------------------------------------------------
 # what the capture front-end records of each op
 # ---------------------------------------------------------------------------
 
@@ -354,12 +447,26 @@ OP_SPECS: dict[str, OpSpec] = {
 # public functions
 # ---------------------------------------------------------------------------
 
+def _rows(x: Tensor) -> Tensor:
+    """x (..., D) as (M, D) rows.  A DTensor sharded on a leading dim other
+    than the first is gathered on that dim first: DTensor cannot flatten
+    it in place (the sequence-parallel residual stream, batch on "data"
+    and sequence on "model", meets the MLP this way)."""
+    if hasattr(x, "placements"):
+        from torch.distributed.tensor import Replicate, Shard
+        pl = [Replicate() if isinstance(p, Shard) and 0 < p.dim < x.ndim - 1 else p
+              for p in x.placements]
+        if pl != list(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return x.reshape(-1, x.shape[-1])
+
+
 def mlp(x: Tensor, w1: Tensor, w2: Tensor, *, act: str = "gelu",
         cfg: KernelConfig = _DEFAULT) -> Tensor:
     """act(x @ w1) @ w2; x may have leading batch dims.  Differentiable:
     the backward is B6."""
     lead = x.shape[:-1]
-    y = fused_mlp_fwd_op(x.reshape(-1, x.shape[-1]), w1, w2, act, cfg.f32_block_h)
+    y = fused_mlp_fwd_op(_rows(x), w1, w2, act, cfg.f32_block_h)
     return y.reshape(*lead, w2.shape[1])
 
 
@@ -368,16 +475,14 @@ def mlp_swiglu(x: Tensor, wg, wu, wd, *, act: str = "silu",
     """(act(x @ wg) * (x @ wu)) @ wd; x may have leading batch dims.
     Differentiable: the backward is B7."""
     lead = x.shape[:-1]
-    y = fused_mlp_swiglu_fwd_op(x.reshape(-1, x.shape[-1]), wg, wu, wd, act,
-                                cfg.f32_block_h)
+    y = fused_mlp_swiglu_fwd_op(_rows(x), wg, wu, wd, act, cfg.f32_block_h)
     return y.reshape(*lead, wd.shape[1])
 
 
 def mlp_bwd(x: Tensor, w1: Tensor, w2: Tensor, dy: Tensor, *, act: str = "gelu",
             cfg: KernelConfig = _DEFAULT):
     """(dx, dw1, dw2) of act(x @ w1) @ w2; x/dy may have leading batch dims."""
-    dx, dw1, dw2 = fused_mlp_bwd_op(x.reshape(-1, x.shape[-1]), w1, w2,
-                                    dy.reshape(-1, dy.shape[-1]), act,
+    dx, dw1, dw2 = fused_mlp_bwd_op(_rows(x), w1, w2, _rows(dy), act,
                                     cfg.f32_bwd_block_h, cfg.f32_bwd_block_m)
     return dx.reshape(x.shape), dw1, dw2
 
@@ -387,7 +492,7 @@ def mlp_swiglu_bwd(x: Tensor, wg, wu, wd, dy: Tensor, *, act: str = "silu",
     """(dx, dwg, dwu, dwd) of (act(x @ wg) * (x @ wu)) @ wd; x/dy may have
     leading batch dims."""
     dx, dwg, dwu, dwd = fused_mlp_swiglu_bwd_op(
-        x.reshape(-1, x.shape[-1]), wg, wu, wd, dy.reshape(-1, dy.shape[-1]), act,
+        _rows(x), wg, wu, wd, _rows(dy), act,
         cfg.f32_bwd_block_h, cfg.f32_bwd_block_m)
     return dx.reshape(x.shape), dwg, dwu, dwd
 

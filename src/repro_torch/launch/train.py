@@ -4,6 +4,9 @@
         --steps 100 --batch 8 --seq 128
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
         --reduced --device cpu --steps 3
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch gemma3-1b --reduced --device cpu \\
+        --mesh-data 2 --mesh-model 2 --steps 3
 
 Trains on `--device` (default `cuda`) from random weights drawn from
 `--seed`, on the synthetic token stream (`data.SyntheticLM`), for the
@@ -15,12 +18,20 @@ Adafactor for configs over 100 B parameters, as the reference launcher
 picks.  `--compile-mode bsp|vertical|kitsune` runs the step through the
 dataflow pipeline (`train.compile_train_step`: the full forward, backward
 and optimizer step traced and compiled, its state donated in place),
-compiled on the first step's state and batch.  Not ported: meshes other
-than 1 x 1 (ROADMAP A8).
+compiled on the first step's state and batch, on one device only.
+
+A mesh: `--mesh-data D --mesh-model M` under `torchrun` (or with
+torch.distributed's WORLD_SIZE / RANK / MASTER_ADDR / MASTER_PORT set), one
+process per rank, world size D x M.  NCCL on the card, rank r on
+`cuda:{LOCAL_RANK}`; gloo under `--device cpu`.  Parameters (and the
+optimizer state with them) are placed by `Sharder.params_shardings` on a
+("data", "model") DeviceMesh, and the step runs under that sharder
+(train.make_train_step).  Only rank 0 prints and writes checkpoints.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from pathlib import Path
 
@@ -29,6 +40,8 @@ import torch
 from ..checkpoint import Checkpointer
 from ..configs import get_config
 from ..data import DataConfig, SyntheticLM
+from ..distributed.sharding import NULL, Sharder
+from ..models import get_model
 from ..optim import adafactor, adamw, cosine_schedule
 from ..runtime import StragglerMonitor, Supervisor
 from ..train import (TrainConfig, compile_train_step, make_train_state,
@@ -57,8 +70,11 @@ def main(argv=None):
                          "(the full fwd+bwd+optimizer step traced and compiled, "
                          "state donated in place) instead of eagerly")
     args = ap.parse_args(argv)
-    if args.mesh_data * args.mesh_model != 1:
-        raise SystemExit("only a 1 x 1 mesh is ported (ROADMAP A8)")
+    n_dev = args.mesh_data * args.mesh_model
+    if args.compile_mode is not None and n_dev > 1:
+        raise SystemExit("--compile-mode drives the single-device dataflow "
+                         "pipeline; use mesh 1x1")
+    sharder, rank, device = _mesh(args, n_dev)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -66,7 +82,6 @@ def main(argv=None):
     if cfg.family == "encdec":
         raise SystemExit(f"{cfg.name}: the launcher feeds token batches only; an "
                          f"encoder-decoder also needs frame embeddings")
-    device = torch.device(args.device)
     giant = cfg.param_count() > 100e9
     opt = adafactor(1e-2) if giant else adamw(
         cosine_schedule(3e-4, warmup=20, total=args.steps))
@@ -89,13 +104,22 @@ def main(argv=None):
                       f"{time.perf_counter() - t0:.1f} s): {low}", flush=True)
             return compiled["app"](state, batch)
     else:
-        step_fn = make_train_step(cfg, opt, tc)
+        step_fn = make_train_step(cfg, opt, tc, sharder=sharder)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                   global_batch=args.batch, seed=args.seed))
     ck = Checkpointer(args.ckpt, keep=3, async_save=True)
     sup = Supervisor(ck, checkpoint_every=args.ckpt_every,
-                     heartbeat_path=str(Path(args.ckpt) / "heartbeat"))
+                     heartbeat_path=str(Path(args.ckpt) / "heartbeat") if rank == 0 else None)
     mon = StragglerMonitor()
+    say = print if rank == 0 else (lambda *a, **k: None)
+
+    def init_state():
+        if sharder is NULL:
+            return make_train_state(cfg, opt, args.seed, device)
+        # every rank draws the same full tensors from the seed and keeps
+        # its own slices
+        params = sharder.distribute(get_model(cfg).init(args.seed, device))
+        return {"params": params, "opt": opt.init(params)}
 
     def one_step(state, step):
         t0 = time.time()
@@ -103,17 +127,41 @@ def main(argv=None):
         state, m = step_fn(state, batch)
         act = mon.record(time.time() - t0)
         if act:
-            print(f"[straggler] {act}", flush=True)
+            say(f"[straggler] {act}", flush=True)
         if step % 10 == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {float(m['loss']):.4f}", flush=True)
+            say(f"step {step:5d} loss {float(m['loss']):.4f}", flush=True)
         return state
 
-    state, report = sup.run(init_state=lambda: make_train_state(cfg, opt, args.seed, device),
-                            step_fn=one_step, n_steps=args.steps)
-    print(f"finished: {report}")
+    state, report = sup.run(init_state=init_state, step_fn=one_step, n_steps=args.steps)
+    say(f"finished: {report}")
     step = ck.latest_step()
     if step is not None and ck.last_save_s is not None:
-        print(f"checkpoint: step {step} in {args.ckpt}, last save {ck.last_save_s:.2f} s")
+        say(f"checkpoint: step {step} in {args.ckpt}, last save {ck.last_save_s:.2f} s")
+    if sharder is not NULL:
+        torch.distributed.destroy_process_group()
+
+
+def _mesh(args, n_dev: int):
+    """(sharder, rank, device).  Without a process group in the environment
+    and on a 1 x 1 mesh: NULL on `--device`.  Else one process per rank,
+    the world size data x model, NCCL on the card and gloo on the CPU."""
+    world = int(os.environ.get("WORLD_SIZE", "0"))
+    if n_dev == 1 and world == 0:
+        return NULL, 0, torch.device(args.device)
+    if world != n_dev:
+        raise SystemExit(f"--mesh-data {args.mesh_data} x --mesh-model {args.mesh_model} "
+                         f"needs a world size of {n_dev} processes, got {world} (run it "
+                         f"under torchrun --nproc-per-node {n_dev})")
+    from .mesh import make_mesh
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+        torch.distributed.init_process_group("nccl", device_id=device)
+    else:
+        torch.distributed.init_process_group("gloo")
+    mesh = make_mesh((args.mesh_data, args.mesh_model), ("data", "model"), device.type)
+    return Sharder(mesh), torch.distributed.get_rank(), device
 
 
 if __name__ == "__main__":

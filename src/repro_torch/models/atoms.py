@@ -226,12 +226,14 @@ def patched(attention=None, mlp_block=None):
         layers.mlp_block, lm.chunked_attention, encdec.chunked_attention = saved
 
 
-def _atomic_mlp_block(p, x, *, act="swiglu", kernels=None):
+def _atomic_mlp_block(p, x, *, act="swiglu", kernels=None, constrain=layers._keep):
     """`layers.mlp_block` through the atoms; `kernels` is not read: a traced
     atom's tile is the lowering pass's (its default or its tuned one)."""
     if act == "swiglu":
-        return swiglu_atom("silu")(x, p["wg"], p["wu"], p["wd"])
-    return mlp_atom(act)(x, p["w1"], p["w2"])
+        y = swiglu_atom("silu")(x, p["wg"], p["wu"], p["wd"])
+    else:
+        y = mlp_atom(act)(x, p["w1"], p["w2"])
+    return constrain(y, "act_resid")
 
 
 def dataflow_training():

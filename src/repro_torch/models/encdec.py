@@ -29,6 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..distributed.sharding import NULL, sharded_entry, split_dim
 from ..kernels import KernelConfig
 from . import layers as L
 from .lm import DTYPES, chunked_attention, unstack
@@ -58,7 +59,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda", max_positions: in
     """Random weights in the reference's layout and scales, drawn from a
     `torch.Generator` seeded with `seed` on `device`."""
     dtype = DTYPES[cfg.dtype]
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # meta tensors (shapes only, e.g. to resolve shardings) draw nothing
+    gen = None if torch.device(device).type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
     d = cfg.d_model
 
     def normal(shape, scale):
@@ -73,16 +76,19 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda", max_positions: in
             "final_norm": torch.ones(d, dtype=dtype, device=device)}
 
 
-def _self_attn(p, x, *, cfg: ArchConfig, causal: bool, kv=None) -> torch.Tensor:
+def _self_attn(p, x, *, cfg: ArchConfig, causal: bool, kv=None, sharder=NULL) -> torch.Tensor:
     b, s, _ = x.shape
     src = kv if kv is not None else x
     sk = src.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (src @ p["wk"]).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
-    v = (src @ p["wv"]).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
+    q = split_dim(x @ p["wq"], 2, (cfg.n_heads, cfg.head_dim))
+    k = split_dim(src @ p["wk"], 2, (cfg.n_kv_heads, cfg.head_dim))
+    v = split_dim(src @ p["wv"], 2, (cfg.n_kv_heads, cfg.head_dim))
+    q = sharder.constrain(q, "act_heads")
+    k = sharder.constrain(k, "act_kv_heads")
     o = chunked_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                           causal=causal)
-    return o.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["wo"]
+    return sharder.constrain(o.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["wo"],
+                             "act_resid")
 
 
 def _positions(table: torch.Tensor, s: int) -> torch.Tensor:
@@ -93,38 +99,47 @@ def _positions(table: torch.Tensor, s: int) -> torch.Tensor:
     return table[None, :s]
 
 
+@sharded_entry
 def encode(params: dict, frame_embeds: torch.Tensor, cfg: ArchConfig, *,
-           kernels: KernelConfig = KernelConfig()) -> torch.Tensor:
+           kernels: KernelConfig = KernelConfig(), sharder=NULL) -> torch.Tensor:
     x = frame_embeds.to(params["embed"].dtype)
-    x = x + _positions(params["pos_enc"], x.shape[1])
+    x = sharder.constrain(x + _positions(params["pos_enc"], x.shape[1]), "act_resid")
     for p in unstack(params["enc"]):
-        x = x + _self_attn(p["attn"], L.rms_norm(x, p["ln1"]), cfg=cfg, causal=False)
-        x = x + L.mlp_block(p["mlp"], L.rms_norm(x, p["ln2"]), act="gelu", kernels=kernels)
+        x = x + _self_attn(p["attn"], L.rms_norm(x, p["ln1"]), cfg=cfg, causal=False,
+                           sharder=sharder)
+        x = x + L.mlp_block(p["mlp"], L.rms_norm(x, p["ln2"]), act="gelu", kernels=kernels,
+                            constrain=sharder.constrain)
     return L.rms_norm(x, params["enc_norm"])
 
 
-def _dec_block(p, x, enc, *, cfg: ArchConfig, kernels: KernelConfig) -> torch.Tensor:
-    x = x + _self_attn(p["attn"], L.rms_norm(x, p["ln1"]), cfg=cfg, causal=True)
-    x = x + _self_attn(p["xattn"], L.rms_norm(x, p["ln_x"]), cfg=cfg, causal=False, kv=enc)
-    return x + L.mlp_block(p["mlp"], L.rms_norm(x, p["ln2"]), act="gelu", kernels=kernels)
+def _dec_block(p, x, enc, *, cfg: ArchConfig, kernels: KernelConfig, sharder) -> torch.Tensor:
+    x = x + _self_attn(p["attn"], L.rms_norm(x, p["ln1"]), cfg=cfg, causal=True,
+                       sharder=sharder)
+    x = x + _self_attn(p["xattn"], L.rms_norm(x, p["ln_x"]), cfg=cfg, causal=False, kv=enc,
+                       sharder=sharder)
+    return x + L.mlp_block(p["mlp"], L.rms_norm(x, p["ln2"]), act="gelu", kernels=kernels,
+                           constrain=sharder.constrain)
 
 
+@sharded_entry
 def forward(params: dict, frame_embeds: torch.Tensor, tokens: torch.Tensor,
             cfg: ArchConfig, *, remat: bool = False,
-            return_hidden: bool = False, kernels: KernelConfig = KernelConfig()) -> torch.Tensor:
+            return_hidden: bool = False, kernels: KernelConfig = KernelConfig(),
+            sharder=NULL) -> torch.Tensor:
     """frame_embeds: (B, S_enc, D) stub; tokens: (B, S_dec) -> logits
     (B, S_dec, vocab), or the final-normed hidden states with
-    `return_hidden`."""
-    enc = encode(params, frame_embeds, cfg, kernels=kernels)
+    `return_hidden`; `sharder` pins the activations at the reference's
+    sites."""
+    enc = encode(params, frame_embeds, cfg, kernels=kernels, sharder=sharder)
     x = L.embed(params["embed"], tokens).to(enc.dtype)
-    x = x + _positions(params["pos_dec"], x.shape[1])
-    block = functools.partial(_dec_block, cfg=cfg, kernels=kernels)
+    x = sharder.constrain(x + _positions(params["pos_dec"], x.shape[1]), "act_resid")
+    block = functools.partial(_dec_block, cfg=cfg, kernels=kernels, sharder=sharder)
     for p in unstack(params["dec"]):
         x = checkpoint(block, p, x, enc, use_reentrant=False) if remat else block(p, x, enc)
     x = L.rms_norm(x, params["final_norm"])
     if return_hidden:
-        return x
-    return x @ params["embed"].T
+        return sharder.constrain(x, "act_resid")
+    return sharder.constrain(x @ params["embed"].T, "logits")
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, enc_len: int = 1500,
@@ -156,9 +171,10 @@ def build_cross_cache(params: dict, enc: torch.Tensor, cfg: ArchConfig, cache: d
                 xv=torch.stack(xv).to(cache["xv"].dtype))
 
 
+@sharded_entry
 def decode_step(params: dict, token: torch.Tensor, pos, cache: dict,
-                cfg: ArchConfig, *, kernels: KernelConfig = KernelConfig()
-                ) -> tuple[torch.Tensor, dict]:
+                cfg: ArchConfig, *, kernels: KernelConfig = KernelConfig(),
+                sharder=NULL) -> tuple[torch.Tensor, dict]:
     """One decoder token against the self-attention cache (updated in
     place; `flash_decode` at every layer) and the fixed cross cache
     (`chunked_attention`, as the reference attends it).  token: (B,) ids;
@@ -176,11 +192,14 @@ def decode_step(params: dict, token: torch.Tensor, pos, cache: dict,
         x = x + L.attention_decode(p["attn"], L.rms_norm(x, p["ln1"]), cache["k"][i],
                                    cache["v"][i], pos, n_heads=cfg.n_heads,
                                    n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim, theta=1e4,
-                                   valid=valid, kernels=kernels)
+                                   valid=valid, kernels=kernels,
+                                   constrain=sharder.constrain)
         h = L.rms_norm(x, p["ln_x"])
         q = (h @ p["xattn"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
         o = chunked_attention(q.transpose(1, 2), cache["xk"][i], cache["xv"][i], causal=False)
-        x = x + o.transpose(1, 2).reshape(b, 1, cfg.q_dim) @ p["xattn"]["wo"]
-        x = x + L.mlp_block(p["mlp"], L.rms_norm(x, p["ln2"]), act="gelu", kernels=kernels)
+        x = x + sharder.constrain(o.transpose(1, 2).reshape(b, 1, cfg.q_dim)
+                                  @ p["xattn"]["wo"], "act_resid")
+        x = x + L.mlp_block(p["mlp"], L.rms_norm(x, p["ln2"]), act="gelu", kernels=kernels,
+                            constrain=sharder.constrain)
     x = L.rms_norm(x, params["final_norm"])
     return (x @ params["embed"].T)[:, 0], cache

@@ -20,6 +20,7 @@ untuned call launches.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -28,10 +29,58 @@ import torch.nn.functional as F
 from ..kernels import (KernelConfig, decode_attention as k_decode, mlp as k_mlp,
                        mlp_swiglu as k_mlp_swiglu,
                        paged_decode_attention as k_paged_decode)
+from ..distributed.sharding import groupwise, split_dim
 from ..kernels._build import capturing
 from ..kernels.ref import paged_rows, to_cache
 
 NEG_INF = -1e30
+
+
+def _keep(t, _kind):
+    """The `constrain` of a call without a sharder: the identity."""
+    return t
+
+
+def _write(write, dst: torch.Tensor, src: torch.Tensor, src_dim: dict[int, int],
+           index: torch.Tensor | None = None) -> None:
+    """write(dst, src, index): an in-place write of src into dst.  Under a
+    sharder (dst a DTensor) it runs on every rank's local shards
+    (`local_map`): DTensor has no in-place index_put into a sharded tensor.
+    src_dim maps each dim of dst that may be sharded to the dim of src that
+    lines up with it; src is redistributed to match, and a per-slot index
+    (B,) is split with src's dim 0.  A dim of dst that is written at an
+    index is never sharded."""
+    from ..distributed.sharding import is_dtensor
+    if not is_dtensor(dst):
+        write(dst, src, index)
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    src_pl, idx_pl = [], []
+    for pl in dst.placements:
+        d = src_dim.get(pl.dim) if isinstance(pl, Shard) else None
+        if isinstance(pl, Shard) and d is None:
+            raise NotImplementedError(f"an in-place write into a tensor sharded on its "
+                                      f"indexed dim {pl.dim}")
+        src_pl.append(Replicate() if d is None else Shard(d))
+        idx_pl.append(Shard(0) if d == 0 else Replicate())
+    mesh = dst.device_mesh
+    args, in_pl = [dst, src], [dst.placements, tuple(src_pl)]
+    if index is not None:
+        if not is_dtensor(index):
+            index = DTensor.from_local(index, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        args.append(index)
+        in_pl.append(tuple(idx_pl))
+    else:
+        args.append(None)
+        in_pl.append(None)
+    local_map(write, out_placements=None, in_placements=tuple(in_pl), device_mesh=mesh,
+              redistribute_inputs=True)(*args)
+
+
+def _put_slots(dst, src, wpos):
+    """dst (B, H, S, D)[b, :, wpos[b]] = src[b] (B, H, D) for every slot b."""
+    dst[torch.arange(dst.shape[0], device=dst.device), :, wpos] = src
 
 
 # ---------------------------------------------------------------------------
@@ -113,20 +162,22 @@ def _normal(gen, groups, shape, scale, dtype, device) -> torch.Tensor:
     return out
 
 
-def _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta):
+def _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta, constrain=_keep):
     b, s, _ = x.shape
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = rope(q.reshape(b, s, n_heads, head_dim), positions, theta)
-    k = rope(k.reshape(b, s, n_kv, head_dim), positions, theta)
-    return q, k, v.reshape(b, s, n_kv, head_dim)
+    q = constrain(split_dim(q, 2, (n_heads, head_dim)), "act_heads")
+    k = constrain(split_dim(k, 2, (n_kv, head_dim)), "act_kv_heads")
+    v = constrain(split_dim(v, 2, (n_kv, head_dim)), "act_kv_heads")
+    return rope(q, positions, theta), rope(k, positions, theta), v
 
 
 def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos, *, n_heads: int, n_kv: int,
                      head_dim: int, theta: float = 1e4, window: int | None = None,
-                     valid=None, kernels: KernelConfig = KernelConfig()) -> torch.Tensor:
+                     valid=None, kernels: KernelConfig = KernelConfig(),
+                     constrain=_keep) -> torch.Tensor:
     """Single-token decode with an in-place KV cache update.
 
     cache_k/v: (B, n_kv, S_max, D).  pos: the current position, a python
@@ -143,19 +194,22 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
         positions = pos.reshape(b, 1)
     else:
         positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
-    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta)
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta, constrain)
     kc = to_cache(k[:, 0], cache_k.dtype)                   # (B, n_kv, D)
     vc = to_cache(v[:, 0], cache_v.dtype)
     # the write position clamps to the last row, as a dynamic slice update does
+    rows = {0: 0, 1: 1, 3: 2}          # cache dim -> kc dim
     if per_slot:
         wpos = pos.clamp(max=s_max - 1)
-        slots = torch.arange(b, device=x.device)
-        cache_k[slots, :, wpos] = kc
-        cache_v[slots, :, wpos] = vc
+        _write(_put_slots, cache_k, kc, rows, wpos)
+        _write(_put_slots, cache_v, vc, rows, wpos)
     else:
         wpos = min(pos, s_max - 1)
-        cache_k[:, :, wpos] = kc
-        cache_v[:, :, wpos] = vc
+
+        def put(dst, src, _):
+            dst[:, :, wpos] = src
+        _write(put, cache_k, kc, rows)
+        _write(put, cache_v, vc, rows)
     qh = q.transpose(1, 2)
     if valid is None:
         valid = (pos + 1).to(torch.int32) if per_slot else pos + 1
@@ -166,7 +220,7 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
         o = _grouped_decode(qh, cache_k, cache_v, valid, lo, n_heads=n_heads,
                             n_kv=n_kv, head_dim=head_dim, out_dtype=x.dtype)
     o = o.transpose(1, 2).reshape(b, 1, n_heads * head_dim)
-    return o @ p["wo"]
+    return constrain(o @ p["wo"], "act_resid")
 
 
 def _grouped_decode(qh, ck, cv, valid, lo, *, n_heads, n_kv, head_dim, out_dtype):
@@ -175,7 +229,7 @@ def _grouped_decode(qh, ck, cv, valid, lo, *, n_heads, n_kv, head_dim, out_dtype
     (B, Hkv, S, D), in any dtype (a float8 cache is read as float32);
     valid, lo: ints or (B,) tensors.  Returns (B, Hq, 1, D)."""
     b, s_max = qh.shape[0], ck.shape[2]
-    qg = qh.reshape(b, n_kv, n_heads // n_kv, head_dim)
+    qg = split_dim(qh.reshape(b, n_heads, head_dim), 1, (n_kv, n_heads // n_kv))
     ki = torch.arange(s_max, device=qh.device)
     valid = torch.as_tensor(valid, device=qh.device).reshape(-1, 1)
     lo = torch.as_tensor(lo, device=qh.device).reshape(-1, 1)
@@ -192,7 +246,8 @@ def attention_decode_paged(p: dict, x: torch.Tensor, kp: torch.Tensor,
                            write_rows: torch.Tensor, *, layer: tuple[int, int],
                            block_size: int, n_heads: int, n_kv: int, head_dim: int,
                            theta: float = 1e4, window: int | None = None,
-                           valid=None, kernels: KernelConfig = KernelConfig()) -> torch.Tensor:
+                           valid=None, kernels: KernelConfig = KernelConfig(),
+                           constrain=_keep) -> torch.Tensor:
     """Block-table-native decode: K/V live in the flat page pools the whole
     time -- no dense view, no scatter back.
 
@@ -205,9 +260,14 @@ def attention_decode_paged(p: dict, x: torch.Tensor, kp: torch.Tensor,
     and run the grouped torch path."""
     b = x.shape[0]
     g_i, a_i = layer
-    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, pos.reshape(b, 1), theta)
-    kp[write_rows, g_i, a_i] = to_cache(k[:, 0], kp.dtype)
-    vp[write_rows, g_i, a_i] = to_cache(v[:, 0], vp.dtype)
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, pos.reshape(b, 1), theta,
+                           constrain)
+
+    def put(dst, src, rows):
+        dst[rows, g_i, a_i] = src
+    heads = {3: 1, 4: 2}               # pool dim -> new K/V dim
+    _write(put, kp, to_cache(k[:, 0], kp.dtype), heads, write_rows)
+    _write(put, vp, to_cache(v[:, 0], vp.dtype), heads, write_rows)
     qh = q.transpose(1, 2)
     if valid is None:
         valid = (pos + 1).to(torch.int32)
@@ -222,7 +282,7 @@ def attention_decode_paged(p: dict, x: torch.Tensor, kp: torch.Tensor,
         o = _grouped_decode(qh, ck, cv, valid, lo, n_heads=n_heads, n_kv=n_kv,
                             head_dim=head_dim, out_dtype=x.dtype)
     o = o.transpose(1, 2).reshape(b, 1, n_heads * head_dim)
-    return o @ p["wo"]
+    return constrain(o @ p["wo"], "act_resid")
 
 
 # ---------------------------------------------------------------------------
@@ -241,12 +301,14 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, *, groups: int,
 
 
 def mlp_block(p: dict, x: torch.Tensor, *, act: str = "swiglu",
-              kernels: KernelConfig = KernelConfig()) -> torch.Tensor:
+              kernels: KernelConfig = KernelConfig(), constrain=_keep) -> torch.Tensor:
     """The paper's Fig 2(a) pattern -> the fused MLP kernels; under autograd
     their backward is the Fig 2(c) kernels (kernels/ops.py)."""
     if act == "swiglu":
-        return k_mlp_swiglu(x, p["wg"], p["wu"], p["wd"], cfg=kernels)
-    return k_mlp(x, p["w1"], p["w2"], act=act, cfg=kernels)
+        y = k_mlp_swiglu(x, p["wg"], p["wu"], p["wd"], cfg=kernels)
+    else:
+        y = k_mlp(x, p["w1"], p["w2"], act=act, cfg=kernels)
+    return constrain(y, "act_resid")
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +389,7 @@ def _combine_group(out_e, info, n_tok: int, top_k: int, dtype):
 
 def moe_block(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
               act: str = "swiglu", capacity_factor: float = 1.25,
-              num_groups: int = 64) -> torch.Tensor:
+              num_groups: int = 64, constrain=_keep) -> torch.Tensor:
     """Mixture of experts with capacity routing: tokens split into groups,
     each group's routing entries dispatched to per-expert capacity slots
     (overflow drops), the experts computed as batched products over the
@@ -344,19 +406,26 @@ def moe_block(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     cap = max(int(n_tok // g * top_k / n_experts * capacity_factor), 1)
     toks = x.reshape(g, n_tok // g, d)
     logits = (toks @ p["router"]).float()
-    dispatched, info = _dispatch_group(toks, logits, n_experts=n_experts, top_k=top_k,
-                                       cap=cap)
-    e = p["experts"]
+    dispatched, info = groupwise(
+        functools.partial(_dispatch_group, n_experts=n_experts, top_k=top_k, cap=cap),
+        4, toks, logits)
+    dispatched = constrain(dispatched, "act_grouped_experts")        # (G, E, C, D)
+    e = {k: constrain(v, "expert_weights") for k, v in p["experts"].items()}
     flat = dispatched.transpose(0, 1).reshape(n_experts, g * cap, d)
     if act == "swiglu":
-        h = (F.silu(torch.bmm(flat, e["wg"]).float())
-             * torch.bmm(flat, e["wu"]).float()).to(x.dtype)
+        gg = constrain(torch.bmm(flat, e["wg"]), "act_expert_hidden_flat")
+        uu = constrain(torch.bmm(flat, e["wu"]), "act_expert_hidden_flat")
+        h = (F.silu(gg.float()) * uu.float()).to(x.dtype)
         out_f = torch.bmm(h, e["wd"])
     else:
-        h = F.gelu(torch.bmm(flat, e["w1"]).float(), approximate="tanh").to(x.dtype)
+        h = constrain(torch.bmm(flat, e["w1"]), "act_expert_hidden_flat")
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
         out_f = torch.bmm(h, e["w2"])
-    out_e = out_f.reshape(n_experts, g, cap, d).transpose(0, 1)
-    return _combine_group(out_e, info, n_tok // g, top_k, x.dtype).reshape(b, s, d)
+    out_e = constrain(out_f.reshape(n_experts, g, cap, d).transpose(0, 1),
+                      "act_grouped_experts")
+    out = groupwise(functools.partial(_combine_group, n_tok=n_tok // g, top_k=top_k,
+                                      dtype=x.dtype), 1, out_e, info)
+    return constrain(out.reshape(b, s, d), "act_resid")
 
 
 # ---------------------------------------------------------------------------
@@ -377,7 +446,7 @@ def init_mamba(gen: torch.Generator, d_model: int, d_inner: int, d_state: int, *
 
 
 def mamba_block(p: dict, x: torch.Tensor, *, d_state: int,
-                ssm_state: torch.Tensor | None = None):
+                ssm_state: torch.Tensor | None = None, constrain=_keep):
     """Selective SSM h_t = a_t * h_{t-1} + b_t, the state (B, I, state) in
     float32; only (y * z) is cast back before the output projection.
 
@@ -404,7 +473,7 @@ def mamba_block(p: dict, x: torch.Tensor, *, d_state: int,
         hs = torch.stack(steps, dim=1)
     y = torch.einsum("bsid,bsd->bsi", hs, c_out)
     y = y + xin * p["d_skip"]
-    return (y * z).to(x.dtype) @ p["out"], h
+    return constrain((y * z).to(x.dtype) @ p["out"], "act_resid"), h
 
 
 # ---------------------------------------------------------------------------
@@ -423,7 +492,7 @@ def init_mlstm(gen: torch.Generator, d_model: int, n_heads: int, *, groups: int,
             for k, (shape, sc) in shapes.items()}
 
 
-def mlstm_block(p: dict, x: torch.Tensor, *, n_heads: int) -> torch.Tensor:
+def mlstm_block(p: dict, x: torch.Tensor, *, n_heads: int, constrain=_keep) -> torch.Tensor:
     """mLSTM, parallel form: C_t = f_t C_{t-1} + i_t v_t k_t^T, h_t = C_t q_t
     / max(|n_t . q_t|, exp(-m_t)), computed as attention weighted by the
     stabilised cumulative log gates."""
@@ -452,7 +521,7 @@ def mlstm_block(p: dict, x: torch.Tensor, *, n_heads: int) -> torch.Tensor:
     h = torch.einsum("bhqk,bhkd->bhqd", scores / norm, v.float())
     h = h.transpose(1, 2).reshape(b, s, d_in).to(x.dtype)
     h = h * F.silu(x @ p["skip_g"])
-    return h @ p["down"]
+    return constrain(h @ p["down"], "act_resid")
 
 
 def mlstm_step(p: dict, x: torch.Tensor, n_heads: int, state):
@@ -513,7 +582,7 @@ def init_slstm(gen: torch.Generator, d_model: int, n_heads: int, *, groups: int,
             "out": _normal(gen, groups, (d_model, d_model), s, dtype, device)}
 
 
-def slstm_block(p: dict, x: torch.Tensor) -> torch.Tensor:
+def slstm_block(p: dict, x: torch.Tensor, *, constrain=_keep) -> torch.Tensor:
     """sLSTM over the sequence: the cell stepped from (0, 0, -1e30), the
     part of xLSTM that does not parallelise over time."""
     b, s, d = x.shape
@@ -524,4 +593,4 @@ def slstm_block(p: dict, x: torch.Tensor) -> torch.Tensor:
     for t in range(s):
         h, state = slstm_step_fn(gates[:, t], state)
         hs.append(h)
-    return torch.stack(hs, dim=1).to(x.dtype) @ p["out"]
+    return constrain(torch.stack(hs, dim=1).to(x.dtype) @ p["out"], "act_resid")

@@ -44,6 +44,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..distributed.sharding import NULL, sharded_entry, split_dim
+from ..distributed.sharding import pad as pad_dims
 from ..kernels import KernelConfig
 from ..kernels.ref import E4M3, to_cache
 from . import layers as L
@@ -98,14 +100,14 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int | None = None
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     grp = hq // hkv
-    qf = q.reshape(b, hkv, grp, sq, d).float()
+    qf = split_dim(q, 1, (hkv, grp)).float()
     if skv > 8192:
         chunk = min(chunk, 512)   # bound the f32 score tile at long context
     chunk = min(chunk, skv)
     pad = (-skv) % chunk
     if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        k = pad_dims(k, (0, 0, 0, pad))
+        v = pad_dims(v, (0, 0, 0, pad))
     scale = d ** -0.5
     qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
     w = HUGE_WINDOW if window is None else window
@@ -170,7 +172,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     numbers from one seed; tests carry the reference's weights across with
     `params_from_numpy` instead."""
     dtype = DTYPES[cfg.dtype]
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # meta tensors (shapes only, e.g. to resolve shardings) draw nothing
+    gen = None if torch.device(device).type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
     d, groups = cfg.d_model, _n_groups(cfg)
 
     def normal(shape, scale):
@@ -205,39 +209,43 @@ def layer_schedule(cfg: ArchConfig) -> dict[str, list[list]]:
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _attn(p, x, *, cfg: ArchConfig, positions, theta, window) -> torch.Tensor:
+def _attn(p, x, *, cfg: ArchConfig, positions, theta, window, sharder=NULL) -> torch.Tensor:
     b, s, _ = x.shape
     q, k, v = L._project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                             positions, theta)
+                             positions, theta, sharder.constrain)
     o = chunked_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                           causal=True, window=window)
-    return o.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["wo"]
+    return sharder.constrain(o.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["wo"],
+                             "act_resid")
 
 
 def _apply_sub(p, kind: str, x, *, cfg: ArchConfig, positions, window, theta,
                moe_groups: int = 64, moe_cf: float = 1.25,
-               kernels: KernelConfig = KernelConfig()) -> torch.Tensor:
+               kernels: KernelConfig = KernelConfig(), sharder=NULL) -> torch.Tensor:
     """One sub-layer.  dense / moe / hybrid: pre-norm attention (hymba adds
     the Mamba branch on the same input and averages the two), then the
     pre-norm MLP or MoE block; mlstm / slstm: the pre-norm recurrent block."""
+    c = sharder.constrain
     if kind in ATTN_KINDS:
         a = _attn(p["attn"], L.rms_norm(x, p["ln1"]), cfg=cfg, positions=positions,
-                  theta=theta, window=window)
+                  theta=theta, window=window, sharder=sharder)
         if kind == "hybrid":
             ssm_out, _ = L.mamba_block(p["ssm"], L.rms_norm(x, p["ln_ssm"]),
-                                       d_state=cfg.ssm_state)
+                                       d_state=cfg.ssm_state, constrain=c)
             a = 0.5 * (a + ssm_out)
         x = x + a
         h2 = L.rms_norm(x, p["ln2"])
         if kind == "moe":
             return x + L.moe_block(p["moe"], h2, n_experts=cfg.n_experts, top_k=cfg.top_k,
                                    act=_mlp_act(cfg), capacity_factor=moe_cf,
-                                   num_groups=moe_groups)
-        return x + L.mlp_block(p["mlp"], h2, act=_mlp_act(cfg), kernels=kernels)
+                                   num_groups=moe_groups, constrain=c)
+        return x + L.mlp_block(p["mlp"], h2, act=_mlp_act(cfg), kernels=kernels,
+                               constrain=c)
     if kind == "mlstm":
-        return x + L.mlstm_block(p["mlstm"], L.rms_norm(x, p["ln1"]), n_heads=cfg.n_heads)
+        return x + L.mlstm_block(p["mlstm"], L.rms_norm(x, p["ln1"]), n_heads=cfg.n_heads,
+                                 constrain=c)
     if kind == "slstm":
-        return x + L.slstm_block(p["slstm"], L.rms_norm(x, p["ln1"]))
+        return x + L.slstm_block(p["slstm"], L.rms_norm(x, p["ln1"]), constrain=c)
     raise ValueError(kind)
 
 
@@ -257,29 +265,35 @@ def _embed_inputs(params, tokens, cfg: ArchConfig, patch_embeds) -> torch.Tensor
     return x
 
 
+@sharded_entry
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             remat: bool = False, return_hidden: bool = False,
             patch_embeds: torch.Tensor | None = None, moe_groups: int = 64,
-            moe_cf: float = 1.25, kernels: KernelConfig = KernelConfig()) -> torch.Tensor:
+            moe_cf: float = 1.25, kernels: KernelConfig = KernelConfig(),
+            sharder=NULL) -> torch.Tensor:
     """tokens: (B, S_txt) ids -> logits (B, S, vocab), or with
     `return_hidden` the final-normed hidden states (B, S, D) for the chunked
     cross entropy (train/step.py), which never materializes (B, S, V).
     vlm: `patch_embeds` (B, vision_tokens, D) are prepended, S =
     vision_tokens + S_txt.  MoE layers route in `moe_groups` groups at
-    capacity factor `moe_cf`."""
+    capacity factor `moe_cf`.  `sharder` (a distributed.sharding.Sharder,
+    its parameters DTensors on its mesh) pins the activations at the
+    reference's sites; NULL leaves them where they are."""
     x = _embed_inputs(params, tokens, cfg, patch_embeds)
     b, s, _ = x.shape
+    x = sharder.constrain(x, "act_resid")
     positions = torch.arange(s, device=x.device).expand(b, s)
     sched = layer_schedule(cfg)
     for g, p in enumerate(unstack(params["blocks"])):
         fn = functools.partial(_apply_group, cfg=cfg, positions=positions,
                                windows=sched["window"][g], thetas=sched["theta"][g],
-                               moe_groups=moe_groups, moe_cf=moe_cf, kernels=kernels)
+                               moe_groups=moe_groups, moe_cf=moe_cf, kernels=kernels,
+                               sharder=sharder)
         x = checkpoint(fn, p, x, use_reentrant=False) if remat else fn(p, x)
     x = L.rms_norm(x, params["final_norm"])
     if return_hidden:
-        return x
-    return x @ params.get("unembed", params["embed"]).T
+        return sharder.constrain(x, "act_resid")
+    return sharder.constrain(x @ params.get("unembed", params["embed"]).T, "logits")
 
 
 def unstack(tree: dict) -> list[dict]:
@@ -354,8 +368,9 @@ def _store(dst: torch.Tensor, new: torch.Tensor, mask: torch.Tensor | None) -> N
     dst.copy_(new)
 
 
+@sharded_entry
 def decode_step(params: dict, token: torch.Tensor, pos, cache: dict,
-                cfg: ArchConfig, *, moe_cf: float = 1.25,
+                cfg: ArchConfig, *, moe_cf: float = 1.25, sharder=NULL,
                 kernels: KernelConfig = KernelConfig(),
                 block_tables: torch.Tensor | None = None,
                 block_size: int | None = None,
@@ -389,7 +404,7 @@ def decode_step(params: dict, token: torch.Tensor, pos, cache: dict,
                 kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
                           theta=sched["theta"][g][i],
                           window=None if win >= HUGE_WINDOW else win, valid=valid,
-                          kernels=kernels)
+                          kernels=kernels, constrain=sharder.constrain)
                 h = L.rms_norm(x, p["ln1"])
                 if paged:
                     a = L.attention_decode_paged(p["attn"], h, cache["kp"], cache["vp"],
@@ -402,16 +417,19 @@ def decode_step(params: dict, token: torch.Tensor, pos, cache: dict,
                 if kind == "hybrid":
                     ssm_out, s_new = L.mamba_block(p["ssm"], L.rms_norm(x, p["ln_ssm"]),
                                                    d_state=cfg.ssm_state,
-                                                   ssm_state=cache["ssm"][g])
+                                                   ssm_state=cache["ssm"][g],
+                                                   constrain=sharder.constrain)
                     _store(cache["ssm"][g], s_new, state_mask)
                     a = 0.5 * (a + ssm_out)
                 x = x + a
                 h2 = L.rms_norm(x, p["ln2"])
                 if kind == "moe":
                     f = L.moe_block(p["moe"], h2, n_experts=cfg.n_experts, top_k=cfg.top_k,
-                                    act=_mlp_act(cfg), capacity_factor=moe_cf, num_groups=1)
+                                    act=_mlp_act(cfg), capacity_factor=moe_cf, num_groups=1,
+                                    constrain=sharder.constrain)
                 else:
-                    f = L.mlp_block(p["mlp"], h2, act=_mlp_act(cfg), kernels=kernels)
+                    f = L.mlp_block(p["mlp"], h2, act=_mlp_act(cfg), kernels=kernels,
+                                    constrain=sharder.constrain)
                 x = x + f
             elif kind == "mlstm":
                 names = ("mC", "mn", "mm")
@@ -431,12 +449,13 @@ def decode_step(params: dict, token: torch.Tensor, pos, cache: dict,
                 x = x + y
     x = L.rms_norm(x, params["final_norm"])
     table = params.get("unembed", params["embed"])
-    return (x @ table.T)[:, 0], cache
+    return sharder.constrain(x @ table.T, "logits")[:, 0], cache
 
 
+@sharded_entry
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             max_len: int | None = None, patch_embeds: torch.Tensor | None = None,
-            kernels: KernelConfig = KernelConfig()) -> tuple[torch.Tensor, dict]:
+            kernels: KernelConfig = KernelConfig(), sharder=NULL) -> tuple[torch.Tensor, dict]:
     """The full-sequence forward, and a cache for decode on the same device:
     the attention cache from the prefix's K/V, re-projected layer by layer
     in one more pass (its MoE layers routed in 8 groups, as the reference's
@@ -447,7 +466,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     sequence, vision tokens included; the reference's pass ropes the text
     positions only and fails on patch embeddings (ROADMAP C, deliberate
     differences)."""
-    logits = forward(params, tokens, cfg, patch_embeds=patch_embeds, kernels=kernels)
+    logits = forward(params, tokens, cfg, patch_embeds=patch_embeds, kernels=kernels,
+                     sharder=sharder)
     x = _embed_inputs(params, tokens, cfg, patch_embeds)
     b, s, _ = x.shape
     max_len = max_len or (s + 128)
@@ -464,11 +484,11 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             if kind in ATTN_KINDS:
                 _, k, v = L._project_qkv(p["attn"], L.rms_norm(x, p["ln1"]), cfg.n_heads,
                                          cfg.n_kv_heads, cfg.head_dim, positions,
-                                         sched["theta"][g][i])
+                                         sched["theta"][g][i], sharder.constrain)
                 cache["k"][g, attn_i, :, :, :s] = to_cache(k.transpose(1, 2), cache["k"].dtype)
                 cache["v"][g, attn_i, :, :, :s] = to_cache(v.transpose(1, 2), cache["v"].dtype)
                 attn_i += 1
             x = _apply_sub(p, kind, x, cfg=cfg, positions=positions,
                            window=sched["window"][g][i], theta=sched["theta"][g][i],
-                           moe_groups=8, moe_cf=1.25, kernels=kernels)
+                           moe_groups=8, moe_cf=1.25, kernels=kernels, sharder=sharder)
     return logits, cache

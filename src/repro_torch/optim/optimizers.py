@@ -73,8 +73,8 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
     def init(params):
         def zero(p):
             # m and v are distinct buffers (never one tensor at two places)
-            m = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            v = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            m = torch.zeros_like(p, dtype=torch.float32)
+            v = torch.zeros_like(p, dtype=torch.float32)
             if state_bits == 8:
                 return (quantize_blockwise(m, block), quantize_blockwise(v, block))
             return (m, v)

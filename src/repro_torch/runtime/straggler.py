@@ -6,7 +6,7 @@ signature is a rising step-time z-score.  Mitigations, in escalation order:
  1. deepen input prefetch (absorb jitter from the data pipeline),
  2. flag for re-mesh: report the suspect window so the supervisor can
     exclude the slow host and trigger the elastic restore path
-    (an elastic restore onto the reduced mesh, ROADMAP A8).
+    (`checkpoint.restore_with_resharding` onto the reduced mesh).
 """
 from __future__ import annotations
 

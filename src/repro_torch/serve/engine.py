@@ -71,6 +71,9 @@ from ..core.compiler import cached_jit, compile as compile_fn
 from ..core.costmodel import paged_decode_traffic
 from ..core.cudagraph import CapturedGraph, GraphCaptureError, graph_stats
 from ..core.executor import executable_cache
+from ..distributed.sharding import (NULL, cache_placement, full_tensor, is_dtensor,
+                                    is_sharded, join_local, place, pool_placement,
+                                    replicated_view, split_local)
 from ..kernels import KernelConfig
 from ..kernels.ref import paged_rows
 from ..models import check_decode, get_model
@@ -172,22 +175,38 @@ def _compiled(fn, example: tuple, sc: ServeConfig, device: torch.device):
     return step
 
 
-def serve_step(params, state, cfg: ArchConfig, kernels: KernelConfig = KernelConfig()):
+def serve_step(params, state, cfg: ArchConfig, kernels: KernelConfig = KernelConfig(),
+               sharder=NULL):
     """One decode tick for the whole batch (legacy contiguous engine).
 
     state = {"tokens": (B,), "pos": (B,) or int, "cache": {...}}; the cache
-    is updated in place.  Returns the sampled next tokens and the logits."""
+    is updated in place.  Returns the sampled next tokens and the logits.
+    Under a `sharder` (params and cache DTensors on its mesh) the decode
+    step's activations are pinned at the reference's sites, and the tokens
+    and logits come back whole (plain tensors)."""
     logits, cache = get_model(cfg).decode_step(params, state["tokens"],
                                                state["pos"], state["cache"],
-                                               kernels=kernels)
-    return {"tokens": logits.argmax(dim=-1), "pos": state["pos"] + 1,
-            "cache": cache, "logits": logits}
+                                               kernels=kernels, sharder=sharder)
+    tokens = logits.argmax(dim=-1)
+    if is_sharded(sharder):
+        tokens, logits = full_tensor(tokens), full_tensor(logits)
+    return {"tokens": tokens, "pos": state["pos"] + 1, "cache": cache, "logits": logits}
 
 
-def _legacy_tick(params, cache, feed, cfg: ArchConfig, kernels: KernelConfig):
+def _legacy_tick(params, cache, feed, cfg: ArchConfig, kernels: KernelConfig,
+                 sharder=NULL):
     """`serve_step` with the cache apart from the per-tick tokens and
     position, so that a compiled tick keeps the cache in place."""
-    return serve_step(params, {**feed, "cache": cache}, cfg, kernels)
+    return serve_step(params, {**feed, "cache": cache}, cfg, kernels, sharder)
+
+
+def _local_tick(params, cache, feed, *, layouts: dict, **kw):
+    """`_legacy_tick` over the local shards of DTensor params and cache
+    (`split_local`): the captured graph reads plain tensors at their
+    addresses, and the DTensors are wrapped around them inside."""
+    out = _legacy_tick(join_local(params, layouts["params"]),
+                       join_local(cache, layouts["cache"]), feed, **kw)
+    return {**out, "cache": cache}
 
 
 class ServingEngine:
@@ -210,11 +229,17 @@ class ServingEngine:
     compiler's executor instead."""
 
     def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
-                 eos_id: int = 1, kernels: KernelConfig = KernelConfig()):
+                 eos_id: int = 1, kernels: KernelConfig = KernelConfig(), sharder=NULL):
         check_decode(cfg)
+        self.sharded = is_sharded(sharder)
+        if self.sharded and sc.compile_mode is not None:
+            raise ValueError("sharder= with compile_mode: the capture front-end traces "
+                             "plain tensors, not DTensors (ROADMAP C)")
         self.cfg = cfg
-        self.params = params
+        self.params = sharder.distribute(params) if self.sharded and not \
+            is_dtensor(params["embed"]) else params
         self.sc = sc
+        self.sharder = sharder
         self.device = _device_of(params)
         self.eos = eos_id
         self.queue: deque[tuple[int, list[int]]] = deque()
@@ -225,13 +250,23 @@ class ServingEngine:
         self.pos = 0
         _apply_cache_capacity(sc)
         tick = functools.partial(_legacy_tick, cfg=cfg, kernels=kernels)
+        if self.sharded:
+            # the graph reads the local shards in place; the tick wraps them
+            self.cache = {k: place(v, cache_placement(sharder, v))
+                          if k in ("k", "v", "xk", "xv") else sharder.replicate(v)
+                          for k, v in self.cache.items()}
+            self._params_local, p_lay = split_local(self.params)
+            self._cache_local, c_lay = split_local(self.cache)
+            tick = functools.partial(_local_tick, layouts={"params": p_lay, "cache": c_lay},
+                                     cfg=cfg, kernels=kernels, sharder=sharder)
         if sc.compile_mode is not None:
             zeros = torch.zeros(sc.batch, dtype=torch.int64, device=self.device)
             self._step = _compiled(tick, (params, self.cache, {"tokens": zeros, "pos": zeros}),
                                    sc, self.device)
         else:
             self._step = cached_jit(tick, key=("serve_step", cfg.name, sc.batch, sc.max_len,
-                                               repr(kernels), cfg.kv_cache_dtype),
+                                               repr(kernels), cfg.kv_cache_dtype,
+                                               str(getattr(sharder, "mesh", "null"))),
                                     inplace_argnums=(0, 1))
             # on the card the graph reads this engine's cache at its address
             # and serves no other engine: it goes, with its pool, when the
@@ -263,11 +298,15 @@ class ServingEngine:
             if slot is not None and slot["fed"] < len(slot["prompt"]):
                 feed[i] = slot["prompt"][slot["fed"]]   # teacher-force prompt
                 slot["fed"] += 1
-        out = self._step(self.params, self.cache, {
-            "tokens": torch.from_numpy(feed).to(self.device),
-            "pos": torch.full((self.sc.batch,), self.pos, dtype=torch.int64,
-                              device=self.device)})
-        self.cache = out["cache"]
+        feed_t = {"tokens": torch.from_numpy(feed).to(self.device),
+                  "pos": torch.full((self.sc.batch,), self.pos, dtype=torch.int64,
+                                    device=self.device)}
+        if self.sharded:
+            # the cache's local shards are written in place under the DTensors
+            out = self._step(self._params_local, self._cache_local, feed_t)
+        else:
+            out = self._step(self.params, self.cache, feed_t)
+            self.cache = out["cache"]
         self.pos += 1
         nxt = out["tokens"].cpu().numpy()
         active = 0
@@ -357,7 +396,8 @@ def aux_state(cfg: ArchConfig, batch: int, device) -> dict:
 
 
 def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
-               n_steps: int, mode: str = "gather", kernels: KernelConfig = KernelConfig()):
+               n_steps: int, mode: str = "gather", kernels: KernelConfig = KernelConfig(),
+               sharder=NULL):
     """One serving tick over paged KV: `n_steps` decode steps with per-slot
     activity masks (chunked prefill and decode mixed in one tick).
 
@@ -386,6 +426,10 @@ def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
     that is redirected to the null page (native) / skipped by the scatter
     (gather); positions past a slot's valid length get probability 0; an
     inactive slot's recurrent state is written back unchanged.
+
+    Under a `sharder` (params and pools DTensors on its mesh, "native" mode)
+    the decode steps pin their activations at the reference's sites, and the
+    sampled tokens and logits come back whole (plain tensors).
     """
     model = get_model(cfg)
     tokens, n_tok, pos = state["tokens"], state["n_tok"], state["pos"]
@@ -417,10 +461,12 @@ def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
             lg, _ = model.decode_step(params, tokens[:, j], pos, cache,
                                       block_tables=tables, block_size=bs,
                                       kv_write_rows=write_rows, state_mask=active,
-                                      kernels=kernels)
+                                      kernels=kernels, sharder=sharder)
         else:
             lg, _ = model.decode_step(params, tokens[:, j], pos, cache, state_mask=active,
-                                      kernels=kernels)
+                                      kernels=kernels, sharder=sharder)
+        if is_sharded(sharder):
+            lg = full_tensor(lg)
         logits = lg if logits is None else torch.where(active[:, None], lg, logits)
         pos = torch.where(active, pos + 1, pos)
 
@@ -484,7 +530,7 @@ class CapturedTick:
     def __init__(self, params, cfg: ArchConfig, kp: torch.Tensor | None,
                  vp: torch.Tensor | None, aux: dict, *, batch: int, block_size: int,
                  n_steps: int, v_blocks: int, mode: str, pool,
-                 kernels: KernelConfig = KernelConfig()):
+                 kernels: KernelConfig = KernelConfig(), sharder=NULL):
         dev = params["embed"].device
         i64 = dict(dtype=torch.int64, device=dev)
         self.state = {"tokens": torch.zeros((batch, n_steps), **i64),
@@ -496,7 +542,7 @@ class CapturedTick:
                                                  device=dev), kp=kp, vp=vp)
             self.inputs += ("tables",)
         tick = functools.partial(paged_tick, params, self.state, cfg, block_size=block_size,
-                                 n_steps=n_steps, mode=mode, kernels=kernels)
+                                 n_steps=n_steps, mode=mode, kernels=kernels, sharder=sharder)
         try:
             self.graph = CapturedGraph(tick, dev, what=f"the tick ({n_steps} steps, "
                                        f"{v_blocks} blocks)", pool=pool, count_warm_up=False)
@@ -535,12 +581,14 @@ class PagedKVExecutor:
     MEMORY_FRACTION = 0.9
 
     def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
-                 fault: FaultInjector | None = None, kernels: KernelConfig = KernelConfig()):
+                 fault: FaultInjector | None = None, kernels: KernelConfig = KernelConfig(),
+                 sharder=NULL):
         self.cfg = cfg
         self.params = params
         self.sc = sc
         self.fault = fault
         self.kernels = kernels
+        self.sharder = sharder
         self.device = _device_of(params)
         self.profile_error: str | None = None
         template = lm.init_cache(cfg, 1, sc.block_size, device="meta")["k"]
@@ -574,7 +622,7 @@ class PagedKVExecutor:
         if self.device.type != "cuda":
             return 0
         b, dev = self.sc.batch, self.device
-        kp, vp = self.initialize_cache(1)
+        kp, vp = place_pools(self.sharder, *self.initialize_cache(1))
         zeros = dict(dtype=torch.int64, device=dev)
         state = {"tokens": torch.zeros((b, 1), **zeros), "n_tok": torch.zeros(b, **zeros),
                  "pos": torch.zeros(b, **zeros),
@@ -584,7 +632,8 @@ class PagedKVExecutor:
         held = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         paged_tick(self.params, state, self.cfg, block_size=self.sc.block_size,
-                   n_steps=1, mode=self.sc.paged_attention, kernels=self.kernels)
+                   n_steps=1, mode=self.sc.paged_attention, kernels=self.kernels,
+                   sharder=self.sharder)
         torch.cuda.synchronize(dev)
         return torch.cuda.max_memory_allocated(dev) - held
 
@@ -594,7 +643,8 @@ class PagedKVExecutor:
         max_blocks + batch so a full-length request plus one block per slot
         always fits.  No host swap tier, so swap_blocks is 0."""
         budget = self._device_budget()
-        param_bytes = sum(t.numel() * t.element_size() for t in _leaves(self.params))
+        param_bytes = sum(t.numel() * t.element_size()
+                          for t in _leaves(split_local(self.params)[0]))
         floor = self.max_blocks + self.sc.batch
         try:
             act_bytes = self.profile_run()
@@ -611,6 +661,14 @@ class PagedKVExecutor:
         rows = (num_blocks + 1) * self.sc.block_size
         kp = torch.zeros((rows, *self.page_shape), dtype=self.kv_dtype, device=self.device)
         return kp, torch.zeros_like(kp)
+
+
+def place_pools(sharder, kp: torch.Tensor, vp: torch.Tensor):
+    """The page pools as a tick reads them under `sharder`: DTensors laid
+    out by `pool_placement` (under NULL, the pools themselves)."""
+    if not is_sharded(sharder):
+        return kp, vp
+    return tuple(place(t, pool_placement(sharder, t)) for t in (kp, vp))
 
 
 def _leaves(tree: dict):
@@ -632,15 +690,22 @@ class PagedServingEngine:
 
     def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
                  eos_id: int = 1, clock=time.monotonic,
-                 kernels: KernelConfig = KernelConfig()):
+                 kernels: KernelConfig = KernelConfig(), sharder=NULL):
         if cfg.family == "encdec":
             raise ValueError("paged serving covers decoder-only families")
         if sc.paged_attention not in ("gather", "native"):
             raise ValueError("paged_attention must be 'gather' or 'native', "
                              f"got {sc.paged_attention!r}")
         check_decode(cfg)                # refuses what the port cannot decode
+        self.sharder, self.sharded = sharder, is_sharded(sharder)
+        if self.sharded and (sc.compile_mode is not None or sc.paged_attention != "native"):
+            raise ValueError("sharder= serves the native paged path only: the capture "
+                             "front-end traces plain tensors, and the gather path's pool "
+                             "scatter has no DTensor form (ROADMAP C)")
         _apply_cache_capacity(sc)
         self.cfg = cfg
+        if self.sharded and not is_dtensor(params["embed"]):
+            params = sharder.distribute(params)
         self.params = params
         self.sc = sc
         self.kernels = kernels
@@ -657,17 +722,24 @@ class PagedServingEngine:
         full = lm.init_cache(cfg, b, 1, device=self.device)
         self.aux_init = {k: v for k, v in full.items() if k in _AUX_BATCH_AXIS}
         self.aux = {k: v.clone() for k, v in self.aux_init.items()}
+        # what a tick reads: under a sharder, replicated DTensors over the
+        # very buffers (the refill reset writes the buffers themselves)
+        self._tick_aux = {k: replicated_view(sharder, v) for k, v in self.aux.items()}
         self.has_kv = "k" in full
         self.executor = self.pool = self.prefix = self.tables = None
         self.kp = self.vp = None
+        self._pools = (None, None)
         if self.has_kv:
             self.executor = PagedKVExecutor(cfg, params, sc, fault=self.injector,
-                                            kernels=kernels)
+                                            kernels=kernels, sharder=sharder)
             if sc.num_blocks is not None:
                 num = sc.num_blocks
             else:
                 num, _ = self.executor.get_max_allowed_kv_blocks()
-            self.kp, self.vp = self.executor.initialize_cache(num)
+            # under a sharder the ticks read DTensor pools over the local
+            # shards this engine keeps as kp / vp
+            self._pools = place_pools(sharder, *self.executor.initialize_cache(num))
+            self.kp, self.vp = (t.to_local() if self.sharded else t for t in self._pools)
             self.pool = BlockPool(num, sc.block_size,
                                   on_evict=lambda key, bid: self.prefix.on_evict(key, bid),
                                   fault=self.injector)
@@ -750,14 +822,16 @@ class PagedServingEngine:
         elif self.device.type == "cuda":
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
-            fn = CapturedTick(self.params, self.cfg, self.kp, self.vp, self.aux,
+            fn = CapturedTick(self.params, self.cfg, *self._pools, self._tick_aux,
                               batch=sc.batch, block_size=sc.block_size, n_steps=n_steps,
                               v_blocks=v_blocks, mode=sc.paged_attention,
-                              pool=self._graph_pool, kernels=self.kernels)
+                              pool=self._graph_pool, kernels=self.kernels,
+                              sharder=self.sharder)
         else:
             fn = functools.partial(paged_tick, self.params, cfg=self.cfg,
                                    block_size=sc.block_size, n_steps=n_steps,
-                                   mode=sc.paged_attention, kernels=self.kernels)
+                                   mode=sc.paged_attention, kernels=self.kernels,
+                                   sharder=self.sharder)
         self._steps[key] = fn
         return fn
 
@@ -770,7 +844,7 @@ class PagedServingEngine:
               "pos": torch.zeros(b, **i64), **self.aux}
         if self.has_kv:
             st.update(tables=torch.zeros((b, v_blocks), dtype=torch.int32, device=dev),
-                      kp=self.kp, vp=self.vp)
+                      kp=self._pools[0], vp=self._pools[1])
         return st
 
     def graph_stats(self) -> dict:
@@ -1135,14 +1209,15 @@ class PagedServingEngine:
         # into its input buffers
         state = {"tokens": torch.from_numpy(tokens),
                  "n_tok": torch.tensor(n_tok, dtype=torch.int64),
-                 "pos": torch.from_numpy(self.pos), **self.aux}
+                 "pos": torch.from_numpy(self.pos), **self._tick_aux}
         v_blocks = 0
         if self.has_kv:
             need = max(blocks_for(int(self.pos[i]) + n_tok[i], self.sc.block_size)
                        for i in active)
             v_blocks = self._view_for(need)
+            kp, vp = self._pools
             state.update(tables=torch.from_numpy(self.tables[:, :v_blocks].copy()),
-                         kp=self.kp, vp=self.vp)
+                         kp=kp, vp=vp)
         out = self._get_step(c, v_blocks)(state)
         nxt = out["tokens_next"].cpu().numpy()
         self.pos = out["pos"].cpu().numpy()

@@ -13,15 +13,17 @@ dataflow pass pipeline.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.compiler import compile as _compile
+from ..distributed.sharding import (NULL, dispatch_context, full_tensor, is_dtensor,
+                                    is_sharded, pad as pad_dims, place)
 from ..kernels import KernelConfig
 from ..models import atoms, get_model
 from ..optim import Optimizer, clip_by_global_norm
@@ -59,18 +61,30 @@ def loss_fn(logits: torch.Tensor, tokens: torch.Tensor, z_loss: float = 0.0) -> 
     return loss
 
 
-def _xent_chunk(xi, table, ti):
+def _xent_chunk(xi, table, ti, constrain=None):
     """(sum of -log p, sum of lse^2, count) over one chunk's valid targets
-    (ti >= 0)."""
-    logits = (xi @ table.T).float()
+    (ti >= 0); `constrain` pins the chunk's logits ("logits")."""
+    logits = xi @ table.T
+    if constrain is not None:
+        logits = constrain(logits, "logits")
+    logits = logits.float()
     lse = _lse(logits)
     valid = (ti >= 0).float()
-    ll = logits.gather(-1, ti.clamp(min=0)[..., None].long())[..., 0]
+    if constrain is None:
+        ll = logits.gather(-1, ti.clamp(min=0)[..., None].long())[..., 0]
+    else:
+        # the target's logit as a masked sum over the vocab-sharded dim (one
+        # term is not zero, so the sum is exact): DTensor's gather on a
+        # sharded dim cannot reduce its masked partial sums
+        vocab = torch.arange(logits.shape[-1], device=ti.device)
+        hit = vocab == ti.clamp(min=0)[..., None].long()
+        ll = torch.where(hit, logits, 0.0).sum(-1)
     return ((lse - ll) * valid).sum(), (lse.square() * valid).sum(), valid.sum()
 
 
 def chunked_softmax_xent(x: torch.Tensor, table: torch.Tensor, tokens: torch.Tensor,
-                         z_loss: float = 0.0, chunk: int = 512) -> torch.Tensor:
+                         z_loss: float = 0.0, chunk: int = 512,
+                         sharder=NULL) -> torch.Tensor:
     """Cross entropy without materializing (B, S, V) logits.
 
     x: (B, S, D) final hidden states; table: (V, D).  Each sequence chunk's
@@ -82,11 +96,13 @@ def chunked_softmax_xent(x: torch.Tensor, table: torch.Tensor, tokens: torch.Ten
     xs = x[:, -n - 1:-1]
     pad = (-n) % chunk
     if pad:
-        xs = F.pad(xs, (0, 0, 0, pad))
-        targets = F.pad(targets, (0, pad), value=-1)
+        xs = pad_dims(xs, (0, 0, 0, pad))
+        targets = pad_dims(targets, (0, pad), value=-1)
     tot = totz = cnt = 0.0
+    fn = functools.partial(_xent_chunk, constrain=sharder.constrain) if is_sharded(sharder) \
+        else _xent_chunk
     for c in range(0, n + pad, chunk):
-        t, tz, k = checkpoint(_xent_chunk, xs[:, c:c + chunk], table,
+        t, tz, k = checkpoint(fn, xs[:, c:c + chunk], table,
                               targets[:, c:c + chunk], use_reentrant=False)
         tot, totz, cnt = tot + t, totz + tz, cnt + k
     loss = tot / cnt
@@ -112,26 +128,42 @@ def value_and_grad(fn: Callable, params, *args):
 
 def make_train_step(cfg: ArchConfig, opt: Optimizer,
                     tc: TrainConfig = TrainConfig(), *,
-                    kernels: KernelConfig = KernelConfig()) -> Callable:
+                    kernels: KernelConfig = KernelConfig(), sharder=NULL) -> Callable:
     """Returns step(state, batch) -> (state, metrics).  `kernels` reaches
-    the model's kernel calls (the MLP blocks, forward and backward)."""
+    the model's kernel calls (the MLP blocks, forward and backward).
+
+    Under a `sharder` on a DeviceMesh the state's leaves are DTensors
+    (`Sharder.distribute`); a batch leaf that is a plain tensor is placed
+    by `data_sharding`.  The model's activations are pinned at the
+    reference's sites, and the gradients' reduction over the batch axes,
+    which GSPMD inserts for the reference, comes from DTensor's Partial
+    gradients.  The metrics come back as plain (full) tensors."""
     model = get_model(cfg)
+    sharded = is_sharded(sharder)
 
     def fwd_loss(params, batch):
         hidden = model.forward(params, batch, remat=tc.remat, return_hidden=True,
-                               kernels=kernels)
+                               kernels=kernels, sharder=sharder)
         table = params.get("unembed", params["embed"])
         return chunked_softmax_xent(hidden, table, batch["tokens"], tc.z_loss,
-                                    chunk=tc.xent_chunk)
+                                    chunk=tc.xent_chunk, sharder=sharder)
 
     def step(state, batch):
+        if not sharded:
+            return _step(state, batch)
+        batch = {n: t if is_dtensor(t) else place(t, sharder.data_sharding(t.ndim))
+                 for n, t in batch.items()}
+        with dispatch_context(sharder):
+            state, metrics = _step(state, batch)
+        return state, {k: full_tensor(v) for k, v in metrics.items()}
+
+    def _step(state, batch):
         params = state["params"]
         if tc.microbatches > 1:
             # one microbatch of activations live at a time
             k = tc.microbatches
             loss = torch.zeros((), device=batch["tokens"].device)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             for i in range(k):
                 mb = {n: t.reshape(k, t.shape[0] // k, *t.shape[1:])[i]
                       for n, t in batch.items()}
@@ -142,6 +174,11 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer,
             grads = tree_map(lambda g: g / k, grads)
         else:
             loss, grads = value_and_grad(fwd_loss, params, batch)
+        if sharded:
+            # each gradient onto its parameter's placements: the Partial
+            # sums over the batch shards are reduced here
+            grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements),
+                             grads, params)
         grads, gnorm = clip_by_global_norm(grads, tc.max_grad_norm)
         new_params, new_opt = opt.update(grads, state["opt"], params)
         return {"params": new_params, "opt": new_opt}, {"loss": loss, "grad_norm": gnorm}

@@ -201,7 +201,7 @@ def test_pass_manager_order_and_disable():
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """repro_torch (serving and training modules included), and everything
+    """repro_torch (serving, training and distributed modules included), and everything
     chip_smoke.py imports, loads without jax and without the reference
     package (checked in a fresh interpreter)."""
     code = (
@@ -213,6 +213,9 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.train, repro_torch.optim, repro_torch.data\n"
         "import repro_torch.checkpoint, repro_torch.runtime, repro_torch.tree\n"
         "import repro_torch.launch.train, repro_torch.models.encdec\n"
+        "import repro_torch.distributed.sharding, repro_torch.distributed.pipeline\n"
+        "import repro_torch.core.queue, repro_torch.optim.compression\n"
+        "import repro_torch.launch.mesh\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
