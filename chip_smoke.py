@@ -186,13 +186,26 @@ Phases, each failing the run on any error (no phase's exception is caught):
      phi3-medium-14b at full width cut to 2 layers through the legacy
      engine (one cached_jit graph) and the paged engine (a captured tick
      a bucket) with `sharder=`, against the NULL engines: the same tokens,
-     the same B4 / B8 / B2 launches.  The group is destroyed at the end.
+     the same B4 / B8 / B2 launches.  The group is destroyed at the end;
+ 14. the dry run (launch/dryrun.py): (a) gemma3-1b x train_4k and
+     phi3-medium-14b x decode_32k on the production 16 x 16 mesh over a
+     fake process group of 256 ranks (meta stand-ins): each row (memory,
+     FLOPs, bytes, collectives, roofline terms: counts per rank over the
+     H100's data-sheet rates) and its trace seconds, the card's allocated
+     bytes unchanged; (b) 13a's step dry-run at world size 1 and then run
+     for real on the card (NULL sharder) under the same counter: FLOPs
+     equal, the dry run's peak within 15 % of `max_memory_allocated`, no
+     collectives, the dry run's roofline bound at most the measured step;
+     (c) `synthesize_backward` of the five apps at published sizes in
+     kitsune mode: plan-only fused_mlp_bwd and queue_reduce matches and
+     the cost model's bsp / kitsune estimates (H100 HwSpec).
 The launch counters are zeroed just before phase 4 and read just after
 phase 6 (the compiler's main path), and zeroed and read around each engine
 run of phases 7, 9, 10 and 11 (the serving paths), each full-width run of
 phases 8 and 10 (the training paths), phase 9's whisper decode steps and
 phase 10's traced forward and atom, around each of phase 12's runs
-under "auto", and around each of phase 13's runs.  The second-to-last line is the
+under "auto", around each of phase 13's runs, and around phase 14b's
+counted real step.  The second-to-last line is the
 per-kernel JSON summary: one row per kernel and main-path shape, its
 `launches` taken from the run of the path that row belongs to (for the
 whisper rows of fused_mlp and fused_mlp_bwd, only that run's launches at
@@ -3323,6 +3336,152 @@ def phase_distributed() -> dict[str, dict[str, int]]:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the dry run (launch/dryrun.py) on the card's host, and held to
+# a real step on the card
+# ---------------------------------------------------------------------------
+
+DRY_CELLS = (("gemma3-1b", "train_4k"), ("phi3-medium-14b", "decode_32k"))
+DRY_PEAK_TOL = 0.15                      # 14b: dry-run peak within 15 % of the card's
+DRY_TIMED_STEPS = 2                      # 14b: steps timed after the counted one
+DRY_APPS = ("dlrm", "mgn", "nerf", "graphcast", "llama_ctx")
+
+
+def dry_production() -> None:
+    """14a: the dry run's cells on the production mesh: a fake process
+    group of 256 ranks, the (16, 16) mesh, meta stand-ins -- each cell's
+    row and trace seconds; the card's allocated bytes unchanged."""
+    from repro_torch.launch import dryrun
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with dryrun.fake_world(256):
+        for arch, shape in DRY_CELLS:
+            t0 = time.perf_counter()
+            row = dryrun.run_cell(arch, shape, multi_pod=False, verbose=False)
+            print(f"14a dry run {arch} x {shape} on 16x16 (dry-run counts per rank, H100 "
+                  f"data-sheet rates; traced in {time.perf_counter() - t0:.1f} s): "
+                  f"{json.dumps(row)}", flush=True)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    print(f"14a card memory allocated before / after the dry runs: {before} / {after} bytes",
+          flush=True)
+    if after != before:
+        raise AssertionError(f"14a: the dry run allocated on the card ({before} -> {after})")
+
+
+def dry_against_real() -> dict[str, dict[str, int]]:
+    """14b: phase 13a's step (gemma3-1b at full width and depth, AdamW,
+    remat, 2 x 1024 tokens) dry-run at world size 1 (a fake group of one
+    rank, a (1, 1) mesh), then run for real on the card with the NULL
+    sharder under the same counter: FLOPs equal, the dry run's peak within
+    DRY_PEAK_TOL of `max_memory_allocated`, no collective in either, and
+    the dry run's roofline bound at most the measured step."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    cfg = get_config("gemma3-1b")
+    opt = adamw(TRAIN_LR)
+    tc = TrainConfig(remat=True, xent_chunk=512)
+    shape = InputShape("dist_train", DIST_TRAIN["seq"], DIST_TRAIN["batch"], "train")
+    with dryrun.fake_world(1):
+        counts = dryrun.count_step(cfg, shape, make_mesh((1, 1), ("data", "model"), "cuda"),
+                                   opt_kind="adamw", tc=tc)
+    row = dryrun.row(cfg, shape, "1x1", 1, counts)
+    print(f"14b dry run of 13a's step at world size 1 (counts; traced in "
+          f"{counts.trace_s:.1f} s): {json.dumps(row)}", flush=True)
+
+    free()
+    base = torch.cuda.memory_allocated()
+    state = make_train_state(cfg, opt, seed=0, device="cuda")
+    batch = train_batches(cfg, DIST_TRAIN["batch"], DIST_TRAIN["seq"])(0)
+    step = make_train_step(cfg, opt, tc)
+    step(state, batch)                   # warm-up: its outputs are dropped
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    counter = dryrun.CostCounter()
+    t0 = time.perf_counter()
+    with counter, dryrun.collector_off():       # as the dry run counts its peak
+        out, _ = step(state, batch)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    secs = []
+    for _ in range(DRY_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, m = step(state, batch)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        del out
+    step_s = sum(secs) / len(secs)
+    dry_peak = counts.total_bytes
+    ratio = dry_peak / peak
+    bound = row["roofline"]["bound_s"]
+    print(f"14b real step on the card (NULL sharder): FLOPs {counter.flops:.6g} (dry run "
+          f"{counts.flops:.6g}, equal: {counter.flops == counts.flops}); peak allocated "
+          f"{peak / 2**30:.3f} GiB (dry run {dry_peak / 2**30:.3f} GiB, ratio {ratio:.4f}); "
+          f"collectives {len(counter.records)} (dry run {len(counts.records)}); step "
+          f"{1e3 * step_s:.1f} ms (mean of {DRY_TIMED_STEPS}; {1e3 * counted_s:.1f} ms under "
+          f"the counter) against the dry run's bound {1e3 * bound:.2f} ms "
+          f"({row['roofline']['dominant']}); unfused bytes real {counter.bytes:.6g} / dry "
+          f"{counts.bytes:.6g}; launches { {k: n for k, n in launches.items() if n} }",
+          flush=True)
+    bad = []
+    if counter.flops != counts.flops:
+        bad.append(f"FLOPs {counter.flops} != {counts.flops}")
+    if abs(ratio - 1.0) > DRY_PEAK_TOL:
+        bad.append(f"peak ratio {ratio:.4f} beyond {DRY_PEAK_TOL}")
+    if counter.records or counts.records:
+        bad.append(f"collectives {len(counter.records)} / {len(counts.records)}")
+    if bound > step_s:
+        bad.append(f"bound {bound} s above the measured step {step_s} s")
+    if not all(launches[k] for k in DIST_KERNELS):
+        bad.append(f"launches {launches}")
+    if bad:
+        raise AssertionError(f"14b: {bad}")
+    del state, batch
+    free()
+    return {"dryrun_real_step": launches}
+
+
+def dry_train_graphs() -> None:
+    """14c: `synthesize_backward` of the five apps at their published sizes,
+    compiled in kitsune mode ("always"): the plan-only fused_mlp_bwd
+    matches, the queue_reduce matches, and the cost model's bsp / kitsune
+    estimates under the H100 HwSpec (estimates, not measurements)."""
+    for name in DRY_APPS:
+        tg = apps.synthesize_backward(apps.APPS[name]())
+        app = repro_torch.compile(tg, repro_torch.CompilerOptions(
+            mode="kitsune", hw=H100, lowering_policy="always"))
+        matches = [m for p in app.lowering.pipelines.values() for m in p.matches]
+        bwd = [m for m in matches if m.kernel == "fused_mlp_bwd"]
+        red = [m for m in matches if m.kernel == "queue_reduce"]
+        bsp, kit = app.estimate(H100, "bsp"), app.estimate(H100, "kitsune")
+        print(f"14c {tg.name}: {len(tg.nodes)} nodes; fused_mlp_bwd matches {len(bwd)} "
+              f"(plan-only {sum(not m.executable for m in bwd)}), queue_reduce matches "
+              f"{len(red)}; cost-model estimates under the {H100.name} HwSpec: bsp "
+              f"{1e3 * bsp.time:.4f} ms / {bsp.dram_bytes / 1e9:.3f} GB, kitsune "
+              f"{1e3 * kit.time:.4f} ms / {kit.dram_bytes / 1e9:.3f} GB (x{bsp.time / kit.time:.2f})",
+              flush=True)
+        if not any(not m.executable for m in bwd) or "(plan-only)" not in app.describe():
+            raise AssertionError(f"14c {tg.name}: no plan-only fused_mlp_bwd match")
+
+
+def phase_dryrun() -> dict[str, dict[str, int]]:
+    """14: the dry run -- (a) production-mesh cells on the host, (b) held to
+    a real step on the card, (c) the paper's training graphs."""
+    t0 = time.perf_counter()
+    dry_production()
+    runs = dry_against_real()
+    dry_train_graphs()
+    print(f"phase 14 wall time {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3374,6 +3533,8 @@ def main() -> int:
     paths.update(phase_auto())
     free()
     paths.update(phase_distributed())
+    free()
+    paths.update(phase_dryrun())
     for path, counts in paths.items():
         print(f"launches, {path} run: { {k: n for k, n in counts.items() if n} }", flush=True)
 

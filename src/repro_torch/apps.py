@@ -4,8 +4,10 @@ ported from the reference package's `benchmarks/apps.py` builders.
 Dims follow the papers cited in SS3 (NeRF: original 256-hidden config, the
 paper's footnote 3).  `APPS` builds each at its published size;
 `tiny_instances()` gives small, numerically executable instances with feeds
-made from numpy under a seed.  (The reference's backward-graph synthesizer
-waits for the training slice.)
+made from numpy under a seed.  `synthesize_backward` appends a graph's
+gradient ops, so training graphs exhibit the paper's Fig 2(b) batch-dim
+gradient reductions and Fig 2(c) multicast patterns; such graphs are
+cost-model artifacts (no weights, never run).
 """
 from __future__ import annotations
 
@@ -153,6 +155,78 @@ def llama3_8b(seq: int = 2048, batch: int = 4, n_layers: int = 2,
     head = g.linear("lm_head", fin, vocab).name
     g.output("out", head)
     return g
+
+
+# ---------------------------------------------------------------------------
+# backward-graph synthesis (training rows of Table 2)
+# ---------------------------------------------------------------------------
+
+def synthesize_backward(g: Graph) -> Graph:
+    """Append gradient ops: linear -> dX GEMM + dW GEMM (Fig 2c multicast,
+    with the dW GEMM followed by a batch-dim reduction -- Fig 2b);
+    elementwise/norm -> mask-mul chains; attention -> attention-bwd.
+
+    Compiled, the linear -> act -> linear chains' gradients give plan-only
+    `fused_mlp_bwd` matches (core/lower.py `_try_mlp_bwd`) and the split
+    gradient reductions `queue_reduce` matches; the graph is a cost-model
+    artifact, never run."""
+    tg = g.clone()
+    tg.name = g.name + "_train"
+    outs = [n for n in g.topo() if n.kind == "output"]
+    grad_of: dict[str, str] = {}
+    for out in outs:
+        src = out.inputs[0]
+        seed = tg.add(Node(f"d_{out.name}", "elementwise", [src],
+                           g.nodes[src].out, g.nodes[src].out.size))
+        grad_of[src] = seed.name
+    for n in reversed(g.topo()):
+        dname = grad_of.get(n.name)
+        if dname is None or n.kind in ("input", "const", "output"):
+            continue
+        for i, inp in enumerate(n.inputs):
+            src = g.nodes[inp]
+            if src.kind in ("input", "const"):
+                continue
+            gn = f"d_{n.name}_{i}"
+            if gn in tg.nodes:
+                continue
+            if n.kind == "linear":
+                # dX = dY @ W^T
+                dx = tg.add(Node(gn, "matmul", [dname], src.out, n.flops))
+                # dW = X^T @ dY, then reduced over the batch dim (Fig 2b)
+                dw = tg.add(Node(f"dW_{n.name}", "matmul", [inp, dname],
+                                 TensorSpec((n.attrs["d_in"], n.attrs["d_out"]),
+                                            n.out.dtype), n.flops))
+                tg.add(Node(f"dWred_{n.name}", "reduce", [dw.name], dw.out,
+                            dw.out.size, attrs={"axis": 0, "red_size":
+                                                max(n.out.shape[0], 2)}))
+                grad_of.setdefault(inp, dx.name)
+            elif n.kind in ("elementwise", "norm", "softmax", "reshape",
+                            "concat"):
+                dx = tg.add(Node(gn, "elementwise", [dname], src.out,
+                                 src.out.size, attrs={"fn": "identity"}))
+                grad_of.setdefault(inp, dx.name)
+            elif n.kind == "attention":
+                dx = tg.add(Node(gn, "attention", [dname, inp, inp], src.out,
+                                 2.5 * n.flops, attrs=dict(n.attrs)))
+                grad_of.setdefault(inp, dx.name)
+            elif n.kind in ("matmul",):
+                dx = tg.add(Node(gn, "matmul", [dname], src.out, n.flops))
+                grad_of.setdefault(inp, dx.name)
+            elif n.kind == "reduce":
+                dx = tg.add(Node(gn, "elementwise", [dname], src.out,
+                                 src.out.size))
+                grad_of.setdefault(inp, dx.name)
+    # optimizer tail: one param-update op per weight tensor.  These are
+    # bulk-sync (excluded from sf-nodes) and param-bandwidth-bound -- the
+    # Amdahl tail that keeps the paper's training speedups below inference.
+    for n in list(g.topo()):
+        if n.kind == "linear" and f"dWred_{n.name}" in tg.nodes:
+            w = TensorSpec((n.attrs["d_in"], n.attrs["d_out"]), "float32")
+            tg.add(Node(f"opt_{n.name}", "scatter", [f"dWred_{n.name}"], w,
+                        flops=6.0 * w.size,           # adam update
+                        weight_bytes=6.0 * w.nbytes))  # w,g,m,v fp32 round trips
+    return tg
 
 
 APPS = {

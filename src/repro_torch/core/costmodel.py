@@ -370,6 +370,9 @@ PEAK_FLOPS_PER_CHIP = H100.matrix_flops
 HBM_BW_PER_CHIP = H100.dram_bw
 NVLINK_BW_PER_LINK = 25e9
 NVLINK_LINKS_PER_CHIP = 18
+# Device memory of one H100 SXM (NVIDIA H100 data sheet: 80 GB HBM3): the
+# dry run's capacity where no card is present to ask.
+H100_HBM_BYTES = 80e9
 
 
 def roofline(flops_per_chip: float, bytes_per_chip: float,

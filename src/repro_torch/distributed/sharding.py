@@ -393,19 +393,130 @@ def pool_placement(sharder, t: torch.Tensor) -> NamedSharding:
                          + [(t.shape[-2], "model"), (t.shape[-1], None)])
 
 
+# ---------------------------------------------------------------------------
+# reshapes of DTensors.  DTensor splits a dim only where its shard divides
+# the leading size, and (torch 2.11) merges dims -- a matmul of a 3-D x
+# flattens its rows -- only where no merged dim after the first is split;
+# each helper gathers what it must first, in both directions.  On plain
+# tensors each is the plain reshape / matmul.
+# ---------------------------------------------------------------------------
+
+def _replicate(t: torch.Tensor, dims) -> torch.Tensor:
+    """t gathered on every mesh dim that shards one of the tensor dims
+    `dims(shard_dim, mesh_dim)` selects."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate() if isinstance(p, Shard) and dims(p.dim, i) else p
+          for i, p in enumerate(t.placements)]
+    return t if pl == list(t.placements) else t.redistribute(t.device_mesh, pl)
+
+
+def _split(t: torch.Tensor, dim: int, sizes: tuple[int, ...]) -> torch.Tensor:
+    if is_dtensor(t):
+        t = _replicate(t, lambda d, i: d == dim and sizes[0] % t.device_mesh.size(i))
+    return t.reshape(*t.shape[:dim], *sizes, *t.shape[dim + 1:])
+
+
+def _merge(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    if is_dtensor(t):
+        t = _replicate(t, lambda d, i: dim < d < dim + n)
+    return t.reshape(*t.shape[:dim], -1, *t.shape[dim + n:])
+
+
+class _Reshape(torch.autograd.Function):
+    """`_split` (n = 0) or `_merge` of a DTensor, the gradient taken back
+    through the other and laid out as the input was (a Partial input's
+    gradient replicated), so that the ops before it share its work as
+    their outputs did."""
+
+    @staticmethod
+    def forward(ctx, t, dim, sizes, n):
+        from torch.distributed.tensor import Partial, Replicate
+        ctx.dim = dim
+        ctx.placements = tuple(Replicate() if isinstance(p, Partial) else p
+                               for p in t.placements)
+        if n:
+            ctx.sizes = tuple(t.shape[dim:dim + n])
+            return _merge(t, dim, n)
+        ctx.n = len(sizes)
+        return _split(t, dim, sizes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = _split(grad, ctx.dim, ctx.sizes) if hasattr(ctx, "sizes") \
+            else _merge(grad, ctx.dim, ctx.n)
+        return g.redistribute(g.device_mesh, ctx.placements), None, None, None
+
+
 def split_dim(t: torch.Tensor, dim: int, sizes: tuple[int, ...]) -> torch.Tensor:
     """t with dim `dim` reshaped into `sizes`.  A DTensor sharded on that
     dim over a mesh dim that does not divide sizes[0] is first gathered on
-    that mesh dim: DTensor cannot split an uneven shard (grok's 2 KV heads
-    on a 4-wide model axis)."""
-    if is_dtensor(t):
+    that mesh dim (grok's 2 KV heads on a 4-wide model axis)."""
+    if not is_dtensor(t):
+        return _split(t, dim, tuple(sizes))
+    return _Reshape.apply(t, dim, tuple(sizes), 0)
+
+
+def merge_dims(t: torch.Tensor, dim: int, n: int = 2) -> torch.Tensor:
+    """t with dims [dim, dim + n) merged into one (the heads of an attention
+    output back into the model dim); a DTensor is gathered on the merged
+    dims after the first, and its gradient split back through `split_dim`
+    (the gemma3 / whisper heads on a 16-wide model axis)."""
+    if not is_dtensor(t):
+        return _merge(t, dim, n)
+    return _Reshape.apply(t, dim, None, n)
+
+
+def whole_rows(x: torch.Tensor) -> torch.Tensor:
+    """x (..., D) with every dim between its first and its last whole, so
+    that its rows flatten: a DTensor sharded on such a dim (the
+    sequence-parallel residual stream's sequence) is gathered there -- the
+    all-gather Megatron's sequence parallelism makes before a
+    tensor-parallel matmul.  A plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    return _replicate(x, lambda d, i: 0 < d < x.ndim - 1)
+
+
+class _WholeRowsGrad(torch.autograd.Function):
+    """The identity, whose backward moves a split of the gradient's middle
+    dims (the sequence) off them: onto its last dim where the weight's
+    output dim is split on that mesh dim (a column-parallel product's
+    gradient), else gathered (a row-parallel one's), so that no rank
+    computes another's share of the matmul's backward."""
+
+    @staticmethod
+    def forward(ctx, y, w_placements, w_out):
+        ctx.w_placements, ctx.w_out = w_placements, w_out
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, grad):
         from torch.distributed.tensor import Replicate, Shard
-        pl = [Replicate() if isinstance(p, Shard) and p.dim == dim
-              and sizes[0] % t.device_mesh.size(i) else p
-              for i, p in enumerate(t.placements)]
-        if pl != list(t.placements):
-            t = t.redistribute(t.device_mesh, pl)
-    return t.reshape(*t.shape[:dim], *sizes, *t.shape[dim + 1:])
+        last, mesh = grad.ndim - 1, grad.device_mesh
+        pl = []
+        for i, p in enumerate(grad.placements):
+            if isinstance(p, Shard) and 0 < p.dim < last:
+                wp = ctx.w_placements[i] if ctx.w_placements else None
+                col = isinstance(wp, Shard) and wp.dim == ctx.w_out
+                pl.append(Shard(last) if col and grad.shape[last] % mesh.size(i) == 0
+                          else Replicate())
+            else:
+                pl.append(p)
+        return (grad if pl == list(grad.placements) else grad.redistribute(mesh, pl)), \
+            None, None
+
+
+def rows_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., D) @ w, x's rows whole in both directions: its middle dims
+    gathered before the product (`whole_rows`), and the product's gradient
+    moved off them before the matmul's backward flattens it.  Plain
+    tensors: x @ w."""
+    if not is_dtensor(x):
+        return x @ w
+    y = whole_rows(x) @ w
+    if not is_dtensor(w):
+        return _WholeRowsGrad.apply(y, None, None)
+    return _WholeRowsGrad.apply(y, tuple(w.placements), w.ndim - 1)
 
 
 def groupwise(fn, n_out: int, *args):

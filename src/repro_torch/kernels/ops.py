@@ -443,22 +443,34 @@ OP_SPECS: dict[str, OpSpec] = {
 }
 
 
+def _register_flops() -> None:
+    """Each op's FLOP formula (its `OP_SPECS` flops) in
+    `torch.utils.flop_counter`'s registry, so a `FlopCounterMode` -- and the
+    dry run's counter (launch/dryrun.py) -- counts a kernel op as the work
+    its kernel does: B1 / B2 their forward GEMMs, B6 5 and B7 8 GEMMs with
+    the hidden tile's recompute, B3 / B4 / B8 QK^T and PV over the keys
+    they are given, B5 N * R * C."""
+    from torch.utils.flop_counter import register_flop_formula
+    for name, spec in OP_SPECS.items():
+        ns, op = name.split("::")
+        register_flop_formula(getattr(getattr(torch.ops, ns), op), get_raw=True)(
+            lambda *args, out_val=None, _f=spec.flops, **kw: int(_f(*args, *kw.values())))
+
+
+_register_flops()
+
+
 # ---------------------------------------------------------------------------
 # public functions
 # ---------------------------------------------------------------------------
 
 def _rows(x: Tensor) -> Tensor:
     """x (..., D) as (M, D) rows.  A DTensor sharded on a leading dim other
-    than the first is gathered on that dim first: DTensor cannot flatten
-    it in place (the sequence-parallel residual stream, batch on "data"
-    and sequence on "model", meets the MLP this way)."""
-    if hasattr(x, "placements"):
-        from torch.distributed.tensor import Replicate, Shard
-        pl = [Replicate() if isinstance(p, Shard) and 0 < p.dim < x.ndim - 1 else p
-              for p in x.placements]
-        if pl != list(x.placements):
-            x = x.redistribute(x.device_mesh, pl)
-    return x.reshape(-1, x.shape[-1])
+    than the first is gathered on that dim first (`whole_rows`: the
+    sequence-parallel residual stream, batch on "data" and sequence on
+    "model", meets the MLP this way)."""
+    from ..distributed.sharding import whole_rows
+    return whole_rows(x).reshape(-1, x.shape[-1])
 
 
 def mlp(x: Tensor, w1: Tensor, w2: Tensor, *, act: str = "gelu",

@@ -29,7 +29,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from ..distributed.sharding import NULL, sharded_entry, split_dim
+from ..distributed.sharding import (NULL, merge_dims, rows_matmul, sharded_entry, split_dim,
+                                    whole_rows)
 from ..kernels import KernelConfig
 from . import layers as L
 from .lm import DTYPES, chunked_attention, unstack
@@ -77,17 +78,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda", max_positions: in
 
 
 def _self_attn(p, x, *, cfg: ArchConfig, causal: bool, kv=None, sharder=NULL) -> torch.Tensor:
-    b, s, _ = x.shape
-    src = kv if kv is not None else x
-    sk = src.shape[1]
-    q = split_dim(x @ p["wq"], 2, (cfg.n_heads, cfg.head_dim))
-    k = split_dim(src @ p["wk"], 2, (cfg.n_kv_heads, cfg.head_dim))
-    v = split_dim(src @ p["wv"], 2, (cfg.n_kv_heads, cfg.head_dim))
+    x = whole_rows(x)
+    src = x if kv is None else whole_rows(kv)
+    q = split_dim(rows_matmul(x, p["wq"]), 2, (cfg.n_heads, cfg.head_dim))
+    k = split_dim(rows_matmul(src, p["wk"]), 2, (cfg.n_kv_heads, cfg.head_dim))
+    v = split_dim(rows_matmul(src, p["wv"]), 2, (cfg.n_kv_heads, cfg.head_dim))
     q = sharder.constrain(q, "act_heads")
     k = sharder.constrain(k, "act_kv_heads")
     o = chunked_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                           causal=causal)
-    return sharder.constrain(o.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["wo"],
+    return sharder.constrain(rows_matmul(merge_dims(o.transpose(1, 2), 2), p["wo"]),
                              "act_resid")
 
 
@@ -139,7 +139,7 @@ def forward(params: dict, frame_embeds: torch.Tensor, tokens: torch.Tensor,
     x = L.rms_norm(x, params["final_norm"])
     if return_hidden:
         return sharder.constrain(x, "act_resid")
-    return sharder.constrain(x @ params["embed"].T, "logits")
+    return sharder.constrain(rows_matmul(x, params["embed"].T), "logits")
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, enc_len: int = 1500,
@@ -195,7 +195,7 @@ def decode_step(params: dict, token: torch.Tensor, pos, cache: dict,
                                    valid=valid, kernels=kernels,
                                    constrain=sharder.constrain)
         h = L.rms_norm(x, p["ln_x"])
-        q = (h @ p["xattn"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+        q = split_dim(h @ p["xattn"]["wq"], 2, (cfg.n_heads, cfg.head_dim))
         o = chunked_attention(q.transpose(1, 2), cache["xk"][i], cache["xv"][i], causal=False)
         x = x + sharder.constrain(o.transpose(1, 2).reshape(b, 1, cfg.q_dim)
                                   @ p["xattn"]["wo"], "act_resid")

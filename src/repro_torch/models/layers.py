@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from ..kernels import (KernelConfig, decode_attention as k_decode, mlp as k_mlp,
                        mlp_swiglu as k_mlp_swiglu,
                        paged_decode_attention as k_paged_decode)
-from ..distributed.sharding import groupwise, split_dim
+from ..distributed.sharding import (groupwise, is_dtensor, merge_dims, rows_matmul, split_dim,
+                                    whole_rows)
 from ..kernels._build import capturing
 from ..kernels.ref import paged_rows, to_cache
 
@@ -122,7 +123,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.
 
 
 def embed(table: torch.Tensor, ids: torch.Tensor, scale: bool = False) -> torch.Tensor:
-    e = table[ids]
+    """table[ids].  A DTensor table is gathered on its vocab dim first and
+    read through `F.embedding` (its other dims stay split): torch 2.11's
+    DTensor fails on the backward of an index into it (an accumulating
+    index_put on a split dim) and on the masked partial sums a lookup into
+    a vocab-split table leaves."""
+    if not is_dtensor(table):
+        e = table[ids]
+    else:
+        from torch.distributed.tensor import Replicate, Shard
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+              for p in table.placements]
+        e = F.embedding(ids, table.redistribute(table.device_mesh, pl))
     if scale:
         e = e * math.sqrt(table.shape[-1])
     return e
@@ -164,7 +176,8 @@ def _normal(gen, groups, shape, scale, dtype, device) -> torch.Tensor:
 
 def _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta, constrain=_keep):
     b, s, _ = x.shape
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    x = whole_rows(x)
+    q, k, v = (rows_matmul(x, p[w]) for w in ("wq", "wk", "wv"))
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = constrain(split_dim(q, 2, (n_heads, head_dim)), "act_heads")
@@ -404,8 +417,8 @@ def moe_block(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     while n_tok % g:
         g -= 1
     cap = max(int(n_tok // g * top_k / n_experts * capacity_factor), 1)
-    toks = x.reshape(g, n_tok // g, d)
-    logits = (toks @ p["router"]).float()
+    toks = whole_rows(x).reshape(g, n_tok // g, d)
+    logits = rows_matmul(toks, p["router"]).float()
     dispatched, info = groupwise(
         functools.partial(_dispatch_group, n_experts=n_experts, top_k=top_k, cap=cap),
         4, toks, logits)
@@ -445,6 +458,37 @@ def init_mamba(gen: torch.Generator, d_model: int, d_inner: int, d_state: int, *
             "out": _normal(gen, groups, (d_inner, d_model), s_in, dtype, device)}
 
 
+def over_time(fn, args: tuple, split: int, outs: tuple[int, ...]):
+    """fn(*args) for a recurrence over the sequence (dim 1 of each argument,
+    all of one shape (B, S, ...)), elementwise in the batch and in the dim
+    `split`.  On DTensors it runs on every rank's local shards
+    (`local_map`): the batch and dim `split` kept as they are split, the
+    sequence and the other dims gathered; output k's split lands on its dim
+    outs[k].  One local op a step, not a DTensor dispatch each."""
+    if not is_dtensor(args[0]):
+        return fn(*args)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    in_pl = tuple(p if isinstance(p, Shard) and p.dim in (0, split) else Replicate()
+                  for p in args[0].placements)
+    out_pl = tuple(tuple(Shard(o) if isinstance(p, Shard) and p.dim == split else p
+                         for p in in_pl) for o in outs)
+    return local_map(fn, out_placements=out_pl,
+                     in_placements=(in_pl,) * len(args), device_mesh=args[0].device_mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def _ssm_scan(a, bu):
+    """h_t = a_t h_{t-1} + b_t from h_0 = b_0 over dim 1 of (B, S, I, N):
+    every h_t (B, S, I, N) and the last (B, I, N)."""
+    h = bu[:, 0]
+    steps = [h]
+    for t in range(1, bu.shape[1]):
+        h = a[:, t] * h + bu[:, t]
+        steps.append(h)
+    return torch.stack(steps, dim=1), h
+
+
 def mamba_block(p: dict, x: torch.Tensor, *, d_state: int,
                 ssm_state: torch.Tensor | None = None, constrain=_keep):
     """Selective SSM h_t = a_t * h_{t-1} + b_t, the state (B, I, state) in
@@ -454,9 +498,10 @@ def mamba_block(p: dict, x: torch.Tensor, *, d_state: int,
     sequence from a zero state, an explicit loop over S (the reference's
     associative scan computes the same products in another order).
     Returns (y, the last state)."""
-    xin = (x @ p["in_x"]).float()                                   # (B, S, I)
-    z = F.silu((x @ p["in_z"]).float())
-    bcdt = (xin.to(x.dtype) @ p["w_bcdt"]).float()
+    x = whole_rows(x)
+    xin = rows_matmul(x, p["in_x"]).float()                         # (B, S, I)
+    z = F.silu(rows_matmul(x, p["in_z"]).float())
+    bcdt = rows_matmul(xin.to(x.dtype), p["w_bcdt"]).float()
     b_in, c_out = bcdt[..., :d_state], bcdt[..., d_state:2 * d_state]
     dt = F.softplus(bcdt[..., -1:])                                  # (B, S, 1)
     a = torch.exp(-torch.exp(p["a_log"]) * dt[..., None])           # (B, S, I, state)
@@ -465,15 +510,10 @@ def mamba_block(p: dict, x: torch.Tensor, *, d_state: int,
         h = a[:, 0] * ssm_state + bu[:, 0]
         hs = h[:, None]
     else:
-        h = bu[:, 0]
-        steps = [h]
-        for t in range(1, x.shape[1]):
-            h = a[:, t] * h + bu[:, t]
-            steps.append(h)
-        hs = torch.stack(steps, dim=1)
+        hs, h = over_time(_ssm_scan, (a, bu), 2, (2, 1))
     y = torch.einsum("bsid,bsd->bsi", hs, c_out)
     y = y + xin * p["d_skip"]
-    return constrain((y * z).to(x.dtype) @ p["out"], "act_resid"), h
+    return constrain(rows_matmul((y * z).to(x.dtype), p["out"]), "act_resid"), h
 
 
 # ---------------------------------------------------------------------------
@@ -492,25 +532,48 @@ def init_mlstm(gen: torch.Generator, d_model: int, n_heads: int, *, groups: int,
             for k, (shape, sc) in shapes.items()}
 
 
+def local_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """cumsum over the last dim.  A DTensor runs it on every rank's local
+    shard (`local_map`), its last dim gathered first: torch 2.11's DTensor
+    has no rule for the flip in cumsum's backward."""
+    if not is_dtensor(x):
+        return torch.cumsum(x, dim=-1)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(Replicate() if isinstance(p, Partial) or isinstance(p, Shard)
+               and p.dim == x.ndim - 1 else p for p in x.placements)
+    return local_map(lambda t: torch.cumsum(t, dim=-1), out_placements=(pl,),
+                     in_placements=(pl,), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x)
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """log(sigmoid(x)) as min(x, 0) - log1p(exp(-|x|)): `F.logsigmoid`'s
+    value, in ops DTensor has rules for in both directions (it has none
+    for log_sigmoid's backward)."""
+    return x.clamp(max=0.0) - torch.log1p(torch.exp(-x.abs()))
+
+
 def mlstm_block(p: dict, x: torch.Tensor, *, n_heads: int, constrain=_keep) -> torch.Tensor:
     """mLSTM, parallel form: C_t = f_t C_{t-1} + i_t v_t k_t^T, h_t = C_t q_t
     / max(|n_t . q_t|, exp(-m_t)), computed as attention weighted by the
     stabilised cumulative log gates."""
-    b, s, _ = x.shape
-    xi = x @ p["up"]
+    s = x.shape[1]
+    x = whole_rows(x)
+    xi = rows_matmul(x, p["up"])
     d_in = xi.shape[-1]
     hd = d_in // n_heads
 
     def heads(t):
-        return t.reshape(b, s, n_heads, hd).transpose(1, 2)
+        return split_dim(t, 2, (n_heads, hd)).transpose(1, 2)
 
-    q = heads(xi @ p["wq"])
-    k = heads(xi @ p["wk"]) / math.sqrt(hd)
-    v = heads(xi @ p["wv"])
-    gates = (xi @ p["wif"]).float().reshape(b, s, 2, n_heads)
+    q = heads(rows_matmul(xi, p["wq"]))
+    k = heads(rows_matmul(xi, p["wk"])) / math.sqrt(hd)
+    v = heads(rows_matmul(xi, p["wv"]))
+    gates = split_dim(rows_matmul(xi, p["wif"]).float(), 2, (2, n_heads))
     i_g = gates[:, :, 0].transpose(1, 2)                             # (B, H, S)
-    f_g = F.logsigmoid(gates[:, :, 1]).transpose(1, 2)
-    cum = torch.cumsum(f_g, dim=-1)
+    f_g = log_sigmoid(gates[:, :, 1]).transpose(1, 2)
+    cum = local_cumsum(f_g)
     dmat = cum[..., :, None] - cum[..., None, :] + i_g[..., None, :]
     mask = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
     dmat = torch.where(mask, dmat, -torch.inf)
@@ -519,9 +582,9 @@ def mlstm_block(p: dict, x: torch.Tensor, *, n_heads: int, constrain=_keep) -> t
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * w
     norm = torch.maximum(scores.sum(-1, keepdim=True).abs(), torch.exp(-m))
     h = torch.einsum("bhqk,bhkd->bhqd", scores / norm, v.float())
-    h = h.transpose(1, 2).reshape(b, s, d_in).to(x.dtype)
-    h = h * F.silu(x @ p["skip_g"])
-    return constrain(h @ p["down"], "act_resid")
+    h = merge_dims(h.transpose(1, 2), 2).to(x.dtype)
+    h = h * F.silu(rows_matmul(x, p["skip_g"]))
+    return constrain(rows_matmul(h, p["down"]), "act_resid")
 
 
 def mlstm_step(p: dict, x: torch.Tensor, n_heads: int, state):
@@ -529,15 +592,14 @@ def mlstm_step(p: dict, x: torch.Tensor, n_heads: int, state):
     `mlstm_block`.  x: (B, 1, D); state = (C (B, H, hd, hd), n (B, H, hd),
     m (B, H)), float32.  Returns (y (B, 1, D), new state)."""
     c_st, n_st, m_st = state
-    b = x.shape[0]
     xi = x[:, 0] @ p["up"]
     d_in = xi.shape[-1]
     hd = d_in // n_heads
-    q = (xi @ p["wq"]).reshape(b, n_heads, hd)
-    k = (xi @ p["wk"]).reshape(b, n_heads, hd) / math.sqrt(hd)
-    v = (xi @ p["wv"]).reshape(b, n_heads, hd)
-    gates = (xi @ p["wif"]).float().reshape(b, 2, n_heads)
-    i_g, f_g = gates[:, 0], F.logsigmoid(gates[:, 1])
+    q = split_dim(xi @ p["wq"], 1, (n_heads, hd))
+    k = split_dim(xi @ p["wk"], 1, (n_heads, hd)) / math.sqrt(hd)
+    v = split_dim(xi @ p["wv"], 1, (n_heads, hd))
+    gates = split_dim((xi @ p["wif"]).float(), 1, (2, n_heads))
+    i_g, f_g = gates[:, 0], log_sigmoid(gates[:, 1])
     m_new = torch.maximum(f_g + m_st, i_g)
     f_p = torch.exp(f_g + m_st - m_new)[..., None]
     i_p = torch.exp(i_g - m_new)[..., None]
@@ -548,7 +610,7 @@ def mlstm_step(p: dict, x: torch.Tensor, n_heads: int, state):
     num = torch.einsum("bhd,bhde->bhe", qf, c_new)
     den = torch.maximum(torch.einsum("bhd,bhd->bh", qf, n_new).abs(),
                         torch.exp(-m_new))[..., None]
-    h = (num / den).reshape(b, d_in).to(x.dtype)
+    h = merge_dims(num / den, 1).to(x.dtype)
     h = h * F.silu(x[:, 0] @ p["skip_g"])
     return (h @ p["down"])[:, None], (c_new, n_new, m_new)
 
@@ -558,7 +620,7 @@ def slstm_step_fn(g: torch.Tensor, state):
     (c, n, m) float32."""
     c, n, m = state
     i_t, f_t, z_t, o_t = g[:, 0], g[:, 1], g[:, 2], g[:, 3]
-    log_f = F.logsigmoid(f_t)
+    log_f = log_sigmoid(f_t)
     m_new = torch.maximum(log_f + m, i_t)
     i_p = torch.exp(i_t - m_new)
     f_p = torch.exp(log_f + m - m_new)
@@ -570,7 +632,8 @@ def slstm_step_fn(g: torch.Tensor, state):
 
 def slstm_step(p: dict, x: torch.Tensor, state):
     """One sLSTM step (decode).  x: (B, 1, D)."""
-    g = (x[:, 0] @ p["w_gates"]).float().reshape(x.shape[0], 4, -1)
+    g = (x[:, 0] @ p["w_gates"]).float()
+    g = split_dim(g, 1, (4, g.shape[1] // 4))
     h, new = slstm_step_fn(g, state)
     return (h.to(x.dtype) @ p["out"])[:, None], new
 
@@ -585,12 +648,20 @@ def init_slstm(gen: torch.Generator, d_model: int, n_heads: int, *, groups: int,
 def slstm_block(p: dict, x: torch.Tensor, *, constrain=_keep) -> torch.Tensor:
     """sLSTM over the sequence: the cell stepped from (0, 0, -1e30), the
     part of xLSTM that does not parallelise over time."""
-    b, s, d = x.shape
-    gates = (x @ p["w_gates"]).float().reshape(b, s, 4, d)
-    state = (torch.zeros((b, d), device=x.device), torch.zeros((b, d), device=x.device),
-             torch.full((b, d), NEG_INF, device=x.device))
+    d = x.shape[2]
+    gates = split_dim(rows_matmul(x, p["w_gates"]).float(), 2, (4, d))
+    hs = over_time(_slstm_scan, (gates,), 3, (2,))
+    return constrain(rows_matmul(hs.to(x.dtype), p["out"]), "act_resid")
+
+
+def _slstm_scan(gates):
+    """The sLSTM cell over dim 1 of gates (B, S, 4, D), from (0, 0, -1e30):
+    every h_t (B, S, D)."""
+    b, s, _, d = gates.shape
+    state = (torch.zeros((b, d), device=gates.device), torch.zeros((b, d), device=gates.device),
+             torch.full((b, d), NEG_INF, device=gates.device))
     hs = []
     for t in range(s):
         h, state = slstm_step_fn(gates[:, t], state)
         hs.append(h)
-    return constrain(torch.stack(hs, dim=1).to(x.dtype) @ p["out"], "act_resid")
+    return torch.stack(hs, dim=1)

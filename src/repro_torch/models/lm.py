@@ -44,7 +44,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from ..distributed.sharding import NULL, sharded_entry, split_dim
+from ..distributed.sharding import (NULL, is_dtensor, merge_dims, rows_matmul, sharded_entry,
+                                    split_dim)
 from ..distributed.sharding import pad as pad_dims
 from ..kernels import KernelConfig
 from ..kernels.ref import E4M3, to_cache
@@ -96,7 +97,54 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int | None = None
     The running max is taken without a gradient: the output does not depend
     on it (it cancels between numerator and normaliser), so its gradient
     path would only add rounding, and autograd would keep every chunk's
-    scores for it."""
+    scores for it.
+
+    On DTensors every rank attends its own queries (`_local_attention`)."""
+    if is_dtensor(q):
+        return _local_attention(q, k, v, causal=causal, window=window, chunk=chunk)
+    return _attend(q, k, v, causal=causal, window=window, chunk=chunk)
+
+
+def _local_attention(q, k, v, *, causal, window, chunk) -> torch.Tensor:
+    """`chunked_attention` of DTensors on every rank's local shards
+    (`local_map`): the batch and the query heads split as q's are (the KV
+    heads with them), the queries' sequence split as q's is against whole
+    keys and values, each rank's queries masked at their global positions
+    (the keys' and values' gradients then partial sums over that split).
+    DTensor cannot run the chunked attention's einsums on a sequence-split
+    q itself: they flatten the split dim (torch 2.11 refuses)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    q_pl, kv_pl, kv_grad = [], [], []
+    for i, p in enumerate(q.placements):
+        if isinstance(p, Shard) and (p.dim == 0 or p.dim == 1
+                                     and k.shape[1] % mesh.size(i) == 0):
+            q_pl.append(p)
+            kv_pl.append(p)
+            kv_grad.append(p)
+        elif isinstance(p, Shard) and p.dim == 2:
+            q_pl.append(p)
+            kv_pl.append(Replicate())
+            kv_grad.append(Partial())
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+            kv_grad.append(Replicate())
+    _, offset = compute_local_shape_and_global_offset(tuple(q.shape), mesh, q_pl)
+    fn = functools.partial(_attend, causal=causal, window=window, chunk=chunk,
+                           q_pos0=k.shape[2] - q.shape[2] + offset[2])
+    return local_map(fn, out_placements=(tuple(q_pl),),
+                     in_placements=(tuple(q_pl), tuple(kv_pl), tuple(kv_pl)),
+                     in_grad_placements=(tuple(q_pl), tuple(kv_grad), tuple(kv_grad)),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def _attend(q, k, v, *, causal: bool, window: int | None, chunk: int,
+            q_pos0: int | None = None) -> torch.Tensor:
+    """The chunked attention of plain tensors; `q_pos0` is the first query's
+    position among the keys (by default Skv - Sq: the ends aligned)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     grp = hq // hkv
@@ -109,7 +157,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int | None = None
         k = pad_dims(k, (0, 0, 0, pad))
         v = pad_dims(v, (0, 0, 0, pad))
     scale = d ** -0.5
-    qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq if q_pos0 is None else q_pos0)
     w = HUGE_WINDOW if window is None else window
     m = torch.full((b, hkv, grp, sq, 1), NEG_INF, device=q.device)
     l = torch.zeros((b, hkv, grp, sq, 1), device=q.device)
@@ -131,7 +179,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int | None = None
         acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vj)
         m = m_new
     l = torch.where(l == 0.0, 1.0, l)
-    return (acc / l).reshape(b, hq, sq, d).to(q.dtype)
+    return merge_dims(acc / l, 1).to(q.dtype)
 
 
 ATTN_KINDS = ("dense", "moe", "hybrid")
@@ -210,12 +258,11 @@ def layer_schedule(cfg: ArchConfig) -> dict[str, list[list]]:
 # ---------------------------------------------------------------------------
 
 def _attn(p, x, *, cfg: ArchConfig, positions, theta, window, sharder=NULL) -> torch.Tensor:
-    b, s, _ = x.shape
     q, k, v = L._project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                              positions, theta, sharder.constrain)
     o = chunked_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                           causal=True, window=window)
-    return sharder.constrain(o.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["wo"],
+    return sharder.constrain(rows_matmul(merge_dims(o.transpose(1, 2), 2), p["wo"]),
                              "act_resid")
 
 
@@ -293,7 +340,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     x = L.rms_norm(x, params["final_norm"])
     if return_hidden:
         return sharder.constrain(x, "act_resid")
-    return sharder.constrain(x @ params.get("unembed", params["embed"]).T, "logits")
+    return sharder.constrain(rows_matmul(x, params.get("unembed", params["embed"]).T),
+                             "logits")
 
 
 def unstack(tree: dict) -> list[dict]:

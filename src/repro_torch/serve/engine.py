@@ -187,9 +187,11 @@ def serve_step(params, state, cfg: ArchConfig, kernels: KernelConfig = KernelCon
     logits, cache = get_model(cfg).decode_step(params, state["tokens"],
                                                state["pos"], state["cache"],
                                                kernels=kernels, sharder=sharder)
-    tokens = logits.argmax(dim=-1)
     if is_sharded(sharder):
-        tokens, logits = full_tensor(tokens), full_tensor(logits)
+        # the logits come back whole: the argmax runs on them (DTensor's
+        # argmax over a vocab-sharded dim fails on a batch of one)
+        logits = full_tensor(logits)
+    tokens = logits.argmax(dim=-1)
     return {"tokens": tokens, "pos": state["pos"] + 1, "cache": cache, "logits": logits}
 
 

@@ -23,7 +23,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..core.compiler import compile as _compile
 from ..distributed.sharding import (NULL, dispatch_context, full_tensor, is_dtensor,
-                                    is_sharded, pad as pad_dims, place)
+                                    is_sharded, pad as pad_dims, place, rows_matmul,
+                                    whole_rows)
 from ..kernels import KernelConfig
 from ..models import atoms, get_model
 from ..optim import Optimizer, clip_by_global_norm
@@ -64,7 +65,7 @@ def loss_fn(logits: torch.Tensor, tokens: torch.Tensor, z_loss: float = 0.0) -> 
 def _xent_chunk(xi, table, ti, constrain=None):
     """(sum of -log p, sum of lse^2, count) over one chunk's valid targets
     (ti >= 0); `constrain` pins the chunk's logits ("logits")."""
-    logits = xi @ table.T
+    logits = rows_matmul(xi, table.T)
     if constrain is not None:
         logits = constrain(logits, "logits")
     logits = logits.float()
@@ -93,7 +94,8 @@ def chunked_softmax_xent(x: torch.Tensor, table: torch.Tensor, tokens: torch.Ten
     chunk is padded with targets -1, which count nothing."""
     targets = tokens[:, 1:]
     n = targets.shape[1]
-    xs = x[:, -n - 1:-1]
+    # a sequence-split x is gathered before its chunks are sliced out
+    xs = whole_rows(x)[:, -n - 1:-1]
     pad = (-n) % chunk
     if pad:
         xs = pad_dims(xs, (0, 0, 0, pad))
@@ -124,6 +126,25 @@ def value_and_grad(fn: Callable, params, *args):
     value = fn(unflatten_like(params, live), *args)
     grads = torch.autograd.grad(value, list(live.values()))
     return value.detach(), unflatten_like(params, dict(zip(live, grads)))
+
+
+def _microbatch(t: torch.Tensor, k: int, i: int) -> torch.Tensor:
+    """The i-th of k microbatches of t (B, ...): rows [i B/k, (i+1) B/k),
+    as the reference splits.  A DTensor whose batch is split over n ranks
+    that k does not divide takes each rank's i-th local slice instead:
+    DTensor cannot unflatten such a batch, and a split along the ranks
+    would gather the batch onto every rank.  The microbatches are as large,
+    so their mean loss and gradient are the batch's."""
+    b, rest = t.shape[0], t.shape[1:]
+    if is_dtensor(t):
+        from torch.distributed.tensor import Shard
+        n = 1
+        for i_dim, pl in enumerate(t.placements):
+            if isinstance(pl, Shard) and pl.dim == 0:
+                n *= t.device_mesh.size(i_dim)
+        if n > 1 and k % n:
+            return t.reshape(n, k, b // (n * k), *rest)[:, i].reshape(b // k, *rest)
+    return t.reshape(k, b // k, *rest)[i]
 
 
 def make_train_step(cfg: ArchConfig, opt: Optimizer,
@@ -165,8 +186,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer,
             loss = torch.zeros((), device=batch["tokens"].device)
             grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             for i in range(k):
-                mb = {n: t.reshape(k, t.shape[0] // k, *t.shape[1:])[i]
-                      for n, t in batch.items()}
+                mb = {n: _microbatch(t, k, i) for n, t in batch.items()}
                 lv, g = value_and_grad(fwd_loss, params, mb)
                 loss = loss + lv
                 grads = tree_map(torch.add, grads, g)

@@ -1670,3 +1670,31 @@ def test_reduced_fp8_engine_on_card_equals_cpu(cuda):
         if dev == "cuda":
             assert launched == cfg.n_layers * eng.stats()["decode_steps"]
     assert outs["cpu"] == outs["cuda"]
+
+
+def test_dry_run_flops_equal_a_real_step_on_the_card(cuda):
+    """Phase 14b at a reduced size: the dry run of a bf16 gemma3 train step
+    (2 layers, d 256, 4 x 128 tokens) at world size 1 counts exactly the
+    FLOPs the same counter records around the real step on the card (B2
+    and B7 launched), with no collective in either."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    cfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=2, window_pattern="LG",
+                              vocab=2048, d_ff=512, d_model=256, n_heads=4, n_kv_heads=1,
+                              head_dim=64)
+    shape = InputShape("mini_train", 128, 4, "train")
+    opt, tc = adamw(1e-3), TrainConfig(remat=True)
+    with dryrun.fake_world(1):
+        counts = dryrun.count_step(cfg, shape, make_mesh((1, 1), ("data", "model"), "cuda"),
+                                   opt_kind="adamw", tc=tc)
+    state = make_train_state(cfg, opt, seed=0, device=cuda)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 128), device=cuda, dtype=torch.int32)}
+    K.reset_launch_counts()
+    with dryrun.CostCounter() as counter:
+        make_train_step(cfg, opt, tc)(state, batch)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    assert counter.flops == counts.flops > 0
+    assert counter.records == counts.records == []
+    assert launches["fused_mlp_swiglu"] and launches["fused_mlp_swiglu_bwd"]
