@@ -42,7 +42,11 @@ Phases, each failing the run on any error (no phase's exception is caught):
      site's launches;
   5. nerf, dlrm, mgn and graphcast at their published sizes, kitsune
      against bsp, captured and uncaptured as in 4, with fused_mlp launched
-     once per lowered site;
+     once per lowered site; then `compare_traffic` (Table 2's "Traffic
+     Red.") of these four and of phase 4's Llama app: bsp and kitsune
+     program-boundary byte sums (the port's count from tensor shapes, not a
+     device counter), the reduction and the program counts, the reduction
+     positive wherever kitsune runs fewer programs;
   6. a split-reduction graph, x (2048, 1024, 256) bf16 -> x*x -> sum over
      axis 0, kitsune (queue_reduce) against bsp;
   7. serving: phi3-medium-14b at full width and depth (40 layers, bf16
@@ -111,13 +115,14 @@ Phases, each failing the run on any error (no phase's exception is caught):
      the first step's logits held to the plain path within MODEL_TOL;
  10. the capture front-end (`repro_torch.compile(fn, example_inputs)`,
      kernels reached through the lowering pass): (a) `compile_train_step`
-     on gemma3-1b at full width and depth (batch 4 x 2048, no depth cut:
-     trace and passes take ~12-18 s), 3 kitsune steps against 3 eager
+     on gemma3-1b at full width, its depth cut to 8 of 26 layers
+     (TRACED_TRAIN_LAYERS; phase 8 trains it at full depth), batch
+     4 x 2048, 3 kitsune steps against 3 eager
      `make_train_step` steps from the same weights, losses within 1e-3 and
      parameters within twice the eager run's own spread over three
      reorderings of its sums (phase 3's bf16 dW rule over the trajectory,
-     `hold_train_run`), each kitsune step launching fused_mlp_swiglu 52 and
-     fused_mlp_swiglu_bwd 26 times, every step after the first a replay
+     `hold_train_run`), each kitsune step launching fused_mlp_swiglu twice
+     and fused_mlp_swiglu_bwd once a layer, every step after the first a replay
      of the plan captured after it; then one more step from one state, both
      captured and as the uncaptured walk, bitwise alike, and a profiled
      replay (device time by kernel, idle share); then the same trace
@@ -125,8 +130,9 @@ Phases, each failing the run on any error (no phase's exception is caught):
      captured and 1 uncaptured; trace and pass seconds, capture seconds and
      graph pool bytes, ms a step of kitsune and bsp (captured and
      uncaptured) and eager, the kitsune run's peak memory; (b) the same
-     for whisper-small (8 x 1500 frames, 448 tokens), fused_mlp 36 and
-     fused_mlp_bwd 24 a step; (c) the traced zoo forward of gemma3-1b at
+     for whisper-small cut to 4 + 4 of its 12 + 12 layers (8 x 1500
+     frames, 448 tokens), fused_mlp 3 and fused_mlp_bwd 2 a layer a step;
+     (c) the traced zoo forward of gemma3-1b at
      full width (2 x 1024) in kitsune mode, its replay bitwise the
      uncaptured walk and the raw forward, fused_mlp_swiglu 26 times; (d)
      the paged and the legacy engine with compile_mode="kitsune" against
@@ -186,7 +192,14 @@ Phases, each failing the run on any error (no phase's exception is caught):
      phi3-medium-14b at full width cut to 2 layers through the legacy
      engine (one cached_jit graph) and the paged engine (a captured tick
      a bucket) with `sharder=`, against the NULL engines: the same tokens,
-     the same B4 / B8 / B2 launches.  The group is destroyed at the end;
+     the same B4 / B8 / B2 launches; then, under the sharder, the legacy
+     and the paged engine with compile_mode="kitsune" (each tick traced
+     over the local shards through the capture front-end, collectives
+     nodes of the graph -- none at world size 1) and the paged engine on
+     the "gather" path (view and scatter on the local pool shards): the
+     NULL eager engine's tokens and its B4 / B8 / B2 launches (gather's
+     B4 for native's B8), each run's wall time, graph nodes, collective
+     nodes and graph_stats().  The group is destroyed at the end;
  14. the dry run (launch/dryrun.py): (a) gemma3-1b x train_4k and
      phi3-medium-14b x decode_32k on the production 16 x 16 mesh over a
      fake process group of 256 ranks (meta stand-ins): each row (memory,
@@ -198,7 +211,10 @@ Phases, each failing the run on any error (no phase's exception is caught):
      collectives, the dry run's roofline bound at most the measured step;
      (c) `synthesize_backward` of the five apps at published sizes in
      kitsune mode: plan-only fused_mlp_bwd and queue_reduce matches and
-     the cost model's bsp / kitsune estimates (H100 HwSpec).
+     the cost model's bsp / kitsune estimates (H100 HwSpec); (d) the ten
+     configs `.reduced()` through train, prefill and decode (64 tokens,
+     batch 32) on a fake 16 x 16 group: all 30 forms must count on this
+     host's torch release.  14a's rows name that release.
 The launch counters are zeroed just before phase 4 and read just after
 phase 6 (the compiler's main path), and zeroed and read around each engine
 run of phases 7, 9, 10 and 11 (the serving paths), each full-width run of
@@ -270,7 +286,7 @@ from repro_torch.serve import (AsyncServingEngine, CapturedTick,  # noqa: E402
                                ServingEngine, paged_tick)
 from repro_torch.serve.engine import serve_step  # noqa: E402
 from repro_torch.core.cudagraph import graph_stats  # noqa: E402
-from repro_torch.core import H100, calibrate  # noqa: E402
+from repro_torch.core import H100, calibrate, compare_traffic  # noqa: E402
 from repro_torch.core.executor import verdict_cache  # noqa: E402
 from repro_torch.core.compiler import _pipelined_members  # noqa: E402
 from repro_torch.core.lower import MEASURE_MARGIN, lower_pipelines, target_for  # noqa: E402
@@ -1214,6 +1230,28 @@ def phase_llama(samples):
     if k["fused_mlp_swiglu"] != 2 or k["flash_attention"] != 2:
         raise AssertionError(f"llama3_8b kitsune launches {k}: want "
                              f"fused_mlp_swiglu x2, flash_attention x2")
+    traffic("llama3_8b", graph, feeds, params)
+
+
+def traffic(name, graph, feeds, params) -> dict:
+    """Phase 5's `compare_traffic` line of one app at its published size:
+    the graph run in bsp and in kitsune mode (`GraphExecutor`: sf-nodes
+    unlowered), outputs held within 2e-2, and each mode's program-boundary
+    byte sum and program count.  Those bytes are the port's count of the
+    tensors crossing each program's boundary, from their shapes, not a
+    device counter.  A kitsune plan with fewer programs than bsp must move
+    fewer bytes."""
+    t0 = time.perf_counter()
+    t = compare_traffic(graph, feeds, params)
+    free()
+    print(f"5 traffic {name}: compare_traffic (program-boundary byte sums of the port's "
+          f"executor, not a device counter): bsp {t['bsp_bytes']:.6g} B in "
+          f"{t['bsp_programs']} programs, kitsune {t['kitsune_bytes']:.6g} B in "
+          f"{t['kitsune_programs']} programs, traffic reduction "
+          f"{t['traffic_reduction']:.4f} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if t["kitsune_programs"] < t["bsp_programs"] and not t["traffic_reduction"] > 0:
+        raise AssertionError(f"5 traffic {name}: {t}")
+    return t
 
 
 def app_cases() -> dict:
@@ -1244,6 +1282,7 @@ def phase_apps(samples):
         _, deltas = run_modes(graph, feeds, params, ("bsp", "kitsune"), name, samples)
         if not deltas["kitsune"]["fused_mlp"]:
             raise AssertionError(f"{name}: fused_mlp never launched")
+        traffic(name, graph, feeds, params)
         del params
         torch.cuda.empty_cache()
 
@@ -2338,6 +2377,10 @@ def phase_families() -> dict[str, dict[str, int]]:
 # decode step of every layer (a 16-step prefill tick of 40 layers is ~50k
 # nodes), so each engine holds TRACED_SERVE_LAYERS layers
 TRACED_SERVE_LAYERS = 2
+# 10a / 10b: the traced training steps' depth, cut (phase 8 trains both
+# models at full depth): gemma3-1b's 26 layers to 8 (one 6-layer window
+# period and the same 2-layer remainder), whisper-small's 12 + 12 to 4 + 4
+TRACED_TRAIN_LAYERS = {"gemma3-1b": 8, "whisper-small": 4}
 TRACED_SERVE_CONFIG = dict(SERVE_CONFIG, num_blocks=128)
 TRACED_SERVE_REQUESTS = 8
 # 10c: the traced zoo forward's batch (its logits are (2, 1024, 262144) bf16)
@@ -2457,8 +2500,9 @@ def eager_spread(name, state, eager, batches, eager_state) -> dict[str, tuple]:
     return spread
 
 
-def phase_traced_train(name, batch, seq, want) -> dict[str, int]:
-    """10a / 10b: `compile_train_step` at full width and depth: 3 kitsune
+def phase_traced_train(cfg, batch, seq, want) -> dict[str, int]:
+    """10a / 10b: `compile_train_step` at full width, the depth cut to
+    TRACED_TRAIN_LAYERS[cfg.name]: 3 kitsune
     steps against 3 eager `make_train_step` steps from the same weights and
     batches (`hold_train_run`, against the eager run's own spread over
     three reorderings of its sums), each kitsune step launching
@@ -2466,7 +2510,7 @@ def phase_traced_train(name, batch, seq, want) -> dict[str, int]:
     uncaptured.  Prints
     the trace and pass seconds, ms a step of each mode and the peak memory
     of the kitsune run.  Returns the kitsune run's launches."""
-    cfg = get_config(name)
+    name = cfg.name
     opt = adamw(TRAIN_LR)
     tc = TrainConfig(remat=True, xent_chunk=512)
     state = make_train_state(cfg, opt, seed=0, device="cuda")
@@ -2511,8 +2555,9 @@ def phase_traced_train(name, batch, seq, want) -> dict[str, int]:
           f"{stats['pool_bytes'] / 1e9:.2f} GB), kitsune uncaptured {1e3 * walk_s:.1f}, bsp "
           f"captured {1e3 * bsp_s[1]:.1f}, bsp uncaptured {1e3 * bsp_walk_s[0]:.1f}, eager "
           f"make_train_step {1e3 * sum(eager_s[1:]) / 2:.1f}; trace {trace_s:.1f} s + passes "
-          f"{pass_s:.1f} s (bsp: the same trace, passes {bsp_pass_s:.1f} s); depth not cut "
-          f"({cfg.n_layers} layers); kitsune peak allocated {peak / 1e9:.2f} GB", flush=True)
+          f"{pass_s:.1f} s (bsp: the same trace, passes {bsp_pass_s:.1f} s); depth cut to "
+          f"{cfg.n_layers} of {get_config(name).n_layers} layers; kitsune peak allocated "
+          f"{peak / 1e9:.2f} GB", flush=True)
     del bsp, state
     free()
     return launches
@@ -2726,17 +2771,18 @@ def phase_traced() -> dict[str, dict[str, int]]:
     free()
     print(f"phase 10 starts with {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
           flush=True)
-    gemma, whisper = get_config("gemma3-1b"), get_config("whisper-small")
+    gemma, whisper = (dataclasses.replace(get_config(n), n_layers=TRACED_TRAIN_LAYERS[n])
+                      for n in ("gemma3-1b", "whisper-small"))
     runs = {}
     t0 = time.perf_counter()
     runs["traced_train_gemma3"] = phase_traced_train(
-        "gemma3-1b", 4, 2048, {"fused_mlp_swiglu": 2 * gemma.n_layers,
+        gemma, 4, 2048, {"fused_mlp_swiglu": 2 * gemma.n_layers,
                                "fused_mlp_swiglu_bwd": gemma.n_layers,
                                "fused_mlp": 0, "fused_mlp_bwd": 0})
     print(f"phase 10a: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     runs["traced_train_whisper"] = phase_traced_train(
-        "whisper-small", 8, 448, {"fused_mlp": 3 * whisper.n_layers,
+        whisper, 8, 448, {"fused_mlp": 3 * whisper.n_layers,
                                   "fused_mlp_bwd": 2 * whisper.n_layers,
                                   "fused_mlp_swiglu": 0, "fused_mlp_swiglu_bwd": 0})
     print(f"phase 10b: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3257,52 +3303,109 @@ def dist_pipeline_and_compression(params) -> dict[str, dict[str, int]]:
     return {"dist_pipeline": pipe_launches}
 
 
+# 13d's runs: (engine, form, under the sharder, ServeConfig overrides, the
+# NULL run it is held to).  Each sharded run after the NULL eager ones.
+DIST_SERVE_RUNS = (
+    ("legacy", "null", False, {}, None),
+    ("legacy", "sharded", True, {}, "null"),
+    ("paged", "null", False, {}, None),
+    ("paged", "sharded", True, {}, "null"),
+    ("legacy", "kitsune", True, {"compile_mode": "kitsune", "lowering_policy": "always"},
+     "null"),
+    ("paged", "kitsune", True, {"compile_mode": "kitsune", "lowering_policy": "always"},
+     "null"),
+    ("paged", "gather", True, {"paged_attention": "gather"}, "null"),
+)
+DIST_SERVE_KERNELS = ("flash_decode", "paged_flash_decode", "fused_mlp_swiglu")
+
+
+def dist_serve_engine(cfg, params, engine, prompts, kw, overrides):
+    if engine == "legacy":
+        eng = ServingEngine(cfg, params, ServeConfig(**LEGACY_CONFIG, **overrides), eos_id=-1,
+                            **kw)
+        for rid, p in prompts.items():
+            eng.submit(rid, p)
+        return eng
+    eng = PagedServingEngine(cfg, params, ServeConfig(
+        max_len=LEGACY_CONFIG["max_len"], batch=LEGACY_CONFIG["batch"],
+        num_blocks=LEGACY_CONFIG["batch"] * LEGACY_CONFIG["max_len"] // 8 + 8,
+        max_new_tokens=32, **overrides), eos_id=-1, **kw)
+    for rid, p in prompts.items():
+        eng.submit(p, rid=rid)
+    return eng
+
+
+def compiled_apps(eng) -> list:
+    """The TracedApps of an engine's compiled ticks (none for an eager one)."""
+    if isinstance(eng, ServingEngine):
+        return [eng._step.app] if eng.sc.compile_mode else []
+    return [fn.app for fn in eng._steps.values() if hasattr(fn, "app")]
+
+
 def dist_serve(sharder) -> dict[str, dict[str, int]]:
     """13d: phi3-medium-14b at full width cut to DIST_SERVE_LAYERS layers,
     the legacy engine (cached_jit: one captured graph) and the paged engine
-    (a captured tick per bucket) with `sharder=` against the NULL engines:
-    the same tokens, the same B4 / B8 / B2 launches."""
+    (a captured tick per bucket) with `sharder=` against the NULL engines,
+    then under the sharder the legacy and paged engines with
+    compile_mode="kitsune" (each tick traced over the local shards, its
+    collectives nodes of the graph -- none at world size 1, where every
+    placement is Replicate) and the paged engine on the gather path (its
+    view and scatter on the local pool shards, captured ticks): the NULL
+    eager engine's tokens and its B4 / B8 / B2 launches (the gather path's
+    B4 launches standing for the native path's B8)."""
     cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=DIST_SERVE_LAYERS)
     params = get_model(cfg).init(seed=0, device="cuda")
     prompts = {rid: p[:LEGACY_PROMPT] for rid, p in
                list(serve_prompts(cfg.vocab).items())[:LEGACY_CONFIG["batch"]]}
     runs, out = {}, {}
-    for engine in ("legacy", "paged"):
-        for form, kw in (("null", {}), ("sharded", {"sharder": sharder})):
-            if engine == "legacy":
-                eng = ServingEngine(cfg, params, ServeConfig(**LEGACY_CONFIG), eos_id=-1, **kw)
-                for rid, p in prompts.items():
-                    eng.submit(rid, p)
-            else:
-                eng = PagedServingEngine(cfg, params, ServeConfig(
-                    max_len=LEGACY_CONFIG["max_len"], batch=LEGACY_CONFIG["batch"],
-                    num_blocks=LEGACY_CONFIG["batch"] * LEGACY_CONFIG["max_len"] // 8 + 8,
-                    max_new_tokens=32), eos_id=-1, **kw)
-                for rid, p in prompts.items():
-                    eng.submit(p, rid=rid)
-            torch.cuda.synchronize()
-            K.reset_launch_counts()
-            t0 = time.perf_counter()
-            out[engine, form] = eng.run_until_done()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = K.launch_counts()
-            g = eng.graph_stats()
-            print(f"13d {engine} {form}: {len(out[engine, form])} requests, "
-                  f"{sum(len(v) for v in out[engine, form].values())} tokens in {wall:.2f} s; "
-                  f"graphs {g['graphs']}, replays {g['replays']}; launches "
-                  f"{ {k: n for k, n in launches.items() if n} }", flush=True)
-            runs[f"dist_serve_{engine}_{form}"] = launches
-            del eng
-            free()
-        a, b = runs[f"dist_serve_{engine}_null"], runs[f"dist_serve_{engine}_sharded"]
-        keys = ("flash_decode", "paged_flash_decode", "fused_mlp_swiglu")
-        if out[engine, "null"] != out[engine, "sharded"] or any(a[k] != b[k] for k in keys) \
-                or not (a["flash_decode"] or a["paged_flash_decode"]):
-            raise AssertionError(f"13d {engine}: tokens equal "
-                                 f"{out[engine, 'null'] == out[engine, 'sharded']}, launches "
-                                 f"NULL {a}, sharded {b}")
-        print(f"13d {engine}: sharded tokens == NULL tokens, launches equal", flush=True)
+    for engine, form, sharded, overrides, against in DIST_SERVE_RUNS:
+        kw = {"sharder": sharder} if sharded else {}
+        t0 = time.perf_counter()
+        eng = dist_serve_engine(cfg, params, engine, prompts, kw, overrides)
+        torch.cuda.synchronize()
+        build = time.perf_counter() - t0
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out[engine, form] = eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        failed = getattr(eng, "failed", None)
+        if failed:
+            err = next(iter(failed.values()))
+            raise AssertionError(f"13d {engine} {form}: {len(failed)} requests failed: "
+                                 f"{err!r}") from (err.__cause__ or err)
+        launches = K.launch_counts()
+        apps_ = compiled_apps(eng)
+        nodes = sum(len(a.graph.nodes) for a in apps_)
+        colls = sum(n.kind == "collective" for a in apps_ for n in a.graph.nodes.values())
+        graph = (f"traced ticks {len(apps_)}, graph nodes {nodes}, collective nodes {colls}"
+                 if apps_ else "eager tick: no traced graph, so no collective nodes to count")
+        print(f"13d {engine} {form}: {len(out[engine, form])} requests, "
+              f"{sum(len(v) for v in out[engine, form].values())} tokens in {wall:.2f} s "
+              f"serving (a paged engine traces each bucket's tick on its first use, "
+              f"within it) after {build:.2f} s building the engine (the legacy engine's "
+              f"trace and compile within it); {graph}; graph_stats "
+              f"{eng.graph_stats()}; launches { {k: n for k, n in launches.items() if n} }",
+              flush=True)
+        runs[f"dist_serve_{engine}_{form}"] = launches
+        del eng, apps_
+        free()
+        if against is None:
+            continue
+        a = runs[f"dist_serve_{engine}_{against}"]
+        want = {k: a[k] for k in DIST_SERVE_KERNELS}
+        if form == "gather":
+            want["flash_decode"], want["paged_flash_decode"] = (a["paged_flash_decode"],
+                                                                a["flash_decode"])
+        got = {k: launches[k] for k in DIST_SERVE_KERNELS}
+        if out[engine, form] != out[engine, against] or got != want \
+                or not (want["flash_decode"] or want["paged_flash_decode"]) \
+                or not want["fused_mlp_swiglu"]:
+            raise AssertionError(f"13d {engine} {form}: tokens equal "
+                                 f"{out[engine, form] == out[engine, against]}, launches "
+                                 f"{got}, want {want}")
+        print(f"13d {engine} {form}: sharded tokens == NULL tokens, launches equal "
+              f"{got}", flush=True)
     return runs
 
 
@@ -3358,9 +3461,9 @@ def dry_production() -> None:
         for arch, shape in DRY_CELLS:
             t0 = time.perf_counter()
             row = dryrun.run_cell(arch, shape, multi_pod=False, verbose=False)
-            print(f"14a dry run {arch} x {shape} on 16x16 (dry-run counts per rank, H100 "
-                  f"data-sheet rates; traced in {time.perf_counter() - t0:.1f} s): "
-                  f"{json.dumps(row)}", flush=True)
+            print(f"14a dry run {arch} x {shape} on 16x16, counted on torch {row['torch']} "
+                  f"(dry-run counts per rank, H100 data-sheet rates; traced in "
+                  f"{time.perf_counter() - t0:.1f} s): {json.dumps(row)}", flush=True)
     torch.cuda.synchronize()
     after = torch.cuda.memory_allocated()
     print(f"14a card memory allocated before / after the dry runs: {before} / {after} bytes",
@@ -3471,13 +3574,36 @@ def dry_train_graphs() -> None:
             raise AssertionError(f"14c {tg.name}: no plan-only fused_mlp_bwd match")
 
 
+def dry_reduced_sweep() -> None:
+    """14d: the ten configs `.reduced()` through a train, a prefill and a
+    decode step (64 tokens, batch 32) on a fake 16 x 16 group
+    (`launch/dryrun.reduced_sweep`, as tests/test_torch_dryrun_sweep.py
+    runs it): every one of the 30 sharded forms must count on this host's
+    torch release."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    forms = dryrun.reduced_sweep()
+    for r in forms:
+        print(f"14d {r['arch']} {r['kind']}: {r['status']}"
+              + (f", flops {r['flops']:.6g}, collectives {r['collectives']}"
+                 if r["status"] == "ok" else "") + f" ({r['seconds']:.2f} s)", flush=True)
+    failed = [(r["arch"], r["kind"]) for r in forms if r["status"] != "ok"]
+    print(f"14d reduced configs on a fake 16x16 group, torch {torch.__version__}: "
+          f"{len(forms) - len(failed)} of {len(forms)} forms counted in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if failed or len(forms) != 30:
+        raise AssertionError(f"14d: {len(forms)} forms, failed {failed}")
+
+
 def phase_dryrun() -> dict[str, dict[str, int]]:
     """14: the dry run -- (a) production-mesh cells on the host, (b) held to
-    a real step on the card, (c) the paper's training graphs."""
+    a real step on the card, (c) the paper's training graphs, (d) the
+    reduced configs' 30 sharded forms on a 16-wide mesh."""
     t0 = time.perf_counter()
     dry_production()
     runs = dry_against_real()
     dry_train_graphs()
+    dry_reduced_sweep()
     print(f"phase 14 wall time {time.perf_counter() - t0:.1f} s", flush=True)
     return runs
 

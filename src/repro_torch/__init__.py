@@ -14,13 +14,14 @@ Front door:
 """
 from .api import (CachedFunction, CompiledApp, CompilerOptions, Graph,
                   KernelConfig, Node, PassManager, TensorSpec, TracedApp,
-                  atomic, atomic_vjp, cached_jit, calibrate,
+                  TracedFunction, atomic, atomic_vjp, cached_jit, calibrate,
                   clear_verdict_cache, compile, graph_fingerprint,
                   init_params, lowering_count, params_from_numpy,
                   structural_fingerprint, trace, tune_cache, verdict_cache)
 
 __all__ = [
-    "compile", "CompilerOptions", "CompiledApp", "TracedApp", "PassManager",
+    "compile", "CompilerOptions", "CompiledApp", "TracedApp", "TracedFunction",
+    "PassManager",
     "trace", "atomic", "atomic_vjp",
     "cached_jit", "CachedFunction", "init_params", "params_from_numpy", "lowering_count",
     "verdict_cache", "clear_verdict_cache", "tune_cache", "KernelConfig", "calibrate",

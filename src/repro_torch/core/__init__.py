@@ -35,7 +35,8 @@ from .queue import (queue_bandwidth, QueueLevel, L2_QUEUE_A100, L2_QUEUE_H100,
 from .executor import (GraphExecutor, ExecutorBackend, BSPBackend,
                        VerticalBackend, KitsuneBackend, make_backend,
                        ExecutionReport, ExecutionPlan, ExecutableCache,
-                       init_params, params_from_numpy, executable_cache,
+                       compare_traffic, init_params, params_from_numpy,
+                       executable_cache,
                        clear_executable_cache, lowering_count,
                        verdict_cache, clear_verdict_cache)
 from .lower import (KernelMatch, LoweringPlan, PipelineLowering, Verdict,
@@ -65,7 +66,8 @@ __all__ = [
     "NVLINK_QUEUE", "spatial_pipeline", "make_spatial_pipeline", "ring_push",
     "GraphExecutor", "ExecutorBackend", "BSPBackend", "VerticalBackend",
     "KitsuneBackend", "make_backend", "ExecutionReport", "ExecutionPlan",
-    "ExecutableCache", "init_params", "params_from_numpy", "executable_cache",
+    "ExecutableCache", "compare_traffic", "init_params", "params_from_numpy",
+    "executable_cache",
     "clear_executable_cache", "lowering_count",
     "verdict_cache", "clear_verdict_cache",
     "KernelMatch", "LoweringPlan", "PipelineLowering", "Verdict",

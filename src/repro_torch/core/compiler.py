@@ -507,8 +507,8 @@ class CompiledApp:
         """Human-readable pass pipeline + artifact summary."""
         mode = self.options.mode
         how = {"bsp": "one eager PyTorch call per op",
-               "vertical": "one whole-graph program, torch.compile'd on CUDA "
-                           "and eager on the CPU",
+               "vertical": "one whole-graph program (one per run between "
+                           "collectives), torch.compile'd on CUDA and eager on the CPU",
                "kitsune": "one callable per sf-node launching the Hopper "
                           "kernels (plain versions on the CPU)"}[mode]
         cap = ("the card: each plan captured after its first run as one CUDA "

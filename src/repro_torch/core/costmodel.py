@@ -28,6 +28,7 @@ import numpy as np
 
 from .graph import MXU, VPU, Graph, Node
 from .pipeline import Pipeline, PipelinedGraph
+from .queue import NVLINK_QUEUE, queue_bandwidth
 
 
 @dataclass(frozen=True)
@@ -83,6 +84,12 @@ def op_bytes_bsp(g: Graph, n: Node) -> float:
 def op_time_bsp(g: Graph, n: Node, hw: HwSpec) -> float:
     if n.is_free:
         return 0.0
+    if n.kind == "collective":
+        # the bytes it sends (core/trace.py) through the NVLink queue level
+        # (core/queue.py), its per-hop sync included; not vector work
+        wire = n.attrs.get("wire_bytes", n.out.nbytes)
+        return max(wire / queue_bandwidth(NVLINK_QUEUE, wire) if wire else 0.0,
+                   hw.launch_s)
     t_compute = n.flops / (_peak(n.resource, hw) * hw.eff)
     t_mem = op_bytes_bsp(g, n) / hw.dram_bw
     return max(t_compute, t_mem, hw.launch_s)

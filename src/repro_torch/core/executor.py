@@ -398,7 +398,7 @@ class Program:
     needs: tuple[str, ...]                # graph values consumed
     params: tuple[str, ...] = ()          # param keys consumed
     fn: Callable | None = None            # (feed, params) -> {name: value}
-    node: Node | None = None              # set for inline (free) programs
+    node: Node | None = None              # the node of a one-node program
     outs: tuple[str, ...] = ()            # value names produced, in order
 
 
@@ -426,9 +426,16 @@ def _nbytes(obj) -> float:
 def _op_program(g: Graph, node: Node) -> Program:
     def fn(feed: dict[str, torch.Tensor], params: dict, _n=node) -> dict:
         ins = [feed[i] for i in _n.inputs]
-        return {_n.name: _eval_node(_n, ins, params.get(_n.name))}
+        try:
+            return {_n.name: _eval_node(_n, ins, params.get(_n.name))}
+        except Exception as exc:
+            exc.add_note(f"at node {_n.name} ({_n.attrs.get('prim', _n.kind)}) on "
+                         + ", ".join(f"{tuple(t.shape)} {t.dtype} {t.device}"
+                                     if isinstance(t, torch.Tensor) else repr(t)
+                                     for t in ins))
+            raise
 
-    return Program(node.name, tuple(node.inputs), (node.name,), fn,
+    return Program(node.name, tuple(node.inputs), (node.name,), fn, node,
                    outs=(node.name,))
 
 
@@ -542,13 +549,17 @@ class BSPBackend(ExecutorBackend):
 
 class VerticalBackend(ExecutorBackend):
     """Whole-graph single-program fusion: the vertical-fusion baseline
-    (`torch.compile` on CUDA, eager on the CPU)."""
+    (`torch.compile` on CUDA, eager on the CPU).  A graph with collectives
+    is cut at each: the runs between them are one program each, and every
+    collective a program of its own, so `torch.compile` never sees one."""
 
     mode = "vertical"
     compiles = True
 
     def plan(self) -> list[Program]:
         g = self.graph
+        if any(n.kind == "collective" for n in g.topo()):
+            return self._cut_plan()
         inputs = tuple(n.name for n in g.topo() if n.kind in ("input", "const"))
         pkeys = tuple(n.name for n in g.topo()
                       if n.kind in ("linear", "norm", "gather"))
@@ -571,6 +582,26 @@ class VerticalBackend(ExecutorBackend):
 
         return [Program(f"{g.name}.vertical", inputs, pkeys, fn,
                         outs=tuple(exports))]
+
+    def _cut_plan(self) -> list[Program]:
+        g = self.graph
+        progs: list[Program] = []
+        run: list[str] = []
+
+        def flush():
+            if run:
+                progs.append(_sf_program(g, f"{g.name}.vertical{len(progs)}", list(run)))
+                run.clear()
+        for n in g.topo():
+            if n.kind in ("input", "const"):
+                continue
+            if n.kind == "collective":
+                flush()
+                progs.append(_op_program(g, n))
+            else:
+                run.append(n.name)
+        flush()
+        return progs
 
 
 class KitsuneBackend(ExecutorBackend):
@@ -646,6 +677,7 @@ class ExecutionReport:
     cache_misses: int = 0      # programs built fresh this call
     replayed: bool = False     # the call replayed the plan's CUDA graph
     capture_s: float = 0.0     # seconds this call spent capturing it
+    n_collectives: int = 0     # collective programs among n_programs
 
 
 def _plan_key(obj, addresses: bool = False) -> tuple:
@@ -746,13 +778,15 @@ class ExecutionPlan:
     specialized closures the hot loop actually runs.  On the card `graph`
     is the plan captured as one CUDA graph (a GraphFunction over the
     feeds), which every later run replays instead of walking `fns`."""
-    __slots__ = ("steps", "fns", "bytes_accessed", "n_programs", "graph")
+    __slots__ = ("steps", "fns", "bytes_accessed", "n_programs", "n_collectives",
+                 "graph")
 
-    def __init__(self, steps, bytes_accessed, n_programs):
+    def __init__(self, steps, bytes_accessed, n_programs, n_collectives=0):
         self.steps = steps
         self.fns = tuple(_compile_step(st) for st in steps)
         self.bytes_accessed = bytes_accessed
         self.n_programs = n_programs
+        self.n_collectives = n_collectives
         self.graph = None
 
 
@@ -900,7 +934,8 @@ class Engine:
         if not measure:
             return ExecutionReport(outs, 0.0, 0, 0.0, plan.n_programs, 0, replayed)
         return ExecutionReport(outs, plan.bytes_accessed, plan.n_programs,
-                               0.0, plan.n_programs, 0, replayed)
+                               0.0, plan.n_programs, 0, replayed,
+                               n_collectives=plan.n_collectives)
 
     def _build_and_run(self, key: tuple, feeds: dict, params: dict, measure: bool,
                        inplace: frozenset) -> ExecutionReport:
@@ -956,7 +991,7 @@ class Engine:
         buf = self._feed_buffer(feeds)
         bound: list[Any] = []
         total_bytes = 0.0
-        n_programs = hits = misses = 0
+        n_programs = n_collectives = hits = misses = 0
         for spec in self._steps:
             if type(spec) is _FreeSpec:
                 buf[spec.out_slot] = _eval_node(
@@ -991,17 +1026,18 @@ class Engine:
                     buf[o] = v
                 total_bytes += exe.bytes_accessed
                 n_programs += 1
+                n_collectives += prog.node is not None and prog.node.kind == "collective"
                 bound.append(_BoundStep(spec, exe, pkeys))
             for i in spec.release:
                 buf[i] = None
-        self._plans[key] = ExecutionPlan(bound, total_bytes, n_programs)
+        self._plans[key] = ExecutionPlan(bound, total_bytes, n_programs, n_collectives)
         while len(self._plans) > self.MAX_PLANS:
             self._plans.popitem(last=False)
         outs = {name: buf[s] for name, s in self._run_out_slots}
         if not measure:
             return ExecutionReport(outs, 0.0, 0, 0.0, hits, misses)
         return ExecutionReport(outs, total_bytes, n_programs, 0.0,
-                               hits, misses)
+                               hits, misses, n_collectives=n_collectives)
 
     def _build(self, prog: Program, ins: tuple, with_params: bool) -> _Executable:
         """A positional callable for `prog`; for a compiling backend (the
@@ -1045,3 +1081,21 @@ class GraphExecutor:
     def run(self, feeds: dict[str, torch.Tensor], params: dict,
             measure: bool = True) -> ExecutionReport:
         return self._engine.run(feeds, params, measure)
+
+
+def compare_traffic(graph: Graph, feeds: dict[str, torch.Tensor],
+                    params: dict) -> dict[str, float]:
+    """Boundary bytes, BSP vs Kitsune (Table 2's "Traffic Red."): the
+    graph run in both modes, their outputs held within rtol = atol = 2e-2,
+    and each mode's sum of program-boundary bytes (the tensors crossing
+    each program's boundary, from their shapes -- a count, not a device
+    counter) with its program count."""
+    bsp = GraphExecutor(graph, "bsp").run(feeds, params)
+    kit = GraphExecutor(graph, "kitsune").run(feeds, params)
+    for k, v in bsp.outputs.items():
+        # on the outputs' device: a full-width app's logits are GBs
+        torch.testing.assert_close(kit.outputs[k].float(), v.float(), rtol=2e-2, atol=2e-2)
+    red = 1.0 - kit.bytes_accessed / max(bsp.bytes_accessed, 1.0)
+    return {"bsp_bytes": bsp.bytes_accessed, "kitsune_bytes": kit.bytes_accessed,
+            "traffic_reduction": red, "bsp_programs": bsp.n_programs,
+            "kitsune_programs": kit.n_programs}

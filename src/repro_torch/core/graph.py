@@ -42,6 +42,10 @@ OP_KINDS = (
     "concat",        # VPU
     "reshape",       # free
     "queue",         # inserted by pipeline design; carries tiles on-chip
+    "collective",    # a cross-rank collective (core/trace.py imports
+                     # DTensor's functional collectives as these): excluded
+                     # from sf-nodes, costed on the NVLink queue level, and
+                     # run as a program of its own in graph order
     "output",
 )
 

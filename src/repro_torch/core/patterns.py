@@ -15,8 +15,9 @@ from dataclasses import dataclass, field
 
 from .graph import Graph, Node
 
-# Excluded kinds (paper's two exclusion rules).
-_EXCLUDED = {"gather", "scatter", "input", "const", "output"}
+# Excluded kinds (paper's two exclusion rules), and the cross-rank
+# collectives, which every rank must issue in graph order.
+_EXCLUDED = {"gather", "scatter", "input", "const", "output", "collective"}
 
 # Single-letter codes make the pattern library literal regexes.
 _CODE = {

@@ -292,7 +292,8 @@ def dedupe_programs(g: Graph, members_of: dict[str, list[str]],
     single-op program.  `matches_of` carries the kernel matches the
     `lower_kernels` pass bound per sf-node -- match signatures enter the key
     so differently-lowered programs never share executables.  Free nodes
-    (reshape/index/stack/output) never compile and are skipped."""
+    (reshape/index/stack/output) never compile and are skipped, and
+    collectives are never bucketed."""
     matches_of = matches_of or {}
     struct_keys: dict[str, str] = {}
     covered: set[str] = set()
@@ -301,7 +302,9 @@ def dedupe_programs(g: Graph, members_of: dict[str, list[str]],
             g, members, tuple(matches_of.get(name) or ()))
         covered.update(members)
     for n in g.topo():
-        if n.name in covered or n.is_free:
+        # a collective keeps a program of its own, keyed by its name: no
+        # two collectives ever share one
+        if n.name in covered or n.is_free or n.kind == "collective":
             continue
         struct_keys[n.name] = program_struct_key(g, [n.name])
     return DedupeInfo(struct_keys)

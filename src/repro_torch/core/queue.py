@@ -64,6 +64,64 @@ def queue_bandwidth(level: QueueLevel, payload_bytes: float,
 
 
 # ---------------------------------------------------------------------------
+# Collectives on a ring: the bytes one rank sends (the dry run's counts and
+# the cost of a traced graph's collective nodes)
+# ---------------------------------------------------------------------------
+
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+
+# the functional collectives (`_c10d_functional::*`) DTensor issues, by the
+# reference's HLO kind; the ops of NO_WIRE move no bytes
+_COLLECTIVE_OPS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter", "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+NO_WIRE = frozenset({"wait_tensor", "_wrap_tensor_autograd"})
+
+
+def collective_kind(op: str) -> str | None:
+    """The ring-model kind of a functional collective (its op name); None
+    for one of NO_WIRE.  An op the model has no kind for raises."""
+    if op in NO_WIRE:
+        return None
+    kind = _COLLECTIVE_OPS.get(op)
+    if kind is None:
+        raise NotImplementedError(f"collective {op} has no ring-model kind")
+    return kind
+
+
+def collective_group(args):
+    """(name, process group) of the group a functional collective's
+    arguments name -- its last string argument -- or None where none is
+    named (a wait)."""
+    names = [a for a in args if isinstance(a, str)]
+    if not names:
+        return None
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return names[-1], _resolve_process_group(names[-1])
+
+
+def wire_bytes(kind: str, nbytes: float, group_size: int) -> float:
+    """Bytes one rank sends for a collective of `kind` whose result is
+    `nbytes` on it, on a ring of `group_size` ranks (the reference's ring
+    model, `src/repro/launch/dryrun.py` `collective_bytes`): AR 2S(n-1)/n;
+    AG/A2A S(n-1)/n; RS S(n-1); permute S.  A group of one sends nothing."""
+    n = group_size
+    if n <= 1:
+        return 0.0
+    if kind == "all-reduce":
+        return 2 * nbytes * (n - 1) / n
+    if kind == "reduce-scatter":
+        return nbytes * (n - 1)
+    if kind == "collective-permute":
+        return nbytes
+    return nbytes * (n - 1) / n      # all-gather / all-to-all
+
+
+# ---------------------------------------------------------------------------
 # Inter-card ring queue + spatial device pipeline
 # ---------------------------------------------------------------------------
 

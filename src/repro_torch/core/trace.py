@@ -44,6 +44,10 @@ Import rules (aten ops by name):
     time by the TracedApp artifact
   * multi-output ops                          -> one tuple-valued node plus
     free projections
+  * a functional collective (`_c10d_functional::*`, what a DTensor body
+    issues between its local ops)             -> collective (excluded from
+    sf-nodes, run in graph order; its group's ranks and the bytes it sends
+    are attrs, so the mesh enters the fingerprint)
   * a custom op with an atomic spec           -> ONE node of the spec's kind
     with its `lower_hint`: the kernel ops of kernels/ops.py (their nodes
     run the plain version unless lowered) and the ops `atomic()` /
@@ -51,6 +55,13 @@ Import rules (aten ops by name):
     `atomic_vjp` gives an op an autograd formula whose backward is a second
     atomic op, so a traced `torch.autograd.grad` keeps both directions as
     single, kernel-lowerable nodes.
+
+A DTensor function is traced over the plain local shards it wraps
+(`distributed.sharding.join_local` inside the function): make_fx records
+what DTensor dispatches on each rank -- the local aten ops and the
+functional collectives of its redistributions -- so the graph is this
+rank's program, its collectives nodes of their own.  The reference gets its
+collectives from GSPMD after the graph is built; here they are in it.
 
 The port's models loop over layers in Python, so a trace has no scan to
 import: the reference's scan unrolling (`MAX_UNROLL_EQNS`, `roll_scans`)
@@ -70,6 +81,7 @@ from torch.utils import _pytree as pytree
 
 from ..kernels.ops import OP_SPECS, attention_flops
 from .graph import Graph, Node, TensorSpec
+from .queue import collective_group, collective_kind, wire_bytes
 
 __all__ = ["AtomicSpec", "TracedFunction", "atomic", "atomic_vjp",
            "attention_flops", "donate_outputs", "matmul_flops", "trace"]
@@ -103,6 +115,8 @@ _SCATTER_OPS = {"scatter", "scatter_add", "scatter_reduce", "index_put",
                 "embedding_dense_backward"}
 
 _CONCAT_OPS = {"cat", "stack"}
+
+_COLLECTIVE_NS = {"_c10d_functional", "c10d_functional"}
 
 # flops per element of the elementwise fallback kind
 _TRANSCENDENTAL = {"exp", "exp2", "expm1", "log", "log1p", "log2", "tanh",
@@ -437,19 +451,23 @@ class _Importer:
         env: dict[torch.fx.Node, str] = {}
         placeholders = iter(in_names)
         outs: list[str] = []
+        live = _live_nodes(self.m)
         # consts first, as the reference imports a jaxpr's constvars: make_fx
         # places each get_attr at its first use, where a const node (an
         # excluded kind) would cut the op run around it in two
         for fx in self.m.graph.nodes:
+            if fx not in live:
+                continue
             if fx.op == "get_attr":
                 val = getattr(self.m, fx.target)
                 if not isinstance(val, torch.Tensor):
                     raise NotImplementedError(f"get_attr {fx.target}: not a tensor")
                 env[fx] = self.add_const(val)
         for fx in self.m.graph.nodes:
-            if fx.op in ("placeholder", "get_attr"):
-                if fx.op == "placeholder":
-                    env[fx] = next(placeholders)
+            if fx.op == "placeholder":
+                env[fx] = next(placeholders)
+            elif fx not in live or fx.op == "get_attr":
+                continue
             elif fx.op == "call_function":
                 env[fx] = self.call(fx, env)
             elif fx.op == "output":
@@ -485,6 +503,8 @@ class _Importer:
         spec = _ATOMICS.get(target._schema.name)
         if spec is not None:
             return self._atomic(fx, target, spec, args, kwargs, inputs, in_vals, base)
+        if target.namespace in _COLLECTIVE_NS:
+            return self._collective(fx, target, args, kwargs, inputs, base)
         ev = _make_eval(target, args, kwargs)
         out_vals = list(val) if isinstance(val, (tuple, list)) else [val]
         size = float(sum(v.numel() for v in out_vals if isinstance(v, torch.Tensor)))
@@ -549,6 +569,54 @@ class _Importer:
         ev = _make_eval(spec.plain or target, args, kwargs)
         return self._emit(fx, _op_name(target).split("::")[-1], spec.kind, inputs,
                           attrs, ev, flops)
+
+    def _collective(self, fx, target, args, kwargs, inputs, base: dict) -> str:
+        """A functional collective: its eval calls the op with the recorded
+        group name, which names the same group on every rank of it.  Its
+        attrs: the group's ranks, and the bytes this rank sends on the ring
+        model of core/queue.py (`wire_bytes`)."""
+        op = target._schema.name.split("::")[1]
+        kind = collective_kind(op)
+        attrs = {**base, "collective": op}
+        size = 1
+        named = collective_group([*fx.args, *fx.kwargs.values()])
+        if named is not None:
+            from torch.distributed.distributed_c10d import get_process_group_ranks
+            group, pg = named
+            attrs.update(group=group, group_ranks=tuple(get_process_group_ranks(pg)))
+            size = pg.size()
+        attrs["wire_bytes"] = 0.0 if kind is None else \
+            wire_bytes(kind, _tensor_bytes(fx.meta["val"]), size)
+        return self._emit(fx, op, "collective", inputs, attrs,
+                          _make_eval(target, args, kwargs), 0.0)
+
+
+def _tensor_bytes(obj) -> int:
+    return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(obj)
+               if isinstance(t, torch.Tensor))
+
+
+def _live_nodes(module) -> set:
+    """The FX nodes to import: all but the dead ones computed from nothing
+    the function was given.  A DTensor body traced on some releases (torch
+    2.11) records the sharding propagation's own metadata runs -- ops over
+    `empty_strided` stand-ins that read no input and whose results nothing
+    reads -- which would run on uninitialised host memory.  A dead node
+    that reads an input is kept, as it always was; the output, every
+    in-place op and every collective are live."""
+    rooted: set = set()
+    for fx in module.graph.nodes:
+        if fx.op in ("placeholder", "get_attr") or any(a in rooted
+                                                       for a in fx.all_input_nodes):
+            rooted.add(fx)
+    live: set = set()
+    for fx in reversed(module.graph.nodes):
+        keep = fx.op == "output" or fx in rooted or any(u in live for u in fx.users)
+        if not keep and fx.op == "call_function" and isinstance(fx.target, torch._ops.OpOverload):
+            keep = fx.target._schema.is_mutable or fx.target.namespace in _COLLECTIVE_NS
+        if keep:
+            live.add(fx)
+    return live
 
 
 def _mutates(module) -> bool:

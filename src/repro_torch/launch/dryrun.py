@@ -49,6 +49,7 @@ from ..configs import ARCHS, applicable_shapes, get_config
 from ..configs.base import SHAPES, ArchConfig, InputShape
 from ..core.costmodel import H100_HBM_BYTES, PEAK_FLOPS_PER_CHIP, roofline
 from ..core.executor import executable_cache
+from ..core.queue import COLLECTIVE_KINDS, collective_group, collective_kind, wire_bytes
 from ..distributed.sharding import NamedSharding, Sharder, cache_placement, place
 from ..models import get_model
 from ..models.lm import _sub_kinds
@@ -58,7 +59,7 @@ from ..serve.engine import serve_step
 from ..train import TrainConfig, make_train_step
 from ..tree import tree_map
 from .inputs import DEVICE, decode_inputs, params_specs, train_inputs
-from .mesh import make_production_mesh
+from .mesh import make_mesh, make_production_mesh
 
 OUT_DIR = os.path.join("build", "dryrun_torch")
 KERNEL_NAMESPACE = "repro_torch"
@@ -100,48 +101,17 @@ class CollectiveRecord(NamedTuple):
     group_size: int
 
 
-COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
-                    "collective-permute")
-
-# the functional collectives DTensor runs, by the reference's kind
-_COLLECTIVE_OPS = {
-    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
-    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_coalesced": "all-gather",
-    "reduce_scatter_tensor": "reduce-scatter", "reduce_scatter_tensor_coalesced": "reduce-scatter",
-    "all_to_all_single": "all-to-all",
-}
-_NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd"}
-
-
 def collective_bytes(records) -> dict:
-    """Per-rank wire bytes by collective type (the reference's ring model,
-    `src/repro/launch/dryrun.py` `collective_bytes`): AR 2S(n-1)/n; AG/A2A
-    S(n-1)/n; RS S_out(n-1); permute S -- S the result's bytes, n the
-    group's size (at least 2, as the reference reads a missing group)."""
+    """Per-rank wire bytes by collective type on the ring model of
+    core/queue.py (`wire_bytes`), n the group's size read as at least 2,
+    as the reference reads a missing group."""
     out = {k: 0.0 for k in COLLECTIVE_KINDS}
     out["count"] = 0
     for r in records:
-        size, n = float(r.nbytes), max(int(r.group_size), 2)
-        if r.kind == "all-reduce":
-            wire = 2 * size * (n - 1) / n
-        elif r.kind == "reduce-scatter":
-            wire = size * (n - 1)
-        elif r.kind == "collective-permute":
-            wire = size
-        else:  # all-gather / all-to-all
-            wire = size * (n - 1) / n
-        out[r.kind] += wire
+        out[r.kind] += wire_bytes(r.kind, float(r.nbytes), max(int(r.group_size), 2))
         out["count"] += 1
     out["total"] = sum(v for k, v in out.items() if k != "count")
     return out
-
-
-def _group_size(args) -> int:
-    """The size of the group a functional collective names (its group name
-    is its last string argument)."""
-    import torch.distributed.distributed_c10d as c10d
-    name = [a for a in args if isinstance(a, str)][-1]
-    return c10d._resolve_process_group(name).size()
 
 
 # ---------------------------------------------------------------------------
@@ -257,13 +227,12 @@ class CostCounter(TorchDispatchMode):
         ns = func.namespace
         name = packet.__name__
         if ns in ("_c10d_functional", "_c10d_functional_autograd"):
-            if name in _NOT_COLLECTIVES:
-                return
-            kind = _COLLECTIVE_OPS.get(name)
+            kind = collective_kind(name)
             if kind is None:
-                raise NotImplementedError(f"dry run: collective {func} has no ring-model kind")
+                return
             nbytes = sum(_nbytes(t) for t in _tensors(out))
-            self.records.append(CollectiveRecord(kind, float(nbytes), _group_size(args)))
+            self.records.append(CollectiveRecord(kind, float(nbytes),
+                                                 collective_group(args)[1].size()))
             return
         if packet in self._flops_of:
             self.flops += float(self._flops_of[packet](*args, **kwargs, out_val=out))
@@ -498,7 +467,8 @@ def device_capacity() -> int:
 
 def row(cfg: ArchConfig, shape: InputShape, mesh_label: str, chips: int,
         c: CellCounts, *, arch: str | None = None) -> dict:
-    """The reference's JSON row of one cell from its counts."""
+    """The reference's JSON row of one cell from its counts, with the torch
+    release that counted it (`torch`)."""
     coll = collective_bytes(c.records)
     terms = roofline(c.flops, c.bytes, coll["total"])
     mf = model_flops(cfg, shape) / chips
@@ -506,7 +476,7 @@ def row(cfg: ArchConfig, shape: InputShape, mesh_label: str, chips: int,
     total = c.total_bytes
     return {
         "arch": arch or cfg.name, "shape": shape.name, "mesh": mesh_label, "chips": chips,
-        "status": "ok",
+        "status": "ok", "torch": torch.__version__,
         "compile_s": round(c.trace_s, 1),
         "memory": {
             "argument_GiB": round(c.argument_bytes / gib, 3),
@@ -529,6 +499,37 @@ def row(cfg: ArchConfig, shape: InputShape, mesh_label: str, chips: int,
                                   / terms.bound_s) if terms.bound_s else 0.0,
         },
     }
+
+
+SWEEP_KINDS = ("train", "prefill", "decode")
+# the sweep's fake ("data", "model") mesh -- a 16-wide axis, which the gloo
+# tests' meshes of at most 4 never reach -- and its steps' tokens and rows
+SWEEP_MESH, SWEEP_SEQ, SWEEP_BATCH = (16, 16), 64, 32
+
+
+def reduced_sweep() -> list[dict]:
+    """Every config `.reduced()` through a train, a prefill and a decode
+    step of SWEEP_SEQ tokens and SWEEP_BATCH rows on a fake SWEEP_MESH.
+    One dict per form: arch, kind, status ("ok" or "FAIL: ..."), flops and
+    collectives of rank 0, and the seconds it took.  Opens its own fake
+    group."""
+    out = []
+    with fake_world(math.prod(SWEEP_MESH)):
+        mesh = make_mesh(SWEEP_MESH, ("data", "model"), "cuda")
+        for arch in ARCHS:
+            cfg = get_config(arch).reduced()
+            for kind in SWEEP_KINDS:
+                shape = InputShape(f"{kind}_{SWEEP_SEQ}", SWEEP_SEQ, SWEEP_BATCH, kind)
+                res = {"arch": arch, "kind": kind}
+                t0 = time.perf_counter()
+                try:
+                    c = count_step(cfg, shape, mesh, opt_kind=opt_kind_for(cfg))
+                    res.update(status="ok", flops=c.flops, collectives=len(c.records))
+                except Exception as exc:  # noqa: BLE001 -- a failed form is the finding
+                    res["status"] = f"FAIL: {type(exc).__name__}: {str(exc)[:300]}"
+                res["seconds"] = time.perf_counter() - t0
+                out.append(res)
+    return out
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True) -> dict:

@@ -6,7 +6,7 @@ Run after the sweep:
 
 Every number in the tables is a dry-run count per rank, or a count over
 the H100's data-sheet rates (core/costmodel.py `roofline`): no time here
-was measured.
+was measured.  Each row names the torch release it was counted on.
 """
 from __future__ import annotations
 
@@ -51,6 +51,13 @@ def next_lever(r) -> str:
             "blocks on the fused wgmma kernels for tensor-core occupancy")
 
 
+def torch_of(r) -> str:
+    """The torch release a row was counted on (DTensor's strategies, and so
+    a row's collectives and memory, differ between releases); rows written
+    before the field existed say so."""
+    return r.get("torch", "not recorded")
+
+
 def fmt_s(x):
     if x >= 1:
         return f"{x:.2f}s"
@@ -79,26 +86,27 @@ def main(argv=None, out=sys.stdout):
         p(f"  - FAIL {r['arch']} x {r['shape']} ({r['mesh']}): {r['status'][:150]}")
     p("")
     p("| arch | shape | mesh | memory/card (GiB) | fits 80GB | colls/step "
-      "| coll GiB/card | trace s |")
-    p("|---|---|---|---|---|---|---|---|")
+      "| coll GiB/card | trace s | torch |")
+    p("|---|---|---|---|---|---|---|---|---|")
     for r in ok:
         m = r["memory"]
         c = r["collectives"]
         p(f"| {r['arch']} | {r['shape']} | {r['mesh']} "
           f"| {m['total_GiB_per_chip']:.2f} | {'Y' if m['fits_80GB'] else 'N'} "
-          f"| {c['count']} | {c['total'] / 2**30:.2f} | {r['compile_s']} |")
+          f"| {c['count']} | {c['total'] / 2**30:.2f} | {r['compile_s']} "
+          f"| {torch_of(r)} |")
     p("")
     p("### Roofline table (single-pod 16x16, per card per step: counts over "
       "the H100's data-sheet rates)\n")
     p("| arch | shape | compute | memory | collective | dominant "
-      "| useful-FLOPs ratio | roofline frac | next lever |")
-    p("|---|---|---|---|---|---|---|---|---|")
+      "| useful-FLOPs ratio | roofline frac | next lever | torch |")
+    p("|---|---|---|---|---|---|---|---|---|---|")
     for r in single:
         rf = r["roofline"]
         p(f"| {r['arch']} | {r['shape']} | {fmt_s(rf['compute_s'])} "
           f"| {fmt_s(rf['memory_s'])} | {fmt_s(rf['collective_s'])} "
           f"| **{rf['dominant']}** | {rf['useful_flops_ratio']:.2f} "
-          f"| {rf['roofline_fraction']:.3f} | {next_lever(r)} |")
+          f"| {rf['roofline_fraction']:.3f} | {next_lever(r)} | {torch_of(r)} |")
     p("")
     doms: dict[str, int] = {}
     for r in single:

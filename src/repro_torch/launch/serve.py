@@ -14,6 +14,10 @@ that decodes the encoder-decoder: whisper-small with a zero cross
 cache).  Weights are random, drawn from ``--seed`` on ``--device``
 (default ``cuda``); ``--reduced`` serves the architecture's small f32
 variant.  ``--num-blocks`` overrides the profiled pool capacity.
+``--compile-mode {bsp,vertical,kitsune}`` traces the tick through the
+capture front-end and runs it on that compiler mode's executor (the
+kernels reached through the lowering pass in kitsune mode), as
+``ServeConfig.compile_mode`` does.
 
 Fault drills: ``--fault-plan`` installs a scripted fault schedule, e.g.
 ``tick.step@4,tick.logits@6:rid=3``; ``--deadline-s`` puts a deadline on
@@ -44,6 +48,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--engine", choices=["paged", "async", "legacy"], default="paged")
+    ap.add_argument("--compile-mode", default=None, choices=["bsp", "vertical", "kitsune"],
+                    help="trace the tick and run it on this compiler mode's executor")
     ap.add_argument("--num-blocks", type=int, default=None,
                     help="KV pool size; default: profiling pass")
     ap.add_argument("--block-size", type=int, default=8)
@@ -70,6 +76,7 @@ def main(argv=None):
     prompts = [[2 + rid % 7, 11, 23] for rid in range(args.requests)]
     plan = parse_fault_plan(args.fault_plan) if args.fault_plan else ()
     sc = ServeConfig(max_len=args.max_len, batch=args.batch,
+                     compile_mode=args.compile_mode,
                      num_blocks=args.num_blocks, block_size=args.block_size,
                      prefill_chunk=args.prefill_chunk,
                      fault_plan=plan, fault_seed=args.fault_seed,

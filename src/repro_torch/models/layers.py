@@ -43,17 +43,18 @@ def _keep(t, _kind):
 
 
 def _write(write, dst: torch.Tensor, src: torch.Tensor, src_dim: dict[int, int],
-           index: torch.Tensor | None = None) -> None:
-    """write(dst, src, index): an in-place write of src into dst.  Under a
+           *index: torch.Tensor, index_dim: int = 0) -> None:
+    """write(dst, src, *index): an in-place write of src into dst.  Under a
     sharder (dst a DTensor) it runs on every rank's local shards
     (`local_map`): DTensor has no in-place index_put into a sharded tensor.
     src_dim maps each dim of dst that may be sharded to the dim of src that
-    lines up with it; src is redistributed to match, and a per-slot index
-    (B,) is split with src's dim 0.  A dim of dst that is written at an
-    index is never sharded."""
+    lines up with it; src is redistributed to match, and each index, whose
+    dim 0 lines up with src's dim `index_dim` (the slots), is split with
+    that dim or else replicated.  A dim of dst that is written at an index
+    is never sharded."""
     from ..distributed.sharding import is_dtensor
     if not is_dtensor(dst):
-        write(dst, src, index)
+        write(dst, src, *index)
         return
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
@@ -64,17 +65,14 @@ def _write(write, dst: torch.Tensor, src: torch.Tensor, src_dim: dict[int, int],
             raise NotImplementedError(f"an in-place write into a tensor sharded on its "
                                       f"indexed dim {pl.dim}")
         src_pl.append(Replicate() if d is None else Shard(d))
-        idx_pl.append(Shard(0) if d == 0 else Replicate())
+        idx_pl.append(Shard(0) if d is not None and d == index_dim else Replicate())
     mesh = dst.device_mesh
     args, in_pl = [dst, src], [dst.placements, tuple(src_pl)]
-    if index is not None:
-        if not is_dtensor(index):
-            index = DTensor.from_local(index, mesh, [Replicate()] * mesh.ndim, run_check=False)
-        args.append(index)
+    for ix in index:
+        if not is_dtensor(ix):
+            ix = DTensor.from_local(ix, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        args.append(ix)
         in_pl.append(tuple(idx_pl))
-    else:
-        args.append(None)
-        in_pl.append(None)
     local_map(write, out_placements=None, in_placements=tuple(in_pl), device_mesh=mesh,
               redistribute_inputs=True)(*args)
 
@@ -219,7 +217,7 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     else:
         wpos = min(pos, s_max - 1)
 
-        def put(dst, src, _):
+        def put(dst, src):
             dst[:, :, wpos] = src
         _write(put, cache_k, kc, rows)
         _write(put, cache_v, vc, rows)

@@ -78,6 +78,7 @@ from ..kernels import KernelConfig
 from ..kernels.ref import paged_rows
 from ..models import check_decode, get_model
 from ..models import lm
+from ..models.layers import _write
 from .block_pool import BlockPool, OutOfBlocks
 from .faults import DeadlineExceeded, EngineError, FaultInjector, QueueFull
 from .prefix_cache import PrefixCache
@@ -228,15 +229,13 @@ class ServingEngine:
     build for every engine of the key.  The tokens and the
     position, a (B,) int64 tensor, are the per-tick feed.  With
     `ServeConfig.compile_mode` the tick is traced once and runs on the
-    compiler's executor instead."""
+    compiler's executor instead; under a sharder it is traced over the
+    local shards (`_local_tick`), its collectives nodes of the graph."""
 
     def __init__(self, cfg: ArchConfig, params, sc: ServeConfig, *,
                  eos_id: int = 1, kernels: KernelConfig = KernelConfig(), sharder=NULL):
         check_decode(cfg)
         self.sharded = is_sharded(sharder)
-        if self.sharded and sc.compile_mode is not None:
-            raise ValueError("sharder= with compile_mode: the capture front-end traces "
-                             "plain tensors, not DTensors (ROADMAP C)")
         self.cfg = cfg
         self.params = sharder.distribute(params) if self.sharded and not \
             is_dtensor(params["embed"]) else params
@@ -252,8 +251,11 @@ class ServingEngine:
         self.pos = 0
         _apply_cache_capacity(sc)
         tick = functools.partial(_legacy_tick, cfg=cfg, kernels=kernels)
+        args = (params, self.cache)
         if self.sharded:
             # the graph reads the local shards in place; the tick wraps them
+            # (a compiled tick is traced over them: its graph is this rank's
+            # local ops and the collectives between them)
             self.cache = {k: place(v, cache_placement(sharder, v))
                           if k in ("k", "v", "xk", "xv") else sharder.replicate(v)
                           for k, v in self.cache.items()}
@@ -261,9 +263,10 @@ class ServingEngine:
             self._cache_local, c_lay = split_local(self.cache)
             tick = functools.partial(_local_tick, layouts={"params": p_lay, "cache": c_lay},
                                      cfg=cfg, kernels=kernels, sharder=sharder)
+            args = (self._params_local, self._cache_local)
         if sc.compile_mode is not None:
             zeros = torch.zeros(sc.batch, dtype=torch.int64, device=self.device)
-            self._step = _compiled(tick, (params, self.cache, {"tokens": zeros, "pos": zeros}),
+            self._step = _compiled(tick, (*args, {"tokens": zeros, "pos": zeros}),
                                    sc, self.device)
         else:
             self._step = cached_jit(tick, key=("serve_step", cfg.name, sc.batch, sc.max_len,
@@ -429,9 +432,11 @@ def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
     (gather); positions past a slot's valid length get probability 0; an
     inactive slot's recurrent state is written back unchanged.
 
-    Under a `sharder` (params and pools DTensors on its mesh, "native" mode)
-    the decode steps pin their activations at the reference's sites, and the
-    sampled tokens and logits come back whole (plain tensors).
+    Under a `sharder` (params and pools DTensors on its mesh) the decode
+    steps pin their activations at the reference's sites, and the sampled
+    tokens and logits come back whole (plain tensors); the gather path's
+    view and scatter run on each rank's local pool shards (`_pool_view`,
+    `layers._write`).
     """
     model = get_model(cfg)
     tokens, n_tok, pos = state["tokens"], state["n_tok"], state["pos"]
@@ -447,9 +452,7 @@ def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
     elif has_kv:
         view_len = v_blocks * bs
         rows = paged_rows(tables, bs)
-        # (B, L, G, A, H, D) -> (G, A, B, H, L, D): the dense cache layout
-        cache.update(k=kp[rows].permute(2, 3, 0, 4, 1, 5).contiguous(),
-                     v=vp[rows].permute(2, 3, 0, 4, 1, 5).contiguous())
+        cache.update(k=_pool_view(kp, rows), v=_pool_view(vp, rows))
     pos0 = pos
     logits = None
     for j in range(n_steps):
@@ -484,11 +487,44 @@ def paged_tick(params, state, cfg: ArchConfig, *, block_size: int,
         flat = torch.where(steps[None, :] < n_tok[:, None], phys * bs + wpos % bs,
                            torch.zeros_like(wpos)).reshape(-1)
         cols = wpos.clamp(max=view_len - 1)
-        slots = torch.arange(b, device=pos0.device)[:, None]
         for pool, view in ((kp, cache["k"]), (vp, cache["v"])):
-            written = view[:, :, slots, :, cols]                     # (B, C, G, A, H, D)
-            pool[flat] = written.reshape(b * n_steps, *pool.shape[1:])
+            # under a sharder on every rank's local shards, the view laid
+            # out as its pool; the indices line up with the view's slots
+            _write(_pool_scatter, pool, view, _VIEW_DIM, cols, flat, index_dim=2)
     return {**out, "kp": kp, "vp": vp}
+
+
+# pool dim -> the dim of the dense view (`_pool_view`) that it becomes
+_VIEW_DIM = {1: 0, 2: 1, 3: 3, 4: 5}
+
+
+def _pool_view(pool, rows):
+    """The dense cache layout (G, A, B, H, L, D) of a page pool's rows
+    (B, L): (B, L, G, A, H, D) permuted.  A DTensor pool's view is taken on
+    every rank's local shards (`local_map`: DTensor has no index into a
+    tensor sharded on another dim) and laid out as its pool (`_VIEW_DIM`);
+    the pools are never split on their indexed row dim (`pool_placement`)."""
+    if not is_dtensor(pool):
+        return pool[rows].permute(2, 3, 0, 4, 1, 5).contiguous()
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    if any(isinstance(p, Shard) and p.dim == 0 for p in pool.placements):
+        raise NotImplementedError("a page pool split on its row dim")
+    mesh = pool.device_mesh
+    view_pl = tuple(Shard(_VIEW_DIM[p.dim]) if isinstance(p, Shard) else p
+                    for p in pool.placements)
+    rows = DTensor.from_local(rows, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    return local_map(_pool_view, out_placements=(view_pl,),
+                     in_placements=(pool.placements, rows.placements), device_mesh=mesh,
+                     redistribute_inputs=True)(pool, rows)
+
+
+def _pool_scatter(pool, view, cols, flat):
+    """Write each slot's view columns `cols` (B, C) back to their flat pool
+    rows `flat` (B * C), in place."""
+    slots = torch.arange(cols.shape[0], device=cols.device)[:, None]
+    written = view[:, :, slots, :, cols]                             # (B, C, G, A, H, D)
+    pool[flat] = written.reshape(flat.shape[0], *pool.shape[1:])
 
 
 # the tick state the engine keeps on the card between ticks: the page pools
@@ -500,6 +536,15 @@ def _split_tick(params, held: dict, feed: dict, **kw):
     """`paged_tick` with the state the engine keeps (`_TICK_STATE`) apart
     from the per-tick tokens, n_tok, positions and tables."""
     return paged_tick(params, {**feed, **held}, **kw)
+
+
+def _local_split_tick(params, held: dict, feed: dict, *, tick, layouts: dict, sharder):
+    """`tick` (a `_split_tick`) over the local shards of DTensor params and
+    held state (`split_local`), as `_local_tick` is for the legacy engine:
+    the pools it returns are the local shards it wrote in place."""
+    out = tick(join_local(params, layouts["params"]), join_local(held, layouts["held"]),
+               feed, sharder=sharder)
+    return {**out, **{k: held[k] for k in out if k in held}}
 
 
 class TickGraphError(EngineError):
@@ -700,10 +745,6 @@ class PagedServingEngine:
                              f"got {sc.paged_attention!r}")
         check_decode(cfg)                # refuses what the port cannot decode
         self.sharder, self.sharded = sharder, is_sharded(sharder)
-        if self.sharded and (sc.compile_mode is not None or sc.paged_attention != "native"):
-            raise ValueError("sharder= serves the native paged path only: the capture "
-                             "front-end traces plain tensors, and the gather path's pool "
-                             "scatter has no DTensor form (ROADMAP C)")
         _apply_cache_capacity(sc)
         self.cfg = cfg
         if self.sharded and not is_dtensor(params["embed"]):
@@ -813,12 +854,26 @@ class PagedServingEngine:
                                      kernels=self.kernels)
             example = self._example_state(n_steps, v_blocks)
             held = [k for k in example if k in _TICK_STATE]
-            compiled = _compiled(tick, (self.params, {k: example[k] for k in held},
+            params = self.params
+            if self.sharded:
+                # traced over the local shards of the params, the pools and
+                # the recurrent state, which the graph reads and writes in
+                # place; the DTensors are wrapped around them inside
+                params, p_lay = split_local(self.params)
+                locals_, h_lay = split_local({k: self._tick_aux.get(k, example[k])
+                                              for k in held})
+                tick = functools.partial(_local_split_tick, tick=tick, sharder=self.sharder,
+                                         layouts={"params": p_lay, "held": h_lay})
+                example.update(locals_)
+            compiled = _compiled(tick, (params, {k: example[k] for k in held},
                                         {k: v for k, v in example.items() if k not in held}),
                                  sc, self.device)
+            own = {k: example[k] for k in held}
 
             def fn(state):
-                return compiled(self.params, {k: state[k] for k in held},
+                # the engine's own buffers (under a sharder their local
+                # shards), where the compiled plan reads and writes them
+                return compiled(params, own,
                                 {k: v for k, v in state.items() if k not in held})
             fn.app = compiled.app
         elif self.device.type == "cuda":

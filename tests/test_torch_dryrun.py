@@ -297,11 +297,13 @@ def test_kernel_op_without_formula_raises():
 def test_small_mesh_cell_end_to_end():
     """tests/test_dryrun_utils.py's reduced gemma3 (2 layers, "LG") on a
     fake (2, 4) mesh: FLOPs, bytes and temp bytes > 0, collectives counted,
-    and the row holds every key of the reference's schema."""
+    and the row holds every key of the reference's schema, plus the torch
+    release that counted it."""
     c = _count(small_gemma(), TRAIN, (2, 4))
     assert c.flops > 0 and c.bytes > 0 and c.temp_bytes > 0 and c.records
     row = D.row(small_gemma(), TRAIN, "2x4", 8, c)
-    assert set(row) == REF_SCHEMA["top"]
+    assert set(row) == REF_SCHEMA["top"] | {"torch"}
+    assert row["torch"] == torch.__version__
     for k in ("memory", "cost", "collectives", "roofline"):
         assert set(row[k]) == REF_SCHEMA[k], k
     assert row["collectives"]["count"] == len(c.records)
@@ -482,6 +484,31 @@ def test_report_renders_rows(tmp_path):
     assert "Most collective-bound: gemma3-1bxtrain_4k=2.0ms" in text
     for word in ("VMEM", "Pallas", "MXU", "TPU"):
         assert word not in text
+
+
+def test_report_prints_each_rows_torch_release(tmp_path):
+    """Beside each row, both tables name the torch release that counted it
+    (a row written before the field existed says "not recorded")."""
+    base = {"arch": "gemma3-1b", "shape": "train_4k", "mesh": "16x16", "chips": 256,
+            "status": "ok", "compile_s": 1.0,
+            "memory": {"total_GiB_per_chip": 4.0, "fits_80GB": True},
+            "collectives": {"count": 3, "total": 1e9},
+            "roofline": {"compute_s": 1e-3, "memory_s": 3e-2, "collective_s": 2e-3,
+                         "dominant": "memory", "useful_flops_ratio": 0.5,
+                         "roofline_fraction": 0.017}}
+    rows = (dict(base, torch="2.11.0+cu128"), dict(base, arch="phi3-medium-14b"))
+    for i, row in enumerate(rows):
+        (tmp_path / f"r{i}.json").write_text(json.dumps(row))
+    buf = io.StringIO()
+    R.main(["--dir", str(tmp_path)], out=buf)
+    lines = buf.getvalue().splitlines()
+    assert "| arch | shape | mesh | memory/card (GiB) | fits 80GB | colls/step " \
+           "| coll GiB/card | trace s | torch |" in lines
+    mine = [ln for ln in lines if ln.startswith("| gemma3-1b |")]
+    old = [ln for ln in lines if ln.startswith("| phi3-medium-14b |")]
+    assert len(mine) == len(old) == 2
+    assert all(ln.endswith("| 2.11.0+cu128 |") for ln in mine)
+    assert all(ln.endswith("| not recorded |") for ln in old)
 
 
 def test_dry_run_imports_no_jax_and_no_process_group():
