@@ -50,9 +50,10 @@ from typing import Any, Callable
 import torch
 from torch.utils import _pytree as pytree
 
+from ..runtime.spans import summed
 from .balance import BalanceResult, balance as _balance_pipeline
 from .costmodel import H100, GraphCost, HwSpec, evaluate
-from .cudagraph import GraphFunction, graph_stats
+from .cudagraph import GRAPH_PHASES, GraphFunction, graph_stats
 from .executor import (Engine, ExecutionReport, _plan_key, cuda_device,
                        executable_cache, init_params, make_backend)
 from .graph import Graph, graph_fingerprint
@@ -822,8 +823,13 @@ class CachedFunction:
         return [g for g in map(cache.get, self._graph_keys) if g is not None]
 
     def graph_stats(self) -> dict[str, float]:
-        """`graphs()` summed by core/cudagraph.py `graph_stats`."""
-        return graph_stats(g.captured for g in self.graphs())
+        """`graphs()` summed by core/cudagraph.py `graph_stats`, with the
+        seconds of their calls' phases (`stage_s`, `launch_s`,
+        `outputs_s`: the copies into the graphs' buffers, the replays and
+        the outputs)."""
+        graphs = self.graphs()
+        return {**graph_stats(g.captured for g in graphs),
+                **summed((g.phases for g in graphs), GRAPH_PHASES)}
 
     def release(self) -> None:
         """Drop the graphs this instance's calls on the card used."""

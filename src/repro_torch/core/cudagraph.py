@@ -36,6 +36,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..kernels import add_launches, launch_delta, launch_state, restore_launches
+from ..runtime.spans import Phases
 
 
 class GraphCaptureError(RuntimeError):
@@ -179,6 +180,9 @@ class CapturedGraph:
         add_launches(self.launches)
 
 
+# a GraphFunction call's phases, timed into its `phases`
+GRAPH_PHASES = ("stage", "launch", "outputs")
+
 # how GraphFunction hands back one output leaf
 _OWN, _LEAF, _VIEW, _VALUE = range(4)
 
@@ -199,10 +203,16 @@ class GraphFunction:
     replays the graph and returns `fn`'s outputs in `fn`'s structure: an
     output on an in-place leaf's storage as that leaf of the call (or a
     view of it), any other tensor output cloned out of the graph's pool,
-    so that a later replay cannot overwrite it."""
+    so that a later replay cannot overwrite it.  Each call's three phases
+    (`GRAPH_PHASES`), the copies into the static buffers, the replay and
+    the outputs, are timed into `phases` (runtime/spans.py): the caller's,
+    whose `stats()` report them, or else the graph's own "graph" layer,
+    which its owner sums over its graphs (`cached_jit`'s `graph_stats()`)."""
 
     def __init__(self, fn: Callable, leaves: Sequence, inplace: Sequence[bool], device, *,
-                 what: str, warm_up: Callable[[], Any] | None = None):
+                 what: str, warm_up: Callable[[], Any] | None = None,
+                 phases: Phases | None = None):
+        self.phases = phases or Phases("graph", GRAPH_PHASES)
         static = list(leaves)
         self.static = {i: t.clone() for i, (t, ip) in enumerate(zip(leaves, inplace))
                        if torch.is_tensor(t) and not ip}
@@ -245,19 +255,23 @@ class GraphFunction:
         return self.captured.pool
 
     def __call__(self, leaves: Sequence):
-        for i, buf in self.static.items():
-            src = leaves[i]
-            if src.data_ptr() != buf.data_ptr():
-                buf.copy_(src)
-        self.captured.replay()
-        out = []
-        for how, *arg in self.outs:
-            if how == _OWN:
-                out.append(arg[0].clone())
-            elif how == _LEAF:
-                out.append(leaves[arg[0]])
-            elif how == _VIEW:
-                out.append(leaves[arg[0]].as_strided(*arg[1:]))
-            else:
-                out.append(arg[0])
-        return pytree.tree_unflatten(out, self.out_tree)
+        ph = self.phases
+        with ph.span("stage"):
+            for i, buf in self.static.items():
+                src = leaves[i]
+                if src.data_ptr() != buf.data_ptr():
+                    buf.copy_(src)
+        with ph.span("launch"):
+            self.captured.replay()
+        with ph.span("outputs"):
+            out = []
+            for how, *arg in self.outs:
+                if how == _OWN:
+                    out.append(arg[0].clone())
+                elif how == _LEAF:
+                    out.append(leaves[arg[0]])
+                elif how == _VIEW:
+                    out.append(leaves[arg[0]].as_strided(*arg[1:]))
+                else:
+                    out.append(arg[0])
+            return pytree.tree_unflatten(out, self.out_tree)

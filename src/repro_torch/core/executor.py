@@ -51,7 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 
-from .cudagraph import GraphCaptureError, GraphFunction, graph_stats
+from ..runtime.spans import Phases
+from .cudagraph import GRAPH_PHASES, GraphCaptureError, GraphFunction, graph_stats
 from .graph import Graph, Node, graph_fingerprint, subgraph_interface
 from .patterns import Selection, select_subgraphs
 
@@ -670,7 +671,6 @@ class ExecutionReport:
     outputs: dict[str, torch.Tensor]
     bytes_accessed: float      # sum of program-boundary bytes (HBM traffic)
     n_programs: int            # programs launched (BSP: one per op)
-    temp_bytes: float = 0.0    # not measured: no allocator counterpart of XLA's temp bytes
     # programs bound without a fresh build this call.  On the plan fast
     # path programs are PREBOUND, so hits == n_programs by definition.
     cache_hits: int = 0
@@ -825,7 +825,13 @@ class Engine:
     where they are, as a donated state is.  A failed capture raises
     GraphCaptureError, on that run and every later run with its key; no run
     falls back to the walk.  With `capture=False` every run walks the plan,
-    as on the CPU."""
+    as on the CPU.
+
+    `phases` (runtime/spans.py, layer "kitsune") times each `run()` and,
+    inside it, the plan key and its lookup ("key"), and a replay's copies
+    into the static buffers ("stage"), the replay ("launch") and the
+    outputs ("outputs"); `runs` counts the `run()` calls;
+    `capture_stats()` reports both."""
 
     # plans an engine keeps live; beyond this the least-recent shape's plan
     # is dropped and rebuilt from the cache on next use
@@ -849,6 +855,8 @@ class Engine:
         self.capture = capture
         self.inplace_feeds = frozenset(inplace_feeds)
         self._plans: OrderedDict[tuple, ExecutionPlan] = OrderedDict()
+        self.phases = Phases("kitsune", ("run", "key", *GRAPH_PHASES))
+        self.runs = 0
         self._build_skeleton()
 
     # -- shape-independent schedule (once per Engine) ----------------------
@@ -916,26 +924,30 @@ class Engine:
         it; later calls replay the graph or walk the prebound programs.
         `inplace` overrides the engine's in-place feeds for this call.
         measure=False only zeroes the traffic/program accounting."""
-        inplace = self.inplace_feeds if inplace is None else inplace
-        key = self._key(feeds, params, inplace)
-        plan = self._plans.get(key)
-        if plan is None:
-            return self._build_and_run(key, feeds, params, measure, inplace)
-        self._plans.move_to_end(key)
-        if plan.graph is not None:
-            vals = plan.graph([feeds[name] for _, name in self._feed_slots])
-            outs = {name: v for (name, _), v in zip(self._run_out_slots, vals)}
-        else:
-            buf = self._feed_buffer(feeds)
-            for step in plan.fns:
-                step(buf, params)
-            outs = {name: buf[s] for name, s in self._run_out_slots}
-        replayed = plan.graph is not None
-        if not measure:
-            return ExecutionReport(outs, 0.0, 0, 0.0, plan.n_programs, 0, replayed)
-        return ExecutionReport(outs, plan.bytes_accessed, plan.n_programs,
-                               0.0, plan.n_programs, 0, replayed,
-                               n_collectives=plan.n_collectives)
+        ph = self.phases
+        self.runs += 1
+        with ph.span("run"):
+            with ph.span("key"):
+                inplace = self.inplace_feeds if inplace is None else inplace
+                key = self._key(feeds, params, inplace)
+                plan = self._plans.get(key)
+            if plan is None:
+                return self._build_and_run(key, feeds, params, measure, inplace)
+            self._plans.move_to_end(key)
+            if plan.graph is not None:
+                vals = plan.graph([feeds[name] for _, name in self._feed_slots])
+                outs = {name: v for (name, _), v in zip(self._run_out_slots, vals)}
+            else:
+                buf = self._feed_buffer(feeds)
+                for step in plan.fns:
+                    step(buf, params)
+                outs = {name: buf[s] for name, s in self._run_out_slots}
+            replayed = plan.graph is not None
+            if not measure:
+                return ExecutionReport(outs, 0.0, 0, plan.n_programs, 0, replayed)
+            return ExecutionReport(outs, plan.bytes_accessed, plan.n_programs,
+                                   plan.n_programs, 0, replayed,
+                                   n_collectives=plan.n_collectives)
 
     def _build_and_run(self, key: tuple, feeds: dict, params: dict, measure: bool,
                        inplace: frozenset) -> ExecutionReport:
@@ -951,7 +963,7 @@ class Engine:
                                [buf[s] for s, _ in self._feed_slots],
                                [name in inplace for _, name in self._feed_slots], device,
                                what=what, warm_up=lambda: self._bind_and_run(
-                                   key, feeds, params, measure))
+                                   key, feeds, params, measure), phases=self.phases)
         except GraphCaptureError as exc:
             if key in self._plans:
                 self._plans[key].graph = _Refused(exc)
@@ -981,9 +993,12 @@ class Engine:
         """The engine's captured plans, summed by core/cudagraph.py
         `graph_stats`: graphs, replays, the seconds of the warm-ups (each
         plan's first, building run) and of the captures apart, and the
-        bytes their pools hold."""
-        return graph_stats(p.graph.captured for p in self._plans.values()
-                           if isinstance(p.graph, GraphFunction))
+        bytes their pools hold; with the `run()` calls (`runs`) and the
+        seconds of each of the run's phases (`phases`: run_s, key_s,
+        stage_s, launch_s, outputs_s)."""
+        return {**graph_stats(p.graph.captured for p in self._plans.values()
+                              if isinstance(p.graph, GraphFunction)),
+                "runs": self.runs, **self.phases.stats()}
 
     def _bind_and_run(self, key: tuple, feeds: dict, params: dict,
                       measure: bool) -> ExecutionReport:
@@ -1035,8 +1050,8 @@ class Engine:
             self._plans.popitem(last=False)
         outs = {name: buf[s] for name, s in self._run_out_slots}
         if not measure:
-            return ExecutionReport(outs, 0.0, 0, 0.0, hits, misses)
-        return ExecutionReport(outs, total_bytes, n_programs, 0.0,
+            return ExecutionReport(outs, 0.0, 0, hits, misses)
+        return ExecutionReport(outs, total_bytes, n_programs,
                                hits, misses, n_collectives=n_collectives)
 
     def _build(self, prog: Program, ins: tuple, with_params: bool) -> _Executable:

@@ -79,6 +79,7 @@ from ..kernels.ref import paged_rows
 from ..models import check_decode, get_model
 from ..models import lm
 from ..models.layers import _write
+from ..runtime.spans import Phases
 from .block_pool import BlockPool, OutOfBlocks
 from .faults import DeadlineExceeded, EngineError, FaultInjector, QueueFull
 from .prefix_cache import PrefixCache
@@ -345,7 +346,14 @@ class RequestHandle:
 
     `tokens()` snapshots what has been generated so far (streaming);
     `result()` blocks until completion and returns the full output, raising
-    if the request was rejected or failed."""
+    if the request was rejected or failed.
+
+    The engine stamps the request's life on one clock, `time.perf_counter`
+    (None until it happens): `submitted` when it was submitted, `admitted`
+    when it first took a slot (a preempted request keeps its first; it
+    counts its preemptions in `preempted`), `first_token` when its first
+    token was appended, `finished` when it finished or failed.  `rid` is
+    what every record of one request shares."""
 
     def __init__(self, rid: int, prompt: list[int]):
         self.rid = rid
@@ -354,17 +362,30 @@ class RequestHandle:
         self._event = threading.Event()
         self._tokens: list[int] = []
         self._error: BaseException | None = None
+        self.submitted = time.perf_counter()
+        self.admitted: float | None = None
+        self.first_token: float | None = None
+        self.finished: float | None = None
+        self.preempted = 0
 
     def _append(self, tok: int) -> None:
         with self._lock:
+            if not self._tokens:
+                self.first_token = time.perf_counter()
             self._tokens.append(tok)
 
     def _finish(self) -> None:
+        self._stamp_finished()
         self._event.set()
 
     def _fail(self, exc: BaseException) -> None:
+        self._stamp_finished()
         self._error = exc
         self._event.set()
+
+    def _stamp_finished(self) -> None:
+        if self.finished is None:
+            self.finished = time.perf_counter()
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -813,6 +834,11 @@ class PagedServingEngine:
         self.decode_steps = 0            # decode steps run, over all ticks
         self.tokens_out = 0
         self.peak_active = 0
+        # the tick's host phases (runtime/spans.py; stats()["tick"]): admission,
+        # planning and blocks, staging the host tensors, the launch, the wait
+        # for the device's results, and emitting tokens
+        self.phases = Phases("serve", ("tick", "admit", "plan", "stage", "launch", "wait",
+                                       "emit"))
         # the last tick's (B, vocab) logits; on the card a copy of the
         # graph's buffer, which the next replay overwrites
         self.last_logits: torch.Tensor | None = None
@@ -915,7 +941,7 @@ class PagedServingEngine:
         for fn in self._steps.values():
             if hasattr(fn, "app"):
                 for k, v in fn.app.capture_stats().items():
-                    stats[k] += v
+                    stats[k] = stats.get(k, 0) + v
         return stats
 
     # -- request lifecycle -------------------------------------------------
@@ -985,6 +1011,8 @@ class PagedServingEngine:
                 "admit_seq": self.scheduler.admit_seq, "chunk_fails": 0,
             }
             self.pos[i] = reused
+            if req.handle.admitted is None:
+                req.handle.admitted = time.perf_counter()
             self._tick_admitted.append(req.rid)
             self._reset_state(i)
 
@@ -1015,6 +1043,7 @@ class PagedServingEngine:
         makes the recompute exact, so the handle keeps streaming."""
         req = self.slots[i]["req"]
         req.resume_out = list(self.slots[i]["out"])
+        req.handle.preempted += 1
         self._release(i, cache_prefix=False)
         if self.pool is not None and self.scheduler.admission_cost(req) > self.pool.num_blocks:
             self.scheduler.rejected += 1
@@ -1170,44 +1199,46 @@ class PagedServingEngine:
         if self.state != "healthy":
             self._fail_stragglers()
             return 0
-        t = self.ticks
-        self.ticks = t + 1               # failed ticks advance the clock too
-        self._tick_no = t
-        self._tick_admitted = []
-        self._culprit_rid = None
-        self._progressed = False
-        if self.injector is not None:
-            self.injector.advance(t)
-        self._expire_deadlines()
-        try:
-            left = self._tick_inner()
-        except TickGraphError as exc:
-            exc.tick = t
-            self._enter_degraded(exc)
-            raise
-        except Exception as exc:  # noqa: BLE001 -- isolate, blame, keep serving
-            self.consecutive_failures += 1
-            self.ticks_since_progress += 1
-            rid = self._pick_culprit()
-            if isinstance(exc, EngineError):
-                err = exc
+        with self.phases.span("tick"):
+            t = self.ticks
+            self.ticks = t + 1               # failed ticks advance the clock too
+            self._tick_no = t
+            self._tick_admitted = []
+            self._culprit_rid = None
+            self._progressed = False
+            if self.injector is not None:
+                self.injector.advance(t)
+            with self.phases.span("admit"):
+                self._expire_deadlines()
+            try:
+                left = self._tick_inner()
+            except TickGraphError as exc:
+                exc.tick = t
+                self._enter_degraded(exc)
+                raise
+            except Exception as exc:  # noqa: BLE001 -- isolate, blame, keep serving
+                self.consecutive_failures += 1
+                self.ticks_since_progress += 1
+                rid = self._pick_culprit()
+                if isinstance(exc, EngineError):
+                    err = exc
+                else:
+                    err = EngineError(f"tick {t} failed at {type(exc).__name__}: {exc}",
+                                      site="tick.step", tick=t, rid=rid)
+                    err.__cause__ = exc
+                err.tick, err.rid = t, rid
+                self.last_error = err
+                if rid is not None:
+                    self._fail_request(rid, err)
+                if self.consecutive_failures >= self.sc.max_tick_retries or rid is None:
+                    self._enter_degraded(err)
+                return self.pending()
+            if self._progressed:
+                self.consecutive_failures = 0
+                self.ticks_since_progress = 0
             else:
-                err = EngineError(f"tick {t} failed at {type(exc).__name__}: {exc}",
-                                  site="tick.step", tick=t, rid=rid)
-                err.__cause__ = exc
-            err.tick, err.rid = t, rid
-            self.last_error = err
-            if rid is not None:
-                self._fail_request(rid, err)
-            if self.consecutive_failures >= self.sc.max_tick_retries or rid is None:
-                self._enter_degraded(err)
-            return self.pending()
-        if self._progressed:
-            self.consecutive_failures = 0
-            self.ticks_since_progress = 0
-        else:
-            self.ticks_since_progress += 1
-        return left
+                self.ticks_since_progress += 1
+            return left
 
     def _prefill_faults(self, n_tok: list[int]) -> None:
         """`prefill.chunk` fault site: a firing spec makes one prefilling
@@ -1237,11 +1268,14 @@ class PagedServingEngine:
                 site="prefill.chunk", tick=self._tick_no, rid=slot["rid"]))
 
     def _tick_inner(self) -> int:
-        self._admit()
-        n_tok = self.scheduler.plan(self.slots)
-        self._prefill_faults(n_tok)
-        self._ensure_blocks(n_tok)
-        active = [i for i, t in enumerate(n_tok) if t > 0]
+        ph = self.phases
+        with ph.span("admit"):
+            self._admit()
+        with ph.span("plan"):
+            n_tok = self.scheduler.plan(self.slots)
+            self._prefill_faults(n_tok)
+            self._ensure_blocks(n_tok)
+            active = [i for i, t in enumerate(n_tok) if t > 0]
         if not active:
             return self.pending()
         self.peak_active = max(self.peak_active, sum(s is not None for s in self.slots))
@@ -1254,30 +1288,42 @@ class PagedServingEngine:
                 raise EngineError(f"injected fault at tick.step (tick {self._tick_no})",
                                   site="tick.step", tick=self._tick_no, rid=spec.rid)
 
-        c = 1 if max(n_tok) <= 1 else self.scheduler.chunk
-        tokens = np.zeros((self.sc.batch, c), np.int64)
-        for i in active:
-            slot, t = self.slots[i], n_tok[i]
-            if slot["fed"] < len(slot["seq"]):
-                tokens[i, :t] = slot["seq"][slot["fed"]:slot["fed"] + t]
-            else:
-                tokens[i, 0] = slot["last"]
-        # host tensors: the CPU tick runs on them, a captured one copies them
-        # into its input buffers
-        state = {"tokens": torch.from_numpy(tokens),
-                 "n_tok": torch.tensor(n_tok, dtype=torch.int64),
-                 "pos": torch.from_numpy(self.pos), **self._tick_aux}
-        v_blocks = 0
-        if self.has_kv:
-            need = max(blocks_for(int(self.pos[i]) + n_tok[i], self.sc.block_size)
-                       for i in active)
-            v_blocks = self._view_for(need)
-            kp, vp = self._pools
-            state.update(tables=torch.from_numpy(self.tables[:, :v_blocks].copy()),
-                         kp=kp, vp=vp)
-        out = self._get_step(c, v_blocks)(state)
-        nxt = out["tokens_next"].cpu().numpy()
-        self.pos = out["pos"].cpu().numpy()
+        with ph.span("stage"):
+            c = 1 if max(n_tok) <= 1 else self.scheduler.chunk
+            tokens = np.zeros((self.sc.batch, c), np.int64)
+            for i in active:
+                slot, t = self.slots[i], n_tok[i]
+                if slot["fed"] < len(slot["seq"]):
+                    tokens[i, :t] = slot["seq"][slot["fed"]:slot["fed"] + t]
+                else:
+                    tokens[i, 0] = slot["last"]
+            # host tensors: the CPU tick runs on them, a captured one copies
+            # them into its input buffers
+            state = {"tokens": torch.from_numpy(tokens),
+                     "n_tok": torch.tensor(n_tok, dtype=torch.int64),
+                     "pos": torch.from_numpy(self.pos), **self._tick_aux}
+            v_blocks = 0
+            if self.has_kv:
+                need = max(blocks_for(int(self.pos[i]) + n_tok[i], self.sc.block_size)
+                           for i in active)
+                v_blocks = self._view_for(need)
+                kp, vp = self._pools
+                state.update(tables=torch.from_numpy(self.tables[:, :v_blocks].copy()),
+                             kp=kp, vp=vp)
+        with ph.span("launch"):
+            out = self._get_step(c, v_blocks)(state)
+        with ph.span("wait"):
+            nxt = out["tokens_next"].cpu().numpy()
+            self.pos = out["pos"].cpu().numpy()
+        with ph.span("emit"):
+            self._emit(out, nxt, n_tok, active, c, v_blocks)
+        return self.pending()
+
+    def _emit(self, out: dict, nxt: np.ndarray, n_tok: list[int], active: list[int],
+              c: int, v_blocks: int) -> None:
+        """A tick's results on the host: its KV traffic, the NaN guard, each
+        sampling slot's token appended, and finished requests released into
+        the prefix cache."""
         self.last_logits = out["logits"]
         self.decode_steps += c
         self._progressed = True
@@ -1338,7 +1384,6 @@ class PagedServingEngine:
                 self.done[slot["rid"]] = slot["out"]
                 slot["handle"]._finish()
                 self._release(i, cache_prefix=True)
-        return self.pending()
 
     def pending(self) -> int:
         return sum(s is not None for s in self.slots) + len(self.scheduler.waiting)
@@ -1352,7 +1397,8 @@ class PagedServingEngine:
     def stats(self) -> dict:
         s = {"ticks": self.ticks, "decode_steps": self.decode_steps,
              "tokens_out": self.tokens_out, "peak_active": self.peak_active,
-             "scheduler": self.scheduler.stats(), "health": self.health()}
+             "scheduler": self.scheduler.stats(), "health": self.health(),
+             "tick": self.phases.stats()}
         if self.pool is not None:
             s["pool"] = self.pool.check()
         n = self.kv_traffic["ticks"]

@@ -39,6 +39,8 @@ class PrefixCache:
         self._map: dict[Hashable, int] = {}
         self.hits = 0
         self.misses = 0
+        self.hit_tokens = 0
+        self.lookup_tokens = 0
         self.inserts = 0
         self.evictions = 0
 
@@ -54,6 +56,7 @@ class PrefixCache:
         Returns (block_ids, n_tokens_reused); each returned block already
         carries a reference for the caller (release with pool.decref).
         """
+        self.lookup_tokens += len(prompt)
         max_blocks = max(0, (len(prompt) - 1) // self.bs)
         bids: list[int] = []
         key: Hashable | None = None
@@ -66,6 +69,7 @@ class PrefixCache:
             self.pool.reuse(bid)
             bids.append(bid)
             self.hits += 1
+        self.hit_tokens += len(bids) * self.bs
         return bids, len(bids) * self.bs
 
     def insert(self, prompt: Sequence[int], bids: Sequence[int]) -> int:
@@ -89,6 +93,12 @@ class PrefixCache:
         return new
 
     def stats(self) -> dict:
+        """`entries`: cached blocks; `hits`: blocks `match` served; `misses`:
+        lookups that stopped before their last whole block; `hit_tokens`:
+        prompt tokens `match` served (hits x block size); `lookup_tokens`:
+        prompt tokens `match` was asked about; `inserts` and `evictions`:
+        blocks published and recycled."""
         return {"entries": len(self._map), "hits": self.hits,
-                "misses": self.misses, "inserts": self.inserts,
+                "misses": self.misses, "hit_tokens": self.hit_tokens,
+                "lookup_tokens": self.lookup_tokens, "inserts": self.inserts,
                 "evictions": self.evictions}

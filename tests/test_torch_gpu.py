@@ -1175,6 +1175,51 @@ def test_captured_train_step_bitwise_uncaptured(cuda, arch, dtype):
     assert "captured 1 plans" in app.describe()
 
 
+def test_run_and_tick_phases_on_the_card_are_host_ranges(cuda):
+    """A compiled app's replays and a cached_jit graph's replays time their
+    stage, launch and outputs phases; a profiled replay of each and a
+    profiled replayed tick show their `repro_torch.*` ranges on the host
+    alone, nothing of them on the device's timeline; and the tick's wait
+    for its read-back holds the device's time."""
+    from repro_torch import cached_jit
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    phases = ("stage", "launch", "outputs")
+    tg, feeds = apps.tiny_instances("cuda", seed=1)["nerf"]
+    app = repro_torch.compile(tg, mode="kitsune")
+    params = app.init_params(seed=0, device="cuda")
+    for _ in range(3):
+        app.run(feeds, params)
+    st = app.capture_stats()
+    assert st["runs"] == 3 and st["replays"] == 2
+    assert st["run_s"] > st["key_s"] > 0 and all(st[p + "_s"] > 0 for p in phases)
+    f = cached_jit(lambda x: (x @ x).relu(), key=("test_run_and_tick_phases",))
+    x = torch.randn(64, 64, device=cuda)
+    assert all(f.graph_stats()[p + "_s"] == 0.0 for p in phases)
+    f(x)                                              # builds: no replay, no phases
+    f(x)
+    gs = f.graph_stats()
+    assert gs["replays"] == 1 and all(gs[p + "_s"] > 0 for p in phases)
+    _, _, eng = _card_engine(cuda)
+    _serve(eng)
+    eng.submit([3, 17, 5], max_new_tokens=4)
+    eng.tick()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        app.run(feeds, params)
+        f(x)
+        eng.tick()
+        torch.cuda.synchronize()
+    ranges = [e for e in prof.events() if e.name.startswith("repro_torch.")]
+    assert {e.device_type for e in ranges} == {torch.autograd.DeviceType.CPU}
+    assert {e.name for e in ranges} == (
+        {f"repro_torch.kitsune.{p}" for p in ("run", "key", *phases)}
+        | {f"repro_torch.graph.{p}" for p in phases}
+        | {f"repro_torch.serve.{p}" for p in ("tick", "admit", "plan", "stage", "launch",
+                                              "wait", "emit")})
+    tick = eng.stats()["tick"]
+    assert tick["wait_s"] > 0 and tick["launch_s"] > 0
+
+
 def test_captured_paged_compile_tick_bitwise_uncaptured(cuda):
     """The paged engine's compile_mode tick: a replay of a bucket's
     captured plan on the engine's pools equals that plan's uncaptured walk

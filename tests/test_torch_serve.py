@@ -306,7 +306,9 @@ def _outcome(fn):
 @pytest.mark.parametrize("seed", range(3))
 def test_block_pool_and_prefix_cache_copies(seed):
     """Random alloc / decref / prefix insert / match sequences over an
-    8-block pool (so eviction and exhaustion happen) on both copies."""
+    8-block pool (so eviction and exhaustion happen) on both copies; the
+    port's cache also counts the prompt tokens each match was asked about
+    and the tokens it served."""
     rng = np.random.default_rng(seed)
     pools, caches = [], []
     for pool_cls, cache_cls in ((BlockPool, PrefixCache), (JBlockPool, JPrefixCache)):
@@ -316,6 +318,7 @@ def test_block_pool_and_prefix_cache_copies(seed):
         pools.append(pool)
         caches.append(cache[0])
     held: list[list[int]] = []                 # reference-side requests' blocks
+    asked = served = 0
     prompts = [list(rng.integers(0, 5, 9)) for _ in range(4)]
     for _ in range(80):
         op = rng.integers(0, 4)
@@ -338,10 +341,14 @@ def test_block_pool_and_prefix_cache_copies(seed):
             prompt = prompts[int(rng.integers(0, len(prompts)))]
             got, want = caches[0].match(prompt), caches[1].match(prompt)
             assert got == want
+            asked += len(prompt)
+            served += got[1]
             if got[0]:
                 held.append(list(got[0]))
         assert pools[0].check() == pools[1].check()
-        assert caches[0].stats() == caches[1].stats()
+        ours, ref = caches[0].stats(), caches[1].stats()
+        assert {k: ours[k] for k in ref} == ref
+        assert (ours["hit_tokens"], ours["lookup_tokens"]) == (served, asked)
 
 
 @pytest.mark.parametrize("seed", range(3))
