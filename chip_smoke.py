@@ -11,7 +11,8 @@ Phases, each failing the run on any error (no phase's exception is caught):
      main path gives it, in bf16 and f32, and time kernel, plain version,
      a one-call PyTorch yardstick (never used by the port) and the bound;
      time the forward's two forms at phi3 widths for M in 1..128 (the
-     small-M form up to its 64 rows) and print their crossover; B5 at the
+     small-M form up to its 64 rows) and print their crossover; B2's
+     small-M form at the serving cells' 64 rows; B5 at the
      compiler's fan-in and at the folds B2 leaves (Llama widths, decode) and
      B7 leaves (its dX partials at gemma3-1b's widths, the deepest fold of
      training), each first held bitwise to the sequential f32 fold; B6 at
@@ -56,7 +57,10 @@ Phases, each failing the run on any error (no phase's exception is caught):
      replays must equal the ticks): the native tick must launch
      paged_flash_decode and fused_mlp_swiglu exactly
      40 times per decode step, every fused_mlp_swiglu launch in its small-M
-     form, a "gather" run flash_decode as often with
+     form (folding its partials in the launch, with no queue_reduce, where
+     the plan says so), a 64-slot run as the benchmark's phi3 cells serve
+     (one token a slot a step) whose every B2 launch takes 64 rows and
+     folds likewise, a "gather" run flash_decode as often with
      bitwise-equal tokens, one replay per (mode, bucket) must equal eager
      `paged_tick` on copies of the pools bit for bit (tokens, logits,
      pages), a short async run must serve the native run's tokens, one
@@ -351,6 +355,9 @@ SUMMARY = {
                                 "x (8, 5120) -> 17920 -> 5120, silu (small-M form)"),
     "queue_reduce_decode_fold": ("queue_reduce", "serve_native",
                                  "B2's decode partials (n, 8, 5120) f32 -> bf16"),
+    "fused_mlp_swiglu_decode64": ("fused_mlp_swiglu", "serve_native64",
+                                  "x (64, 5120) -> 17920 -> 5120, silu (small-M form), the "
+                                  "serving cells' decode", SMALL_M),
     "queue_reduce_train_fold": ("queue_reduce", "train_gemma3",
                                 "B7's dX partials (18, 8192, 1152) f32 -> bf16"),
     "fused_mlp_swiglu_train": ("fused_mlp_swiglu", "train_gemma3",
@@ -402,13 +409,17 @@ SERVE_ARCH = "phi3-medium-14b"
 SERVE_CONFIG = dict(max_len=512, batch=8, block_size=16, prefill_chunk=16,
                     num_blocks=512, max_new_tokens=32)
 SERVE_REQUESTS = 16
+# phase 7's 64-slot run, as the benchmark's phi3 cells serve (one token a
+# slot a step, so every step's B2 takes 64 rows): short prompts, few steps
+SERVE64_CONFIG = dict(max_len=64, batch=SMALL_M, block_size=16, prefill_chunk=1,
+                      num_blocks=256, max_new_tokens=4)
 # phase-3 cases timed with a cold L2 (cuda_ms): the decode kernels, whose
 # inputs would otherwise stay cached between timed calls
 E4M3_CASES = {"flash_decode_e4m3", "flash_decode_e4m3_s4096", "flash_decode_hymba_e4m3",
               "paged_flash_decode_e4m3", "paged_flash_decode_hymba_e4m3"}
 COLD_CASES = E4M3_CASES | {"flash_decode", "flash_decode_s4096", "paged_flash_decode",
-              "fused_mlp_swiglu_decode", "fused_mlp_swiglu_hymba", "fused_mlp_swiglu_maverick",
-              "fused_mlp_whisper_decode", "paged_flash_decode_hymba",
+              "fused_mlp_swiglu_decode", "fused_mlp_swiglu_decode64", "fused_mlp_swiglu_hymba",
+              "fused_mlp_swiglu_maverick", "fused_mlp_whisper_decode", "paged_flash_decode_hymba",
               "paged_flash_decode_maverick", "flash_decode_hymba", "flash_decode_maverick",
               "flash_decode_whisper"}
 # phase 9: the families beyond dense, each served (or decoded) at full width
@@ -836,24 +847,42 @@ def decode_cases(gen, dtype):
     fold = FM.forward_in_form("small_m", x, wg, wu, wd, "silu", fold=False)
     plan, _ = FM.small_m_plan(0, D, H, D, _build.DTYPE_CODES[dtype], True)
     partial_bytes = fold.nbytes if fold.dtype == torch.float32 else 0
-    print(f"small-M form at ({B}, {D}->{H}->{D}) {dtype}: clusters of {plan.cs} blocks, "
-          f"output {tuple(fold.shape)} {fold.dtype}, {partial_bytes} bytes of f32 partials "
-          f"for queue_reduce", flush=True)
+    print(f"small-M form at ({B}, {D}->{H}->{D}) {dtype}: {plan}, output "
+          f"{tuple(fold.shape)} {fold.dtype}, {partial_bytes} bytes of f32 partials, folded "
+          f"{'in the launch' if plan.fold else 'by queue_reduce'}", flush=True)
     yield ("fused_mlp_swiglu_decode",
            lambda: K.fused_mlp_swiglu_fwd(x, wg, wu, wd, act="silu"),
            lambda: fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, "silu"),
            lambda: (F.silu(x @ wg) * (x @ wu)) @ wd,
            2.0 * B * D * H * 2 + 2.0 * B * H * D, nbytes(x, wg, wu, wd, x), None,
            {"partial_bytes": partial_bytes})
+    if dtype == torch.bfloat16:
+        # the benchmark's serving cells decode 64 slots a step (portbench's
+        # phi3 cells): the form's capacity
+        x64 = randn(gen, SMALL_M, D, dtype=dtype)
+        raw = FM.forward_in_form("small_m", x64, wg, wu, wd, "silu", fold=False)
+        bytes64 = raw.nbytes if raw.dtype == torch.float32 else 0
+        print(f"small-M form at ({SMALL_M}, {D}->{H}->{D}) {dtype}: output "
+              f"{tuple(raw.shape)} {raw.dtype}, {bytes64} bytes of f32 partials", flush=True)
+        del raw
+        yield ("fused_mlp_swiglu_decode64",
+               lambda: K.fused_mlp_swiglu_fwd(x64, wg, wu, wd, act="silu"),
+               lambda: fused_mlp_swiglu_fwd_plain(x64, wg, wu, wd, "silu"),
+               lambda: (F.silu(x64 @ wg) * (x64 @ wu)) @ wd,
+               2.0 * SMALL_M * D * H * 3, nbytes(x64, wg, wu, wd, x64), None,
+               {"partial_bytes": bytes64})
+        del x64
     del x, wg, wu, wd
     if not partial_bytes:
         print("the small-M form writes y itself at this shape: no decode fold", flush=True)
         return
-    # the fold those partials take in the tick, right after B2 wrote them
-    # (so timed with a warm L2)
+    # B5 on those partials, right after B2 wrote them (so timed with a warm
+    # L2): the tick's fold where the plan leaves it to queue_reduce, else a
+    # yardstick for the fold inside the launch
     n_part = fold.shape[0]
     yield fold_case("queue_reduce_decode_fold", fold, dtype,
-                    shape=f"({n_part}, {B}, {D}) f32 -> ({B}, {D}) {str(dtype)[6:]}")
+                    shape=f"({n_part}, {B}, {D}) f32 -> ({B}, {D}) {str(dtype)[6:]}",
+                    in_kernel_fold=bool(plan.fold))
 
 
 E4M3 = torch.float8_e4m3fn
@@ -976,9 +1005,10 @@ def family_cases(gen, dtype):
                    2.0 * B * D * H * 2, nbytes(x, w1, w2, x), None,
                    {"partial_bytes": partial_bytes})
         if partial_bytes and gated:
+            plan, _ = FM.small_m_plan(0, D, H, D, _build.DTYPE_CODES[dtype], gated)
             yield fold_case(name.replace("fused_mlp_swiglu", "queue_reduce") + "_fold", fold,
                             dtype, shape=f"({fold.shape[0]}, {B}, {D}) f32 -> ({B}, {D}) "
-                                         f"{str(dtype)[6:]}")
+                                         f"{str(dtype)[6:]}", in_kernel_fold=bool(plan.fold))
         del x, w1, wu, w2, fold
     rng = np.random.default_rng(9)
     bs, n_blocks = SERVE_CONFIG["block_size"], SERVE_CONFIG["num_blocks"]
@@ -1345,6 +1375,7 @@ def serve_run(cfg, params, prompts, label, base=SERVE_CONFIG, kernels=KernelConf
     wall = time.perf_counter() - t0
     launches = K.launch_counts()
     launches["fused_mlp_swiglu_small_m"] = K.launches_by_form("fused_mlp_swiglu").get("small_m", 0)
+    launches["fused_mlp_swiglu_folded"] = K.launches_by_fold("fused_mlp_swiglu").get("kernel", 0)
     for kern in ("flash_decode", "paged_flash_decode"):
         launches[f"{kern}_e4m3"] = K.launches_by_dtype(kern).get("float8_e4m3fn", 0)
     st = eng.stats()
@@ -1551,8 +1582,9 @@ def reduced_card_equals_cpu(cfg) -> None:
           f"tokens", flush=True)
 
 
-def phase_serving() -> dict[str, dict[str, int]]:
-    """Returns each serving run's launches, per kernel."""
+def phase_serving() -> tuple[dict[str, dict[str, int]], dict[str, dict[int, int]]]:
+    """Returns each serving run's launches, per kernel, and the 64-slot
+    run's B2 launches by input rows."""
     t_phase = time.perf_counter()
     cfg = get_config(SERVE_ARCH)
     params = get_model(cfg).init(seed=0, device="cuda")
@@ -1578,8 +1610,16 @@ def phase_serving() -> dict[str, dict[str, int]]:
     want = {"paged_flash_decode": cfg.n_layers * steps,
             "fused_mlp_swiglu": cfg.n_layers * steps,
             "fused_mlp_swiglu_small_m": cfg.n_layers * steps, "flash_decode": 0}
+    plan, _ = FM.small_m_plan(0, cfg.d_model, cfg.d_ff, cfg.d_model,
+                              _build.DTYPE_CODES[torch.bfloat16], True)
+    if plan.partials > 1 and plan.fold:
+        # every decode step's B2 folds its partials in the launch: no B5
+        want.update({"fused_mlp_swiglu_folded": cfg.n_layers * steps, "queue_reduce": 0})
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"native run launched {launches}, want {want}")
+    print(f"serve native: {launches['fused_mlp_swiglu_folded']} of "
+          f"{launches['fused_mlp_swiglu']} B2 launches folded their partials in the launch, "
+          f"{launches['queue_reduce']} queue_reduce launches", flush=True)
     traffic = eng.stats()["kv_traffic"]
     if traffic["native_bytes_per_tick"] > traffic["gather_bytes_per_tick"]:
         raise AssertionError(f"native tick moves more KV bytes than gather: {traffic}")
@@ -1652,6 +1692,7 @@ def phase_serving() -> dict[str, dict[str, int]]:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    runs["serve_native64"], rows64 = serve_native64(cfg, params)
     print(f"phase 7 bf16 runs: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     runs.update(phase_serving_fp8(cfg, params, prompts, bf16))
@@ -1662,7 +1703,38 @@ def phase_serving() -> dict[str, dict[str, int]]:
     reduced_card_equals_cpu(cfg)
     reduced_fp8_card_equals_cpu(cfg)
     print(f"phase 7 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return runs
+    return runs, rows64
+
+
+def serve_native64(cfg, params) -> tuple[dict[str, int], dict[str, dict[int, int]]]:
+    """The native path at 64 slots, as the benchmark's phi3 cells serve it:
+    64 requests of 8-16 prompt tokens, one token a slot a step, every tick a
+    replay.  Every B2 launch of the run takes 64 rows in the small-M form
+    and, where the plan folds in the launch, folds its partials there with
+    no queue_reduce.  Returns the run's launches and B2's by input rows."""
+    rng = np.random.default_rng(12)
+    prompts = {rid: rng.integers(2, cfg.vocab, int(rng.integers(8, 17))).tolist()
+               for rid in range(SMALL_M)}
+    _, eng, launches, wall = serve_run(cfg, params, prompts, "native64", base=SERVE64_CONFIG)
+    steps = eng.stats()["decode_steps"]
+    rows = K.launches_by_rows("fused_mlp_swiglu")
+    n = cfg.n_layers * steps
+    want = {"fused_mlp_swiglu": n, "fused_mlp_swiglu_small_m": n, "paged_flash_decode": n}
+    plan, _ = FM.small_m_plan(0, cfg.d_model, cfg.d_ff, cfg.d_model,
+                              _build.DTYPE_CODES[torch.bfloat16], True)
+    if plan.partials > 1 and plan.fold:
+        want.update({"fused_mlp_swiglu_folded": n, "queue_reduce": 0})
+    if rows != {SMALL_M: n} or any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"native64 run launched {launches}, B2 by rows {rows}; "
+                             f"want {want}, {{{SMALL_M}: {n}}}")
+    print(f"serve native64: {steps} steps of {SMALL_M} rows, {plan}: B2 by rows {rows}, "
+          f"{launches['fused_mlp_swiglu_folded']} folded in the launch, "
+          f"{launches['queue_reduce']} queue_reduce launches; {1e3 * wall / steps:.2f} ms a "
+          f"step with capture", flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"fused_mlp_swiglu": rows}
 
 
 def tuned_block_s(cfg, kv_dtype) -> dict:
@@ -3647,9 +3719,11 @@ def main() -> int:
           f"({fit.name})", flush=True)
     torch.cuda.empty_cache()
 
-    paths = {"compiler": compiler_path, **phase_serving()}
+    serve_paths, serve64_rows = phase_serving()
+    paths = {"compiler": compiler_path, **serve_paths}
     torch.cuda.empty_cache()
     train_paths, rows_by_path = phase_training()
+    rows_by_path["serve_native64"] = serve64_rows
     paths.update(train_paths)
     paths.update(phase_families())
     paths.update(phase_traced())
@@ -3668,8 +3742,10 @@ def main() -> int:
         return paths[path][kern] if n_rows is None else rows_by_path[path][kern].get(n_rows, 0)
 
     # phase 3 leaves a case out where its shape does not occur (no decode
-    # fold when the small-M form writes y itself)
-    cases = {case: spec for case, spec in SUMMARY.items() if case in rows}
+    # fold when the small-M form writes y itself), and a path runs no B5
+    # fold where the small-M launch folds its partials itself
+    cases = {case: spec for case, spec in SUMMARY.items()
+             if case in rows and not rows[case].get("in_kernel_fold")}
     missing = [case for case, (kern, path, _, *n_rows) in cases.items()
                if launches(path, kern, *n_rows) == 0]
     if missing:

@@ -12,8 +12,10 @@ nowhere else, so a run can show which kernels its path went through.
 `launches_by_rows(name)` splits a backward kernel's count by the rows of
 its input, `launches_by_form(name)` a forward kernel's by the form that
 served it ("small_m" or "tiled", `fused_mlp.fwd_form`),
-`launches_by_dtype(name)` a decode kernel's by its K/V dtype ("bfloat16",
-"float32" or "float8_e4m3fn").
+`launches_by_fold(name)` a forward kernel's small-M launches by where their
+f32 partials were folded ("kernel": inside the launch, "queue_reduce", or
+"none": the launch wrote y itself), `launches_by_dtype(name)` a decode
+kernel's by its K/V dtype ("bfloat16", "float32" or "float8_e4m3fn").
 
 The counters are Python increments, so a CUDA graph replay moves none of
 them: the serving engine takes `launch_state()` around a capture, restores
@@ -42,9 +44,10 @@ KERNELS = {
 
 
 # the counters that split a kernel's launches: by its input rows (the
-# backward kernels), by the form that served it (the MLP forwards), by its
-# K/V dtype (the decode kernels)
-SPLITS = ("launches_by_rows", "launches_by_form", "launches_by_dtype")
+# backward kernels), by the form that served it and by where the small-M
+# form's partials were folded (the MLP forwards), by its K/V dtype (the
+# decode kernels)
+SPLITS = ("launches_by_rows", "launches_by_form", "launches_by_dtype", "launches_by_fold")
 
 
 def launch_counts() -> dict[str, int]:
@@ -63,6 +66,10 @@ def launches_by_dtype(name: str) -> dict[str, int]:
     return dict(KERNELS[name].launches_by_dtype)
 
 
+def launches_by_fold(name: str) -> dict[str, int]:
+    return dict(KERNELS[name].launches_by_fold)
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
@@ -73,7 +80,7 @@ def reset_launch_counts() -> None:
 
 def launch_state() -> dict[str, tuple]:
     """Every counter of every kernel: {name: (launches, by rows, by form,
-    by dtype)}."""
+    by dtype, by fold)}."""
     return {name: (fn.launches, *(dict(getattr(fn, attr, {})) for attr in SPLITS))
             for name, fn in KERNELS.items()}
 

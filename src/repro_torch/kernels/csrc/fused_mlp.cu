@@ -58,33 +58,43 @@
 // engines check against the CPU at 2e-4, which TF32 would miss); f32
 // partials (n_split, M, Dout) for queue_reduce.
 //
-// Small-M form, small_m_kernel (decode): at M = 8 the weights are all the
-// bytes -- 550 MB at phi3-medium-14b's 5120 -> 17920 -> 5120, 0.164 ms at the
-// H100's 3.35 TB/s -- and a 128-row tile would spend 15/16 of its products on
-// padding rows.  So the product is swapped, Y^T = W^T X^T: every 16 x 16
-// weight tile is mma.sync m16n8k16's A operand (ldmatrix.trans from a k-major
-// shared tile) and the token rows are its 8-wide N (MP = M rounded up to 8,
-// 16, 32 or 64). Blocks of up to 9 16-column hidden tiles, about one per SM,
-// stream W1 (and Wu) with X through a 4-stage cp.async ring of 64-row steps
-// (~120 KB in flight per SM at M = 8), every weight byte read once.  A cluster
-// of CS blocks owns a contiguous hidden range: each builds act(g) * u for its
-// own columns (rounded to the input dtype), the members copy each other's
-// chunks over distributed shared memory in rank order, and member r then
-// multiplies the cluster's whole chunk into its Dout / CS columns of W2 (whose
-// first tiles load during the exchange).  One f32 partial of Y per cluster,
-// (n_clusters, M, Dout), goes to queue_reduce: at phi3's decode shape 4 *
-// n_clusters * M * Dout bytes written and read once more (clusters of 2, 63
-// partials: 10.3 MB), against the 5.7 MB of 35 tiled partials before and the
-// 550 MB of weights.  The launch geometry (blocks, cluster size) is a function
-// of the widths and the card, never of M, and each output element is one chain
-// of products in k order, so a row's result does not depend on M or on the
-// other rows (solo == batched serving). float32 takes the same structure with
-// an FMA loop in place of mma (the reduced engines check against the CPU at
-// 2e-4, which TF32 would miss).
+// Small-M form (decode, M <= 64).  What bounds it: the weights -- 550 MB at
+// phi3-medium-14b's 5120 -> 17920 -> 5120, 0.164 ms at the H100's 3.35 TB/s
+// -- while at 64 rows the products are 35 GFLOP (36 us at the bf16 peak), and
+// a 128-row tile would spend most of its products on padding rows.  So the
+// product is swapped, Y^T = W^T X^T: every 16 x 16 weight tile is mma.sync
+// m16n8k16's A operand and the token rows its 8-wide N.  Blocks of up to 10
+// 16-column hidden tiles, about one per SM, build their part of the hidden
+// chunk; a cluster shares a hidden range, its members exchange their parts
+// over distributed shared memory, and member r multiplies the cluster's
+// chunk into its columns of W2: one f32 partial of Y per cluster.
+// bf16, small_m_kernel_tma: the clusters' design at 64 rows was bound by
+// three things that grow with the rows (PERF.md): every thread
+// issued cp.async and then computed, with a block barrier each ring step,
+// so loads and products ran nearly one after the other; warp 0 owned two of
+// nine hidden tiles, so its sub-partition issued 1.5 x the products of the
+// others; and clusters of 2 (a cluster's gathered chunk had its own copy
+// beside the ring) left 63 (64, 5120) f32 partials, 82.6 MB written and read
+// again by a separate queue_reduce launch.  Here a producer warp keeps TMA
+// loads in flight through full / empty mbarrier rings (weights evict-first
+// in L2) and eight consumer warps only compute, the (hidden tile, token
+// tile) products are spread so that each sub-partition issues the same
+// number, the cluster's chunk takes the stage-1 ring's place so clusters of
+// 8 fit (14 partials, 18.4 MB, that stay in L2), and the launch folds them
+// itself: the last cluster to write an output tile (an integer arrival
+// ticket) sums the tile's partials in cluster order and writes Y.
+// float32 (the reduced engines check against the CPU at 2e-4, which TF32
+// would miss): small_m_kernel, the same structure with an FMA loop, clusters
+// of up to 8 blocks of 9 tiles, cp.async, and its partials for queue_reduce.
+// The launch geometry is a function of the widths and the card, never of M,
+// and each output element is one chain of products in k order plus a fold in
+// cluster order, so a row's result does not depend on M or on the other rows
+// (solo == batched serving).
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 3;
-// PERF.md): 0.227 ms with its fold at (8, 5120 -> 17920 -> 5120)
-// bf16, against the 0.164 ms byte bound and 0.217 ms for cuBLAS's unfused
-// chain, and below the tiled form's ~0.86 ms at every M it takes (1..64).
+// PERF.md): bf16 at (64, 5120 -> 17920 -> 5120) 0.236 ms with its fold,
+// against the 0.165 ms byte bound, 0.220 ms for cuBLAS's unfused chain and
+// 0.312 ms for the clusters-of-2 design with its queue_reduce fold; 0.210 ms
+// at 8 rows; below the tiled form's ~0.85 ms at every M it takes (1..64).
 #include <cooperative_groups.h>
 
 #include <initializer_list>
@@ -521,81 +531,96 @@ int launch_tiled(const CUtensorMap& tx, const CUtensorMap& twg, const CUtensorMa
 // Small M (decode): the swapped product, one cluster per hidden range
 // ---------------------------------------------------------------------------
 
+constexpr int SM_MAXM = 64;           // rows the form takes (8 token tiles of 8)
+constexpr int SM_MAX_CLUSTER = 8;     // the portable cluster size
+
+// The launch geometry of the small-M form for one (dtype, gated, Din, H,
+// Dout) on the current device -- never a function of M.  The caller keeps
+// it and hands it back with every launch.  fold: 0, the f32 partials (if
+// more than one) are left for queue_reduce; 1, the launch folds them into Y,
+// each output tile by the block that brought its last partial; 2, the same
+// shared over the grid, whose blocks are all resident at once (bf16).
+struct SmallPlan {
+  int ht, cs, nb, ds, hr_pad, fold;
+};
+
+// Occupancy of `kern` in clusters of cs blocks of nt threads and smem bytes.
+template <typename Kern>
+cudaError_t resident_clusters(Kern kern, int cs, int nt, size_t smem, int nb, int* nclusters) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nb);
+  cfg.blockDim = dim3(nt);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(nclusters, kern, &cfg);
+}
+
+template <typename Kern, typename... Args>
+cudaError_t launch_in_clusters(Kern kern, int nb, int cs, int nt, size_t smem, cudaStream_t st,
+                               Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nb);
+  cfg.blockDim = dim3(nt);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// float32, small_m_kernel (SIMT, FMA): blocks of up to 9 16-column hidden
+// tiles, about one per SM, stream W1 (and Wu) with X through a 3-stage
+// cp.async ring of 32-row steps; a cluster of CS blocks owns a contiguous
+// hidden range: each builds act(g) * u for its own columns, the members copy
+// each other's chunks over distributed shared memory in rank order, and
+// member r multiplies the cluster's whole chunk into its Dout / CS columns of
+// W2.  One f32 partial of Y per cluster, (n_clusters, M, Dout), goes to
+// queue_reduce.
 constexpr int SM_NW = 8, SM_NT = SM_NW * 32;
 constexpr int SM_HT = 9;              // at most 9 16-column hidden tiles per block
 constexpr int SM_HS = SM_HT * 16;     // hidden columns a block's staging tile spans
 constexpr int SM_OT = 128;            // output columns per stage-2 pass
-constexpr int SM_MAXM = 64;           // rows the form takes (8 token tiles of 8)
-constexpr int SM_MAX_CLUSTER = 8;     // the portable cluster size
-// k rows per ring stage (both stages) and ring depth: bf16 takes deep
-// stages (fewer barriers per byte), f32's twice-as-wide tiles fit 32 x 3
-template <typename T> constexpr int kSmKS = sizeof(T) == 2 ? 64 : 32;
-template <typename T> constexpr int kSmStages = sizeof(T) == 2 ? 4 : 3;
+constexpr int SM_KS = 32, SM_STAGES = 3;  // k rows per ring stage (both stages), ring depth
 
-// Shared memory of a small-M block for MP token rows and a cluster hidden
-// range padded to hr_pad columns: the block's own hidden chunk (read by the
-// whole cluster), then the stage-1 ring (W1 [+ Wu] tile of KS x SM_HS and
-// an X tile of MP x KS per slot, KS = kSmKS<T>) aliased, once it drained,
-// by the cluster's hidden chunk (MP x hr_pad) and the stage-2 ring (W2
-// tiles of KS x SM_OT).  Pitches keep 16-byte rows whose 16-byte index is
-// odd, so ldmatrix's eight row reads hit eight distinct bank groups.
-template <typename T>
+// Shared memory of an f32 small-M block for MP token rows and a cluster
+// hidden range padded to hr_pad columns: the block's own hidden chunk (read
+// by the whole cluster), then the stage-1 ring (W1 [+ Wu] tile of SM_KS x
+// SM_HS and an X tile of MP x SM_KS per slot) aliased, once it drained, by
+// the cluster's hidden chunk (MP x hr_pad) and the stage-2 ring (W2 tiles of
+// SM_KS x SM_OT).
 struct SmallSmem {
   int ldw, ldx, ldh, ldc, ldo;  // elements
   size_t own, wt, xt, slot1, ring1, hc, slot2, total;  // bytes
   __host__ __device__ SmallSmem(int mp, int hr_pad, bool gated) {
-    constexpr int P = Pad<T>::v;
+    constexpr int P = Pad<float>::v;
     ldw = SM_HS + P;
-    ldx = kSmKS<T> + P;
+    ldx = SM_KS + P;
     ldh = SM_HS + P;
     ldc = hr_pad + P;
     ldo = SM_OT + P;
-    own = align128(size_t(mp) * ldh * sizeof(T));
-    wt = align128(size_t(kSmKS<T>) * ldw * sizeof(T));
-    xt = align128(size_t(mp) * ldx * sizeof(T));
+    own = align128(size_t(mp) * ldh * 4);
+    wt = align128(size_t(SM_KS) * ldw * 4);
+    xt = align128(size_t(mp) * ldx * 4);
     slot1 = (gated ? 2 : 1) * wt + xt;
-    ring1 = kSmStages<T> * slot1;
-    hc = align128(size_t(mp) * ldc * sizeof(T));
-    slot2 = align128(size_t(kSmKS<T>) * ldo * sizeof(T));
-    const size_t s2 = hc + kSmStages<T> * slot2;
+    ring1 = SM_STAGES * slot1;
+    hc = align128(size_t(mp) * ldc * 4);
+    slot2 = align128(size_t(SM_KS) * ldo * 4);
+    const size_t s2 = hc + SM_STAGES * slot2;
     total = own + (ring1 > s2 ? ring1 : s2);
   }
 };
-
-// Four 8x8 b16 matrices, transposed on the way into registers: with the
-// lanes' row addresses set as in `frag_a`, mma.sync m16n8k16's A fragment
-// of a 16 x 16 tile stored k-major (its rows are k).
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// A fragment of A[i][j] = S[j][c0 + i] (i < 16 output rows, j < 16 k rows)
-// from a k-major tile S with pitch ld: lane l addresses k row
-// (l / 16) * 8 + l % 8 at column c0 + ((l / 8) % 2) * 8.
-__device__ __forceinline__ void frag_a(uint32_t* a, const __nv_bfloat16* S, int ld, int c0) {
-  const int l = threadIdx.x & 31;
-  ldsm_x4_t(a, S + ((l >> 4) * 8 + (l & 7)) * ld + c0 + ((l >> 3) & 1) * 8);
-}
-
-// B fragment of B[j][n] = R[n][j] (16 k rows, 8 token columns) from a
-// row-major activation R (token rows, k contiguous) with pitch ld.
-__device__ __forceinline__ void frag_b(uint32_t* b, const __nv_bfloat16* R, int ld) {
-  const int l = threadIdx.x & 31;
-  const __nv_bfloat16* p = R + (l >> 2) * ld + 2 * (l & 3);
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// d (16 x 8 f32) += A (16 x 16 bf16) B (16 x 8 bf16)
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // A linear sequence of n ring steps over STG slots: prologue(n, stage)
 // issues the first STG - 1, run(n, stage, use) waits for each in turn,
@@ -626,113 +651,57 @@ __device__ __forceinline__ void ring_run(int n, Stage stage, Use use) {
 // Block b of cluster c (rank r) owns hidden columns [b hs, b hs + hs),
 // hs = HT * 16; the cluster owns their union, hr = CS hs columns from
 // hc0 = c hr.
-//   Stage 1: the block's hidden chunk transposed, g^T = W1[:, chunk]^T X^T
-//     (and u^T), streamed over Din through the ring: each 16 x 16 weight
-//     tile is mma.sync's A operand and the token rows are its 8-wide N, so
-//     no product runs on a padding row of a 128-row tile.  act(g) * u is
-//     rounded to T into the block's own chunk.
+//   Stage 1: the block's hidden chunk, streamed over Din through the ring;
+//     act(g) * u into the block's own chunk.
 //   Exchange: after a cluster barrier every member copies all members'
 //     chunks (distributed shared memory, rank order) into the cluster's
 //     hidden chunk, MP x hr.
-//   Stage 2: member r owns output columns [r DS, r DS + DS): Y^T = W2[hr
-//     rows, its columns]^T t^T over the cluster's hidden range, SM_OT
-//     columns a pass, every pass's tiles in one continuous ring.  Its W2
-//     tiles start loading before the exchange.
-// out: direct, Y in T; else f32 partials (gridDim.x / CS, M, Dout), one
-// per cluster.  Every output element is one chain of products in k order
-// (mma accumulates in place; the f32 form is an FMA loop), fixed by
+//   Stage 2: member r owns output columns [r DS, r DS + DS) over the
+//     cluster's hidden range, SM_OT columns a pass, every pass's tiles in
+//     one continuous ring.  Its W2 tiles start loading before the exchange.
+// out: direct, Y; else f32 partials (gridDim.x / CS, M, Dout), one per
+// cluster.  Every output element is one FMA chain in k order, fixed by
 // (Din, H, Dout, HT, CS) alone, so a row's result does not depend on M or
 // on the other rows.
-template <typename T, bool GATED, int MP>
+template <bool GATED, int MP>
 __global__ void __launch_bounds__(SM_NT, 1)
-small_m_kernel(const T* __restrict__ X, const T* __restrict__ W1, const T* __restrict__ WU,
-               const T* __restrict__ W2, void* __restrict__ out, int M, int Din, int H, int Dout,
-               int HT, int DS, int hr_pad, int act, int direct) {
+small_m_kernel(const float* __restrict__ X, const float* __restrict__ W1,
+               const float* __restrict__ WU, const float* __restrict__ W2, float* __restrict__ out,
+               int M, int Din, int H, int Dout, int HT, int DS, int hr_pad, int act, int direct) {
   namespace cg = cooperative_groups;
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int CS = int(cluster.num_blocks()), rank = int(cluster.block_rank());
-  const SmallSmem<T> L(MP, hr_pad, GATED);
-  T* own = reinterpret_cast<T*>(smem);
+  const SmallSmem L(MP, hr_pad, GATED);
+  float* own = reinterpret_cast<float*>(smem);
   unsigned char* ring1 = smem + L.own;
-  T* hcs = reinterpret_cast<T*>(smem + L.own);
+  float* hcs = reinterpret_cast<float*>(smem + L.own);
   unsigned char* ring2 = smem + L.own + L.hc;
-  constexpr int STG = kSmStages<T>, KS = kSmKS<T>;
-  constexpr int NT8 = MP / 8;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int STG = SM_STAGES, KS = SM_KS;
   const int hs = HT * 16, h0 = blockIdx.x * hs, hend = min(H, h0 + hs);
   const int cl = blockIdx.x / CS, hr = CS * hs, hc0 = cl * hr, hc_end = min(H, hc0 + hr);
   const bool vx = vec_ok(X, Din), vw = vec_ok(W1, H) && (!GATED || vec_ok(WU, H));
   const bool v2 = vec_ok(W2, Dout);
 
   // ---- stage 1 ----
-  auto W1s = [&](int s) { return reinterpret_cast<T*>(ring1 + s * L.slot1); };
-  auto WUs = [&](int s) { return reinterpret_cast<T*>(ring1 + s * L.slot1 + L.wt); };
+  auto W1s = [&](int s) { return reinterpret_cast<float*>(ring1 + s * L.slot1); };
+  auto WUs = [&](int s) { return reinterpret_cast<float*>(ring1 + s * L.slot1 + L.wt); };
   auto Xs = [&](int s) {
-    return reinterpret_cast<T*>(ring1 + s * L.slot1 + (GATED ? 2 : 1) * L.wt);
+    return reinterpret_cast<float*>(ring1 + s * L.slot1 + (GATED ? 2 : 1) * L.wt);
   };
   const int nk = (Din + KS - 1) / KS;
   auto stage1 = [&](int t, int s) {
     const int k0 = t * KS;
-    load_tile<T, KS, SM_HS, SM_NT>(W1s(s), L.ldw, W1, H, k0, h0, Din, hend, vw);
+    load_tile<float, KS, SM_HS, SM_NT>(W1s(s), L.ldw, W1, H, k0, h0, Din, hend, vw);
     if constexpr (GATED)
-      load_tile<T, KS, SM_HS, SM_NT>(WUs(s), L.ldw, WU, H, k0, h0, Din, hend, vw);
-    load_tile<T, MP, KS, SM_NT>(Xs(s), L.ldx, X, Din, 0, k0, M, Din, vx);
+      load_tile<float, KS, SM_HS, SM_NT>(WUs(s), L.ldw, WU, H, k0, h0, Din, hend, vw);
+    load_tile<float, MP, KS, SM_NT>(Xs(s), L.ldx, X, Din, 0, k0, M, Din, vx);
   };
   ring_prologue<STG>(nk, stage1);
-  if constexpr (sizeof(T) == 2) {
-    // warp w: hidden tiles w and w + 8 (< HT), every token tile
-    float g[2][NT8][4], u[2][NT8][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int n = 0; n < NT8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) g[i][n][e] = u[i][n][e] = 0.f;
-    ring_run<STG>(nk, stage1, [&](int, int s) {
-#pragma unroll
-      for (int kk = 0; kk < KS; kk += 16) {
-        uint32_t b[NT8][2];
-#pragma unroll
-        for (int n = 0; n < NT8; ++n) frag_b(b[n], Xs(s) + n * 8 * L.ldx + kk, L.ldx);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int ht = warp + 8 * i;
-          if (ht < HT) {
-            uint32_t a[4];
-            frag_a(a, W1s(s) + kk * L.ldw, L.ldw, ht * 16);
-#pragma unroll
-            for (int n = 0; n < NT8; ++n) mma16816(g[i][n], a, b[n]);
-            if constexpr (GATED) {
-              frag_a(a, WUs(s) + kk * L.ldw, L.ldw, ht * 16);
-#pragma unroll
-              for (int n = 0; n < NT8; ++n) mma16816(u[i][n], a, b[n]);
-            }
-          }
-        }
-      }
-    });
-    // element e of a 16 x 8 accumulator: hidden row lane / 4 (+8 for e >= 2),
-    // token 2 (lane % 4) + (e & 1)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int ht = warp + 8 * i;
-      if (ht < HT) {
-#pragma unroll
-        for (int n = 0; n < NT8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int hrow = ht * 16 + (lane >> 2) + (e >> 1) * 8;
-            const int tok = n * 8 + 2 * (lane & 3) + (e & 1);
-            const float a = act_apply(act, g[i][n][e]);
-            own[tok * L.ldh + hrow] = from_f<T>(GATED ? a * u[i][n][e] : a);
-          }
-      }
-    }
-  } else {
-    // f32: FMA, thread (tc, tm) owns hidden columns tc + 16 i and tokens tm + 16 j
-    constexpr int MJ = MP >= 16 ? MP / 16 : 1;
-    const int tc = threadIdx.x & 15, tm = threadIdx.x >> 4;
+  // thread (tc, tm) owns hidden columns tc + 16 i and tokens tm + 16 j
+  constexpr int MJ = MP >= 16 ? MP / 16 : 1;
+  const int tc = threadIdx.x & 15, tm = threadIdx.x >> 4;
+  {
     float g[SM_HT][MJ], u[SM_HT][MJ];
 #pragma unroll
     for (int i = 0; i < SM_HT; ++i)
@@ -740,20 +709,20 @@ small_m_kernel(const T* __restrict__ X, const T* __restrict__ W1, const T* __res
       for (int j = 0; j < MJ; ++j) g[i][j] = u[i][j] = 0.f;
     ring_run<STG>(nk, stage1, [&](int, int s) {
       if (tm >= MP) return;
-      const T* w = W1s(s);
-      const T* wu = WUs(s);
-      const T* xs = Xs(s);
+      const float* w = W1s(s);
+      const float* wu = WUs(s);
+      const float* xs = Xs(s);
       for (int k = 0; k < KS; ++k) {
         float xv[MJ];
 #pragma unroll
-        for (int j = 0; j < MJ; ++j) xv[j] = to_f(xs[(tm + 16 * j) * L.ldx + k]);
+        for (int j = 0; j < MJ; ++j) xv[j] = xs[(tm + 16 * j) * L.ldx + k];
 #pragma unroll
         for (int i = 0; i < SM_HT; ++i) {
-          const float wv = to_f(w[k * L.ldw + tc + 16 * i]);
+          const float wv = w[k * L.ldw + tc + 16 * i];
 #pragma unroll
           for (int j = 0; j < MJ; ++j) g[i][j] = fmaf(wv, xv[j], g[i][j]);
           if constexpr (GATED) {
-            const float uv = to_f(wu[k * L.ldw + tc + 16 * i]);
+            const float uv = wu[k * L.ldw + tc + 16 * i];
 #pragma unroll
             for (int j = 0; j < MJ; ++j) u[i][j] = fmaf(uv, xv[j], u[i][j]);
           }
@@ -766,7 +735,7 @@ small_m_kernel(const T* __restrict__ X, const T* __restrict__ W1, const T* __res
 #pragma unroll
         for (int j = 0; j < MJ; ++j) {
           const float a = act_apply(act, g[i][j]);
-          own[(tm + 16 * j) * L.ldh + tc + 16 * i] = from_f<T>(GATED ? a * u[i][j] : a);
+          own[(tm + 16 * j) * L.ldh + tc + 16 * i] = GATED ? a * u[i][j] : a;
         }
     }
   }
@@ -776,127 +745,63 @@ small_m_kernel(const T* __restrict__ X, const T* __restrict__ W1, const T* __res
   const int n_lo = rank * DS, n_hi = min(Dout, n_lo + DS);
   const int npass = n_hi > n_lo ? (n_hi - n_lo + SM_OT - 1) / SM_OT : 0;
   const int nk2 = (hc_end - hc0 + KS - 1) / KS;
-  auto W2s = [&](int s) { return reinterpret_cast<T*>(ring2 + s * L.slot2); };
+  auto W2s = [&](int s) { return reinterpret_cast<float*>(ring2 + s * L.slot2); };
   auto stage2 = [&](int t, int s) {
     const int p = t / nk2, kt = t % nk2;
-    load_tile<T, KS, SM_OT, SM_NT>(W2s(s), L.ldo, W2, Dout, hc0 + kt * KS,
-                                      n_lo + p * SM_OT, hc_end, n_hi, v2);
+    load_tile<float, KS, SM_OT, SM_NT>(W2s(s), L.ldo, W2, Dout, hc0 + kt * KS,
+                                       n_lo + p * SM_OT, hc_end, n_hi, v2);
   };
   ring_prologue<STG>(npass * nk2, stage2);
   cluster.sync();  // every member's own chunk is written
   {
-    constexpr int V = 16 / sizeof(T);  // elements per 16-byte piece
-    const int pr = hs / V;             // pieces per member row (hs % 16 == 0)
+    const int pr = hs / 4;  // 16-byte pieces per member row (hs % 16 == 0)
     for (int r = 0; r < CS; ++r) {
-      const T* src = cluster.map_shared_rank(own, r);
+      const float* src = cluster.map_shared_rank(own, r);
       for (int idx = threadIdx.x; idx < MP * pr; idx += SM_NT) {
-        const int m = idx / pr, c = (idx % pr) * V;
-        *reinterpret_cast<uint4*>(hcs + m * L.ldc + r * hs + c) =
-            *reinterpret_cast<const uint4*>(src + m * L.ldh + c);
+        const int m = idx / pr, c = (idx % pr) * 4;
+        *reinterpret_cast<float4*>(hcs + m * L.ldc + r * hs + c) =
+            *reinterpret_cast<const float4*>(src + m * L.ldh + c);
       }
     }
     for (int idx = threadIdx.x; idx < MP * (hr_pad - hr); idx += SM_NT)
-      hcs[(idx / (hr_pad - hr)) * L.ldc + hr + idx % (hr_pad - hr)] = from_f<T>(0.f);
+      hcs[(idx / (hr_pad - hr)) * L.ldc + hr + idx % (hr_pad - hr)] = 0.f;
   }
   __syncthreads();
 
-  T* outd = reinterpret_cast<T*>(out);
-  float* outp = reinterpret_cast<float*>(out) + size_t(cl) * M * Dout;
-  auto put = [&](int m, int n, float v) {
-    if (m < M && n < n_hi) {
-      if (direct) outd[size_t(m) * Dout + n] = from_f<T>(v);
-      else outp[size_t(m) * Dout + n] = v;
+  float* outp = out + (direct ? 0 : size_t(cl) * M * Dout);
+  constexpr int OI = SM_OT / 16;
+  float y[OI][MJ];
+#pragma unroll
+  for (int i = 0; i < OI; ++i)
+#pragma unroll
+    for (int j = 0; j < MJ; ++j) y[i][j] = 0.f;
+  ring_run<STG>(npass * nk2, stage2, [&](int t, int s) {
+    if (tm >= MP) return;
+    const int p = t / nk2, kt = t % nk2;
+    const float* w = W2s(s);
+    for (int k = 0; k < KS; ++k) {
+      float hv[MJ];
+#pragma unroll
+      for (int j = 0; j < MJ; ++j) hv[j] = hcs[(tm + 16 * j) * L.ldc + kt * KS + k];
+#pragma unroll
+      for (int i = 0; i < OI; ++i) {
+        const float wv = w[k * L.ldo + tc + 16 * i];
+#pragma unroll
+        for (int j = 0; j < MJ; ++j) y[i][j] = fmaf(wv, hv[j], y[i][j]);
+      }
     }
-  };
-  if constexpr (sizeof(T) == 2) {
-    // warp w: output columns w * 16 .. + 15 of each pass, every token tile
-    float y[NT8][4];
+    if (kt == nk2 - 1) {
 #pragma unroll
-    for (int n = 0; n < NT8; ++n)
+      for (int i = 0; i < OI; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) y[n][e] = 0.f;
-    ring_run<STG>(npass * nk2, stage2, [&](int t, int s) {
-      const int p = t / nk2, kt = t % nk2;
-#pragma unroll
-      for (int kk = 0; kk < KS; kk += 16) {
-        uint32_t a[4];
-        frag_a(a, W2s(s) + kk * L.ldo, L.ldo, warp * 16);
-#pragma unroll
-        for (int n = 0; n < NT8; ++n) {
-          uint32_t b[2];
-          frag_b(b, hcs + n * 8 * L.ldc + kt * KS + kk, L.ldc);
-          mma16816(y[n], a, b);
+        for (int j = 0; j < MJ; ++j) {
+          const int m = tm + 16 * j, n = n_lo + p * SM_OT + tc + 16 * i;
+          if (m < M && n < n_hi) outp[size_t(m) * Dout + n] = y[i][j];
+          y[i][j] = 0.f;
         }
-      }
-      if (kt == nk2 - 1) {
-        const int n0 = n_lo + p * SM_OT + warp * 16 + (lane >> 2);
-#pragma unroll
-        for (int n = 0; n < NT8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            put(n * 8 + 2 * (lane & 3) + (e & 1), n0 + (e >> 1) * 8, y[n][e]);
-            y[n][e] = 0.f;
-          }
-      }
-    });
-  } else {
-    constexpr int MJ = MP >= 16 ? MP / 16 : 1;
-    constexpr int OI = SM_OT / 16;
-    const int tc = threadIdx.x & 15, tm = threadIdx.x >> 4;
-    float y[OI][MJ];
-#pragma unroll
-    for (int i = 0; i < OI; ++i)
-#pragma unroll
-      for (int j = 0; j < MJ; ++j) y[i][j] = 0.f;
-    ring_run<STG>(npass * nk2, stage2, [&](int t, int s) {
-      if (tm >= MP) return;
-      const int p = t / nk2, kt = t % nk2;
-      const T* w = W2s(s);
-      for (int k = 0; k < KS; ++k) {
-        float hv[MJ];
-#pragma unroll
-        for (int j = 0; j < MJ; ++j) hv[j] = to_f(hcs[(tm + 16 * j) * L.ldc + kt * KS + k]);
-#pragma unroll
-        for (int i = 0; i < OI; ++i) {
-          const float wv = to_f(w[k * L.ldo + tc + 16 * i]);
-#pragma unroll
-          for (int j = 0; j < MJ; ++j) y[i][j] = fmaf(wv, hv[j], y[i][j]);
-        }
-      }
-      if (kt == nk2 - 1) {
-#pragma unroll
-        for (int i = 0; i < OI; ++i)
-#pragma unroll
-          for (int j = 0; j < MJ; ++j) {
-            put(tm + 16 * j, n_lo + p * SM_OT + tc + 16 * i, y[i][j]);
-            y[i][j] = 0.f;
-          }
-      }
-    });
-  }
+    }
+  });
   cluster.sync();  // no member leaves while another may still read its chunk
-}
-
-// The launch geometry of the small-M form for one (dtype, gated, Din, H,
-// Dout) on the current device -- never a function of M.  The caller keeps
-// it and hands it back with every launch.
-struct SmallPlan {
-  int ht, cs, nb, ds, hr_pad;
-};
-
-// Lets every row-count instantiation of the form use up to `bytes` of
-// dynamic shared memory on the current device.
-template <typename T, bool GATED>
-cudaError_t small_allow(int bytes) {
-  const void* kerns[] = {reinterpret_cast<const void*>(small_m_kernel<T, GATED, 8>),
-                         reinterpret_cast<const void*>(small_m_kernel<T, GATED, 16>),
-                         reinterpret_cast<const void*>(small_m_kernel<T, GATED, 32>),
-                         reinterpret_cast<const void*>(small_m_kernel<T, GATED, 64>)};
-  for (const void* k : kerns) {
-    cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-  }
-  return cudaSuccess;
 }
 
 // Blocks of HT <= SM_HT hidden tiles, about one per SM; the largest cluster
@@ -904,93 +809,765 @@ cudaError_t small_allow(int bytes) {
 // clusters can all be resident at once (or fill the card's SMs, when the
 // blocks outnumber them).  Also raises the form's shared-memory limit on
 // the device to the most a block may opt into, so that no launch has to.
-template <typename T, bool GATED>
-cudaError_t small_plan(int Din, int H, int Dout, SmallPlan* plan) {
-  int dev = 0, nsm = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess) e = small_allow<T, GATED>(optin);
-  if (e != cudaSuccess) return e;
+template <bool GATED>
+cudaError_t small_plan_f32(int H, int Dout, int nsm, int optin, SmallPlan* plan) {
+  for (auto k : {small_m_kernel<GATED, 8>, small_m_kernel<GATED, 16>, small_m_kernel<GATED, 32>,
+                 small_m_kernel<GATED, 64>}) {
+    cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (e != cudaSuccess) return e;
+  }
   const int nt16 = (H + 15) / 16;
   const int ht = min(SM_HT, (nt16 + nsm - 1) / nsm);
   const int nb0 = (nt16 + ht - 1) / ht;
   for (int cs = SM_MAX_CLUSTER; cs >= 1; cs /= 2) {
     const int nb = (nb0 + cs - 1) / cs * cs;
-    const int hr = cs * ht * 16, hr_pad = (hr + kSmKS<T> - 1) / kSmKS<T> * kSmKS<T>;
-    const SmallSmem<T> L(SM_MAXM, hr_pad, GATED);
+    const int hr = cs * ht * 16, hr_pad = (hr + SM_KS - 1) / SM_KS * SM_KS;
+    const SmallSmem L(SM_MAXM, hr_pad, GATED);
     if (L.total > size_t(optin)) continue;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(nb);
-    cfg.blockDim = dim3(SM_NT);
-    cfg.dynamicSmemBytes = L.total;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cs;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
     int nclusters = 0;
-    auto kern = small_m_kernel<T, GATED, SM_MAXM>;
-    e = cudaOccupancyMaxActiveClusters(&nclusters, kern, &cfg);
+    cudaError_t e = resident_clusters(small_m_kernel<GATED, SM_MAXM>, cs, SM_NT, L.total, nb,
+                                      &nclusters);
     if (e != cudaSuccess) return e;
     const int resident = nclusters * cs;
     if (cs > 1 && resident < nb && resident < nsm) continue;
-    *plan = SmallPlan{ht, cs, nb, ((Dout + cs - 1) / cs + 15) / 16 * 16, hr_pad};
+    *plan = SmallPlan{ht, cs, nb, ((Dout + cs - 1) / cs + 15) / 16 * 16, hr_pad, 0};
     return cudaSuccess;
   }
   return cudaErrorInvalidConfiguration;
 }
 
-// Whether p is a geometry small_plan could have given for (Din, H, Dout):
-// whole clusters that cover H and Dout with a padded hidden range of whole
-// k-steps.  A launch checks it, since the kernel trusts its plan.
-template <typename T>
-bool small_plan_covers(const SmallPlan& p, int H, int Dout) {
+template <bool GATED>
+int launch_small_f32(const SmallPlan& p, const void* x, const void* w1, const void* wu,
+                     const void* w2, void* out, int M, int Din, int H, int Dout, int act,
+                     cudaStream_t st) {
   const bool cs_ok = p.cs == 1 || p.cs == 2 || p.cs == 4 || p.cs == SM_MAX_CLUSTER;
-  return cs_ok && p.ht >= 1 && p.ht <= SM_HT && p.nb >= p.cs && p.nb % p.cs == 0 &&
-         size_t(p.nb) * p.ht * 16 >= size_t(H) && p.ds % 16 == 0 && p.ds * p.cs >= Dout &&
-         p.hr_pad >= p.cs * p.ht * 16 && p.hr_pad % kSmKS<T> == 0;
+  if (!(cs_ok && p.ht >= 1 && p.ht <= SM_HT && p.nb >= p.cs && p.nb % p.cs == 0 &&
+        size_t(p.nb) * p.ht * 16 >= size_t(H) && p.ds % 16 == 0 && p.ds * p.cs >= Dout &&
+        p.hr_pad >= p.cs * p.ht * 16 && p.hr_pad % SM_KS == 0 && !p.fold))
+    return int(cudaErrorInvalidValue);
+  const int mp = M <= 8 ? 8 : M <= 16 ? 16 : M <= 32 ? 32 : 64;
+  auto kern = mp == 8    ? small_m_kernel<GATED, 8>
+              : mp == 16 ? small_m_kernel<GATED, 16>
+              : mp == 32 ? small_m_kernel<GATED, 32>
+                         : small_m_kernel<GATED, 64>;
+  const SmallSmem L(mp, p.hr_pad, GATED);
+  return int(launch_in_clusters(kern, p.nb, p.cs, SM_NT, L.total, st,
+                                static_cast<const float*>(x), static_cast<const float*>(w1),
+                                static_cast<const float*>(wu), static_cast<const float*>(w2),
+                                static_cast<float*>(out), M, Din, H, Dout, p.ht, p.ds, p.hr_pad,
+                                act, int(p.nb == p.cs)));
 }
 
-template <typename T, bool GATED, int MP>
-int launch_small_mp(const SmallPlan& p, const void* x, const void* w1, const void* wu,
-                    const void* w2, void* out, int M, int Din, int H, int Dout, int act,
-                    cudaStream_t st) {
-  const SmallSmem<T> L(MP, p.hr_pad, GATED);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.nb);
-  cfg.blockDim = dim3(SM_NT);
-  cfg.dynamicSmemBytes = L.total;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const int direct = p.nb == p.cs;
-  auto kern = small_m_kernel<T, GATED, MP>;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x),
-                                     static_cast<const T*>(w1), static_cast<const T*>(wu),
-                                     static_cast<const T*>(w2), out, M, Din, H, Dout, p.ht, p.ds,
-                                     p.hr_pad, act, direct);
+// bfloat16 on Hopper, small_m_kernel_tma: at phi3-medium-14b's widths the
+// weights are 550 MB, 0.164 ms at 3.35 TB/s, and at 64 rows the products are
+// 35 GFLOP (36 us at the bf16 peak), so the form is bound by the weight
+// stream and has to keep the products and everything else under it.
+//   * Loads off the consumers: warp 8 of a block produces -- its lane 0
+//     keeps TMA loads in flight through two rings of full / empty mbarriers
+//     (weights evict-first in L2, so that the partials below stay there) --
+//     and warps 0-7 only compute: no block barrier per ring step.  A step
+//     loads the block's weight columns in the widest boxes that cover them
+//     and no others (`issue_w`).
+//   * The product is swapped, Y^T = W^T X^T: each 16 x 16 weight tile is
+//     mma.sync m16n8k16's A operand (ldmatrix.trans out of the swizzled TMA
+//     boxes) and the token rows its 8-wide N, so no product runs on a
+//     padding row of a 64-row tile; a block keeps the fine split of H into
+//     16-column tiles (1120 at phi3's 17920), and the (hidden tile, token
+//     tile) products are spread over the warps so that every SM
+//     sub-partition issues the same number of them at 64 rows.
+//   * Partials: a cluster of CS blocks (8 where the card holds them) shares
+//     a hidden range.  Each member writes act(g) * u for its columns into
+//     its copy of the cluster's chunk, which takes the drained stage-1
+//     ring's place, the members copy each other's columns over distributed
+//     shared memory, and member r multiplies the whole chunk into its DS
+//     columns of W2 (128 a pass, its passes from its cluster's index on).
+//     So the launch leaves one f32 partial of Y per cluster (14 of (64,
+//     5120) at phi3's widths with 112 blocks: 18.4 MB, where clusters of 2
+//     left 63 and 82.6 MB), and folds them itself in cluster order.  An
+//     integer ticket per output tile counts the partials that arrived.
+//     Where every block of the grid is resident at once (fold mode 2, the
+//     plan's own grids), each block, done with its passes, helps: it claims
+//     row slices of the tiles in turn on one counter, waits for a slice's
+//     tile and folds it, so the last partials' fold is spread over the grid
+//     instead of lying on the blocks that brought them (which are the
+//     slowest: clusters that share a GPC stream more slowly).  A helper
+//     waits SB_HELP_NS at most in all; then it gives its slice back (a bit
+//     beside the tile's ticket) and leaves, so should the grid not be
+//     resident after all (kernels of another stream holding SMs), no block
+//     waits on one that cannot start.  The block that brought a tile's last
+//     partial folds, once done with its passes, the tile's slices that no
+//     helper claimed or that were given back (all of them in mode 1, for
+//     grids that take waves).  A slice may so be folded twice, to the same
+//     bits.  The tickets live in a workspace the caller hands the launch,
+//     one per stream, zero between launches: the last block out resets
+//     them, so a replayed graph needs no memset.
+// Geometry (small_plan_tma) is a function of the widths and the card: as
+// many blocks as there are SMs for the hidden tiles, the largest cluster
+// whose clusters are all resident and use at least 7/8 of the blocks a grid
+// without clusters would.  Every output element is one chain of products
+// in k order over the cluster's hidden range and a fold in cluster order,
+// fixed by the widths, so a row's result does not depend on M or on the
+// other rows, and two runs give the same bits.
+constexpr int SB_NW = 8;                 // consumer warps
+constexpr int SB_NT = (SB_NW + 1) * 32;  // and one producer warp
+constexpr int SB_HT = 10;                // 16-column hidden tiles a block at most
+static_assert(SB_HT % 2 == 0, "an odd block's last box holds one tile more");
+constexpr int SB_KS = 64, SB_KS2 = 64;   // k rows a ring step: stage 1, stage 2
+constexpr int SB_OT = 128;               // output columns a stage-2 pass
+constexpr int SB_ST1 = 3, SB_ST2 = 4;    // ring depths
+constexpr int SB_TILE = SB_KS * 32;      // bytes of a 16-column weight tile of a step
+constexpr int SB_BOX2 = SB_KS2 * 128;    // one 64-column W2 box of SB_KS2 rows of 128 bytes
+constexpr int SB_TICKETS = 4096;         // output tiles (rank, pass) a launch may fold
+// The in-launch fold's workspace, SB_TICKETS + 2 ints, zero between
+// launches: a word per output tile (its partials arrived in bits 0-15, its
+// slices given back in bits 16-23), the helpers' next slice, the blocks out.
+constexpr int SB_SPT = 8;  // slices (row groups) of an output tile in the fold
+// What a helper waits for tiles in all (fold mode 2): well above the waits
+// of a resident grid, whose blocks end stage 1 within ~45 us of each other
+// at phi3's widths and 64 rows
+constexpr unsigned long long SB_HELP_NS = 250000;
+
+// Shared memory of a bf16 small-M block for MP token rows and a cluster
+// hidden range padded to hr_pad columns: region A holds the stage-1 ring
+// (W1 [+ Wu] boxes of up to SB_HT tiles, an X box of MP x 64) and, once
+// it drained, the cluster's hidden chunk (MP x hr_pad, rows padded by 16
+// bytes so that ldmatrix's eight row reads hit eight bank groups); then the
+// stage-2 ring (two W2 boxes a step), the barriers and two ints of the
+// fold.  1024 bytes spare to align it.
+struct SmallTmaSmem {
+  int ldc;                     // elements of a hidden-chunk row
+  size_t slot1, a, slot2, total;
+  __host__ __device__ SmallTmaSmem(int mp, int hr_pad, bool gated) {
+    ldc = hr_pad + 8;
+    slot1 = size_t(gated ? 2 : 1) * SB_HT * SB_TILE + size_t(mp) * 128;
+    const size_t ring1 = SB_ST1 * slot1, hc = size_t(mp) * ldc * 2;
+    a = ((ring1 > hc ? ring1 : hc) + 1023) & ~size_t(1023);
+    slot2 = 2 * SB_BOX2;
+    total = 1024 + a + SB_ST2 * slot2 + 2 * (SB_ST1 + SB_ST2) * 8 + 16;
+  }
+};
+
+// Four 8x8 b16 matrices, transposed on the way into registers: with the
+// lanes' row addresses of a 16 x 16 tile stored k-major (lanes 0-15: k rows
+// 0-7 at columns 0 and 8, lanes 16-31: k rows 8-15), mma.sync m16n8k16's A
+// fragment of its transpose.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d (16 x 8 f32) += A (16 x 16 bf16) B (16 x 8 bf16)
+__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A tensor map over a row-major (rows, cols) bf16 matrix in boxes of
+// box_rows x box_cols with the given swizzle.
+inline cudaError_t map_box(CUtensorMap* m, const void* p, int rows, int cols, int box_rows,
+                           int box_cols, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows), 1};
+  const cuuint64_t strides[2] = {cuuint64_t(cols) * 2, cuuint64_t(rows) * cols * 2};
+  const cuuint32_t box[3] = {cuuint32_t(box_cols), cuuint32_t(box_rows), 1};
+  return encode_bf16_3d(m, p, dims, strides, box, swizzle);
+}
+
+// A 2-D TMA box load (a 3-D map with one plane) with an L2 cache policy.
+__device__ __forceinline__ void tma_load_hint(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int c0, int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(0),
+      "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// The lane's ldmatrix.trans row address for mma's A fragment of the 16 x 16
+// tile at k rows kk.. of a k-major TMA box: the 16-column half `half` of a
+// box of 64-byte rows (32 columns; 64-byte swizzle: the 16-byte piece p of
+// row k at p ^ (k / 2) % 4).
+__device__ __forceinline__ const void* a_sw64(const unsigned char* box, int kk, int half) {
+  const int l = threadIdx.x & 31, k = kk + (l >> 4) * 8 + (l & 7);
+  return box + k * 64 + (((half * 2 + ((l >> 3) & 1)) ^ ((k >> 1) & 3)) << 4);
+}
+// The same for columns c0.. (a multiple of 16) of a box of 128-byte rows (64
+// columns; 128-byte swizzle: the 16-byte piece p of row k at p ^ k % 8).
+__device__ __forceinline__ const void* a_sw128(const unsigned char* box, int kk, int c0) {
+  const int l = threadIdx.x & 31, k = kk + (l >> 4) * 8 + (l & 7);
+  return box + k * 128 + ((((c0 >> 3) + ((l >> 3) & 1)) ^ (k & 7)) << 4);
+}
+// mma's B fragments of N token tiles from tile0 on, k columns kk..kk + 15,
+// of token rows whose 16-byte pieces addr(token, k) gives: ldmatrix (not
+// transposed) of two tiles at a time.
+template <int N, typename Addr>
+__device__ __forceinline__ void frag_b(uint32_t (*b)[2], int tile0, int kk, Addr addr) {
+  const int l = threadIdx.x & 31, q = l >> 3;
+#pragma unroll
+  for (int j = 0; j < N; j += 2) {
+    uint32_t r[4];
+    if (j + 1 < N) {
+      ldsm_x4(r, addr((tile0 + j + (q >> 1)) * 8 + (l & 7), kk + (q & 1) * 8));
+      b[j + 1][0] = r[2];
+      b[j + 1][1] = r[3];
+    } else {
+      ldsm_x2(r, addr((tile0 + j) * 8 + (l & 7), kk + (q & 1) * 8));
+    }
+    b[j][0] = r[0];
+    b[j][1] = r[1];
+  }
+}
+
+// A block's HT hidden tiles of a weight (Din x H) as a stage-1 step loads
+// them: HT / 4 boxes of 64 k rows by 64 columns (8 KB, 128-byte swizzle),
+// then one of 32 columns (4 KB, 64-byte swizzle) where HT % 4 >= 2, then,
+// where HT is odd, a 32-column box over the last tile and the one before
+// it, which the block loads twice (from L2) rather than stream a 16-column
+// box: TMA streams wide boxes faster (32-column boxes in place of 16-column
+// ones took 6 % off the form at 8 rows on the H100, and this one 1.5 % off
+// maverick's 9 tiles), and no box reaches another block's columns.  One
+// tensor map per box width.
+struct WMaps {
+  CUtensorMap c64, c32;
+};
+
+__device__ __forceinline__ void issue_w(unsigned char* slot, const WMaps& m, uint64_t* bar, int h0,
+                                        int k0, int HT, uint64_t pol) {
+  const int h4 = HT >> 2;
+  for (int b = 0; b < h4; ++b) tma_load_hint(slot + b * 8192, &m.c64, bar, h0 + 64 * b, k0, pol);
+  unsigned char* rest = slot + h4 * 8192;
+  if ((HT & 3) >= 2) {
+    tma_load_hint(rest, &m.c32, bar, h0 + 64 * h4, k0, pol);
+    rest += 4096;
+  }
+  if (HT & 1) tma_load_hint(rest, &m.c32, bar, h0 + 16 * (HT - 2), k0, pol);
+}
+
+// The lane's ldmatrix.trans address for hidden tile h of such a slot.
+__device__ __forceinline__ const void* a_tile(const unsigned char* slot, int HT, int h, int kk) {
+  const int h4 = HT >> 2, q = h - 4 * h4;
+  if (q < 0) return a_sw128(slot + (h >> 2) * 8192, kk, (h & 3) * 16);
+  if (q < 2 && (HT & 3) >= 2) return a_sw64(slot + h4 * 8192, kk, q);
+  return a_sw64(slot + h4 * 8192 + ((HT & 3) >= 2 ? 4096 : 0), kk, 1);
+}
+
+inline cudaError_t map_weight(WMaps* m, const void* w, int Din, int H) {
+  cudaError_t e = map_box(&m->c64, w, Din, H, SB_KS, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess) e = map_box(&m->c32, w, Din, H, SB_KS, 32, CU_TENSOR_MAP_SWIZZLE_64B);
+  return e;
+}
+
+// The in-launch fold of rows m0 .. m1 - 1, columns n0 .. n0 + ncol - 1 of
+// Y by a block's consumer warps: the P f32 partials summed from L2 in
+// cluster order, eight loads in flight a thread.
+__device__ __forceinline__ void fold_rows(const float* part, __nv_bfloat16* y, int P, int M,
+                                          int Dout, int m0, int m1, int n0, int ncol) {
+  constexpr int U = 8;
+  const int q4 = ncol / 4;
+  const size_t pstride = size_t(M) * Dout;
+  for (int idx = threadIdx.x; idx < (m1 - m0) * q4; idx += SB_NW * 32) {
+    const size_t off = size_t(m0 + idx / q4) * Dout + n0 + (idx % q4) * 4;
+    const float* src = part + off;
+    float4 acc = __ldcg(reinterpret_cast<const float4*>(src));
+    for (int q0 = 1; q0 < P; q0 += U) {
+      float4 v[U];
+#pragma unroll
+      for (int i = 0; i < U; ++i)
+        if (q0 + i < P) v[i] = __ldcg(reinterpret_cast<const float4*>(src + (q0 + i) * pstride));
+#pragma unroll
+      for (int i = 0; i < U; ++i)
+        if (q0 + i < P) {
+          acc.x += v[i].x;
+          acc.y += v[i].y;
+          acc.z += v[i].z;
+          acc.w += v[i].w;
+        }
+    }
+    store4(y + off, acc);
+  }
+}
+
+__device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long globaltimer_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Block b of cluster c (rank r) owns hidden columns [b hs, b hs + hs),
+// hs = HT * 16; the cluster owns their union, hr = CS hs columns from
+// hc0 = c hr.
+//   Stage 1: g^T = W1[:, block's columns]^T X^T (and u^T) over Din, 64 k
+//     rows a ring step; act(g) * u, rounded to bf16, into the block's
+//     columns of its copy of the cluster's chunk (MP x hr).
+//   Exchange: after a cluster barrier every member copies the other
+//     members' columns of the chunk out of their shared memory.
+//   Stage 2: member r owns output columns [r DS, r DS + DS): Y^T = W2[hr
+//     rows, its columns]^T t^T, 128 columns a pass, its passes from pass c
+//     on; the first W2 boxes load during the exchange.
+// y: Y (M, Dout); part: f32 partials (gridDim.x / CS, M, Dout), one per
+// cluster.  One cluster: Y written directly.  Else each pass's partial tile
+// is written and, with y, counted on its ticket in `tickets` (the fold's
+// workspace) and folded into Y (fold: the plan's mode, 1 or 2); with y null
+// the partials are left to the caller.
+template <bool GATED, int MP>
+__global__ void __launch_bounds__(SB_NT, 1)
+small_m_kernel_tma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ WMaps tw1,
+                   const __grid_constant__ WMaps twu, const __grid_constant__ CUtensorMap tw2,
+                   __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+                   unsigned int* tickets, int M, int Din, int H, int Dout, int HT, int DS,
+                   int hr_pad, int act, int fold) {
+  namespace cg = cooperative_groups;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CS = int(cluster.num_blocks()), rank = int(cluster.block_rank());
+  const SmallTmaSmem L(MP, hr_pad, GATED);
+  unsigned char* ring1 = smem;
+  __nv_bfloat16* hcs = reinterpret_cast<__nv_bfloat16*>(smem);
+  unsigned char* ring2 = smem + L.a;
+  uint64_t* full1 = reinterpret_cast<uint64_t*>(ring2 + SB_ST2 * L.slot2);
+  uint64_t* empty1 = full1 + SB_ST1;
+  uint64_t* full2 = empty1 + SB_ST1;
+  uint64_t* empty2 = full2 + SB_ST2;
+  // two slots for thread 0 to hand the consumers a value (the fold's)
+  volatile unsigned int* note = reinterpret_cast<unsigned int*>(empty2 + SB_ST2);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int hs = HT * 16, h0 = blockIdx.x * hs;
+  const int cl = blockIdx.x / CS, P = gridDim.x / CS;
+  const int hr = CS * hs, hc0 = cl * hr, hc_end = min(H, hc0 + hr);
+  const int n_lo = rank * DS, n_hi = min(Dout, n_lo + DS);
+  const int npass = n_hi > n_lo ? (n_hi - n_lo + SB_OT - 1) / SB_OT : 0;
+  const int nk = (Din + SB_KS - 1) / SB_KS;
+  const int nk2 = hc_end > hc0 ? (hc_end - hc0 + SB_KS2 - 1) / SB_KS2 : 0;
+  const int T2 = npass * nk2;
+  const int xoff = (GATED ? 2 : 1) * SB_HT * SB_TILE;  // the X box within a stage-1 slot
+  // stage-2 step t: pass (t / nk2 + c) % npass, k step t % nk2
+  auto pass_of = [&](int t) { return (t / nk2 + cl) % npass; };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SB_ST1; ++s) {
+      mbar_init(&full1[s], 1);
+      mbar_init(&empty1[s], SB_NW);
+    }
+    for (int s = 0; s < SB_ST2; ++s) {
+      mbar_init(&full2[s], 1);
+      mbar_init(&empty2[s], SB_NW);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == SB_NW) {
+    // ---- the producer ----
+    uint64_t pol = 0;
+    if (lane == 0) {
+      asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
+      const uint32_t bytes1 = (GATED ? 2 : 1) * (HT + (HT & 1)) * SB_TILE + MP * 128;
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % SB_ST1;
+        if (t >= SB_ST1) mbar_wait(&empty1[s], ((t / SB_ST1) + 1) & 1);
+        unsigned char* slot = ring1 + s * L.slot1;
+        mbar_expect_tx(&full1[s], bytes1);
+        issue_w(slot, tw1, &full1[s], h0, t * SB_KS, HT, pol);
+        if constexpr (GATED) issue_w(slot + SB_HT * SB_TILE, twu, &full1[s], h0, t * SB_KS, HT, pol);
+        tma_load_3d(slot + xoff, &tx, &full1[s], t * SB_KS, 0, 0);
+      }
+    }
+    auto issue2 = [&](int t) {
+      const int s = t % SB_ST2;
+      if (t >= SB_ST2) mbar_wait(&empty2[s], ((t / SB_ST2) + 1) & 1);
+      const int n0 = n_lo + pass_of(t) * SB_OT, kt = t % nk2;
+      const int nbox = n_hi - n0 > 64 ? 2 : 1;
+      mbar_expect_tx(&full2[s], nbox * SB_BOX2);
+      for (int b = 0; b < nbox; ++b)
+        tma_load_hint(ring2 + s * L.slot2 + b * SB_BOX2, &tw2, &full2[s], n0 + 64 * b,
+                      hc0 + kt * SB_KS2, pol);
+    };
+    const int pre = min(SB_ST2, T2);
+    if (lane == 0)
+      for (int t = 0; t < pre; ++t) issue2(t);
+    __syncwarp();
+    cluster.sync();  // the members' chunks are written
+    cluster_arrive();
+    if (lane == 0)
+      for (int t = pre; t < T2; ++t) issue2(t);
+    __syncwarp();
+    cluster_wait();
+    return;
+  }
+
+  // ---- stage 1 (consumers) ----
+  // warp (hg, tg) = warp / TG, warp % TG: hidden tiles hg + HG i, token
+  // tiles tg TPW ..; warps w and w + 4 share an SM sub-partition and hold
+  // the same token tiles, so each sub-partition issues HT / 2 hidden tiles'
+  // products at MP = 16.. 64
+  constexpr int NT8 = MP / 8;
+  constexpr int TG = NT8 >= 2 ? 2 : 1, TPW = NT8 / TG, HG = SB_NW / TG;
+  constexpr int HTW = (SB_HT + HG - 1) / HG;
+  const int tg = warp % TG, hg = warp / TG;
+  {
+    float g[HTW][TPW][4], u[HTW][TPW][4];
+#pragma unroll
+    for (int i = 0; i < HTW; ++i)
+#pragma unroll
+      for (int j = 0; j < TPW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) g[i][j][e] = u[i][j][e] = 0.f;
+    for (int t = 0; t < nk; ++t) {
+      const int s = t % SB_ST1;
+      mbar_wait(&full1[s], (t / SB_ST1) & 1);
+      const unsigned char* slot = ring1 + s * L.slot1;
+      const unsigned char* xs = slot + xoff;
+      auto xaddr = [&](int tok, int k) {
+        return xs + tok * 128 + ((((k >> 3)) ^ (tok & 7)) << 4);
+      };
+#pragma unroll
+      for (int kk = 0; kk < SB_KS; kk += 16) {
+        uint32_t b[TPW][2];
+        frag_b<TPW>(b, tg * TPW, kk, xaddr);
+#pragma unroll
+        for (int i = 0; i < HTW; ++i) {
+          const int h = hg + HG * i;
+          if (h < HT) {
+            uint32_t a[4];
+            ldsm_x4_t(a, a_tile(slot, HT, h, kk));
+#pragma unroll
+            for (int j = 0; j < TPW; ++j) mma16816(g[i][j], a, b[j]);
+            if constexpr (GATED) {
+              ldsm_x4_t(a, a_tile(slot + SB_HT * SB_TILE, HT, h, kk));
+#pragma unroll
+              for (int j = 0; j < TPW; ++j) mma16816(u[i][j], a, b[j]);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty1[s]);
+    }
+    consumers_sync();  // ring 1 drained: the chunk takes its place
+    // element e of a 16 x 8 accumulator: hidden row lane / 4 (+8 for e >= 2),
+    // token 2 (lane % 4) + (e & 1)
+#pragma unroll
+    for (int i = 0; i < HTW; ++i) {
+      const int h = hg + HG * i;
+      if (h < HT) {
+#pragma unroll
+        for (int j = 0; j < TPW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hrow = rank * hs + h * 16 + (lane >> 2) + (e >> 1) * 8;
+            const int tok = (tg * TPW + j) * 8 + 2 * (lane & 3) + (e & 1);
+            const float a = act_apply(act, g[i][j][e]);
+            hcs[tok * L.ldc + hrow] = from_f<__nv_bfloat16>(GATED ? a * u[i][j][e] : a);
+          }
+      }
+    }
+  }
+  cluster.sync();  // every member's columns of the chunk are written
+
+  // ---- exchange: the other members' columns, eight 16-byte loads in flight ----
+  {
+    constexpr int U = 8, CNT = SB_NW * 32;
+    const int pr = hs / 8, per = MP * pr, total = CS * per;
+    for (int base = threadIdx.x; base < total; base += U * CNT) {
+      uint4 v[U];
+#pragma unroll
+      for (int q = 0; q < U; ++q) {
+        const int idx = base + q * CNT, r = idx / per;
+        if (idx < total && r != rank) {
+          const int m = (idx % per) / pr, c = r * hs + (idx % pr) * 8;
+          v[q] = *reinterpret_cast<const uint4*>(cluster.map_shared_rank(hcs, r) + m * L.ldc + c);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < U; ++q) {
+        const int idx = base + q * CNT, r = idx / per;
+        if (idx < total && r != rank) {
+          const int m = (idx % per) / pr, c = r * hs + (idx % pr) * 8;
+          *reinterpret_cast<uint4*>(hcs + m * L.ldc + c) = v[q];
+        }
+      }
+    }
+    const int pad = hr_pad - hr;
+    for (int idx = threadIdx.x; idx < MP * pad; idx += CNT)
+      hcs[(idx / pad) * L.ldc + hr + idx % pad] = from_f<__nv_bfloat16>(0.f);
+  }
+  consumers_sync();
+  cluster_arrive();  // done reading the other members' shared memory
+
+  // ---- stage 2 ----
+  // warp (cg2, tg2) = warp / TG2, warp % TG2: CW output columns of a pass
+  // from cg2 CW, token tiles tg2 TPW2 ..
+  constexpr int TG2 = NT8 >= 2 ? 2 : 1, TPW2 = NT8 / TG2;
+  constexpr int CW = SB_OT * TG2 / SB_NW, CT = CW / 16;
+  const int tg2 = warp % TG2, cw0 = (warp / TG2) * CW;
+  const int tstride = (DS + SB_OT - 1) / SB_OT;  // tickets of a member
+  float yacc[CT][TPW2][4];
+#pragma unroll
+  for (int c = 0; c < CT; ++c)
+#pragma unroll
+    for (int j = 0; j < TPW2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yacc[c][j][e] = 0.f;
+  auto haddr = [&](int tok, int k) { return hcs + tok * L.ldc + k; };
+  unsigned long long last = 0;  // thread 0: the passes whose tile's last partial this block brought
+  for (int t = 0; t < T2; ++t) {
+    const int s = t % SB_ST2;
+    const int p = pass_of(t), kt = t % nk2, n0 = n_lo + p * SB_OT;
+    const bool mine = n0 + cw0 < n_hi;
+    mbar_wait(&full2[s], (t / SB_ST2) & 1);
+    if (mine) {
+      const unsigned char* slot = ring2 + s * L.slot2;
+#pragma unroll
+      for (int kk = 0; kk < SB_KS2; kk += 16) {
+        uint32_t b[TPW2][2];
+        frag_b<TPW2>(b, tg2 * TPW2, kt * SB_KS2 + kk, haddr);
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+          const int col = cw0 + 16 * c;
+          uint32_t a[4];
+          ldsm_x4_t(a, a_sw128(slot + (col >> 6) * SB_BOX2, kk, col & 63));
+#pragma unroll
+          for (int j = 0; j < TPW2; ++j) mma16816(yacc[c][j], a, b[j]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty2[s]);
+    if (kt != nk2 - 1) continue;
+    // the pass is done: its tile of Y or of this cluster's partial
+    if (mine) {
+#pragma unroll
+      for (int c = 0; c < CT; ++c)
+#pragma unroll
+        for (int j = 0; j < TPW2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int n = n0 + cw0 + 16 * c + (lane >> 2) + (e >> 1) * 8;
+            const int tok = (tg2 * TPW2 + j) * 8 + 2 * (lane & 3) + (e & 1);
+            if (tok < M && n < n_hi) {
+              if (P == 1) y[size_t(tok) * Dout + n] = from_f<__nv_bfloat16>(yacc[c][j][e]);
+              else part[(size_t(cl) * M + tok) * Dout + n] = yacc[c][j][e];
+            }
+            yacc[c][j][e] = 0.f;
+          }
+    }
+    if (P == 1 || y == nullptr) continue;
+    // count the tile on its ticket (thread 0's fence releases the block's
+    // stores, which the barrier ordered before it)
+    consumers_sync();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      if ((atomicAdd(&tickets[rank * tstride + p], 1u) & 0xffffu) == unsigned(P - 1))
+        last |= 1ull << p;
+    }
+  }
+  if (P > 1 && y != nullptr) {
+    // the in-launch fold: slice g is rows [g % SB_SPT M / SB_SPT, ...) of
+    // tile g / SB_SPT, Y's columns from r DS + pp SB_OT for the tile (rank
+    // r, pass pp); tiles past Dout get no partial, so no ticket
+    unsigned int* next = tickets + SB_TICKETS;
+    const int nslice = CS * tstride * SB_SPT;
+    auto ncol_of = [&](int tile) {
+      const int r = tile / tstride, n0 = r * DS + (tile % tstride) * SB_OT;
+      return min(SB_OT, min(Dout, r * DS + DS) - n0);
+    };
+    auto fold_slice = [&](int g) {
+      const int tile = g / SB_SPT, sl = g % SB_SPT, ncol = ncol_of(tile);
+      const int n0 = (tile / tstride) * DS + (tile % tstride) * SB_OT;
+      const int m0 = sl * M / SB_SPT, m1 = (sl + 1) * M / SB_SPT;
+      if (ncol > 0 && m1 > m0) fold_rows(part, y, P, M, Dout, m0, m1, n0, ncol);
+    };
+    int nbc = 0;
+    auto bcast = [&](unsigned int v) {  // thread 0's v, to every consumer thread
+      volatile unsigned int* slot = note + (nbc++ & 1);
+      if (threadIdx.x == 0) *slot = v;
+      consumers_sync();
+      return *slot;
+    };
+    if (fold == 2) {
+      // every block resident: claim slices in turn and fold each once its
+      // tile is complete, for SB_HELP_NS of waiting at most.  Thread 0
+      // hands the consumers slice << 2 | (fold it) | (stop) << 1.
+      const unsigned long long until = globaltimer_ns() + SB_HELP_NS;
+      for (;;) {
+        unsigned int v = 2u;
+        if (threadIdx.x == 0) {
+          const unsigned int g = atomicAdd(next, 1u);
+          if (g < unsigned(nslice)) {
+            unsigned int* tk = &tickets[g / SB_SPT];
+            v = g << 2;
+            if (ncol_of(int(g / SB_SPT)) > 0) {
+              while ((ld_acquire(tk) & 0xffffu) < unsigned(P) && globaltimer_ns() < until)
+                __nanosleep(256);
+              if ((ld_acquire(tk) & 0xffffu) == unsigned(P)) v |= 1u;
+              else  // give it back to the tile's last block, unless that one came meanwhile
+                v |= (atomicOr(tk, 1u << (16 + g % SB_SPT)) & 0xffffu) == unsigned(P) ? 3u : 2u;
+            }
+          }
+        }
+        v = bcast(v);
+        if (v & 1u) fold_slice(int(v >> 2));
+        if (v & 2u) break;
+      }
+    }
+    // the tiles whose last partial this block brought: their slices that no
+    // helper claimed, or that one gave back.  Thread 0 hands the consumers
+    // pass << 8 | slices, one tile at a time.
+    for (int pp = -1;;) {
+      unsigned int v = 0xffffffffu;  // none left
+      if (threadIdx.x == 0)
+        for (int q = pp + 1; q < npass; ++q) {
+          if (!(last >> q & 1)) continue;
+          const int tile = rank * tstride + q;
+          unsigned int mask = ld_acquire(&tickets[tile]) >> 16;
+          const unsigned int taken = *reinterpret_cast<volatile unsigned int*>(next);
+          for (int sl = 0; sl < SB_SPT; ++sl)
+            if (unsigned(tile * SB_SPT + sl) >= taken) mask |= 1u << sl;
+          if (mask) {
+            v = unsigned(q) << 8 | mask;
+            break;
+          }
+        }
+      v = bcast(v);
+      if (v == 0xffffffffu) break;
+      pp = int(v >> 8);
+      for (int sl = 0; sl < SB_SPT; ++sl)
+        if (v >> sl & 1u) fold_slice((rank * tstride + pp) * SB_SPT + sl);
+    }
+    // the last block out resets the workspace for the next launch
+    consumers_sync();  // every thread's folds are issued
+    if (threadIdx.x == 0) {
+      __threadfence();
+      if (atomicAdd(&tickets[SB_TICKETS + 1], 1u) == gridDim.x - 1) {
+        for (int i = 0; i < CS * tstride; ++i) tickets[i] = 0u;
+        *next = 0u;
+        tickets[SB_TICKETS + 1] = 0u;
+      }
+    }
+  }
+  cluster_wait();  // no member leaves while another may still read its chunk
+}
+
+// The bf16 geometry: blocks of ht <= SB_HT hidden tiles; for each cluster
+// size from 8 down, as many blocks as its clusters resident at once hold
+// (measured at SM_MAXM rows and the widest block); the first whose blocks
+// take at most SB_HT tiles each and number at least 7/8 of a grid without
+// clusters (about one block per SM).  Widths no such grid covers take
+// waves of the largest clusters.  Also raises the kernels' shared-memory
+// limit on the device, so that no launch has to.
+template <bool GATED>
+cudaError_t small_plan_tma(int H, int Dout, int nsm, int optin, SmallPlan* plan) {
+  for (auto k : {small_m_kernel_tma<GATED, 8>, small_m_kernel_tma<GATED, 16>,
+                 small_m_kernel_tma<GATED, 32>, small_m_kernel_tma<GATED, 64>}) {
+    cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (e != cudaSuccess) return e;
+  }
+  auto up = [](int a, int b) { return (a + b - 1) / b; };
+  const int nt16 = up(H, 16);
+  const int nb1 = up(nt16, min(SB_HT, up(nt16, nsm)));
+  int widest = 0;
+  for (int cs = SM_MAX_CLUSTER; cs >= 1; cs /= 2) {
+    const SmallTmaSmem L(SM_MAXM, up(cs * SB_HT * 16, SB_KS) * SB_KS, GATED);
+    if (L.total > size_t(optin)) continue;
+    if (!widest) widest = cs;
+    int ncl = 0;
+    cudaError_t e = resident_clusters(small_m_kernel_tma<GATED, SM_MAXM>, cs, SB_NT, L.total,
+                                      up(nt16, SB_HT * cs) * cs, &ncl);
+    if (e != cudaSuccess) return e;
+    const int ht = ncl > 0 ? up(nt16, ncl * cs) : SB_HT + 1;
+    if (ht > SB_HT) continue;
+    const int nb = up(up(nt16, ht), cs) * cs;
+    if (cs > 1 && 8 * nb < 7 * nb1) continue;
+    // every cluster resident at once: the grid may share the fold (mode 2)
+    *plan = SmallPlan{ht, cs, nb, up(up(Dout, cs), 64) * 64, up(cs * ht * 16, SB_KS) * SB_KS,
+                      nb / cs > 1 ? 2 : 0};
+    return cudaSuccess;
+  }
+  if (!widest) return cudaErrorInvalidConfiguration;
+  const int nb = up(up(nt16, SB_HT), widest) * widest;
+  *plan = SmallPlan{SB_HT, widest, nb, up(up(Dout, widest), 64) * 64,
+                    up(widest * SB_HT * 16, SB_KS) * SB_KS, nb / widest > 1 ? 1 : 0};
+  return cudaSuccess;
+}
+
+template <bool GATED>
+int launch_small_tma(const SmallPlan& p, const void* x, const void* w1, const void* wu,
+                     const void* w2, void* y, void* part, void* tickets, int M, int Din, int H,
+                     int Dout, int act, cudaStream_t st) {
+  const bool cs_ok = p.cs == 1 || p.cs == 2 || p.cs == 4 || p.cs == SM_MAX_CLUSTER;
+  const int P = p.cs > 0 ? p.nb / p.cs : 0;
+  if (!(cs_ok && p.ht >= 1 && p.ht <= SB_HT && p.nb >= p.cs && p.nb % p.cs == 0 &&
+        size_t(p.nb) * p.ht * 16 >= size_t(H) && p.ds % 64 == 0 && p.ds * p.cs >= Dout &&
+        p.hr_pad >= p.cs * p.ht * 16 && p.hr_pad % SB_KS == 0 &&
+        p.cs * ((p.ds + SB_OT - 1) / SB_OT) <= SB_TICKETS && (p.ds + SB_OT - 1) / SB_OT <= 64 &&
+        p.fold >= 0 && p.fold <= 2 &&
+        (p.fold != 0) == (P > 1)))
+    return int(cudaErrorInvalidValue);
+  if (Din % 8 || H % 8 || Dout % 8 || (P == 1 ? !y : !part) || (P > 1 && y && !tickets))
+    return int(cudaErrorInvalidValue);
+  for (const void* q : {x, w1, w2, GATED ? wu : w1, static_cast<const void*>(y),
+                        static_cast<const void*>(part), static_cast<const void*>(tickets)})
+    if (reinterpret_cast<uintptr_t>(q) & 15) return int(cudaErrorInvalidValue);
+  const int mp = M <= 8 ? 8 : M <= 16 ? 16 : M <= 32 ? 32 : 64;
+  CUtensorMap tx, tw2;
+  WMaps tw1, twu;
+  cudaError_t e = map_box(&tx, x, M, Din, mp, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess) e = map_weight(&tw1, w1, Din, H);
+  if (e == cudaSuccess) e = map_weight(&twu, GATED ? wu : w1, Din, H);
+  if (e == cudaSuccess) e = map_box(&tw2, w2, H, Dout, SB_KS2, 64, CU_TENSOR_MAP_SWIZZLE_128B);
   if (e != cudaSuccess) return int(e);
-  return int(cudaGetLastError());
+  auto kern = mp == 8    ? small_m_kernel_tma<GATED, 8>
+              : mp == 16 ? small_m_kernel_tma<GATED, 16>
+              : mp == 32 ? small_m_kernel_tma<GATED, 32>
+                         : small_m_kernel_tma<GATED, 64>;
+  const SmallTmaSmem L(mp, p.hr_pad, GATED);
+  return int(launch_in_clusters(kern, p.nb, p.cs, SB_NT, L.total, st, tx, tw1, twu, tw2,
+                                static_cast<__nv_bfloat16*>(y), static_cast<float*>(part),
+                                static_cast<unsigned int*>(tickets), M, Din, H, Dout, p.ht, p.ds,
+                                p.hr_pad, act, p.fold));
 }
 
-template <typename T, bool GATED>
-int launch_small(const SmallPlan& p, const void* x, const void* w1, const void* wu,
-                 const void* w2, void* out, int M, int Din, int H, int Dout, int act,
-                 cudaStream_t st) {
-  if (!small_plan_covers<T>(p, H, Dout)) return int(cudaErrorInvalidValue);
-  if (M <= 8) return launch_small_mp<T, GATED, 8>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st);
-  if (M <= 16) return launch_small_mp<T, GATED, 16>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st);
-  if (M <= 32) return launch_small_mp<T, GATED, 32>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st);
-  return launch_small_mp<T, GATED, 64>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st);
+// The small-M form's plan for (dtype, gated, Din, H, Dout) on the current
+// device.
+template <bool GATED>
+cudaError_t small_plan(int dtype, int H, int Dout, SmallPlan* plan) {
+  int dev = 0, nsm = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  if (dtype == BF16) return small_plan_tma<GATED>(H, Dout, nsm, optin, plan);
+  if (dtype == F32) return small_plan_f32<GATED>(H, Dout, nsm, optin, plan);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1060,42 +1637,53 @@ extern "C" int repro_fused_mlp_tiled(const void* x, const void* w1, const void* 
                : launch_tiled<false>(tx, twg, twu, tw2, out, g, a, clusters, st);
 }
 
+// n: the ints of the small-M form's fold workspace (repro_fused_mlp_small's
+// tickets).
+extern "C" int repro_fused_mlp_small_tickets(int* n) {
+  *n = SB_TICKETS + 2;
+  return 0;
+}
+
 // Small-M form: its launch geometry for (Din, H, Dout) on the current
-// device, plan = {ht, cs, nb, ds, hr_pad}; it leaves nb / cs f32 partials
-// (1: it writes Y directly).  Call it on a device before the form's first
+// device, plan = {ht, cs, nb, ds, hr_pad, fold}; it leaves nb / cs f32
+// partials (1: it writes Y directly), which the launch folds into Y itself
+// where fold is 1 (bf16).  Call it on a device before the form's first
 // launch there: it also sets the form's shared-memory limit.
 extern "C" int repro_fused_mlp_small_plan(int Din, int H, int Dout, int dtype, int gated,
                                           int* plan) {
   SmallPlan p;
-  cudaError_t e = cudaErrorInvalidValue;
-  if (dtype == BF16)
-    e = gated ? small_plan<__nv_bfloat16, true>(Din, H, Dout, &p)
-              : small_plan<__nv_bfloat16, false>(Din, H, Dout, &p);
-  else if (dtype == F32)
-    e = gated ? small_plan<float, true>(Din, H, Dout, &p)
-              : small_plan<float, false>(Din, H, Dout, &p);
+  const cudaError_t e = gated ? small_plan<true>(dtype, H, Dout, &p)
+                              : small_plan<false>(dtype, H, Dout, &p);
   if (e != cudaSuccess) return int(e);
-  const int fields[] = {p.ht, p.cs, p.nb, p.ds, p.hr_pad};
-  for (int i = 0; i < 5; ++i) plan[i] = fields[i];
+  const int fields[] = {p.ht, p.cs, p.nb, p.ds, p.hr_pad, p.fold};
+  for (int i = 0; i < 6; ++i) plan[i] = fields[i];
   return 0;
 }
 
 // x (M, Din) with 1 <= M <= 64, weights as repro_fused_mlp_fwd's, plan as
-// repro_fused_mlp_small_plan gave it for these widths; out is Y (M, Dout)
-// in the operands' dtype when the plan leaves one partial, else f32
-// partials (nb / cs, M, Dout).
+// repro_fused_mlp_small_plan gave it for these widths.  y: Y (M, Dout) in
+// the operands' dtype, or null; part: f32 partials (nb / cs, M, Dout) where
+// the plan leaves more than one, else null.  float32 writes one of the two
+// (queue_reduce folds the partials); bf16 (every width a multiple of 8,
+// every pointer 16-byte aligned, as TMA reads them) given both folds its
+// partials into y itself, given part alone leaves them.  tickets: the
+// fold's workspace (bf16 given both), repro_fused_mlp_small_tickets()
+// ints, zero before the launch and left zero by it; launches that may run
+// at once need workspaces of their own (the caller keeps one per stream).
 extern "C" int repro_fused_mlp_small(const void* x, const void* w1, const void* wu,
-                                     const void* w2, void* out, int M, int Din, int H, int Dout,
-                                     int dtype, int gated, int act, const int* plan,
-                                     void* stream) {
+                                     const void* w2, void* y, void* part, int M, int Din, int H,
+                                     int Dout, int dtype, int gated, int act, const int* plan,
+                                     void* tickets, void* stream) {
   if (M < 1 || M > SM_MAXM) return int(cudaErrorInvalidValue);
-  const SmallPlan p{plan[0], plan[1], plan[2], plan[3], plan[4]};
+  const SmallPlan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == BF16)
-    return gated ? launch_small<__nv_bfloat16, true>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st)
-                 : launch_small<__nv_bfloat16, false>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st);
-  if (dtype == F32)
-    return gated ? launch_small<float, true>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st)
-                 : launch_small<float, false>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st);
-  return int(cudaErrorInvalidValue);
+    return gated ? launch_small_tma<true>(p, x, w1, wu, w2, y, part, tickets, M, Din, H, Dout,
+                                          act, st)
+                 : launch_small_tma<false>(p, x, w1, wu, w2, y, part, tickets, M, Din, H, Dout,
+                                           act, st);
+  void* out = p.cs > 0 && p.nb == p.cs ? y : part;
+  if (dtype != F32 || !out) return int(cudaErrorInvalidValue);
+  return gated ? launch_small_f32<true>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st)
+               : launch_small_f32<false>(p, x, w1, wu, w2, out, M, Din, H, Dout, act, st);
 }

@@ -226,17 +226,18 @@ __device__ __forceinline__ void fence_proxy_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Encode a 3-D bf16 tensor map (dims and box innermost first) with 128-byte
-// swizzle.  cuTensorMapEncodeTiled is a driver function: it is looked up
-// through the runtime, so the library needs no -lcuda.
+// cuTensorMapEncodeTiled lives in libcuda: it is looked up through the
+// runtime, so the library needs no -lcuda.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-inline cudaError_t encode_sw128_bf16_3d(CUtensorMap* map, const void* base,
-                                        const cuuint64_t dims[3], const cuuint64_t strides_bytes[2],
-                                        const cuuint32_t box[3]) {
+// Encode a 3-D bf16 tensor map (dims and box innermost first) with the given
+// swizzle.
+inline cudaError_t encode_bf16_3d(CUtensorMap* map, const void* base, const cuuint64_t dims[3],
+                                  const cuuint64_t strides_bytes[2], const cuuint32_t box[3],
+                                  CUtensorMapSwizzle swizzle) {
   static EncodeTiledFn encode = nullptr;
   if (!encode) {
     cudaDriverEntryPointQueryResult found;
@@ -254,10 +255,15 @@ inline cudaError_t encode_sw128_bf16_3d(CUtensorMap* map, const void* base,
   }
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                      strides_bytes, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                      strides_bytes, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline cudaError_t encode_sw128_bf16_3d(CUtensorMap* map, const void* base,
+                                        const cuuint64_t dims[3], const cuuint64_t strides_bytes[2],
+                                        const cuuint32_t box[3]) {
+  return encode_bf16_3d(map, base, dims, strides_bytes, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace kt

@@ -13,7 +13,9 @@ hidden tensor never reaches HBM.  Two forms, chosen by x's rows alone
 hidden range, each block builds its part of the hidden chunk with the
 weights as mma's 16-row operand and the tokens as its 8-wide N, the
 cluster exchanges the parts through distributed shared memory and each
-block multiplies the whole chunk into its columns of W2.  Above SMALL_M,
+block multiplies the whole chunk into its columns of W2; in bfloat16 the
+launch also folds the clusters' f32 partials itself (`SmallPlan.fold`),
+float32 leaves them to `queue_reduce`.  Above SMALL_M,
 bfloat16 runs the tiled form on TMA + wgmma: a block builds t = act(x @ wg)
 * (x @ wu) for 128 rows and a chunk of up to 448 hidden columns into
 shared memory and multiplies it into 128-column tiles of y, which a cluster
@@ -203,34 +205,59 @@ def _small_kernels():
     plan = _build.kernel_function("fused_mlp", "repro_fused_mlp_small_plan",
                                   [i] * 5 + [p])
     run = _build.kernel_function("fused_mlp", "repro_fused_mlp_small",
-                                 [v] * 5 + [i] * 7 + [p, v])
-    return plan, run
+                                 [v] * 6 + [i] * 7 + [p, v, v])
+    tickets = _build.kernel_function("fused_mlp", "repro_fused_mlp_small_tickets", [p])
+    return plan, run, tickets
+
+
+_fold_workspaces: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _fold_workspace(x: torch.Tensor) -> torch.Tensor:
+    """The small-M form's in-launch fold workspace for launches on x's
+    current stream: its tickets are zero between launches (the launch that
+    used them resets them), and each stream has its own, so launches on two
+    streams that run at once never count on each other's.  A CUDA graph
+    keeps the workspace of the stream it was captured on."""
+    key = (x.device.index, _build.stream_of(x))
+    ws = _fold_workspaces.get(key)
+    if ws is None:
+        n = ctypes.c_int()
+        _small_kernels()[2](ctypes.byref(n))
+        ws = _fold_workspaces[key] = torch.zeros(n.value, dtype=torch.int32, device=x.device)
+    return ws
 
 
 class SmallPlan(NamedTuple):
     """The small-M form's launch geometry for one set of widths on one
     device (csrc/fused_mlp.cu `small_plan`): hidden tiles per block, blocks
-    per cluster, blocks, output columns per member, padded hidden range."""
+    per cluster, blocks, output columns per member, padded hidden range,
+    and where its partials are folded -- 0: by queue_reduce (float32); 1: in
+    the launch, each output tile by the block that brought its last
+    partial; 2: in the launch, shared over the grid (bfloat16)."""
     ht: int
     cs: int
     nb: int
     ds: int
     hr_pad: int
+    fold: int
 
     @property
     def partials(self) -> int:
-        """The f32 partials it leaves for queue_reduce, one per cluster
-        (1: it writes y itself)."""
+        """The f32 partials the launch writes, one per cluster (1: it
+        writes y itself); with `fold` it sums them into y too, else they
+        are left for queue_reduce."""
         return self.nb // self.cs
 
 
 @functools.cache
 def small_m_plan(device: int, d_in: int, hdim: int, d_out: int, code: int,
                  gated: bool) -> tuple[SmallPlan, ctypes.Array]:
-    """The small-M form's plan on a device, and the same five ints as the
-    array each launch hands back: a function of the widths, never of M.
+    """The small-M form's plan on a device, and the same six ints as the
+    array each launch hands back: a function of the widths (bfloat16's
+    padded to multiples of 8, as `_launch_small` pads them), never of M.
     Asking the source also sets the form's shared-memory limit there."""
-    arr = (ctypes.c_int * 5)()
+    arr = (ctypes.c_int * 6)()
     with torch.cuda.device(device):
         _small_kernels()[0](d_in, hdim, d_out, code, int(gated), arr)
     return SmallPlan(*arr), arr
@@ -298,20 +325,37 @@ def _check(what: str, x, w1, wu, w2, act: str, dy=None):
 
 
 def _launch_small(x, w1, wu, w2, act: str, code: int, dims, fold: bool = True):
+    """The small-M form: (y, where its f32 partials were folded -- "kernel"
+    in the launch, "queue_reduce", or "none" where the launch wrote y
+    itself).  fold=False returns the partials as the launch wrote them,
+    unfolded, where it leaves more than one.  bfloat16 widths that are not
+    multiples of 8 are zero-padded for TMA and y sliced back."""
     m, d_in, hdim, d_out = dims
+    if x.dtype == torch.bfloat16:
+        d_in, hdim, d_out = (-(-n // 8) * 8 for n in dims[1:])
+        x, w1, w2 = _padded(x, m, d_in), _padded(w1, d_in, hdim), _padded(w2, hdim, d_out)
+        wu = None if wu is None else _padded(wu, d_in, hdim)
     plan, arr = small_m_plan(x.device.index, d_in, hdim, d_out, code, wu is not None)
-    if plan.partials == 1:
-        out = torch.empty((m, d_out), dtype=x.dtype, device=x.device)
-    else:
-        out = torch.empty((plan.partials, m, d_out), dtype=torch.float32, device=x.device)
+    many = plan.partials > 1
+    in_kernel = many and fold and bool(plan.fold)
+    y = (torch.empty((m, d_out), dtype=x.dtype, device=x.device)
+         if not many or in_kernel else None)
+    part = (torch.empty((plan.partials, m, d_out), dtype=torch.float32, device=x.device)
+            if many else None)
+    tickets = _fold_workspace(x).data_ptr() if in_kernel else None
     with torch.cuda.device(x.device):
         _small_kernels()[1](x.data_ptr(), w1.data_ptr(),
                             None if wu is None else wu.data_ptr(), w2.data_ptr(),
-                            out.data_ptr(), m, d_in, hdim, d_out, code,
-                            int(wu is not None), ACT_CODES[act], arr, _build.stream_of(x))
-    if plan.partials == 1 or not fold:
-        return out
-    return queue_reduce(out, op="sum", out_dtype=x.dtype)
+                            None if y is None else y.data_ptr(),
+                            None if part is None else part.data_ptr(), m, d_in, hdim, d_out,
+                            code, int(wu is not None), ACT_CODES[act], arr, tickets,
+                            _build.stream_of(x))
+    if many and not fold:
+        return part, "none"
+    where = "kernel" if in_kernel else "none"
+    if y is None:
+        y, where = queue_reduce(part, op="sum", out_dtype=x.dtype), "queue_reduce"
+    return (y if d_out == dims[3] else y[:, :dims[3]].contiguous()), where
 
 
 def forward_in_form(form: str, x, w1, wu, w2, act: str, fold: bool = True):
@@ -320,7 +364,8 @@ def forward_in_form(form: str, x, w1, wu, w2, act: str, fold: bool = True):
     the two forms against each other with it.  wu None is the ungated MLP.
     fold=False returns the kernel's output as it wrote it: its f32
     partials, or y where it leaves one (padded to widths of 8 in the
-    bfloat16 tiled form)."""
+    bfloat16 tiled form); the small-M form in bfloat16 then leaves its
+    partials unfolded instead of folding them in the launch."""
     what = "fused_mlp" if wu is None else "fused_mlp_swiglu"
     return _launch(what, x, w1, wu, w2, act, form, fold)[0]
 
@@ -372,27 +417,32 @@ def _launch_tiled(x, w1, wu, w2, act: str, dims, fold: bool = True):
 
 def _launch(what: str, x, w1, wu, w2, act: str, form: str | None = None,
             fold: bool = True, f32_block_h: int = F32_BLOCK_H):
-    """(y, the form that computed it)."""
+    """(y, the form that computed it, where the small-M form's partials were
+    folded: "kernel", "queue_reduce" or "none"; None for the tiled form)."""
     code, dims = _check(what, x, w1, wu, w2, act)
     form = form or fwd_form(dims[0])
     if form == "small_m":
         if dims[0] > SMALL_M:
             raise ValueError(f"{what}: the small-M form takes at most {SMALL_M} rows")
-        return _launch_small(x, w1, wu, w2, act, code, dims, fold), "small_m"
+        y, where = _launch_small(x, w1, wu, w2, act, code, dims, fold)
+        return y, "small_m", where
     if x.dtype == torch.float32:
         if not fold:
             raise ValueError("fold=False is the small-M and bfloat16 tiled forms'")
-        return _launch_f32(x, w1, wu, w2, act, code, dims, f32_block_h), "tiled"
-    return _launch_tiled(x, w1, wu, w2, act, dims, fold), "tiled"
+        return _launch_f32(x, w1, wu, w2, act, code, dims, f32_block_h), "tiled", None
+    return _launch_tiled(x, w1, wu, w2, act, dims, fold), "tiled", None
 
 
-def _count_fwd(fn, form: str, x) -> None:
+def _count_fwd(fn, form: str, x, folded: str | None) -> None:
     """One launch of a forward wrapper's kernel, counted in total, by the
-    form `_launch` launched and by x's rows (whisper's encoder and decoder
-    run one width at two row counts)."""
+    form `_launch` launched, by x's rows (whisper's encoder and decoder run
+    one width at two row counts) and, for the small-M form, by where its
+    partials were folded (`_launch_small`)."""
     fn.launches += 1
     fn.launches_by_form[form] = fn.launches_by_form.get(form, 0) + 1
     fn.launches_by_rows[x.shape[0]] = fn.launches_by_rows.get(x.shape[0], 0) + 1
+    if folded is not None:
+        fn.launches_by_fold[folded] = fn.launches_by_fold.get(folded, 0) + 1
 
 
 def fused_mlp_fwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
@@ -402,8 +452,8 @@ def fused_mlp_fwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
     _build.refuse_capture("fused_mlp_fwd", x)
     if x.device.type == "cpu":
         return fused_mlp_fwd_plain(x, w1, w2, act)
-    y, form = _launch("fused_mlp", x, w1, None, w2, act, f32_block_h=f32_block_h)
-    _count_fwd(fused_mlp_fwd, form, x)
+    y, form, folded = _launch("fused_mlp", x, w1, None, w2, act, f32_block_h=f32_block_h)
+    _count_fwd(fused_mlp_fwd, form, x, folded)
     return y
 
 
@@ -415,8 +465,9 @@ def fused_mlp_swiglu_fwd(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     _build.refuse_capture("fused_mlp_swiglu_fwd", x)
     if x.device.type == "cpu":
         return fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, act)
-    y, form = _launch("fused_mlp_swiglu", x, wg, wu, wd, act, f32_block_h=f32_block_h)
-    _count_fwd(fused_mlp_swiglu_fwd, form, x)
+    y, form, folded = _launch("fused_mlp_swiglu", x, wg, wu, wd, act,
+                              f32_block_h=f32_block_h)
+    _count_fwd(fused_mlp_swiglu_fwd, form, x, folded)
     return y
 
 
@@ -558,4 +609,6 @@ fused_mlp_fwd.launches_by_form = {}
 fused_mlp_swiglu_fwd.launches_by_form = {}
 fused_mlp_fwd.launches_by_rows = {}
 fused_mlp_swiglu_fwd.launches_by_rows = {}
+fused_mlp_fwd.launches_by_fold = {}
+fused_mlp_swiglu_fwd.launches_by_fold = {}
 fused_mlp_swiglu_bwd.launches_by_rows = {}

@@ -136,11 +136,36 @@ def test_fused_mlp_small_m_form(cuda, m, gated, dtype):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_fused_mlp_small_m_at_phi3_widths(cuda, dtype):
-    """The decode shape of the serving path, (8, 5120 -> 17920 -> 5120)
-    silu, in the small-M form against the plain version."""
-    x, wg, wu, wd = _mlp_case(cuda, 30, dtype, 8, 5120, 17920, 5120)
-    close(K.fused_mlp_swiglu_fwd(x, wg, wu, wd, act="silu"),
-          fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, "silu"), TOL[dtype])
+    """The decode shapes of the serving path, (8 and 64, 5120 -> 17920 ->
+    5120) silu, in the small-M form against the plain version."""
+    x, wg, wu, wd = _mlp_case(cuda, 30, dtype, SMALL_M, 5120, 17920, 5120)
+    for m in (8, SMALL_M):
+        xm = x[:m].contiguous()
+        close(K.fused_mlp_swiglu_fwd(xm, wg, wu, wd, act="silu"),
+              fused_mlp_swiglu_fwd_plain(xm, wg, wu, wd, "silu"), TOL[dtype])
+
+
+# (Din, H, Dout, gated, act) of the other models whose decode takes the
+# small-M form: hymba-1.5b's FFN, llama4-maverick's dense layer, whisper-
+# small's decoder MLP (ungated gelu)
+FAMILY_WIDTHS = {"hymba": (1600, 5504, 1600, True, "silu"),
+                 "maverick": (5120, 16384, 5120, True, "silu"),
+                 "whisper_decode": (768, 3072, 768, False, "gelu")}
+
+
+@pytest.mark.parametrize("m", [8, SMALL_M])
+@pytest.mark.parametrize("family", sorted(FAMILY_WIDTHS))
+def test_fused_mlp_small_m_at_family_widths(cuda, family, m):
+    """The small-M form at the other served models' widths, bfloat16, at 8
+    and 64 decode rows, against the plain version."""
+    d, h, o, gated, act = FAMILY_WIDTHS[family]
+    x, w1, wu, w2 = _mlp_case(cuda, 33, "bfloat16", m, d, h, o)
+    if gated:
+        got, want = (K.fused_mlp_swiglu_fwd(x, w1, wu, w2, act=act),
+                     fused_mlp_swiglu_fwd_plain(x, w1, wu, w2, act))
+    else:
+        got, want = K.fused_mlp_fwd(x, w1, w2, act=act), fused_mlp_fwd_plain(x, w1, w2, act)
+    close(got, want, TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -161,6 +186,75 @@ def test_fused_mlp_small_m_rows_independent(cuda, gated, dtype):
     assert torch.equal(y, run(x))
     assert torch.equal(y[0], run(torch.cat([x[:1], other]))[0])
     assert torch.equal(y[:1], run(x[:1].contiguous()))
+
+
+@pytest.mark.parametrize("m", [8, SMALL_M])
+def test_fused_mlp_small_m_beyond_one_wave(cuda, m):
+    """A hidden width no resident grid covers (32000: 2000 tiles of 16) takes
+    waves of clusters and folds each output tile in the blocks that brought
+    its partials, once all are in (`SmallPlan.fold` 1, the fold that waits
+    for no other block): bf16 against the plain version, and row 0 bitwise
+    the same alone."""
+    x, wg, wu, wd = _mlp_case(cuda, 35, "bfloat16", m, 64, 32000, 64)
+    plan, _ = FM.small_m_plan(cuda.index or 0, 64, 32000, 64, 1, True)
+    assert plan.fold == 1 and plan.partials > 1
+    y = K.fused_mlp_swiglu_fwd(x, wg, wu, wd, act="silu")
+    close(y, fused_mlp_swiglu_fwd_plain(x, wg, wu, wd, "silu"), TOL["bfloat16"])
+    assert torch.equal(y[0], K.fused_mlp_swiglu_fwd(x[:1].contiguous(), wg, wu, wd, act="silu")[0])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fused_mlp_small_m_rows_independent_at_phi3_widths(cuda, dtype):
+    """At the serving cells' (64, 5120 -> 17920 -> 5120): row 0 at M = 64 is
+    bitwise row 0 at M = 1 and at M = 8, two launches are bitwise equal, and
+    where the plan leaves partials the output is bitwise their sequential
+    f32 fold (the in-launch fold in bfloat16, queue_reduce in float32),
+    the partials taken unfolded through forward_in_form."""
+    x, wg, wu, wd = _mlp_case(cuda, 34, dtype, SMALL_M, 5120, 17920, 5120)
+
+    def run(xs):
+        return K.fused_mlp_swiglu_fwd(xs, wg, wu, wd, act="silu")
+    y = run(x)
+    assert torch.equal(y, run(x))
+    assert torch.equal(y[0], run(x[:1].contiguous())[0])
+    assert torch.equal(y[0], run(x[:8].contiguous())[0])
+    plan, _ = FM.small_m_plan(cuda.index or 0, 5120, 17920, 5120,
+                              0 if dtype == "float32" else 1, True)
+    raw = FM.forward_in_form("small_m", x, wg, wu, wd, "silu", fold=False)
+    if plan.partials > 1:
+        assert raw.shape == (plan.partials, SMALL_M, 5120) and raw.dtype == torch.float32
+        assert torch.equal(y, sequential_fold(raw, y.dtype))
+    else:
+        assert torch.equal(y, raw)
+
+
+def test_fused_mlp_small_m_on_two_streams_at_once(cuda):
+    """The small-M form launched on two streams that run at once, at the
+    serving cells' widths and 64 rows, where each grid is as large as the
+    card holds and shares its fold over the grid (`SmallPlan.fold` 2): each
+    stream folds on a workspace of its own, and a grid that finds part of
+    the card held by the other stream's blocks stops waiting for them and
+    finishes, so every output is bitwise its launch on one stream."""
+    x, wg, wu, wd = _mlp_case(cuda, 36, "bfloat16", SMALL_M, 5120, 17920, 5120)
+    plan, _ = FM.small_m_plan(cuda.index or 0, 5120, 17920, 5120, 1, True)
+    assert plan.fold == 2 and plan.partials > 1
+    xs = [x, torch.flip(x, [0]).contiguous()]
+    want = [K.fused_mlp_swiglu_fwd(xi, wg, wu, wd, act="silu") for xi in xs]
+    main = torch.cuda.current_stream(cuda)
+    streams = [torch.cuda.Stream(cuda) for _ in xs]
+    got = [[], []]
+    for st in streams:
+        st.wait_stream(main)
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[i].append(K.fused_mlp_swiglu_fwd(xs[i], wg, wu, wd, act="silu"))
+    for st in streams:
+        main.wait_stream(st)
+    torch.cuda.synchronize(cuda)
+    assert len(FM._fold_workspaces) >= 3
+    for ys, y0 in zip(got, want):
+        assert all(torch.equal(y, y0) for y in ys)
 
 
 # (Din, H, Dout) for the tiled bf16 form: widths TMA cannot read as they are

@@ -326,13 +326,131 @@ def test_forward_counts_the_form_launched(monkeypatch, gated, form):
                 else ("fused_mlp", K.fused_mlp_fwd))
     x, w = torch.empty(8, 16, device="meta"), torch.empty(16, 16, device="meta")
     y = torch.empty(8, 16, device="meta")
-    monkeypatch.setattr(FM, "_launch", lambda *args, **kw: (y, form))
+    folded = "kernel" if form == "small_m" else None
+    monkeypatch.setattr(FM, "_launch", lambda *args, **kw: (y, form, folded))
     monkeypatch.setattr(fn, "launches", 0)
     monkeypatch.setattr(fn, "launches_by_form", {})
+    monkeypatch.setattr(fn, "launches_by_fold", {})
     got = fn(x, w, w, w) if gated else fn(x, w, w)
     assert got is y
     assert K.launch_counts()[name] == 1
     assert K.launches_by_form(name) == {form: 1}
+    assert K.launches_by_fold(name) == ({} if folded is None else {folded: 1})
+
+
+class _FakeSmall:
+    """Stands in for the small-M form's ctypes entry points and queue_reduce
+    (csrc/fused_mlp.cu is built only where nvcc and a card exist): the plan
+    entry point fills in `plan` and records the widths it was asked for, the
+    launch entry point records what `_launch_small` hands it.  x lies on the
+    meta device, so `_launch_small` takes its launch path with no card."""
+
+    def __init__(self, monkeypatch, plan):
+        self.plans, self.runs, self.folds = [], [], []
+        self.stream = 0
+        monkeypatch.setattr(FM._build, "cuda_operands",
+                            lambda what, *ts: _build.DTYPE_CODES[ts[0].dtype])
+        monkeypatch.setattr(FM._build, "stream_of", lambda t: self.stream)
+        monkeypatch.setattr(FM.torch.cuda, "device", lambda d: contextlib.nullcontext())
+        monkeypatch.setattr(FM, "_fold_workspaces", {})
+        FM.small_m_plan.cache_clear()     # the plans below are the fake's
+
+        def plan_fn(*args):
+            self.plans.append(args[:5])
+            for i, v in enumerate(plan):
+                args[5][i] = v
+
+        def tickets_fn(n):
+            n._obj.value = 4096 + 2
+        monkeypatch.setattr(FM, "_small_kernels",
+                            lambda: (plan_fn, lambda *args: self.runs.append(args), tickets_fn))
+
+        def fold(p, op="sum", out_dtype=None):
+            self.folds.append((tuple(p.shape), p.dtype, op, out_dtype))
+            return torch.empty(p.shape[1:], dtype=out_dtype, device=p.device)
+        monkeypatch.setattr(FM, "queue_reduce", fold)
+
+
+# (plan, dtype): one cluster writes y; bf16 folds its partials in the
+# launch; float32 leaves them to queue_reduce
+SMALL_PLANS = [(FM.SmallPlan(ht=2, cs=8, nb=8, ds=64, hr_pad=256, fold=0), torch.bfloat16),
+               (FM.SmallPlan(ht=10, cs=8, nb=112, ds=640, hr_pad=1280, fold=1), torch.bfloat16),
+               (FM.SmallPlan(ht=9, cs=2, nb=126, ds=2560, hr_pad=288, fold=0), torch.float32)]
+
+
+@pytest.mark.parametrize("plan,dtype", SMALL_PLANS)
+@pytest.mark.parametrize("gated", [False, True])
+def test_small_m_folds_where_the_plan_says(monkeypatch, plan, dtype, gated):
+    """The small-M wrapper calls queue_reduce exactly when the plan leaves
+    more than one partial and does not fold them in the launch; it hands
+    the launch y (where the launch writes or folds it) and the f32
+    partials (where there are any), and counts the launch by where its
+    partials were folded.  fold=False leaves the partials unfolded."""
+    fake = _FakeSmall(monkeypatch, plan)
+    name, fn = (("fused_mlp_swiglu", K.fused_mlp_swiglu_fwd) if gated
+                else ("fused_mlp", K.fused_mlp_fwd))
+    K.reset_launch_counts()
+    x, w1, w2 = _meta((SMALL_M, 64), (64, 1024), (1024, 128), dtype=dtype)
+    y = fn(x, w1, w1, w2) if gated else fn(x, w1, w2)
+    assert y.shape == (SMALL_M, 128) and y.dtype == dtype
+    (run,) = fake.runs
+    many, queued = plan.partials > 1, plan.partials > 1 and not plan.fold
+    assert (run[4] is None) == queued and (run[5] is None) == (not many)
+    assert (run[14] is None) == (queued or not many)    # the fold's workspace
+    assert fake.folds == ([((plan.partials, SMALL_M, 128), torch.float32, "sum", dtype)]
+                          if queued else [])
+    where = "queue_reduce" if queued else "kernel" if many else "none"
+    assert K.launches_by_fold(name) == {where: 1}
+    assert K.launches_by_form(name) == {"small_m": 1}
+    raw = FM.forward_in_form("small_m", x, w1, w1 if gated else None, w2, "silu", fold=False)
+    assert fake.runs[1][4] is None if many else fake.runs[1][4] is not None
+    assert fake.runs[1][14] is None                    # no fold, no workspace
+    assert raw.shape == ((plan.partials, SMALL_M, 128) if many else (SMALL_M, 128))
+    assert len(fake.folds) == int(queued)              # fold=False folds nothing
+    assert K.launches_by_fold(name) == {where: 1}      # forward_in_form is uncounted
+    K.reset_launch_counts()
+    assert K.launches_by_fold(name) == {}
+    FM.small_m_plan.cache_clear()
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_small_m_plan_is_a_function_of_the_widths(monkeypatch, gated):
+    """The small-M plan is asked for with the widths alone (bfloat16's
+    padded to multiples of 8, as TMA reads them), once per device and
+    widths: every row count from 1 to SMALL_M hands the launch the same
+    plan array, and the launch gets the padded widths and x's rows."""
+    plan = FM.SmallPlan(ht=10, cs=8, nb=112, ds=640, hr_pad=1280, fold=1)
+    fake = _FakeSmall(monkeypatch, plan)
+    w1, wu, w2 = _meta((60, 1000), (60, 1000), (1000, 50))
+    for m in (1, 8, 17, SMALL_M):
+        (x,) = _meta((m, 60))
+        y = FM.forward_in_form("small_m", x, w1, wu if gated else None, w2, "silu")
+        assert y.shape == (m, 50)
+    code = _build.DTYPE_CODES[torch.bfloat16]
+    assert fake.plans == [(64, 1000, 56, code, int(gated))]
+    assert len({id(r[13]) for r in fake.runs}) == 1
+    assert [r[6:10] for r in fake.runs] == [(m, 64, 1000, 56) for m in (1, 8, 17, SMALL_M)]
+    assert list(fake.runs[0][13]) == list(plan)
+    FM.small_m_plan.cache_clear()
+
+
+def test_small_m_fold_workspace_is_one_per_stream(monkeypatch):
+    """The in-launch fold counts on a workspace of the wrapper's: one per
+    device and stream, zeroed once and handed to every launch on that
+    stream (the launch leaves it zero), another on another stream, so that
+    launches on two streams never share tickets."""
+    plan = FM.SmallPlan(ht=10, cs=8, nb=112, ds=640, hr_pad=1280, fold=2)
+    fake = _FakeSmall(monkeypatch, plan)
+    x, w1, w2 = _meta((SMALL_M, 64), (64, 1024), (1024, 128))
+    for stream in (7, 7, 9, 7):
+        fake.stream = stream
+        K.fused_mlp_swiglu_fwd(x, w1, w1, w2)
+    spaces = FM._fold_workspaces
+    assert sorted(spaces) == [(None, 7), (None, 9)]
+    assert all(ws.dtype == torch.int32 and ws.shape == (4096 + 2,) for ws in spaces.values())
+    assert [r[15] for r in fake.runs] == [7, 7, 9, 7]
+    K.reset_launch_counts()
+    FM.small_m_plan.cache_clear()
 
 
 class _FakeTiled:
